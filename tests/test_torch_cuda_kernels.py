@@ -1,0 +1,89 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions and against the CPU path.  Every test here needs a card: it
+carries the ``cuda`` marker and skips (deciding inside the fixture) where
+``torch.cuda.is_available()`` is false.
+
+This file imports neither JAX nor the JAX package, so on a machine without
+JAX it runs with the repository conftest left out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from fluidframework_tpu_torch.ops import mergetree_kernel as tk
+from fluidframework_tpu_torch.ops import resolve_kernel as rk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _case(seed, n_segs, n_queries=256):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 9, size=n_segs).astype(np.int32)
+    lens = np.where(rng.random(n_segs) < 0.7, lens, 0).astype(np.int32)
+    total = int(lens.sum())
+    qs = rng.integers(-3, total + 4, size=n_queries).astype(np.int32)
+    return lens, qs
+
+
+@pytest.mark.parametrize("n_segs", [1, 1023, 1025, 262_144])
+def test_kernel_matches_plain_on_card(cuda_device, n_segs):
+    lens, qs = _case(n_segs, n_segs)
+    lt = torch.from_numpy(lens).to(cuda_device)
+    qt = torch.from_numpy(qs).to(cuda_device)
+    before = rk.resolve_positions.launches
+    got = rk.resolve_positions(lt, qt)
+    torch.cuda.synchronize()
+    assert rk.resolve_positions.launches == before + 1
+    want = rk.resolve_positions_plain(torch.from_numpy(lens), torch.from_numpy(qs))
+    for g, p, w in zip(got, rk.resolve_positions_plain(lt, qt), want):
+        assert torch.equal(g, p) and torch.equal(g.cpu(), w)
+
+
+def test_batched_kernel_matches_plain_on_card(cuda_device):
+    cases = [_case(s, 3000, 64) for s in range(3)]
+    lt = torch.from_numpy(np.stack([c[0] for c in cases])).to(cuda_device)
+    qt = torch.from_numpy(np.stack([c[1] for c in cases])).to(cuda_device)
+    for g, p in zip(rk.resolve_positions(lt, qt), rk.resolve_positions_plain(lt, qt)):
+        assert torch.equal(g, p)
+
+
+def test_seg_lane_on_card_matches_cpu(cuda_device):
+    """The one-shard segment lane (K1 inside) on the card equals the same
+    lane on the CPU, leaf for leaf."""
+    rng = np.random.default_rng(0)
+    K, B, L = 2, 8, 8
+    ops = np.zeros((K, B, tk.OP_FIELDS), np.int32)
+    pays = np.zeros((K, B, L), np.int32)
+    length = 0
+    for i in range(K * B):
+        k, b = divmod(i, B)
+        if length > 4 and i % 3 == 2:
+            p = int(rng.integers(0, length - 2))
+            ops[k, b] = [tk.OpKind.REMOVE, i + 1, i % 4, i, p, p + 2, 0, 0]
+        else:
+            n = int(rng.integers(1, L + 1))
+            ops[k, b] = [tk.OpKind.INSERT, i + 1, i % 4, i, int(rng.integers(0, length + 1)), 0, n, 0]
+            pays[k, b, :n] = rng.integers(97, 123, n)
+            length += n
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = tk.seg_shard_state(tk.init_state(256, 4, 2, 1024, 4, device=dev), 1)
+        st = tk.tree_map(lambda x: x.to(dev), st)
+        before = rk.resolve_positions.launches
+        out[dev] = tk.apply_megastep_seg(st, ops, pays)
+        if dev == "cuda":
+            assert rk.resolve_positions.launches > before
+    for a, b in zip(tk.leaves(out["cpu"]), tk.leaves(out["cuda"])):
+        assert torch.equal(a, b.cpu())
