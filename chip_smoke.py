@@ -43,7 +43,6 @@ import time
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_CUDA_CORE_OPS = 67e12   # float32 outside the tensor cores (no int32 entry)
 
 
 def card_label() -> str:
@@ -297,18 +296,20 @@ def phase_kernels(seed: int, card: str) -> dict:
     seg_ms = cuda_ms(lambda: rk.resolve_positions(ls, qs1), 500)
     seg_device_ms = kernel_device_ms(lambda: rk.resolve_positions(ls, qs1), "resolve_positions_kernel")
     seg_plain_ms = cuda_ms(lambda: rk.resolve_positions_plain(ls, qs1), 200)
+    # The function (what searchsorted over the prefix computes) needs
+    # about Q*log2(S) compares, far below the bytes bound: lens and the
+    # queries read once, the three outputs written once.
     nbytes = 4 * S + 4 * Q + 3 * 4 * Q
-    ops = 2 * Q * S  # two int32 compares per (query, segment) pair
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / H100_CUDA_CORE_OPS * 1e3
     out = {
         "phase": "kernels", "card": card, "cases": len(cases) + 1,
         "hits_checked": hits, "max_abs_err": max_err,
         "S": S, "Q": Q, "kernel_ms": kernel_ms, "kernel_device_ms": device_ms,
         "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+        "library_ms": library_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
+        "bound_bytes": nbytes,
+        # What this brute-force design tests: every (query, segment) pair.
+        "design_pairs_tested": Q * S,
         "seg_lane_kernel_ms": seg_ms, "seg_lane_kernel_device_ms": seg_device_ms,
         "seg_lane_plain_ms": seg_plain_ms,
     }
@@ -325,16 +326,69 @@ def _state_rows_equal(a, b) -> bool:
     )
 
 
+class SliceClock:
+    """Per-slice wall times of ``apply_megastep`` on the fleet path.
+
+    With no OBLITERATE in a slice, each slice starts with the obliterate
+    gate's one host sync (``_ob_table_nonempty``), so the time from one
+    gate read to the next is one slice issued and run on the card; the
+    last slice of a megastep ends at the caller's ``end()`` after a sync.
+    Also counts the op rows each slice applied.  Installs by wrapping the
+    two module functions; ``close()`` restores them."""
+
+    def __init__(self, mk):
+        self.mk = mk
+        self.gate, self.apply_op = mk._ob_table_nonempty, mk._apply_op
+        self.slice_s: list[float] = []
+        self.slice_rows: list[int] = []
+        self._t = None
+
+        def gate(st):
+            out = self.gate(st)
+            self._mark()
+            return out
+
+        def apply_op(st, op, payload, kinds, ob_flag):
+            self.slice_rows[-1] += int((kinds != mk.OpKind.NOOP).sum())
+            return self.apply_op(st, op, payload, kinds, ob_flag)
+
+        mk._ob_table_nonempty, mk._apply_op = gate, apply_op
+
+    def _mark(self) -> None:
+        now = time.perf_counter()
+        if self._t is not None:
+            self.slice_s.append(now - self._t)
+        self._t = now
+        self.slice_rows.append(0)
+
+    def end(self) -> None:
+        """Close the running slice (call after a device sync)."""
+        if self._t is not None:
+            self.slice_s.append(time.perf_counter() - self._t)
+            self._t = None
+
+    def close(self) -> None:
+        self.mk._ob_table_nonempty, self.mk._apply_op = self.gate, self.apply_op
+
+
 def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
-                rounds: int = 16, step_every: int = 8, sample: int = 64) -> dict:
+                rounds: int = 16, step_every: int = 8, sample: int = 64,
+                traffic=None, subset_fraction=None) -> dict:
+    """``traffic``: a ``fleet_traffic`` result to reuse; ``subset_fraction``:
+    a value forced on ``mergetree_kernel.SUBSET_FRACTION`` for this run
+    (0 runs every branch on gathered rows, a huge value every branch
+    masked over the whole batch)."""
     import torch
 
     from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
 
     geom = dict(max_segments=1024, text_capacity=8192, remove_slots=4,
                 prop_slots=2, ops_per_step=16, megastep_k=8, max_insert_len=16)
     t0 = time.perf_counter()
-    joins, rounds_msgs = fleet_traffic(n_docs, rounds, geom["ops_per_step"], 8, seed)
+    if traffic is None:
+        traffic = fleet_traffic(n_docs, rounds, geom["ops_per_step"], 8, seed)
+    joins, rounds_msgs = traffic
     gen_s = time.perf_counter() - t0
     on_card = device == "cuda"
     if on_card:
@@ -342,49 +396,82 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
     eng = DocBatchEngine(n_docs, device=device, **geom)
     pick = np.sort(np.random.default_rng(seed + 1).choice(n_docs, size=min(sample, n_docs), replace=False))
     local = {int(d): j for j, d in enumerate(pick)}
-    ref = DocBatchEngine(len(pick), device="cpu", **geom)
     for d, m in joins:
         eng.ingest(d, m)
+    fraction0 = mk.SUBSET_FRACTION
+    if subset_fraction is not None:
+        mk.SUBSET_FRACTION = subset_fraction
+    clock = SliceClock(mk)
+    ingest_s = step_s = compact_s = 0.0
+    slices = 0
+    try:
+        t_all = time.perf_counter()
+        for r, msgs in enumerate(rounds_msgs):
+            t1 = time.perf_counter()
+            for d, m in msgs:
+                eng.ingest(d, m)
+            ingest_s += time.perf_counter() - t1
+            if (r + 1) % step_every == 0 or r + 1 == len(rounds_msgs):
+                t1 = time.perf_counter()
+                slices += eng.step()
+                if on_card:
+                    torch.cuda.synchronize()
+                clock.end()
+                t2 = time.perf_counter()
+                eng.compact()
+                if on_card:
+                    torch.cuda.synchronize()
+                step_s += t2 - t1
+                compact_s += time.perf_counter() - t2
+        wall_s = time.perf_counter() - t_all
+    finally:
+        clock.close()
+        mk.SUBSET_FRACTION = fraction0
+    ops_applied = eng.counters["ops_staged"]
+    errored = eng.error_count()
+    check(errored == 0, f"fleet latched error bits on {errored} docs")
+    check(len(clock.slice_s) == slices, "fleet slice clock lost a slice")
+    # The check's replay runs after the timed window: the sampled docs'
+    # messages through the same engine on the CPU, stepped at the same
+    # rounds.
+    ref = DocBatchEngine(len(pick), device="cpu", **geom)
+    for d, m in joins:
         if d in local:
             ref.ingest(local[d], m)
-    ingest_s = step_s = 0.0
-    slices = 0
-    t_all = time.perf_counter()
     for r, msgs in enumerate(rounds_msgs):
-        t1 = time.perf_counter()
-        for d, m in msgs:
-            eng.ingest(d, m)
-        ingest_s += time.perf_counter() - t1
         for d, m in msgs:
             if d in local:
                 ref.ingest(local[d], m)
         if (r + 1) % step_every == 0 or r + 1 == len(rounds_msgs):
-            t1 = time.perf_counter()
-            slices += eng.step()
-            eng.compact()
-            if on_card:
-                torch.cuda.synchronize()
-            step_s += time.perf_counter() - t1
             ref.step()
             ref.compact()
-    wall_s = time.perf_counter() - t_all
-    ops_applied = eng.counters["ops_staged"]
-    errored = eng.error_count()
-    check(errored == 0, f"fleet latched error bits on {errored} docs")
     same = sum(_state_rows_equal(eng.doc_state(int(d)), ref.doc_state(j)) for j, d in enumerate(pick))
     check(same == len(pick), f"{len(pick) - same} of {len(pick)} sampled docs differ from the CPU replay")
     out = {
         "phase": "fleet", "card": card, "docs": n_docs, "rounds": rounds,
+        "subset_fraction": fraction0 if subset_fraction is None else subset_fraction,
         "ops_applied": ops_applied, "slices": slices,
         "megasteps": eng.counters["megastep_dispatches"],
-        "traffic_gen_s": gen_s, "ingest_s": ingest_s, "step_compact_s": step_s,
-        "wall_s": wall_s, "ops_per_s": ops_applied / wall_s,
+        "traffic_gen_s": gen_s, "ingest_s": ingest_s, "step_s": step_s,
+        "compact_s": compact_s, "wall_s": wall_s, "ops_per_s": ops_applied / wall_s,
+        "slice_s": clock.slice_s, "slice_rows": clock.slice_rows,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else None,
         "ob_gate_syncs": eng.health()["ob_gate_syncs"],
         "sampled_docs_identical": same,
     }
     emit(out)
     return out
+
+
+def fleet_paths(seed: int, card: str, device: str, n_docs: int = 10_000,
+                rounds: int = 16) -> None:
+    """The fleet phase with ``SUBSET_FRACTION`` at its default, forced to
+    all-masked and forced to all-gathered, on one traffic, in the order
+    default, masked, gathered, gathered, masked, default."""
+    traffic = fleet_traffic(n_docs, rounds, 16, 8, seed)
+    for fraction in (None, 10**9, 0, 0, 10**9, None):
+        phase_fleet(seed, card, device, n_docs=n_docs, rounds=rounds,
+                    traffic=traffic, subset_fraction=fraction)
 
 
 def phase_hot_doc(seed: int, card: str, device: str, S: int = 16_384,
@@ -501,6 +588,8 @@ def phase_long_doc(seed: int, card: str, device: str, S: int = 262_144, Q: int =
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fleet-paths", action="store_true",
+                    help="only time the fleet phase with each branch routing (no kernels)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -517,6 +606,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     card = card_label()
+    if args.fleet_paths:
+        fleet_paths(args.seed, card, "cuda")
+        print(card, flush=True)
+        return 0
     t0 = time.perf_counter()
     rk.build(verbose=True)
     emit({"phase": "build", "card": card, "build_s": time.perf_counter() - t0,

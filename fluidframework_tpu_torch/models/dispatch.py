@@ -5,13 +5,10 @@ depends on an abstract **dispatch plane** — the object that owns device
 placement and the fleet/segment program factories — and the concrete
 plane registers itself here when its module loads.
 
-Resolution order:
-
-1. whatever called :func:`register_dispatch_plane` last;
-2. otherwise the provider named by ``FFTPU_TORCH_DISPATCH_PLANE`` (a
-   dotted module path), which must self-register;
-3. the default provider, ``fluidframework_tpu_torch.parallel.mesh`` (the
-   one-device plane).
+The active plane is whatever called :func:`register_dispatch_plane`
+last; when nothing has registered, the default provider,
+``fluidframework_tpu_torch.parallel.mesh`` (the one-device plane), is
+imported and registers itself.
 
 The plane's surface is duck-typed; the engine uses ``doc_mesh`` /
 ``docs_segs_mesh``, ``shard_fleet_state``, ``shard_docs``,
@@ -22,7 +19,6 @@ The plane's surface is duck-typed; the engine uses ``doc_mesh`` /
 from __future__ import annotations
 
 import importlib
-import os
 
 _PLANE = None
 
@@ -37,14 +33,12 @@ def register_dispatch_plane(plane):
 
 
 def dispatch_plane():
-    """The active dispatch plane, loading the configured provider on first
+    """The active dispatch plane, loading the default provider on first
     use."""
     if _PLANE is None:
-        provider = os.environ.get("FFTPU_TORCH_DISPATCH_PLANE", DEFAULT_PROVIDER)
-        importlib.import_module(provider)
+        importlib.import_module(DEFAULT_PROVIDER)
         if _PLANE is None:
             raise RuntimeError(
-                f"dispatch provider {provider!r} did not register a plane "
-                "(it must call models.dispatch.register_dispatch_plane)"
+                f"dispatch provider {DEFAULT_PROVIDER!r} did not register a plane"
             )
     return _PLANE
