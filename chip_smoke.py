@@ -372,12 +372,7 @@ class SliceClock:
 
 
 def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
-                rounds: int = 16, step_every: int = 8, sample: int = 64,
-                traffic=None, subset_fraction=None) -> dict:
-    """``traffic``: a ``fleet_traffic`` result to reuse; ``subset_fraction``:
-    a value forced on ``mergetree_kernel.SUBSET_FRACTION`` for this run
-    (0 runs every branch on gathered rows, a huge value every branch
-    masked over the whole batch)."""
+                rounds: int = 16, step_every: int = 8, sample: int = 64) -> dict:
     import torch
 
     from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
@@ -386,9 +381,7 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
     geom = dict(max_segments=1024, text_capacity=8192, remove_slots=4,
                 prop_slots=2, ops_per_step=16, megastep_k=8, max_insert_len=16)
     t0 = time.perf_counter()
-    if traffic is None:
-        traffic = fleet_traffic(n_docs, rounds, geom["ops_per_step"], 8, seed)
-    joins, rounds_msgs = traffic
+    joins, rounds_msgs = fleet_traffic(n_docs, rounds, geom["ops_per_step"], 8, seed)
     gen_s = time.perf_counter() - t0
     on_card = device == "cuda"
     if on_card:
@@ -398,9 +391,6 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
     local = {int(d): j for j, d in enumerate(pick)}
     for d, m in joins:
         eng.ingest(d, m)
-    fraction0 = mk.SUBSET_FRACTION
-    if subset_fraction is not None:
-        mk.SUBSET_FRACTION = subset_fraction
     clock = SliceClock(mk)
     ingest_s = step_s = compact_s = 0.0
     slices = 0
@@ -426,7 +416,6 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
         wall_s = time.perf_counter() - t_all
     finally:
         clock.close()
-        mk.SUBSET_FRACTION = fraction0
     ops_applied = eng.counters["ops_staged"]
     errored = eng.error_count()
     check(errored == 0, f"fleet latched error bits on {errored} docs")
@@ -449,7 +438,6 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
     check(same == len(pick), f"{len(pick) - same} of {len(pick)} sampled docs differ from the CPU replay")
     out = {
         "phase": "fleet", "card": card, "docs": n_docs, "rounds": rounds,
-        "subset_fraction": fraction0 if subset_fraction is None else subset_fraction,
         "ops_applied": ops_applied, "slices": slices,
         "megasteps": eng.counters["megastep_dispatches"],
         "traffic_gen_s": gen_s, "ingest_s": ingest_s, "step_s": step_s,
@@ -461,17 +449,6 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
     }
     emit(out)
     return out
-
-
-def fleet_paths(seed: int, card: str, device: str, n_docs: int = 10_000,
-                rounds: int = 16) -> None:
-    """The fleet phase with ``SUBSET_FRACTION`` at its default, forced to
-    all-masked and forced to all-gathered, on one traffic, in the order
-    default, masked, gathered, gathered, masked, default."""
-    traffic = fleet_traffic(n_docs, rounds, 16, 8, seed)
-    for fraction in (None, 10**9, 0, 0, 10**9, None):
-        phase_fleet(seed, card, device, n_docs=n_docs, rounds=rounds,
-                    traffic=traffic, subset_fraction=fraction)
 
 
 def phase_hot_doc(seed: int, card: str, device: str, S: int = 16_384,
@@ -588,8 +565,6 @@ def phase_long_doc(seed: int, card: str, device: str, S: int = 262_144, Q: int =
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fleet-paths", action="store_true",
-                    help="only time the fleet phase with each branch routing (no kernels)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -606,10 +581,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     card = card_label()
-    if args.fleet_paths:
-        fleet_paths(args.seed, card, "cuda")
-        print(card, flush=True)
-        return 0
     t0 = time.perf_counter()
     rk.build(verbose=True)
     emit({"phase": "build", "card": card, "build_s": time.perf_counter() - t0,

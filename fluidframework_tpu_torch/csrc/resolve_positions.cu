@@ -22,11 +22,12 @@
 //
 // Bound.  At the long-document size (S = 262,144 segments, Q = 256
 // queries) the function reads about 1 MB (lens once, queries once) and
-// writes 3 KB: about 0.3 us at 3.35 TB/s.  Testing all Q x S pairs is
-// about 67 M pair tests of two integer compares each, so this simple
-// design is bound by integer operations, not bytes.  A binary search over
-// the prefix (Q log S compares) is the later redesign that makes it
-// bytes-bound.
+// writes 3 KB: about 0.3 us at 3.35 TB/s.  The function needs only about
+// Q log2 S compares, so its bound is those bytes.  This simple design
+// does far more work than that: it tests all Q x S pairs (about 67 M pair
+// tests of two integer compares each), and those compares, not the
+// bytes, set its time.  A binary search over the prefix is the later
+// redesign that brings it toward the bytes bound.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
