@@ -10,16 +10,18 @@ changes is the idiom:
   ``vmap``, and Python loops walk the op ring in place of ``lax.scan``.
   ``init_state`` returns one document (as the reference does);
   ``batch_state`` stacks it to a fleet.
-- ``lax.switch`` over the op kind becomes one pass per op kind present
-  at that ring position, over the gathered rows of the docs holding that
-  kind, so a doc whose op is another kind (or a NOOP) keeps every column
-  unchanged.  The kinds come from the host-side ring, so a branch no doc
-  uses at that position is skipped without a device sync.
+- ``lax.switch`` over the op kind becomes one masked pass per op kind
+  present at that ring position: each branch folds the per-doc mask
+  ``act = (kind == KIND)`` into every write it makes, so a doc whose op
+  is another kind (or a NOOP) keeps every column unchanged.  The kinds
+  come from the host-side ring, so a branch no doc uses at that position
+  is skipped without a device sync.
 - jnp's clamped gathers become ``_take`` (indices clamped into range), the
   dropped text scatter becomes a masked ``scatter_add_`` on the text pool,
   ``argmax`` first-hit rules become explicit index minima, and every
   cumsum/sum is taken back to int32 so int32 wrap matches.
-- The text pool, and the rows a branch ran on, are updated in place.  Every public apply entry copies the state
+- The text pool, and the rows of a branch run on a gathered subset of
+  docs, are updated in place.  Every public apply entry copies the state
   once on entry, so the caller's state is never mutated.
 
 The segment-parallel lane (``apply_megastep_seg``) routes its containment
@@ -441,14 +443,14 @@ def _finish_split(s2: DocState, k, do, trim, new_len, old_uid, right_uid) -> Doc
     )
 
 
-def _ensure_boundary(s: DocState, pos, ref_seq, client) -> DocState:
-    """Split the segment containing ``pos`` strictly inside it: after this,
-    ``pos`` falls on a segment boundary of the perspective-visible
-    sequence."""
+def _ensure_boundary(s: DocState, pos, ref_seq, client, act) -> DocState:
+    """Split the segment containing ``pos`` strictly inside it, on the docs
+    in ``act``: after this, ``pos`` falls on a segment boundary of the
+    perspective-visible sequence."""
     vis = _visible(s, ref_seq, client)
     vlen, excl = _vis_lengths(s, vis)
     p = pos[:, None]
-    mid = vis & (excl < p) & (p < excl + vlen)
+    mid = vis & (excl < p) & (p < excl + vlen) & act[:, None]
     k = _first_true(mid, 0)
     do = mid.any(-1)
     off = pos - _take(excl, k)
@@ -575,10 +577,10 @@ def _new_segment(s: DocState, key, client, text_len, swallow) -> _NewSeg:
     )
 
 
-def _do_insert(s: DocState, op, payload, ob_flag: bool) -> DocState:
+def _do_insert(s: DocState, op, payload, ob_flag: bool, act) -> DocState:
     pos, key, client, ref_seq = op[:, 4], op[:, 1], op[:, 2], op[:, 3]
     text_len = op[:, 6]
-    s = _ensure_boundary(s, pos, ref_seq, client)
+    s = _ensure_boundary(s, pos, ref_seq, client, act)
     vis = _visible(s, ref_seq, client)
     vlen, excl = _vis_lengths(s, vis)
     total = vlen.sum(-1, dtype=I32)
@@ -586,34 +588,37 @@ def _do_insert(s: DocState, op, payload, ob_flag: bool) -> DocState:
     k = _first_true(stop, s.nseg)
     T = s.text.shape[-1]
     text_over = s.text_end + text_len > T
-    text = _write_payload(s, payload, text_len, ~text_over)
+    text = _write_payload(s, payload, text_len, act & ~text_over)
     swallow = (
         _obliterate_swallow(s, _ob_anchor_indices(s), k, key, client, ref_seq)
         if ob_flag else _no_obliterate_swallow(s)
     )
-    ok = ~text_over & (pos <= total)
+    ok = act & ~text_over & (pos <= total)
     s = _open_slot(s, k, ok, _new_segment(s, key, client, text_len, swallow))
     return s._replace(
         text=text,
         text_end=s.text_end + torch.where(ok, text_len, 0),
         uid_next=s.uid_next + _i32(ok),
         error=s.error
-        | _err(text_over, ERR_TEXT_OVERFLOW)
-        | _err(pos > total, ERR_POS_RANGE)
+        | _err(act & text_over, ERR_TEXT_OVERFLOW)
+        | _err(act & (pos > total), ERR_POS_RANGE)
         | _err(ok & swallow[3], ERR_REM_OVERFLOW),
     )
 
 
-def _mark_range(s: DocState, op) -> tuple[DocState, torch.Tensor]:
+def _mark_range(s: DocState, op, act) -> tuple[DocState, torch.Tensor]:
     """Split at both boundaries; return the mask of visible segments inside."""
     pos1, pos2, client, ref_seq = op[:, 4], op[:, 5], op[:, 2], op[:, 3]
-    s = _ensure_boundary(s, pos1, ref_seq, client)
-    s = _ensure_boundary(s, pos2, ref_seq, client)
+    s = _ensure_boundary(s, pos1, ref_seq, client, act)
+    s = _ensure_boundary(s, pos2, ref_seq, client, act)
     vis = _visible(s, ref_seq, client)
     vlen, excl = _vis_lengths(s, vis)
     total = vlen.sum(-1, dtype=I32)
-    mark = vis & (excl >= pos1[:, None]) & (excl + vlen <= pos2[:, None]) & (vlen > 0)
-    s = s._replace(error=s.error | _err(pos2 > total, ERR_POS_RANGE))
+    mark = (
+        vis & (excl >= pos1[:, None]) & (excl + vlen <= pos2[:, None])
+        & (vlen > 0) & act[:, None]
+    )
+    s = s._replace(error=s.error | _err(act & (pos2 > total), ERR_POS_RANGE))
     return s, mark
 
 
@@ -633,9 +638,9 @@ def _splice_remove_stamp(s: DocState, mark, key, client):
     return tuple(rem_keys), tuple(rem_clients), (mark & ~placed).any(-1)
 
 
-def _do_remove(s: DocState, op, payload) -> DocState:
+def _do_remove(s: DocState, op, payload, act) -> DocState:
     key, client = op[:, 1], op[:, 2]
-    s, mark = _mark_range(s, op)
+    s, mark = _mark_range(s, op, act)
     rem_keys, rem_clients, overflow = _splice_remove_stamp(s, mark, key, client)
     return s._replace(
         rem_keys=rem_keys,
@@ -657,8 +662,8 @@ def _annotate_marked(s: DocState, mark, op) -> DocState:
     return s._replace(prop_keys=tuple(prop_keys), prop_vals=tuple(prop_vals))
 
 
-def _do_annotate(s: DocState, op, payload) -> DocState:
-    s, mark = _mark_range(s, op)
+def _do_annotate(s: DocState, op, payload, act) -> DocState:
+    s, mark = _mark_range(s, op, act)
     return _annotate_marked(s, mark, op)
 
 
@@ -711,7 +716,7 @@ def _record_obliterate(s: DocState, rec, key, client, start_uid, end_uid,
     ), has_free
 
 
-def _do_obliterate(s: DocState, op, payload) -> DocState:
+def _do_obliterate(s: DocState, op, payload, act) -> DocState:
     """Sided obliterate (ref mergeTree.ts obliterateRangeSided:2083): mark
     every not-yet-removed segment in the anchor window and record the
     obliterate for insert-time swallowing."""
@@ -723,8 +728,8 @@ def _do_obliterate(s: DocState, op, payload) -> DocState:
     vlen, _excl = _vis_lengths(s, vis)
     total = vlen.sum(-1, dtype=I32)
     valid = (0 <= pos1) & (pos1 <= pos2) & (pos2 < total) & (start_pos <= end_pos)
-    s = _ensure_boundary(s, torch.where(valid, start_pos, 0), ref_seq, client)
-    s = _ensure_boundary(s, torch.where(valid, end_pos, 0), ref_seq, client)
+    s = _ensure_boundary(s, torch.where(valid, start_pos, 0), ref_seq, client, act)
+    s = _ensure_boundary(s, torch.where(valid, end_pos, 0), ref_seq, client, act)
     vis = _visible(s, ref_seq, client)
     vlen, excl = _vis_lengths(s, vis)
     p1 = pos1[:, None]
@@ -738,47 +743,48 @@ def _do_obliterate(s: DocState, op, payload) -> DocState:
     idx = _iota(s.seg_len.shape[-1], s.seg_len.device)
     visit, skip = _obliterate_visit(s, vis, key, client, ref_seq)
     mark = (
-        valid[:, None] & _alive(s) & (idx >= lo[:, None])
+        (valid & act)[:, None] & _alive(s) & (idx >= lo[:, None])
         & (idx <= hi[:, None]) & visit & ~skip
     )
     rem_keys, rem_clients, rem_over = _splice_remove_stamp(s, mark, key, client)
     s, has_free = _record_obliterate(
-        s, valid, key, client, _take(s.seg_uid, s_idx),
+        s, valid & act, key, client, _take(s.seg_uid, s_idx),
         _take(s.seg_uid, e_idx), side1, side2, ref_seq,
     )
     return s._replace(
         rem_keys=rem_keys,
         rem_clients=rem_clients,
         error=s.error
-        | _err(~valid, ERR_POS_RANGE)
-        | _err(valid & ~has_free, ERR_OB_OVERFLOW)
+        | _err(act & ~valid, ERR_POS_RANGE)
+        | _err(act & valid & ~has_free, ERR_OB_OVERFLOW)
         | _err(rem_over, ERR_REM_OVERFLOW),
     )
 
 
-def _do_ack(s: DocState, op, payload) -> DocState:
+def _do_ack(s: DocState, op, payload, act) -> DocState:
     """Convert pending stamps (localSeq) to the acked seq; optionally
     re-stamp the client id (op[2] >= 0) and the obliterate's recorded
     refSeq (op[3] >= 0)."""
     local_seq, seq = op[:, 6:7], op[:, 7:8]
     new_client, new_ref = op[:, 2:3], op[:, 3:4]
+    a = act[:, None]
     local_key = LOCAL_BASE + local_seq
-    ins_hit = s.ins_key == local_key
-    ob_hit = s.ob_key == local_key
+    ins_hit = (s.ins_key == local_key) & a
+    ob_hit = (s.ob_key == local_key) & a
     rw_c = new_client >= 0
     return s._replace(
         ins_key=torch.where(ins_hit, seq, s.ins_key),
         ins_client=torch.where(ins_hit & rw_c, new_client, s.ins_client),
-        rem_keys=tuple(torch.where(k == local_key, seq, k) for k in s.rem_keys),
+        rem_keys=tuple(torch.where((k == local_key) & a, seq, k) for k in s.rem_keys),
         rem_clients=tuple(
-            torch.where((k == local_key) & rw_c, new_client, c)
+            torch.where((k == local_key) & a & rw_c, new_client, c)
             for k, c in zip(s.rem_keys, s.rem_clients)
         ),
-        prop_keys=tuple(torch.where(k == local_key, seq, k) for k in s.prop_keys),
+        prop_keys=tuple(torch.where((k == local_key) & a, seq, k) for k in s.prop_keys),
         ob_key=torch.where(ob_hit, seq, s.ob_key),
         ob_client=torch.where(ob_hit & rw_c, new_client, s.ob_client),
         ob_ref_seq=torch.where(ob_hit & (new_ref >= 0), new_ref, s.ob_ref_seq),
-        seg_obpre=torch.where(s.seg_obpre == local_key, seq, s.seg_obpre),
+        seg_obpre=torch.where((s.seg_obpre == local_key) & a, seq, s.seg_obpre),
     )
 
 
@@ -803,31 +809,49 @@ def _ob_table_nonempty(s: DocState) -> bool:
     return bool((s.ob_key >= 0).any())
 
 
-def _branch(s: DocState, op, payload, kind: int, ob_flag: bool) -> DocState:
+def _branch(s: DocState, op, payload, kind: int, ob_flag: bool, act) -> DocState:
     if kind == OpKind.INSERT:
-        return _do_insert(s, op, payload, ob_flag)
+        return _do_insert(s, op, payload, ob_flag, act)
     if kind == OpKind.REMOVE:
-        return _do_remove(s, op, payload)
+        return _do_remove(s, op, payload, act)
     if kind == OpKind.ANNOTATE:
-        return _do_annotate(s, op, payload)
+        return _do_annotate(s, op, payload, act)
     if kind == OpKind.ACK:
-        return _do_ack(s, op, payload)
-    return _do_obliterate(s, op, payload)
+        return _do_ack(s, op, payload, act)
+    return _do_obliterate(s, op, payload, act)
+
+
+# A branch held by at most 1/SUBSET_FRACTION of the docs runs on their
+# gathered rows only.  On the config-3 fleet (10,000 docs, Zipf traffic)
+# this split beat both single routes on one H100: all-masked was 1.1-1.4x
+# slower per step, all-gathered about 10% slower with 1.09 GB more peak
+# memory (PERF.md, section 6).  Values between were not measured.
+SUBSET_FRACTION = 4
 
 
 def _apply_op(s: DocState, op, payload, kinds: np.ndarray, ob_flag: bool) -> DocState:
     """One ring position: each kind present (host-side ``kinds[D]``) runs
-    its branch on the gathered rows of the docs holding it, written back
-    in place (``s`` is private to the calling apply entry); NOOP rows are
-    untouched."""
+    its branch on the docs holding it; NOOP rows are untouched.  A branch
+    held by many docs runs masked over the whole batch; one held by few
+    runs on their gathered rows, written back in place (``s`` is private
+    to the calling apply entry)."""
+    D = kinds.shape[0]
+    kind = op[:, 0]
     for kd in np.unique(kinds).tolist():
         if not OpKind.INSERT <= kd <= OpKind.OBLITERATE:
             continue
         if kd == OpKind.OBLITERATE and not ob_flag:
             continue  # the reference's gated-off branch is the identity
-        idx = torch.as_tensor(np.flatnonzero(kinds == kd), device=op.device)
+        rows = np.flatnonzero(kinds == kd)
+        if len(rows) * SUBSET_FRACTION > D:
+            s = _branch(s, op, payload, kd, ob_flag, kind == kd)
+            continue
+        idx = torch.as_tensor(rows, device=op.device)
         sub = tree_map(lambda x: x.index_select(0, idx), s)
-        sub = _branch(sub, op.index_select(0, idx), payload.index_select(0, idx), kd, ob_flag)
+        act = torch.ones((len(rows),), dtype=torch.bool, device=op.device)
+        sub = _branch(
+            sub, op.index_select(0, idx), payload.index_select(0, idx), kd, ob_flag, act
+        )
         for x, y in zip(leaves(s), leaves(sub)):
             x.index_copy_(0, idx, y)
     return s
@@ -1178,7 +1202,7 @@ def _apply_op_seg(s: DocState, op, payload, kind: int, ob_flag: bool, g) -> DocS
     if kind == OpKind.ANNOTATE:
         return _do_annotate_seg(s, op, payload, g)
     if kind == OpKind.ACK:
-        return _do_ack(s, op, payload)
+        return _do_ack(s, op, payload, torch.ones_like(s.nseg, dtype=torch.bool))
     if kind == OpKind.OBLITERATE and ob_flag:
         return _do_obliterate_seg(s, op, payload, g)
     return s

@@ -69,10 +69,17 @@ _ref_compact = jax.jit(_fleet_compact_body)
 
 
 @pytest.mark.parametrize(
-    "seed,S", [(0, 40), (3, 40), (4, 24), (5, 24)],
-    ids=["seed0", "seed3", "seed4-S24", "seed5-S24"],
+    "seed,S,subset_fraction",
+    [
+        (0, 40, tk.SUBSET_FRACTION), (3, 40, tk.SUBSET_FRACTION), (0, 40, 0),
+        (0, 40, 10**9), (4, 24, tk.SUBSET_FRACTION), (5, 24, tk.SUBSET_FRACTION),
+    ],
+    ids=["seed0", "seed3", "seed0-gathered", "seed0-masked", "seed4-S24", "seed5-S24"],
 )
-def test_megastep_and_compact_match_reference(seed, S):
+def test_megastep_and_compact_match_reference(seed, S, subset_fraction, monkeypatch):
+    """Default branch routing, and every branch forced onto gathered rows
+    (fraction 0) or forced masked over the whole batch (fraction 1e9)."""
+    monkeypatch.setattr(tk, "SUBSET_FRACTION", subset_fraction)
     D, K, B, L = 8, 3, 8, 6
     ref, port = _fleets(D, S, 3, 2, 320, 4)
     assert_states_equal(ref, port, "init")
