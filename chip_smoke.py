@@ -9,9 +9,12 @@ It builds every hand-written kernel of the port from ``csrc/`` with nvcc
 (sm_90a), then runs these phases on the card, one JSON line each:
 
 1. ``kernels``: K1 (``resolve_positions``) against its plain PyTorch
-   version on the same card tensors — edge cases, the batched form and the
-   long-document size (Q=256, S=262,144) — exact equality; timed with CUDA
-   events after a warm-up, beside its bound and ``torch.searchsorted``.
+   version on the same card tensors — edge cases, the edges of its tiles,
+   the batched form and the long-document size (Q=256, S=262,144) — exact
+   equality; then, at the long-document shape and the segment lane's
+   (Q=1, S=16,384), its call time (CUDA events) and device time
+   (torch.profiler) beside its bound and the same function in PyTorch
+   calls (``torch.cumsum`` then ``torch.searchsorted``).
 2. ``fleet``: config-3 geometry (10,000 SharedString docs, S=1024,
    T=8192, R=4, P=2, B=16, K=8) fed Zipf-skewed 4-writer insert/remove
    traffic through ``DocBatchEngine.ingest``/``step``/``compact``; no error
@@ -218,11 +221,41 @@ def _queries(rng, lens, n):
     return np.concatenate([qs, np.asarray([-1, -7, total, total + 5], np.int32)])
 
 
-def kernel_device_ms(fn, name: str, iters: int = 50) -> float | None:
-    """Mean device time of the CUDA kernel named ``name`` per call of
-    ``fn``, from torch.profiler; None when the profiler records no device
-    time for it."""
+def _edge_queries(rng, lens, tile, n=300):
+    """``n`` queries (more than one query chunk of the kernel): the prefix
+    at every tile start and the total, one below each, one past the end,
+    and random positions."""
+    incl = np.cumsum(lens, dtype=np.int64)
+    total = int(incl[-1])
+    edges = np.unique(np.concatenate([[0], incl[tile - 1::tile], [total]]))
+    fixed = np.concatenate([edges, edges - 1, [total + 5]])
+    return np.concatenate([fixed, rng.integers(0, total + 3, size=n - len(fixed))]).astype(np.int32)
+
+
+def tile_edge_cases(rng, tile):
+    """K1 cases at the edges of its tiles: S one below, at and one past a
+    tile, a ragged third tile, and 3 * tile + 3 segments with whole zero-sum
+    tiles at the start, in the middle and at the end (tile 2 and the tail)."""
+    cases = []
+    for S, zero in ((tile - 1, ()), (tile, ()), (tile + 1, ()), (2 * tile + 3, ()),
+                    (3 * tile + 3, (0,)), (3 * tile + 3, (1,)), (3 * tile + 3, (2, 3))):
+        lens = _random_lens(rng, S)
+        for t in zero:
+            lens[t * tile:(t + 1) * tile] = 0
+        cases.append((lens, _edge_queries(rng, lens, tile)))
+    return cases
+
+
+# Every K1 kernel's name contains this, in this design and the earlier one.
+K1_NAME = "resolve_positions_"
+
+
+def device_ms_by_name(fn, iters: int = 50) -> dict[str, float]:
+    """Mean device time per call of ``fn`` of each device activity
+    (kernels, copies, fills), by name, from torch.profiler; empty when the
+    profiler records no device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -231,18 +264,59 @@ def kernel_device_ms(fn, name: str, iters: int = 50) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    out = {}
     for evt in prof.key_averages():
-        if name in evt.key and evt.count:
-            total_us = getattr(evt, "device_time_total", None)
-            if total_us is None:
-                total_us = evt.cuda_time_total
-            return total_us / 1e3 / iters if total_us else None
-    return None
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "device_time_total", None)
+        t = t if t is not None else evt.cuda_time_total
+        if t:
+            out[evt.key] = t / 1e3 / iters
+    return out
+
+
+def _device_sum(by_name: dict[str, float], name: str | None = None) -> float | None:
+    """Sum over the activities whose name contains ``name`` (all when None);
+    None when there are none."""
+    return sum(v for k, v in by_name.items() if name is None or name in k) or None
+
+
+def time_k1(rk, lens, qs, iters: int, plain_iters: int) -> dict:
+    """K1 and its yardsticks on the same card tensors: call times (CUDA
+    events over back-to-back calls, so host issue counts) and device times
+    (torch.profiler).  ``library`` is the same function from ``lens`` in two
+    PyTorch calls (cumsum, then searchsorted); ``library_search`` is the
+    search alone over a prefix computed beforehand."""
+    import torch
+
+    incl = torch.cumsum(lens, -1, dtype=torch.int32)
+
+    def k1():
+        return rk.resolve_positions(lens, qs)
+
+    def library():
+        return torch.searchsorted(torch.cumsum(lens, -1, dtype=torch.int32), qs, right=True)
+
+    k1_device = device_ms_by_name(k1)
+    return {
+        "kernel_ms": cuda_ms(k1, iters),
+        "kernel_device_ms": _device_sum(k1_device, K1_NAME),
+        # Everything the wrapper puts on the card per call, by activity.
+        "call_device_ms": _device_sum(k1_device),
+        "call_device_ms_by_name": {
+            k.replace("(anonymous namespace)::", "").split("(")[0]: v for k, v in k1_device.items()
+        },
+        "plain_ms": cuda_ms(lambda: rk.resolve_positions_plain(lens, qs), plain_iters, warmup=2),
+        "library_ms": cuda_ms(library, iters),
+        "library_device_ms": _device_sum(device_ms_by_name(library)),
+        "library_search_ms": cuda_ms(lambda: torch.searchsorted(incl, qs, right=True), iters),
+    }
 
 
 def phase_kernels(seed: int, card: str) -> dict:
     """K1 on the card against its plain version on the same card tensors
-    (and the plain version on the CPU), exact; then timings."""
+    (and the plain version on the CPU), exact; then timings at the
+    long-document shape and the segment lane's."""
     import torch
 
     from fluidframework_tpu_torch.ops import resolve_kernel as rk
@@ -256,62 +330,49 @@ def phase_kernels(seed: int, card: str) -> dict:
     for n_segs in (1, 7, 128, 1023, 1024, 1025, 1500, 4096, 16384):
         lens = _random_lens(rng, n_segs)
         cases.append((lens, _queries(rng, lens, 37)))
+    cases += tile_edge_cases(rng, rk.TILE)
     big_lens = _random_lens(rng, 262_144)
     big_q = rng.integers(-3, int(big_lens.sum()) + 3, size=256).astype(np.int32)
     cases.append((big_lens, big_q))
+    # Batched forms [D, S] x [D, Q]: random, and D=3 at the tile edges.
+    lens_b = np.stack([_random_lens(rng, 3000) for _ in range(3)])
+    batched = [(lens_b, np.stack([_queries(rng, lens_b[d], 60) for d in range(3)]))]
+    lens_e = np.stack([_random_lens(rng, 2 * rk.TILE + 3) for _ in range(3)])
+    lens_e[1, :rk.TILE] = 0
+    lens_e[2, rk.TILE:] = 0
+    batched.append((lens_e, np.stack([_edge_queries(rng, row, rk.TILE) for row in lens_e])))
     max_err = 0
     hits = 0
-    for lens, qs in cases:
-        lt = torch.from_numpy(lens).to(dev)
-        qt = torch.from_numpy(qs).to(dev)
-        got = rk.resolve_positions(lt, qt)
-        want = rk.resolve_positions_plain(lt, qt)
+    for lens, qs in cases + batched:
+        got = rk.resolve_positions(torch.from_numpy(lens).to(dev), torch.from_numpy(qs).to(dev))
+        want = rk.resolve_positions_plain(torch.from_numpy(lens).to(dev), torch.from_numpy(qs).to(dev))
         want_cpu = rk.resolve_positions_plain(torch.from_numpy(lens), torch.from_numpy(qs))
         torch.cuda.synchronize()
         for g, w, wc in zip(got, want, want_cpu):
             err = int((g.long() - w.long()).abs().max())
             max_err = max(max_err, err)
             check(torch.equal(g.cpu(), w.cpu()) and torch.equal(g.cpu(), wc),
-                  f"K1 disagrees with its plain version at S={len(lens)}, Q={len(qs)}")
+                  f"K1 disagrees with its plain version at lens {lens.shape}, queries {qs.shape}")
         hits += int(got[2].sum())
-    # Batched form [D, S] x [D, Q].
-    lens_b = np.stack([_random_lens(rng, 3000) for _ in range(3)])
-    q_b = np.stack([_queries(rng, lens_b[d], 60) for d in range(3)])
-    lb, qb = torch.from_numpy(lens_b).to(dev), torch.from_numpy(q_b).to(dev)
-    for g, w in zip(rk.resolve_positions(lb, qb), rk.resolve_positions_plain(lb, qb)):
-        max_err = max(max_err, int((g.long() - w.long()).abs().max()))
-        check(torch.equal(g, w), "K1 batched form disagrees with its plain version")
 
     lt = torch.from_numpy(big_lens).to(dev)
     qt = torch.from_numpy(big_q).to(dev)
     S, Q = lt.shape[0], qt.shape[0]
-    incl = torch.cumsum(lt, 0, dtype=torch.int32)
-    kernel_ms = cuda_ms(lambda: rk.resolve_positions(lt, qt), 200)
-    device_ms = kernel_device_ms(lambda: rk.resolve_positions(lt, qt), "resolve_positions_kernel")
-    plain_ms = cuda_ms(lambda: rk.resolve_positions_plain(lt, qt), 20, warmup=2)
-    library_ms = cuda_ms(lambda: torch.searchsorted(incl, qt, right=True), 200)
+    long_doc = time_k1(rk, lt, qt, 200, 20)
     # Segment-lane shape: one query over a 16,384-segment hot doc.
     ls = torch.from_numpy(_random_lens(rng, 16_384)).to(dev)[None]
     qs1 = torch.zeros((1, 1), dtype=torch.int32, device=dev) + int(ls.sum()) // 2
-    seg_ms = cuda_ms(lambda: rk.resolve_positions(ls, qs1), 500)
-    seg_device_ms = kernel_device_ms(lambda: rk.resolve_positions(ls, qs1), "resolve_positions_kernel")
-    seg_plain_ms = cuda_ms(lambda: rk.resolve_positions_plain(ls, qs1), 200)
-    # The function (what searchsorted over the prefix computes) needs
-    # about Q*log2(S) compares, far below the bytes bound: lens and the
-    # queries read once, the three outputs written once.
+    seg_lane = time_k1(rk, ls, qs1, 500, 200)
+    # The function needs about Q*log2(S) compares, far below the bytes
+    # bound: lens and the queries read once, the three outputs written once.
     nbytes = 4 * S + 4 * Q + 3 * 4 * Q
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     out = {
-        "phase": "kernels", "card": card, "cases": len(cases) + 1,
-        "hits_checked": hits, "max_abs_err": max_err,
-        "S": S, "Q": Q, "kernel_ms": kernel_ms, "kernel_device_ms": device_ms,
-        "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
-        "bound_bytes": nbytes,
-        # What this brute-force design tests: every (query, segment) pair.
-        "design_pairs_tested": Q * S,
-        "seg_lane_kernel_ms": seg_ms, "seg_lane_kernel_device_ms": seg_device_ms,
-        "seg_lane_plain_ms": seg_plain_ms,
+        "phase": "kernels", "card": card, "cases": len(cases) + len(batched),
+        "hits_checked": hits, "max_abs_err": max_err, "tile": rk.TILE,
+        "S": S, "Q": Q, **long_doc,
+        "bound_ms": bytes_ms, "bound_by": "bytes", "bound_bytes": nbytes,
+        **{f"seg_lane_{k}": v for k, v in seg_lane.items()},
     }
     emit(out)
     return out

@@ -1,33 +1,45 @@
 // Position resolution over perspective-visible segment lengths (K1).
 //
-// Replaces the Pallas TPU kernel fluidframework_tpu/ops/pallas_kernels.py
-// (_resolve_kernel, launched by resolve_positions_pallas): for every query
-// q, the segment i with 0 <= q - prefix[i] < lens[i], where prefix is the
-// exclusive prefix sum of lens, reported as (index, offset, hit); a miss
-// (negative or past-the-end q, or an all-invisible run) reports (0, 0, 0).
+// Replaces the Pallas TPU kernel fluidframework_tpu/ops/pallas_kernels.py:65
+// (resolve_positions_pallas, kernel body _resolve_kernel at :30): for every
+// query q, the segment i with 0 <= q - prefix[i] < lens[i], where prefix is
+// the exclusive prefix sum of lens, reported as (index, offset, hit); a miss
+// (q < 0 or q >= total) reports (0, 0, 0).
 //
-// Design.  The TPU kernel walks the segment axis as a SEQUENTIAL grid,
-// carrying the output block from one grid step to the next.  Hopper blocks
-// run in no fixed order, so nothing is carried: the grid is 2-D over
-// (segment tiles x query tiles), plus the doc axis of the batched form.
-// A block stages its query tile in shared memory; each thread owns
-// SEGS_PER_THREAD segments (neighbouring threads read neighbouring
-// segments, so the prefix/lens loads coalesce) and tests them against
-// every query of the tile.  Visible segments are disjoint intervals of the
-// visible coordinate line, so at most one segment in the whole grid
-// contains a given query: the hit is a plain store into outputs the
-// wrapper zeroed first, with no atomics and no cross-block reduction.
-// The exclusive prefix is computed by the wrapper (torch.cumsum), as the
-// JAX form computes it outside the kernel body.
+// Precondition (every caller's lens is a visible length): lens[i] >= 0 and
+// each row's total is below 2^31.  The prefix is then non-decreasing, and
+// the containing segment is the first i whose INCLUSIVE prefix exceeds q, so
+// a search gives exactly what the TPU kernel's [Q, BLOCK] membership test
+// gives.  All arithmetic is int32 (wrapping adds); under the precondition
+// nothing wraps.
 //
-// Bound.  At the long-document size (S = 262,144 segments, Q = 256
-// queries) the function reads about 1 MB (lens once, queries once) and
-// writes 3 KB: about 0.3 us at 3.35 TB/s.  The function needs only about
-// Q log2 S compares, so its bound is those bytes.  This simple design
-// does far more work than that: it tests all Q x S pairs (about 67 M pair
-// tests of two integer compares each), and those compares, not the
-// bytes, set its time.  A binary search over the prefix is the later
-// redesign that brings it toward the bytes bound.
+// Bound.  At the long-document size (S = 262,144 segments, Q = 256 queries)
+// the function must read lens and the queries once and write three int32
+// outputs per query: 1,052,672 B, 0.000314 ms at 3.35 TB/s.  It needs only
+// about Q log2 S compares, so bytes bound it.
+//
+// Design: two kernels, issued back to back on the caller's stream by one
+// entry point.  Nothing tests (query, segment) pairs.
+//
+//   1. resolve_positions_tile_sums, grid (tiles, docs): each block reduces
+//      one tile of `tile` segments to one int32 sum (16-byte loads,
+//      neighbouring threads on neighbouring addresses, warp-shuffle
+//      reduction) into the caller's scratch tile_sum[D, n_tiles].  This is
+//      the one pass over lens from device memory: the bytes bound.
+//   2. resolve_positions_search, grid (query chunks, docs): each block
+//      stages its doc's tile sums in shared memory and block-scans them into
+//      the inclusive tile prefix and the total.  Each warp then takes one
+//      query at a time: a miss writes (0, 0, 0); a hit binary-searches the
+//      tile prefix for the first tile past q and walks that tile, which is
+//      still in L2 after pass 1, in chunks of 32 lanes x 4 segments (four
+//      chunks' loads in flight at once): a warp inclusive scan of the lane
+//      sums with a running base, and __ballot_sync for the first lane whose
+//      prefix passes q.  About Q * tile reads from L2 in all.
+//
+// Every output element is written exactly once, hit or miss, so the caller
+// allocates the outputs uninitialised.  The tile size is the caller's
+// `tile` argument (the Python wrapper holds its one value).  A grid with
+// more than 65,535 docs loops over them in y.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -39,59 +51,198 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int SEGS_PER_THREAD = 4;
-constexpr int SEG_TILE = THREADS * SEGS_PER_THREAD;
-constexpr int Q_TILE = 256;
-constexpr int MAX_GRID_YZ = 65535;
+constexpr int SUM_THREADS = 256;
+constexpr int SEARCH_THREADS = 128;
+constexpr int WARPS = SEARCH_THREADS / 32;
+constexpr int QUERIES_PER_BLOCK = WARPS;  // one query per warp
+constexpr int CHUNK = 32 * 4;             // segments one warp scans at once
+constexpr int CHUNKS_IN_FLIGHT = 4;
+constexpr int MAX_GRID_Y = 65535;
+constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
+constexpr unsigned FULL = 0xffffffffu;
 
-// int32 wraparound add (the torch/jnp semantics of prefix + lens).
+// int32 wraparound add and subtract (the torch/jnp semantics of int32 sums).
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b));
 }
 
-__global__ void __launch_bounds__(THREADS)
-resolve_positions_kernel(const int32_t* __restrict__ prefix,
-                         const int32_t* __restrict__ lens,
-                         const int32_t* __restrict__ q,
-                         int32_t* __restrict__ idx,
-                         int32_t* __restrict__ off,
-                         int32_t* __restrict__ hit,
-                         int D, int S, int Q) {
-  __shared__ int32_t sq[Q_TILE];
-  const int q0 = blockIdx.y * Q_TILE;
-  const int nq = min(Q_TILE, Q - q0);
-  const int s0 = blockIdx.x * SEG_TILE;
-  for (int d = blockIdx.z; d < D; d += gridDim.z) {
-    const int64_t qrow = static_cast<int64_t>(d) * Q + q0;
-    const int64_t srow = static_cast<int64_t>(d) * S;
-    __syncthreads();  // the previous doc's readers are done with sq
-    for (int i = threadIdx.x; i < nq; i += THREADS) sq[i] = q[qrow + i];
-    __syncthreads();
-    int32_t lo[SEGS_PER_THREAD];
-    int32_t hi[SEGS_PER_THREAD];
-#pragma unroll
-    for (int j = 0; j < SEGS_PER_THREAD; ++j) {
-      const int s = s0 + j * THREADS + threadIdx.x;
-      if (s < S) {
-        lo[j] = prefix[srow + s];
-        hi[j] = add32(lo[j], lens[srow + s]);
-      } else {
-        lo[j] = 1;  // empty interval: no q has q >= 1 and q < 0
-        hi[j] = 0;
-      }
+__device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) -
+                              static_cast<uint32_t>(b));
+}
+
+// End of the tile that starts at `begin` in a row of S segments.
+__device__ __forceinline__ int64_t tile_end(int64_t begin, int tile, int S) {
+  return begin + tile < S ? begin + tile : static_cast<int64_t>(S);
+}
+
+// row[e .. e+3], entries at or past `end` reading as 0.  One 16-byte load
+// when the row is 16-byte aligned (e is always a multiple of 4) and all four
+// entries are in range.
+__device__ __forceinline__ int4 load4(const int32_t* __restrict__ row,
+                                      bool aligned, int64_t e, int64_t end) {
+  if (aligned && e + 4 <= end) {
+    return __ldg(reinterpret_cast<const int4*>(row + e));
+  }
+  int4 v;
+  v.x = e < end ? __ldg(row + e) : 0;
+  v.y = e + 1 < end ? __ldg(row + e + 1) : 0;
+  v.z = e + 2 < end ? __ldg(row + e + 2) : 0;
+  v.w = e + 3 < end ? __ldg(row + e + 3) : 0;
+  return v;
+}
+
+__device__ __forceinline__ bool is_aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__global__ void __launch_bounds__(SUM_THREADS)
+resolve_positions_tile_sums(const int32_t* __restrict__ lens,
+                            int32_t* __restrict__ tile_sum,
+                            int D, int S, int tile, int n_tiles) {
+  __shared__ uint32_t warp_sum[SUM_THREADS / 32];
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * tile;
+  const int64_t end = tile_end(begin, tile, S);
+  for (int d = blockIdx.y; d < D; d += gridDim.y) {
+    const int32_t* row = lens + static_cast<int64_t>(d) * S;
+    const bool aligned = is_aligned16(row);
+    uint32_t sum = 0;
+#pragma unroll 4
+    for (int64_t e = begin + 4 * threadIdx.x; e < end; e += 4 * SUM_THREADS) {
+      const int4 v = load4(row, aligned, e, end);
+      sum += static_cast<uint32_t>(v.x) + static_cast<uint32_t>(v.y) +
+             static_cast<uint32_t>(v.z) + static_cast<uint32_t>(v.w);
     }
-    for (int i = 0; i < nq; ++i) {
-      const int32_t qv = sq[i];
-#pragma unroll
-      for (int j = 0; j < SEGS_PER_THREAD; ++j) {
-        if (qv >= lo[j] && qv < hi[j]) {
-          idx[qrow + i] = s0 + j * THREADS + threadIdx.x;
-          off[qrow + i] = static_cast<int32_t>(
-              static_cast<uint32_t>(qv) - static_cast<uint32_t>(lo[j]));
-          hit[qrow + i] = 1;
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+    __syncthreads();  // the previous doc's reader of warp_sum is done
+    if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = sum;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t total = 0;
+      for (int w = 0; w < SUM_THREADS / 32; ++w) total += warp_sum[w];
+      tile_sum[static_cast<int64_t>(d) * n_tiles + blockIdx.x] =
+          static_cast<int32_t>(total);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(SEARCH_THREADS)
+resolve_positions_search(const int32_t* __restrict__ lens,
+                         const int32_t* __restrict__ tile_sum,
+                         const int32_t* __restrict__ q,
+                         int32_t* __restrict__ out,
+                         int D, int S, int Q, int tile, int n_tiles) {
+  extern __shared__ int32_t incl[];  // [n_tiles] inclusive tile prefix
+  __shared__ uint32_t warp_total[WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // Thread i scans the contiguous run [t0, t1) of tiles.
+  const int per_thread = (n_tiles + SEARCH_THREADS - 1) / SEARCH_THREADS;
+  const int t0 = min(static_cast<int>(threadIdx.x) * per_thread, n_tiles);
+  const int t1 = min(t0 + per_thread, n_tiles);
+  int32_t* idx = out;
+  int32_t* off = out + static_cast<int64_t>(D) * Q;
+  int32_t* hit = off + static_cast<int64_t>(D) * Q;
+  const int q0 = blockIdx.x * QUERIES_PER_BLOCK;
+  const int q1 = min(q0 + QUERIES_PER_BLOCK, Q);
+  for (int d = blockIdx.y; d < D; d += gridDim.y) {
+    const int32_t* row = lens + static_cast<int64_t>(d) * S;
+    const bool aligned = is_aligned16(row);
+    const int32_t* sums = tile_sum + static_cast<int64_t>(d) * n_tiles;
+
+    // Block scan of the tile sums.
+    __syncthreads();  // the previous doc's readers of incl are done
+    for (int t = threadIdx.x; t < n_tiles; t += SEARCH_THREADS) incl[t] = sums[t];
+    __syncthreads();
+    uint32_t own = 0;
+    for (int t = t0; t < t1; ++t) own += static_cast<uint32_t>(incl[t]);
+    uint32_t x = own;
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(FULL, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_total[warp] = x;
+    __syncthreads();
+    uint32_t run = x - own;
+    for (int w = 0; w < warp; ++w) run += warp_total[w];
+    for (int t = t0; t < t1; ++t) {
+      run += static_cast<uint32_t>(incl[t]);
+      incl[t] = static_cast<int32_t>(run);
+    }
+    __syncthreads();
+    const int32_t total = n_tiles > 0 ? incl[n_tiles - 1] : 0;
+
+    for (int i = q0 + warp; i < q1; i += WARPS) {
+      const int64_t at = static_cast<int64_t>(d) * Q + i;
+      const int32_t qv = q[at];
+      int32_t r_idx = 0, r_off = 0, r_hit = 0;
+      int writer = 0;  // the lane that writes this query's outputs
+      if (qv >= 0 && qv < total) {
+        // First tile whose inclusive prefix passes qv (the last one does).
+        int lo = 0, hi = n_tiles - 1;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (incl[mid] > qv) hi = mid; else lo = mid + 1;
         }
+        const int64_t begin = static_cast<int64_t>(lo) * tile;
+        const int64_t end = tile_end(begin, tile, S);
+        int32_t base = lo > 0 ? incl[lo - 1] : 0;  // prefix before the chunk
+        bool found = false;
+        for (int64_t c = begin; c < end && !found; c += CHUNK * CHUNKS_IN_FLIGHT) {
+          int4 v[CHUNKS_IN_FLIGHT];
+#pragma unroll
+          for (int k = 0; k < CHUNKS_IN_FLIGHT; ++k) {
+            v[k] = load4(row, aligned, c + k * CHUNK + 4 * lane, end);
+          }
+#pragma unroll
+          for (int k = 0; k < CHUNKS_IN_FLIGHT; ++k) {
+            if (found) break;  // warp-uniform
+            const int32_t s = add32(add32(v[k].x, v[k].y), add32(v[k].z, v[k].w));
+            int32_t incl_lane = s;  // inclusive scan of the lane sums
+            for (int o = 1; o < 32; o <<= 1) {
+              const int32_t y = __shfl_up_sync(FULL, incl_lane, o);
+              if (lane >= o) incl_lane = add32(incl_lane, y);
+            }
+            const unsigned passes =
+                __ballot_sync(FULL, add32(base, incl_lane) > qv);
+            if (passes) {
+              writer = __ffs(passes) - 1;
+              if (lane == writer) {
+                // Exclusive prefix of this lane's first segment, then the
+                // first of its four whose inclusive prefix passes qv.
+                int32_t e = sub32(add32(base, incl_lane), s);
+                int j = 3;
+                if (add32(e, v[k].x) > qv) {
+                  j = 0;
+                } else {
+                  e = add32(e, v[k].x);
+                  if (add32(e, v[k].y) > qv) {
+                    j = 1;
+                  } else {
+                    e = add32(e, v[k].y);
+                    if (add32(e, v[k].z) > qv) {
+                      j = 2;
+                    } else {
+                      e = add32(e, v[k].z);
+                    }
+                  }
+                }
+                r_idx = static_cast<int32_t>(c + k * CHUNK + 4 * lane + j);
+                r_off = sub32(qv, e);
+                r_hit = 1;
+              }
+              found = true;
+            } else {
+              base = add32(base, __shfl_sync(FULL, incl_lane, 31));
+            }
+          }
+        }
+      }
+      if (lane == writer) {
+        idx[at] = r_idx;
+        off[at] = r_off;
+        hit[at] = r_hit;
       }
     }
   }
@@ -99,21 +250,39 @@ resolve_positions_kernel(const int32_t* __restrict__ prefix,
 
 }  // namespace
 
-// prefix/lens: int32[D, S]; q: int32[D, Q]; idx/off/hit: int32[D, Q],
-// zeroed by the caller.  All contiguous, on the device.  Launches on
-// ``stream`` without synchronising; returns cudaGetLastError().
-extern "C" int resolve_positions_launch(const void* prefix, const void* lens,
-                                        const void* q, void* idx, void* off,
-                                        void* hit, int D, int S, int Q,
-                                        void* stream) {
-  if (D <= 0 || S <= 0 || Q <= 0) return 0;
-  const int q_tiles = (Q + Q_TILE - 1) / Q_TILE;
-  if (q_tiles > MAX_GRID_YZ) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((S + SEG_TILE - 1) / SEG_TILE, q_tiles, D < MAX_GRID_YZ ? D : MAX_GRID_YZ);
-  resolve_positions_kernel<<<grid, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(prefix), static_cast<const int32_t*>(lens),
-      static_cast<const int32_t*>(q), static_cast<int32_t*>(idx),
-      static_cast<int32_t*>(off), static_cast<int32_t*>(hit), D, S, Q);
+// lens: int32[D, S]; q: int32[D, Q]; out: int32[3, D, Q], the planes idx,
+// off and hit (written in full, any initial contents); tile_sum:
+// int32[D, ceil(S / tile)] scratch.  All contiguous, on the device; tile > 0
+// and a multiple of 4.  Launches both kernels on ``stream`` without
+// synchronising; returns the first CUDA error.
+extern "C" int resolve_positions_launch(const void* lens, const void* q,
+                                        void* out, void* tile_sum, int D,
+                                        int S, int Q, int tile, void* stream) {
+  if (D <= 0 || Q <= 0) return 0;
+  if (S < 0 || tile <= 0 || tile % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = S / tile + (S % tile != 0);
+  const unsigned grid_y = D < MAX_GRID_Y ? D : MAX_GRID_Y;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_tiles > 0) {
+    resolve_positions_tile_sums<<<dim3(n_tiles, grid_y), SUM_THREADS, 0, st>>>(
+        static_cast<const int32_t*>(lens), static_cast<int32_t*>(tile_sum),
+        D, S, tile, n_tiles);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t smem = static_cast<size_t>(n_tiles) * sizeof(int32_t);
+  if (smem > STATIC_SMEM_LIMIT) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        resolve_positions_search, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned q_blocks = (Q + QUERIES_PER_BLOCK - 1) / QUERIES_PER_BLOCK;
+  resolve_positions_search<<<dim3(q_blocks, grid_y), SEARCH_THREADS, smem, st>>>(
+      static_cast<const int32_t*>(lens), static_cast<const int32_t*>(tile_sum),
+      static_cast<const int32_t*>(q), static_cast<int32_t*>(out), D, S, Q,
+      tile, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1033,10 +1033,11 @@ def _seg_first_true(mask, idx_off, default, g):
 
 def _seg_contains(vlen, q_local, strict: bool):
     """Shard-local containment search through the K1 kernel: (local index,
-    hit) of the visible segment containing the local-coordinate query;
-    ``strict`` excludes boundary hits (the split predicate)."""
-    idx, off, hit = resolve_positions(vlen, q_local[:, None])
-    idx, off, hit = idx[:, 0], off[:, 0], hit[:, 0] != 0
+    hit), each [D, Q], of the visible segment containing each
+    local-coordinate query of ``q_local[D, Q]``; ``strict`` excludes
+    boundary hits (the split predicate)."""
+    idx, off, hit = resolve_positions(vlen, q_local)
+    hit = hit != 0
     if strict:
         hit = hit & (off > 0)
     return idx, hit
@@ -1057,7 +1058,8 @@ def _ensure_boundary_seg(s: DocState, pos, ref_seq, client, g) -> DocState:
     anchor moves replay on every shard."""
     vis = _visible(s, ref_seq, client)
     vlen, excl, _total, char_off = _seg_prefix(s, vis, g)
-    k, hit = _seg_contains(vlen, pos - char_off, strict=True)
+    k, hit = _seg_contains(vlen, (pos - char_off)[:, None], strict=True)
+    k, hit = k[:, 0], hit[:, 0]
     do = g.psum(_i32(hit)) > 0
     off = pos - _take(excl, k)
     old_uid = g.psum(torch.where(hit, _take(s.seg_uid, k), 0))
@@ -1161,8 +1163,9 @@ def _do_obliterate_seg(s: DocState, op, payload, g) -> DocState:
     vis = _visible(s, ref_seq, client)
     vlen, _excl2, _t2, char_off = _seg_prefix(s, vis, g)
     idx_off, nseg_total, _counts = _seg_index_base(s, g)
-    ks, hs = _seg_contains(vlen, pos1 - char_off, strict=False)
-    ke, he = _seg_contains(vlen, pos2 - char_off, strict=False)
+    q = torch.stack([pos1, pos2], -1) - char_off[:, None]
+    k, h = _seg_contains(vlen, q, strict=False)
+    (ks, ke), (hs, he) = k.unbind(-1), h.unbind(-1)
     s_found = g.psum(_i32(hs)) > 0
     e_found = g.psum(_i32(he)) > 0
     s_idx = torch.where(s_found, g.psum(torch.where(hs, idx_off + ks, 0)), nseg_total)

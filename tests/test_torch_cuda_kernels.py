@@ -21,6 +21,50 @@ from fluidframework_tpu_torch.ops import resolve_kernel as rk
 pytestmark = pytest.mark.cuda
 
 
+# Cases around the edges of K1's tiles of ``rk.TILE`` segments, shared with
+# tests/test_torch_resolve_kernel.py: segment counts one below, at and one
+# past a tile, a ragged third tile, and whole zero-sum tiles at the start, in
+# the middle and at the end (the last full tile and the ragged tail).
+TILE_CASES = ("S=T-1", "S=T", "S=T+1", "S=2T+3", "zero-start", "zero-middle", "zero-end")
+
+
+def tile_queries(lens, tile, rng, n=300):
+    """``n`` queries (more than one query chunk of the kernel): the prefix at
+    every tile start and the total, one below each, one past the end, and
+    random positions in [0, total + 3)."""
+    incl = np.cumsum(lens, dtype=np.int64)
+    total = int(incl[-1])
+    edges = np.unique(np.concatenate([[0], incl[tile - 1::tile], [total]]))
+    fixed = np.concatenate([edges, edges - 1, [total + 5]])
+    rand = rng.integers(0, total + 3, size=n - len(fixed))
+    return np.concatenate([fixed, rand]).astype(np.int32)
+
+
+def _tile_lens(rng, shape):
+    lens = rng.integers(0, 9, size=shape).astype(np.int32)
+    return np.where(rng.random(shape) < 0.7, lens, 0).astype(np.int32)
+
+
+def tile_case(name, tile, seed=0):
+    """(lens[S], queries[300]) of one of ``TILE_CASES``."""
+    rng = np.random.default_rng([seed, TILE_CASES.index(name)])
+    S = {"S=T-1": tile - 1, "S=T": tile, "S=T+1": tile + 1, "S=2T+3": 2 * tile + 3}
+    lens = _tile_lens(rng, S.get(name, 3 * tile + 3))
+    for t in {"zero-start": [0], "zero-middle": [1], "zero-end": [2, 3]}.get(name, []):
+        lens[t * tile:(t + 1) * tile] = 0
+    return lens, tile_queries(lens, tile, rng)
+
+
+def batched_tile_case(tile, seed=0):
+    """The batched form, D=3 docs of 2 * tile + 3 segments: one random, one
+    with a zero first tile, one with a zero second tile and tail."""
+    rng = np.random.default_rng([seed, len(TILE_CASES)])
+    lens = _tile_lens(rng, (3, 2 * tile + 3))
+    lens[1, :tile] = 0
+    lens[2, tile:] = 0
+    return lens, np.stack([tile_queries(row, tile, rng) for row in lens])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -37,11 +81,9 @@ def _case(seed, n_segs, n_queries=256):
     return lens, qs
 
 
-@pytest.mark.parametrize("n_segs", [1, 1023, 1025, 262_144])
-def test_kernel_matches_plain_on_card(cuda_device, n_segs):
-    lens, qs = _case(n_segs, n_segs)
-    lt = torch.from_numpy(lens).to(cuda_device)
-    qt = torch.from_numpy(qs).to(cuda_device)
+def _assert_kernel_matches_plain(device, lens, qs):
+    lt = torch.from_numpy(lens).to(device)
+    qt = torch.from_numpy(qs).to(device)
     before = rk.resolve_positions.launches
     got = rk.resolve_positions(lt, qt)
     torch.cuda.synchronize()
@@ -51,12 +93,32 @@ def test_kernel_matches_plain_on_card(cuda_device, n_segs):
         assert torch.equal(g, p) and torch.equal(g.cpu(), w)
 
 
-def test_batched_kernel_matches_plain_on_card(cuda_device):
-    cases = [_case(s, 3000, 64) for s in range(3)]
-    lt = torch.from_numpy(np.stack([c[0] for c in cases])).to(cuda_device)
-    qt = torch.from_numpy(np.stack([c[1] for c in cases])).to(cuda_device)
+@pytest.mark.parametrize("n_segs", [1, 1023, 1025, 262_144])
+def test_kernel_matches_plain_on_card(cuda_device, n_segs):
+    _assert_kernel_matches_plain(cuda_device, *_case(n_segs, n_segs))
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+def test_kernel_matches_plain_at_tile_edges(cuda_device, name):
+    _assert_kernel_matches_plain(cuda_device, *tile_case(name, rk.TILE))
+
+
+def _assert_batched_kernel_matches_plain(device, lens, qs):
+    lt = torch.from_numpy(lens).to(device)
+    qt = torch.from_numpy(qs).to(device)
     for g, p in zip(rk.resolve_positions(lt, qt), rk.resolve_positions_plain(lt, qt)):
         assert torch.equal(g, p)
+
+
+def test_batched_kernel_matches_plain_on_card(cuda_device):
+    cases = [_case(s, 3000, 64) for s in range(3)]
+    _assert_batched_kernel_matches_plain(
+        cuda_device, np.stack([c[0] for c in cases]), np.stack([c[1] for c in cases])
+    )
+
+
+def test_batched_kernel_matches_plain_at_tile_edges(cuda_device):
+    _assert_batched_kernel_matches_plain(cuda_device, *batched_tile_case(rk.TILE))
 
 
 def test_seg_lane_on_card_matches_cpu(cuda_device):

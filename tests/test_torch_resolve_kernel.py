@@ -4,7 +4,8 @@ The port's plain version (what its wrapper runs on CPU tensors) is held
 exactly against ``resolve_positions_reference`` and the Pallas kernel in
 interpret mode, on the sizes of tests/test_pallas_kernels.py: negative
 and out-of-range queries, all-invisible lengths, segment counts that are
-not a multiple of the block, and the batched [D, S] form.  The CUDA
+not a multiple of the block, the batched [D, S] form, and the edges of
+the two-level search's tiles (cases shared with the card tests).  The CUDA
 kernel itself is tested on the card by tests/test_torch_cuda_kernels.py.
 """
 
@@ -19,6 +20,8 @@ from fluidframework_tpu.ops.pallas_kernels import (
     resolve_positions_reference,
 )
 from fluidframework_tpu_torch.ops import resolve_kernel as rk
+
+from test_torch_cuda_kernels import TILE_CASES, batched_tile_case, tile_case
 
 
 def random_case(rng, n_segs, n_queries, max_len=9, vis_p=0.7):
@@ -49,6 +52,27 @@ def test_plain_matches_reference_and_pallas(n_segs):
         got = _port(lens, qs)
         _assert_same(got, resolve_positions_reference(lens, qs))
         _assert_same(got, resolve_positions_pallas(lens, qs, interpret=True))
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+def test_plain_matches_reference_and_pallas_at_tile_edges(name):
+    """The two-level search at the edges of its tiles: segment counts around
+    a tile, zero-sum tiles, queries on every tile's first position and one
+    below it, 300 queries."""
+    lens, qs = tile_case(name, rk.TILE)
+    got = _port(lens, qs)
+    assert got[2].any() and not got[2].all()
+    _assert_same(got, resolve_positions_reference(lens, qs))
+    _assert_same(got, resolve_positions_pallas(lens, qs, interpret=True))
+
+
+def test_batched_form_at_tile_edges():
+    lens, qs = batched_tile_case(rk.TILE)
+    got = rk.resolve_positions(torch.from_numpy(lens), torch.from_numpy(qs))
+    for d in range(lens.shape[0]):
+        row = [g[d].numpy() for g in got]
+        _assert_same(row, resolve_positions_reference(lens[d], qs[d]))
+        _assert_same(row, resolve_positions_pallas(lens[d], qs[d], interpret=True))
 
 
 def test_misses_are_zero():
