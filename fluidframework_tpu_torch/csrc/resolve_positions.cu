@@ -31,10 +31,12 @@
 //      the inclusive tile prefix and the total.  Each warp then takes one
 //      query at a time: a miss writes (0, 0, 0); a hit binary-searches the
 //      tile prefix for the first tile past q and walks that tile, which is
-//      still in L2 after pass 1, in chunks of 32 lanes x 4 segments (four
-//      chunks' loads in flight at once): a warp inclusive scan of the lane
-//      sums with a running base, and __ballot_sync for the first lane whose
-//      prefix passes q.  About Q * tile reads from L2 in all.
+//      still in L2 after pass 1, in steps of 32 lanes x 64 contiguous
+//      segments (one step for a 2,048-segment tile; each lane's sixteen
+//      16-byte loads in flight at once): a warp inclusive scan of the lane
+//      sums with a running base, __ballot_sync for the first lane whose
+//      prefix passes q, and that lane's search of its own 64 segments in
+//      registers.  About Q * tile reads from L2 in all.
 //
 // Every output element is written exactly once, hit or miss, so the caller
 // allocates the outputs uninitialised.  The tile size is the caller's
@@ -55,8 +57,9 @@ constexpr int SUM_THREADS = 256;
 constexpr int SEARCH_THREADS = 128;
 constexpr int WARPS = SEARCH_THREADS / 32;
 constexpr int QUERIES_PER_BLOCK = WARPS;  // one query per warp
-constexpr int CHUNK = 32 * 4;             // segments one warp scans at once
-constexpr int CHUNKS_IN_FLIGHT = 4;
+constexpr int LANE_SEGS = 64;             // contiguous segments per lane
+constexpr int GROUPS = LANE_SEGS / 4;      // 16-byte loads per lane
+constexpr int WALK = 32 * LANE_SEGS;       // segments one warp walks per step
 constexpr int MAX_GRID_Y = 65535;
 constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
@@ -187,55 +190,72 @@ resolve_positions_search(const int32_t* __restrict__ lens,
         }
         const int64_t begin = static_cast<int64_t>(lo) * tile;
         const int64_t end = tile_end(begin, tile, S);
-        int32_t base = lo > 0 ? incl[lo - 1] : 0;  // prefix before the chunk
+        int32_t base = lo > 0 ? incl[lo - 1] : 0;  // prefix before the step
         bool found = false;
-        for (int64_t c = begin; c < end && !found; c += CHUNK * CHUNKS_IN_FLIGHT) {
-          int4 v[CHUNKS_IN_FLIGHT];
+        for (int64_t c = begin; c < end && !found; c += WALK) {
+          // This lane's LANE_SEGS contiguous segments, all loads in flight.
+          const int64_t first = c + LANE_SEGS * lane;
+          int4 v[GROUPS];
+          int32_t g[GROUPS];  // sums of the groups of four
 #pragma unroll
-          for (int k = 0; k < CHUNKS_IN_FLIGHT; ++k) {
-            v[k] = load4(row, aligned, c + k * CHUNK + 4 * lane, end);
+          for (int k = 0; k < GROUPS; ++k) v[k] = load4(row, aligned, first + 4 * k, end);
+          int32_t s = 0;
+#pragma unroll
+          for (int k = 0; k < GROUPS; ++k) {
+            g[k] = add32(add32(v[k].x, v[k].y), add32(v[k].z, v[k].w));
+            s = add32(s, g[k]);
           }
+          int32_t incl_lane = s;  // inclusive scan of the lane sums
+          for (int o = 1; o < 32; o <<= 1) {
+            const int32_t y = __shfl_up_sync(FULL, incl_lane, o);
+            if (lane >= o) incl_lane = add32(incl_lane, y);
+          }
+          const unsigned passes = __ballot_sync(FULL, add32(base, incl_lane) > qv);
+          if (passes) {
+            writer = __ffs(passes) - 1;
+            if (lane == writer) {
+              // From this lane's exclusive prefix: the first group of four,
+              // then the first segment in it, whose inclusive prefix passes
+              // qv (predicated selects: no dynamic register indexing).
+              int32_t e = sub32(add32(base, incl_lane), s);
+              int grp = GROUPS - 1;
+              int4 w = v[GROUPS - 1];
+              bool done = false;
 #pragma unroll
-          for (int k = 0; k < CHUNKS_IN_FLIGHT; ++k) {
-            if (found) break;  // warp-uniform
-            const int32_t s = add32(add32(v[k].x, v[k].y), add32(v[k].z, v[k].w));
-            int32_t incl_lane = s;  // inclusive scan of the lane sums
-            for (int o = 1; o < 32; o <<= 1) {
-              const int32_t y = __shfl_up_sync(FULL, incl_lane, o);
-              if (lane >= o) incl_lane = add32(incl_lane, y);
-            }
-            const unsigned passes =
-                __ballot_sync(FULL, add32(base, incl_lane) > qv);
-            if (passes) {
-              writer = __ffs(passes) - 1;
-              if (lane == writer) {
-                // Exclusive prefix of this lane's first segment, then the
-                // first of its four whose inclusive prefix passes qv.
-                int32_t e = sub32(add32(base, incl_lane), s);
-                int j = 3;
-                if (add32(e, v[k].x) > qv) {
-                  j = 0;
-                } else {
-                  e = add32(e, v[k].x);
-                  if (add32(e, v[k].y) > qv) {
-                    j = 1;
+              for (int k = 0; k < GROUPS; ++k) {
+                if (!done) {
+                  if (add32(e, g[k]) > qv) {
+                    grp = k;
+                    w = v[k];
+                    done = true;
                   } else {
-                    e = add32(e, v[k].y);
-                    if (add32(e, v[k].z) > qv) {
-                      j = 2;
-                    } else {
-                      e = add32(e, v[k].z);
-                    }
+                    e = add32(e, g[k]);
                   }
                 }
-                r_idx = static_cast<int32_t>(c + k * CHUNK + 4 * lane + j);
-                r_off = sub32(qv, e);
-                r_hit = 1;
               }
-              found = true;
-            } else {
-              base = add32(base, __shfl_sync(FULL, incl_lane, 31));
+              int j = 3;
+              if (add32(e, w.x) > qv) {
+                j = 0;
+              } else {
+                e = add32(e, w.x);
+                if (add32(e, w.y) > qv) {
+                  j = 1;
+                } else {
+                  e = add32(e, w.y);
+                  if (add32(e, w.z) > qv) {
+                    j = 2;
+                  } else {
+                    e = add32(e, w.z);
+                  }
+                }
+              }
+              r_idx = static_cast<int32_t>(first + 4 * grp + j);
+              r_off = sub32(qv, e);
+              r_hit = 1;
             }
+            found = true;
+          } else {
+            base = add32(base, __shfl_sync(FULL, incl_lane, 31));
           }
         }
       }
