@@ -297,8 +297,12 @@ def time_k1(rk, lens, qs, iters: int, plain_iters: int) -> dict:
     def library():
         return torch.searchsorted(torch.cumsum(lens, -1, dtype=torch.int32), qs, right=True)
 
+    # The function needs about Q*log2(S) compares, far below the bytes
+    # bound: lens and the queries read once, the three outputs written once.
+    nbytes = 4 * lens.numel() + 4 * qs.numel() + 3 * 4 * qs.numel()
     k1_device = device_ms_by_name(k1)
     return {
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "bound_bytes": nbytes,
         "kernel_ms": cuda_ms(k1, iters),
         "kernel_device_ms": _device_sum(k1_device, K1_NAME),
         # Everything the wrapper puts on the card per call, by activity.
@@ -344,8 +348,10 @@ def phase_kernels(seed: int, card: str) -> dict:
     max_err = 0
     hits = 0
     for lens, qs in cases + batched:
-        got = rk.resolve_positions(torch.from_numpy(lens).to(dev), torch.from_numpy(qs).to(dev))
-        want = rk.resolve_positions_plain(torch.from_numpy(lens).to(dev), torch.from_numpy(qs).to(dev))
+        lt = torch.from_numpy(lens).to(dev)
+        qt = torch.from_numpy(qs).to(dev)
+        got = rk.resolve_positions(lt, qt)
+        want = rk.resolve_positions_plain(lt, qt)
         want_cpu = rk.resolve_positions_plain(torch.from_numpy(lens), torch.from_numpy(qs))
         torch.cuda.synchronize()
         for g, w, wc in zip(got, want, want_cpu):
@@ -363,15 +369,10 @@ def phase_kernels(seed: int, card: str) -> dict:
     ls = torch.from_numpy(_random_lens(rng, 16_384)).to(dev)[None]
     qs1 = torch.zeros((1, 1), dtype=torch.int32, device=dev) + int(ls.sum()) // 2
     seg_lane = time_k1(rk, ls, qs1, 500, 200)
-    # The function needs about Q*log2(S) compares, far below the bytes
-    # bound: lens and the queries read once, the three outputs written once.
-    nbytes = 4 * S + 4 * Q + 3 * 4 * Q
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     out = {
         "phase": "kernels", "card": card, "cases": len(cases) + len(batched),
         "hits_checked": hits, "max_abs_err": max_err, "tile": rk.TILE,
         "S": S, "Q": Q, **long_doc,
-        "bound_ms": bytes_ms, "bound_by": "bytes", "bound_bytes": nbytes,
         **{f"seg_lane_{k}": v for k, v in seg_lane.items()},
     }
     emit(out)

@@ -171,8 +171,9 @@ def resolve_positions(
         return resolve_positions_plain(lens, positions)
     if lens.device.type != "cuda":
         raise ValueError(f"unsupported device {lens.device}")
-    # Host issue is most of a call at the segment lane's size, so this path
-    # issues no torch op beyond the two allocations and the final unbind.
+    # Host issue outweighs the kernels at the segment lane's size, so this
+    # path makes no views and no torch ops beyond the two allocations and
+    # the final unbind.
     lens = lens.contiguous()
     positions = positions.contiguous()
     S, Q = lens.shape[-1], positions.shape[-1]
