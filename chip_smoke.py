@@ -19,17 +19,31 @@ It builds every hand-written kernel of the port from ``csrc/`` with nvcc
    T=8192, R=4, P=2, B=16, K=8) fed Zipf-skewed 4-writer insert/remove
    traffic through ``DocBatchEngine.ingest``/``step``/``compact``; no error
    bits, and a seeded sample of 64 docs replayed through the same engine
-   on the CPU gives byte-identical state rows.
-3. ``hot_doc``: config-1 geometry (one doc, S=16,384, T=131,072) — a
+   on the CPU gives byte-identical state rows.  Run at ``recovery="grow"``,
+   then, to price recovery, in turns at ``"off"``, ``"grow"``, ``"grow"``,
+   ``"off"``.
+3. ``recovery``: the fleet's geometry and traffic at ``recovery="grow"``
+   with seeded faults (8 docs past the text capacity, 8 past the segment
+   count, 4 with an insert past their length): no error bits, 16 overflow
+   lanes at the doubled capacity, 4 quarantined docs; the faulted docs and
+   64 others replayed on the CPU are identical; two watchdog sweeps of 64
+   find nothing, and the device digest K4 (``fleet_digest``) is timed
+   beside its bytes bound and equals its CPU result; on a 256-doc engine a
+   tampered codepoint is caught by exactly one doc passing the digest
+   pre-filter and quarantined; a forced checkpoint sweep restores into a
+   fresh engine identically (the restore's scatter timed alone), and both
+   engines stay identical through two more rounds, while a re-fed
+   checkpointed round is skipped.
+4. ``hot_doc``: config-1 geometry (one doc, S=16,384, T=131,072) — a
    4-writer trace through the one-shard segment lane
    (``apply_megastep_seg``, whose containment searches are K1 launches)
    equals the single lane on the same trace.
-4. ``long_doc``: the long-document query plane's resolve at Q=256 over
+5. ``long_doc``: the long-document query plane's resolve at Q=256 over
    262,144 segments (K1), mark and visible length, against numpy.
 
-Phases 2-4 are the port's main path: every kernel launch counter is set to
-0 just before it and read just after, and a kernel of the path that never
-launched fails the run.  Then it prints the ``kernels`` summary line, the
+Phases 2-5 are the port's main path: K1's launch counter is set to 0
+just before each of them and read just after, and a path that runs K1
+(phases 4 and 5) fails the run if it never launched.  Then it prints the ``kernels`` summary line, the
 card's name and power limit, and, last, the ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
 CUDA card, or a directory without the port.
@@ -38,8 +52,12 @@ CUDA card, or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import os
+import shutil
 import subprocess
+import tempfile
 import sys
 import time
 
@@ -73,6 +91,7 @@ def zipf_counts(n_docs: int, ops_per_step: int, a: float) -> np.ndarray:
     return np.maximum(1, np.round(ops_per_step * w / w[0]).astype(np.int64))
 
 
+@functools.lru_cache(maxsize=4)
 def fleet_traffic(n_docs: int, rounds: int, ops_per_round: int, ins_len: int,
                   seed: int, writers: int = 4):
     """Zipf-skewed multi-writer SharedString traffic as sequenced wire
@@ -433,15 +452,20 @@ class SliceClock:
         self.mk._ob_table_nonempty, self.mk._apply_op = self.gate, self.apply_op
 
 
+# Config-3 geometry: the fleet and recovery phases' engines.
+FLEET_GEOM = dict(max_segments=1024, text_capacity=8192, remove_slots=4,
+                  prop_slots=2, ops_per_step=16, megastep_k=8, max_insert_len=16)
+
+
 def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
-                rounds: int = 16, step_every: int = 8, sample: int = 64) -> dict:
+                rounds: int = 16, step_every: int = 8, sample: int = 64,
+                recovery: str = "grow", geom: dict = FLEET_GEOM) -> dict:
     import torch
 
     from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
 
-    geom = dict(max_segments=1024, text_capacity=8192, remove_slots=4,
-                prop_slots=2, ops_per_step=16, megastep_k=8, max_insert_len=16)
+    geom = dict(geom, recovery=recovery)
     t0 = time.perf_counter()
     joins, rounds_msgs = fleet_traffic(n_docs, rounds, geom["ops_per_step"], 8, seed)
     gen_s = time.perf_counter() - t0
@@ -478,7 +502,7 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
         wall_s = time.perf_counter() - t_all
     finally:
         clock.close()
-    ops_applied = eng.counters["ops_staged"]
+    ops_applied = eng.counters.get("ops_staged")
     errored = eng.error_count()
     check(errored == 0, f"fleet latched error bits on {errored} docs")
     check(len(clock.slice_s) == slices, "fleet slice clock lost a slice")
@@ -499,9 +523,9 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
     same = sum(_state_rows_equal(eng.doc_state(int(d)), ref.doc_state(j)) for j, d in enumerate(pick))
     check(same == len(pick), f"{len(pick) - same} of {len(pick)} sampled docs differ from the CPU replay")
     out = {
-        "phase": "fleet", "card": card, "docs": n_docs, "rounds": rounds,
-        "ops_applied": ops_applied, "slices": slices,
-        "megasteps": eng.counters["megastep_dispatches"],
+        "phase": "fleet", "card": card, "recovery": recovery, "docs": n_docs,
+        "rounds": rounds, "ops_applied": ops_applied, "slices": slices,
+        "megasteps": eng.counters.get("megastep_dispatches"),
         "traffic_gen_s": gen_s, "ingest_s": ingest_s, "step_s": step_s,
         "compact_s": compact_s, "wall_s": wall_s, "ops_per_s": ops_applied / wall_s,
         "slice_s": clock.slice_s, "slice_rows": clock.slice_rows,
@@ -509,6 +533,371 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
         "ob_gate_syncs": eng.health()["ob_gate_syncs"],
         "sampled_docs_identical": same,
     }
+    emit(out)
+    return out
+
+
+def fault_traffic(n_docs: int, rounds: int, extra: int, geom: dict, seed: int):
+    """Seeded faults for the recovery phase, over ``rounds`` rounds plus
+    ``extra`` later ones, on docs away from the Zipf head (their Zipf
+    traffic is dropped; writer w0 alone, each op seeing every earlier one):
+
+    - 8 ``text`` docs append inserts of 4 chunks until the text pool passes
+      ``text_capacity`` (ERR_TEXT_OVERFLOW) and remove 2 chars a round;
+    - 8 ``seg`` docs insert 2 chars strictly inside a segment (+2 segments
+      each) until they pass ``max_segments`` (ERR_SEG_OVERFLOW);
+    - 4 ``pos`` docs insert once past their visible length in the middle
+      round (ERR_POS_RANGE: quarantine), with valid inserts around it.
+
+    Returns ({kind: [docs]}, {doc: [[message] per round]})."""
+    from fluidframework_tpu_torch.protocol.messages import SequencedMessage
+
+    rng = np.random.default_rng(seed + 7)
+    skip = min(100, n_docs // 2)
+    picks = rng.choice(np.arange(skip, n_docs), size=20, replace=False).tolist()
+    plan = {"text": sorted(picks[:8]), "seg": sorted(picks[8:16]), "pos": sorted(picks[16:])}
+    T, S, L = geom["text_capacity"], geom["max_segments"], geom["max_insert_len"]
+    chunk = 4 * L
+    text_per_round = -(-(T + chunk) // (rounds * chunk))
+    seg_per_round = -(-(S // 2 + 8) // rounds)
+    out = {}
+    for kind, docs in plan.items():
+        for d in docs:
+            seq = 0
+            length = 0
+            segs = []  # the seg docs' segment lengths, in order
+            per_round = []
+            for r in range(rounds + extra):
+                floor = seq
+                msgs = []
+
+                def op(contents):
+                    nonlocal seq
+                    seq += 1
+                    msgs.append(SequencedMessage(
+                        client_id="w0", client_seq=seq, ref_seq=seq - 1, seq=seq,
+                        min_seq=floor, contents=contents,
+                    ))
+
+                if kind == "text":
+                    for _ in range(text_per_round):
+                        op({"type": 0, "pos1": length, "seg": "".join(
+                            map(chr, rng.integers(97, 123, size=chunk)))})
+                        length += chunk
+                    op({"type": 1, "pos1": 0, "pos2": 2})
+                    length -= 2
+                elif kind == "seg":
+                    if not segs:
+                        op({"type": 0, "pos1": 0, "seg": "s" * L})
+                        segs = [L]
+                    for _ in range(seg_per_round):
+                        cand = [i for i, n in enumerate(segs) if n >= 2]
+                        i = cand[int(rng.integers(0, len(cand)))]
+                        cut = int(rng.integers(1, segs[i]))
+                        op({"type": 0, "pos1": sum(segs[:i]) + cut, "seg": "yz"})
+                        segs[i:i + 1] = [cut, 2, segs[i] - cut]
+                else:
+                    if r == rounds // 2:
+                        op({"type": 0, "pos1": length + 5, "seg": "bad"})
+                    op({"type": 0, "pos1": 0, "seg": "ok"})
+                    length += 2
+                per_round.append(msgs)
+            out[d] = per_round
+    return plan, out
+
+
+def _fleet_rounds(rounds_msgs, faults, r, docs=None):
+    """Round ``r``'s messages: the Zipf traffic without the fault docs',
+    then the fault docs' (restricted to ``docs`` when given)."""
+    msgs = [(d, m) for d, m in rounds_msgs[r] if d not in faults]
+    msgs += [(d, m) for d in sorted(faults) for m in faults[d][r]]
+    return msgs if docs is None else [(d, m) for d, m in msgs if d in docs]
+
+
+def _lane_of(eng, d: int):
+    return ("overflow" if d in eng.overflow else "quarantine" if d in eng.quarantine
+            else "oracle" if d in eng.oracles else "batch")
+
+
+def _summary(eng, d: int) -> dict:
+    """A doc's summary: its host oracle's, or its device state's through
+    the checkpoint codec."""
+    from fluidframework_tpu_torch.dds import kernel_backend as kb
+
+    tree = eng.quarantine.get(d) or eng.oracles.get(d)
+    if tree is not None:
+        return tree.export_summary()
+    names = {v: k for k, v in eng.hosts[d].prop_slot.items()}
+    return kb.state_to_summary(eng.doc_state(d), names)
+
+
+def _docs_equivalent(a, da: int, b, db: int) -> bool:
+    """Two engines hold the same document: lane, lane geometry, text,
+    annotations and summary (a restored row is the original's summary
+    packed afresh, so its raw columns differ from a row with history)."""
+    if (_lane_of(a, da), a.text(da), a.annotations(da)) != (_lane_of(b, db), b.text(db), b.annotations(db)):
+        return False
+    if da in a.overflow and (
+        (a.overflow[da].geometry, a.overflow[da].growths)
+        != (b.overflow[db].geometry, b.overflow[db].growths)
+    ):
+        return False
+    return _summary(a, da) == _summary(b, db)
+
+
+def _docs_identical(a, da: int, b, db: int) -> bool:
+    """``_docs_equivalent`` and, for device-held docs, every raw state
+    column (batch row or overflow lane) equal."""
+    if not _docs_equivalent(a, da, b, db):
+        return False
+    return _lane_of(a, da) not in ("batch", "overflow") or _state_rows_equal(
+        a.doc_state(da), b.doc_state(db))
+
+
+def digest_bound(state) -> tuple[int, float]:
+    """K4's bytes bound: every column it reads once (text, seg_len,
+    seg_start, rem_keys, text_end, nseg) and its int64 output written once."""
+    D, T = state.text.shape
+    S = state.seg_len.shape[-1]
+    nbytes = 4 * D * (T + (2 + len(state.rem_keys)) * S + 2) + 8 * D
+    return nbytes, nbytes / H100_BYTES_PER_S * 1e3
+
+
+def phase_recovery(seed: int, card: str, device: str, n_docs: int = 10_000,
+                   rounds: int = 16, step_every: int = 8, sample: int = 64,
+                   geom: dict = FLEET_GEOM, tamper_docs: int = 256,
+                   ckpt_docs: int | None = None) -> dict:
+    """The recovery and durability path at the fleet phase's geometry on
+    ``device``: traffic with seeded faults through ``recovery="grow"``, a
+    CPU replay of the faulted docs and a sample, two watchdog sweeps (K4
+    timed against its bound), a tamper check, a forced checkpoint sweep,
+    a restore into a fresh engine, and traffic after it."""
+    import torch
+
+    from fluidframework_tpu_torch.dds import kernel_backend as kb
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine, fleet_digest
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.ops.resolve_kernel import resolve_positions
+    from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    geom = dict(geom, recovery="grow")
+    t0 = time.perf_counter()
+    joins, rounds_msgs = fleet_traffic(n_docs, rounds + 2, geom["ops_per_step"], 8, seed)
+    plan, faults = fault_traffic(n_docs, rounds, 2, geom, seed)
+    gen_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    launches0 = resolve_positions.launches
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        eng = DocBatchEngine(n_docs, device=device, checkpoint_store=CheckpointStore(ck_dir), **geom)
+        # recover() as a whole (its error-count read waits for the queued
+        # megasteps), and the grow replays inside it.
+        timers = {"recover": 0.0, "_recover_doc": 0.0}
+        for name in timers:
+            def timed(*a, _fn=getattr(eng, name), _name=name, **kw):
+                t = time.perf_counter()
+                out = _fn(*a, **kw)
+                timers[_name] += time.perf_counter() - t
+                return out
+
+            setattr(eng, name, timed)
+        for d, m in joins:
+            eng.ingest(d, m)
+        t_all = time.perf_counter()
+        for r in range(rounds):
+            for d, m in _fleet_rounds(rounds_msgs, faults, r):
+                eng.ingest(d, m)
+            if (r + 1) % step_every == 0 or r + 1 == rounds:
+                eng.step()
+                eng.compact()
+                sync()
+        wall_s = time.perf_counter() - t_all
+        ops_applied = eng.counters.get("ops_staged")
+        check(not eng.errors().any(), "recovery left error bits")
+        check(sorted(eng.overflow) == sorted(plan["text"] + plan["seg"]),
+              f"overflow lanes {sorted(eng.overflow)}")
+        check(all(eng.overflow[d].geometry["text_capacity"] == 2 * geom["text_capacity"]
+                  for d in plan["text"]), "text lanes not at twice the text capacity")
+        check(all(eng.overflow[d].geometry["max_segments"] == 2 * geom["max_segments"]
+                  for d in plan["seg"]), "segment lanes not at twice the segments")
+        check(sorted(eng.quarantine) == plan["pos"], f"quarantined {sorted(eng.quarantine)}")
+
+        # The faulted docs and a sample replayed on the CPU, same rounds.
+        rng = np.random.default_rng(seed + 2)
+        others = np.setdiff1d(np.arange(n_docs), np.asarray(sorted(faults)))
+        pick = sorted(faults) + sorted(rng.choice(others, size=min(sample, len(others)),
+                                                  replace=False).tolist())
+        local = {d: j for j, d in enumerate(pick)}
+        cpu = DocBatchEngine(len(pick), device="cpu", **geom)
+        t1 = time.perf_counter()
+        for d, m in joins:
+            if d in local:
+                cpu.ingest(local[d], m)
+        for r in range(rounds):
+            for d, m in _fleet_rounds(rounds_msgs, faults, r, local):
+                cpu.ingest(local[d], m)
+            if (r + 1) % step_every == 0 or r + 1 == rounds:
+                cpu.step()
+                cpu.compact()
+        cpu_replay_s = time.perf_counter() - t1
+        same = sum(_docs_identical(eng, d, cpu, j) for d, j in local.items())
+        check(same == len(pick), f"{len(pick) - same} of {len(pick)} docs differ from the CPU replay")
+
+        # Watchdog at full width: two sweeps of 64, then K4 alone.
+        t1 = time.perf_counter()
+        failed = eng.watchdog(sample=64) + eng.watchdog(sample=64)
+        sync()
+        watchdog_s = time.perf_counter() - t1
+        check(not failed, f"watchdog failed docs {failed}")
+        wd = {k: eng.counters.get(k) for k in ("watchdog_checks", "watchdog_prefiltered")}
+        # Sweep 1 verifies 64 of the batch docs; sweep 2 skips those (their
+        # digest and stream did not move) and verifies the next 64.
+        eligible = n_docs - len(faults)
+        first = min(64, eligible)
+        check(wd == {"watchdog_checks": first + min(64, eligible - first),
+                     "watchdog_prefiltered": first}, f"watchdog {wd}")
+        peak_mem = torch.cuda.max_memory_allocated() if on_card else None
+        dig_bytes, dig_bound_ms = digest_bound(eng.state)
+        digest = {"digest_bytes": dig_bytes, "digest_bound_ms": dig_bound_ms}
+        if on_card:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            card_dig = fleet_digest(eng.state)
+            sync()
+            digest.update(
+                digest_peak_extra_bytes=torch.cuda.max_memory_allocated() - base,
+                digest_ms=cuda_ms(lambda: fleet_digest(eng.state), 10, warmup=2),
+                digest_device_ms=_device_sum(device_ms_by_name(lambda: fleet_digest(eng.state), 10)),
+            )
+            cpu_dig = fleet_digest(mk.from_numpy(mk.to_numpy(eng.state), device="cpu"))
+            check(torch.equal(card_dig.cpu(), cpu_dig), "K4 on the card differs from the CPU")
+
+        # Tamper check on a separate engine at the same geometry.
+        tw = DocBatchEngine(tamper_docs, device=device, **geom)
+        t_joins, t_rounds = fleet_traffic(tamper_docs, 2, geom["ops_per_step"], 8, seed + 3)
+        for d, m in t_joins + [x for rnd in t_rounds for x in rnd]:
+            tw.ingest(d, m)
+        tw.step()
+        check(tw.watchdog(sample=tamper_docs) == [], "tamper engine: clean sweep failed")
+        victim = int(np.random.default_rng(seed + 4).integers(0, tamper_docs))
+        row = mk.to_numpy(mk.doc_row(tw.state, victim))
+        _, vis = mk._host_vis(row, mk.ALL_ACKED, -3)
+        seg = int(np.flatnonzero(vis & (row.seg_len[: len(vis)] > 0))[0])
+        at = int(row.seg_start[seg])
+        before_text = tw.text(victim)
+        pref0 = tw.counters.get("watchdog_prefiltered")
+        tw.state.text[victim, at] = 97 + (int(row.text[at]) - 96) % 26
+        check(mk.visible_text(mk.doc_row(tw.state, victim)) != before_text, "tamper changed nothing")
+        t_card = fleet_digest(tw.state).cpu()
+        t_cpu = fleet_digest(mk.from_numpy(mk.to_numpy(tw.state), device="cpu"))
+        check(torch.equal(t_card, t_cpu), "K4 differs between the card and the CPU (tamper rows)")
+        caught = tw.watchdog(sample=tamper_docs)
+        tamper = {
+            "tamper_docs": tamper_docs, "tamper_caught": caught,
+            "tamper_prefiltered": tw.counters.get("watchdog_prefiltered") - pref0,
+        }
+        check(caught == [victim] and victim in tw.quarantine, f"tamper: caught {caught}")
+        check(tamper["tamper_prefiltered"] == tamper_docs - 1, f"tamper {tamper}")
+        check(tw.text(victim) == before_text, "tampered doc's oracle text differs")
+        del tw
+
+        # Checkpoint sweep, then restore into a fresh engine.
+        docs = None
+        if ckpt_docs is not None:
+            docs = sorted(np.random.default_rng(seed + 5).choice(
+                n_docs, size=ckpt_docs, replace=False).tolist())
+        t1 = time.perf_counter()
+        written = eng.maybe_checkpoint(force=True, docs=docs)
+        checkpoint_s = time.perf_counter() - t1
+        ck_root = os.path.join(ck_dir, "checkpoints")
+        ck_bytes = sum(os.path.getsize(os.path.join(ck_root, n)) for n in os.listdir(ck_root))
+        check(len(written) == (n_docs if docs is None else len(docs)), f"checkpointed {len(written)}")
+        eng2 = DocBatchEngine(n_docs, device=device, checkpoint_store=CheckpointStore(ck_dir), **geom)
+        t1 = time.perf_counter()
+        restored = eng2.restore_from_checkpoints()
+        sync()
+        restore_s = time.perf_counter() - t1
+        check(restored == sorted(written), "restore missed docs")
+        # Every restored doc holds the original's summary, lane and text;
+        # a sampled batch row equals, column by column, the original's
+        # summary packed at the batch geometry (what restore must write).
+        check(all(_docs_equivalent(eng, d, eng2, d) for d in restored), "restored docs differ")
+        sampled = [d for d in pick if d in set(restored)]
+        for d in sampled:
+            if _lane_of(eng, d) == "batch":
+                want = kb.summary_to_state_host(
+                    _summary(eng, d), eng2.geometry, eng2.hosts[d].prop_slot.__getitem__)
+                check(_state_rows_equal(eng2.doc_state(d), mk.from_numpy(want, device="cpu")),
+                      f"restored row {d} is not its summary's pack")
+
+        # The parallel restore's scatter alone (K4's neighbour on the table):
+        # the restored batch rows written again from a host stack — the
+        # same bytes, so the state does not change.
+        scatter = {}
+        if on_card:
+            rows = [d for d in restored if _lane_of(eng2, d) == "batch"]
+            stacked = mk.tree_map(lambda x: x[rows], mk.to_numpy(eng2.state))
+            nbytes = 2 * sum(x.nbytes for x in mk.leaves(stacked))
+            scatter = {
+                "scatter_rows": len(rows), "scatter_bytes": nbytes,
+                "scatter_bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+                "scatter_ms": cuda_ms(lambda: eng2._scatter_rows(rows, stacked), 3, warmup=1),
+                "scatter_device_ms": _device_sum(device_ms_by_name(
+                    lambda: eng2._scatter_rows(rows, stacked), 3)),
+            }
+            del stacked
+
+        # Two more rounds to both engines, then one checkpointed round again.
+        live = set(restored)
+        for r in (rounds, rounds + 1):
+            for d, m in _fleet_rounds(rounds_msgs, faults, r, live):
+                eng.ingest(d, m)
+                eng2.ingest(d, m)
+        for e in (eng, eng2):
+            e.step()
+            e.compact()
+        sync()
+        check(eng2.counters.get("checkpointed_ops_skipped") == 0, "new ops were skipped")
+        check(all(_docs_equivalent(eng, d, eng2, d) for d in sampled),
+              "post-restore traffic diverged")
+        dig0 = fleet_digest(eng2.state).cpu()
+        for d, m in _fleet_rounds(rounds_msgs, faults, rounds - 1, live):
+            eng2.ingest(d, m)
+        eng2.step()
+        skipped = eng2.counters.get("checkpointed_ops_skipped")
+        check(skipped > 0 and torch.equal(fleet_digest(eng2.state).cpu(), dig0)
+              and all(_docs_equivalent(eng, d, eng2, d) for d in sampled),
+              "re-fed checkpointed round changed the restored engine")
+        health = eng.health()
+        out = {
+            "phase": "recovery", "card": card, "docs": n_docs, "rounds": rounds,
+            "recovery": "grow", "faults": {k: len(v) for k, v in plan.items()},
+            "traffic_gen_s": gen_s, "ops_applied": ops_applied, "wall_s": wall_s,
+            "ops_per_s": ops_applied / wall_s, "recover_s": timers["recover"],
+            "replay_s": timers["_recover_doc"],
+            "cpu_replay_docs": len(pick), "cpu_replay_s": cpu_replay_s,
+            "watchdog_s": watchdog_s, **wd, **digest, **tamper,
+            "checkpoint_docs": len(written), "checkpoint_bytes": ck_bytes,
+            "checkpoint_s": checkpoint_s, "restore_docs": len(restored),
+            "restore_s": restore_s, **scatter, "peak_mem_bytes": peak_mem,
+            "checkpointed_ops_skipped": skipped,
+            "k1_launches": resolve_positions.launches - launches0,
+            **{k: health.get(k) for k in (
+                "capacity_recoveries", "quarantines", "poison_ops_dropped",
+                "recovery_replay_len", "quarantine_replay_len", "overflow_docs",
+                "quarantined_docs", "checkpoints_written", "megastep_dispatches",
+                "megastep_slices")},
+            "docs_restored": eng2.counters.get("docs_restored"),
+        }
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
     emit(out)
     return out
 
@@ -627,6 +1016,9 @@ def phase_long_doc(seed: int, card: str, device: str, S: int = 262_144, Q: int =
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-docs", type=int, default=None,
+                    help="checkpoint a seeded subset of this many docs in the "
+                         "recovery phase (default: every doc)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -649,19 +1041,34 @@ def main(argv=None) -> int:
           "library": str(rk.library_path().name)})
     k = phase_kernels(args.seed, card)
 
-    # The main path: counts to 0 just before, read just after.
-    rk.resolve_positions.launches = 0
-    phase_fleet(args.seed, card, "cuda")
-    phase_hot_doc(args.seed, card, "cuda")
-    phase_long_doc(args.seed, card, "cuda")
-    launches = rk.resolve_positions.launches
-    check(launches > 0, "K1 was never launched on the main path")
+    # The main path, phase by phase: K1's launch count is set to 0 just
+    # before each path and read just after it; the paths that run K1 (the
+    # segment lane and the long-document plane) fail if it never launched.
+    # The fleet runs at recovery="grow" and then, to price recovery's
+    # per-step error-count read and log, in turns off, grow, grow, off.
+    paths = {}
+
+    def path(name, fn, *args, **kw):
+        rk.resolve_positions.launches = 0
+        fn(*args, **kw)
+        paths[name] = rk.resolve_positions.launches
+
+    path("fleet", phase_fleet, args.seed, card, "cuda", recovery="grow")
+    for recovery in ("off", "grow", "grow", "off"):
+        phase_fleet(args.seed, card, "cuda", recovery=recovery)
+    path("recovery", phase_recovery, args.seed, card, "cuda", ckpt_docs=args.ckpt_docs)
+    path("hot_doc", phase_hot_doc, args.seed, card, "cuda")
+    path("long_doc", phase_long_doc, args.seed, card, "cuda")
+    for name in ("hot_doc", "long_doc"):
+        check(paths[name] > 0, f"K1 was never launched on the {name} path")
+    launches = sum(paths.values())
 
     emit({"kernels": [{
         "name": "resolve_positions", "route": "cuda",
         "source": "fluidframework_tpu_torch/csrc/resolve_positions.cu",
         "replaces": "fluidframework_tpu/ops/pallas_kernels.py:65",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
+        "launches": launches, "launches_by_path": paths,
+        "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"], "device_ms": k["kernel_device_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"],

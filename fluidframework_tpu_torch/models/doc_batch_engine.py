@@ -1,29 +1,63 @@
 """DocBatchEngine: batched sequenced-op application across many documents.
 
-Counterpart of ``fluidframework_tpu/models/doc_batch_engine.py``, the
-core of it: thousands of SharedString replicas, each with its own totally
-ordered op stream, applied in lockstep device megasteps.
+Counterpart of ``fluidframework_tpu/models/doc_batch_engine.py``: thousands
+of SharedString replicas, each with its own totally ordered op stream,
+applied in lockstep device megasteps.
 
 - host: per-doc ``RowQueue`` staging of sequenced messages, op encoding
   (stamp keys, positions, payload codepoints), quorum (clientId -> short
-  id), prop-slot interning;
+  id), prop-slot interning, the retained wire log that recovery replays;
 - device: ``step`` packs up to K [D, B] slices into a pinned staging ring,
   uploads them and applies them with ``apply_megastep`` through the
   dispatch plane; ``compact`` advances every doc's MSN and runs zamboni.
 
-The state is byte-identical to the reference engine's for the same
-message stream.  This slice supports ``recovery="off"`` only: error bits
-latch on the per-doc ``error`` column and stay there (``errors()``).
-Recovery lanes (grow/oracle/quarantine), checkpoints, the watchdog,
-migration, cohort steps and engine-promoted segment lanes raise
-``NotImplementedError``.
+The state, the lanes and the checkpoint files are byte-identical to the
+reference engine's for the same message stream.
+
+Recovery (``recovery=``, default ``"grow"`` as in the reference): after
+every ``step`` the engine reads the fleet's error count (one scalar) and
+recovers each flagged document, so no error bit survives a run.
+
+- Capacity errors (ERR_SEG/TEXT/REM/OB_OVERFLOW): ``"grow"`` replays the
+  document's retained log (from its checkpoint base) into an *overflow
+  lane* — a one-document state on the same device with the implicated
+  capacity axes doubled — up to ``max_growths`` times, then falls back to
+  the host oracle; ``"oracle"`` goes to the oracle at once.
+- Poison errors (ERR_POS_RANGE alone, a decode failure at ingest, a
+  divergence the watchdog finds): the document is *quarantined* into a
+  host oracle rebuilt from its checkpoint and retained tail, where every
+  further op is validated before it applies (malformed ops are dropped and
+  counted).  ``readmit`` (or ``readmit_after_steps`` with exponential
+  backoff, and ``poison_budget`` for flapping docs) returns it to the batch.
+- Checkpoints (``checkpoint_store``, ``checkpoint_every``): a document's
+  state is written as a summary record (``dds/kernel_backend.py``) and its
+  retained log truncated to the ops after it; ``restore_from_checkpoints``
+  rebuilds an engine from the records.
+- The divergence watchdog (``watchdog_every``, ``watchdog_sample``)
+  re-replays a rotating sample of batch docs through the host oracle and
+  quarantines on mismatch; a device digest of every row (``fleet_digest``,
+  K4) lets it skip docs whose digest and stream have not moved since they
+  last passed.
+
+``recovery="off"`` latches error bits on the per-doc ``error`` column and
+leaves them there (``errors()``).  Not ported yet (``NotImplementedError``):
+multi-shard segment lanes (``seg_shards > 1``, ``seg_lane_segments``,
+``seg_rebalance_every``), spare slots and migration, boot-snapshot
+adoption, the columnar and native ingest paths (``ingest_batch``,
+``ingest_lines``) and cohort steps: every megastep runs fleet-wide.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+
 import numpy as np
 import torch
 
+from ..dds import kernel_backend as kb
+from ..dds.mergetree_ref import RefMergeTree
+from ..dds.shared_string import validate_obliterate_places
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops import mergetree_kernel as mk
 from ..protocol.messages import (
@@ -32,35 +66,139 @@ from ..protocol.messages import (
     SequencedMessage,
     decode_obliterate_places,
 )
+from ..utils.telemetry import HealthCounters
+from . import placement
 from .dispatch import dispatch_plane
+from .recovery import (
+    RecoveryTracker,
+    load_checkpoint_records,
+    stale_due_docs,
+    write_checkpoint_records,
+)
 from .staging import RowQueue, StagingRing
 
 
 class _DocHost:
     """Host-side per-document bookkeeping."""
 
-    __slots__ = ("queue", "quorum", "min_seq", "prop_slot")
+    __slots__ = (
+        "queue", "quorum", "min_seq", "prop_slot", "log", "mode", "base_seq",
+        "base_summary", "last_seq", "ops_since_ckpt", "dirty_since",
+        "restored", "boot_counting",
+    )
 
     def __init__(self, max_insert_len: int) -> None:
         self.queue = RowQueue(mk.OP_FIELDS, max_insert_len)
         self.quorum: dict[str, int] = {}
         self.min_seq = 0
         self.prop_slot: dict[int, int] = {}  # property id -> kernel prop slot
+        # Retained wire log (every OP message with seq > base_seq, in
+        # sequence order): the replay source for recovery.  Ops at or below
+        # ``base_seq`` live in ``base_summary`` (the checkpoint) instead.
+        self.log: list[SequencedMessage] = []
+        self.mode: str | None = None  # "obj" once ingested (record field)
+        self.base_seq = 0
+        self.base_summary: dict | None = None  # None = empty doc
+        self.last_seq = 0  # highest OP seq ingested
+        self.ops_since_ckpt = 0
+        # Monotonic time the doc first went dirty after its last durable
+        # checkpoint (0.0 = clean): ``checkpoint_stale``'s seconds bound.
+        self.dirty_since = 0.0
+        self.restored = False  # set by restore_from_checkpoints
+        # Count applied ops as boot_replay_len only until the first
+        # checkpoint after a restore.
+        self.boot_counting = False
+
+
+class _OverflowLane:
+    """A document that outgrew the lockstep batch: its own state (a batch
+    of one, on the engine's device), geometry and queue."""
+
+    __slots__ = ("state", "geometry", "growths", "queue")
+
+    def __init__(self, state: mk.DocState, geometry: dict[str, int],
+                 growths: int, queue: RowQueue) -> None:
+        self.state = state
+        self.geometry = geometry
+        self.growths = growths
+        self.queue = queue
 
 
 def _fleet_compact_body(state: mk.DocState, min_seqs) -> mk.DocState:
     """Cadence compaction: every doc's MSN advance, then zamboni (the
-    reference's ``_fleet_compact_body``)."""
+    reference's ``_fleet_compact_body``; also the overflow lanes')."""
     return mk.compact(mk.set_min_seq(state, min_seqs))
 
 
-# Reference constructor options this slice does not port, with the values
-# that leave them off (``seg_shards=1`` is a one-shard fleet: also off).
+# ----------------------------------------------------------------- K4 digest
+#
+# The reference computes the digest in uint32 arithmetic that wraps.  Here
+# every term is computed in int64 and reduced mod 2**32 before it can
+# overflow: a value (any int32, read as its uint32 bit pattern, < 2**32)
+# times one 16-bit half of a weight stays below 2**48, so
+# x * w mod 2**32 = (x * w_lo mod 2**32 + (x * w_hi mod 2**16) * 2**16)
+# mod 2**32 is exact for every input, and a row sum of N reduced terms
+# stays below N * 2**32.
+
+_M32 = 0xFFFFFFFF
+# Docs per chunk of the digest: [chunk, T] int64 temporaries of at most
+# this many elements (32 MiB each), whatever the fleet's size.
+DIGEST_CHUNK_ELEMS = 1 << 22
+
+
+def _split_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return w & 0xFFFF, w >> 16
+
+
+def _mulsum32(x: torch.Tensor, w: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Per row: sum(x * w) mod 2**32 with uint32 semantics ([C, N] -> [C])."""
+    lo, hi = w
+    x = x.long() & _M32
+    return (
+        ((x * lo) & _M32).sum(-1) + (((x * hi) & 0xFFFF).sum(-1) << 16)
+    ) & _M32
+
+
+def fleet_digest(state: mk.DocState) -> torch.Tensor:
+    """K4: a per-doc state digest computed on the state's device — a
+    position-weighted checksum of the text pool plus the segment layout
+    columns (``seg_len``, ``seg_start``, ``rem_keys``) and the ``text_end``
+    and ``nseg`` scalars.  The watchdog's pre-filter: a doc whose digest
+    and ingested seq have not moved since it last passed cannot have
+    diverged since.  Bit-for-bit the reference's ``_fleet_digest``; returns
+    int64[D] holding the uint32 values.  Runs in chunks of docs so it adds
+    a bounded amount to peak memory."""
+    dev = state.text.device
+    D, T = state.text.shape
+    S = state.seg_len.shape[-1]
+    t_iota = torch.arange(T, dtype=torch.int64, device=dev)
+    s_iota = torch.arange(S, dtype=torch.int64, device=dev)
+    ws_full = (s_iota * 0x85EBCA6B + 0xC2B2AE35) & _M32
+    wt = _split_weight((t_iota * 2654435761 + 0x9E3779B9) & _M32)
+    ws = _split_weight(ws_full)
+    wsx = _split_weight(ws_full ^ 0xA5A5A5A5)
+    out = torch.empty((D,), dtype=torch.int64, device=dev)
+    chunk = max(1, DIGEST_CHUNK_ELEMS // max(T, S))
+    for c0 in range(0, D, chunk):
+        rows = slice(c0, min(D, c0 + chunk))
+        dig = (
+            _mulsum32(state.text[rows], wt)
+            + _mulsum32(state.seg_len[rows], ws)
+            + _mulsum32(state.seg_start[rows], wsx)
+        ) & _M32
+        for rk in state.rem_keys:
+            dig = (dig * 31 + _mulsum32(rk[rows], ws)) & _M32
+        dig = (dig * 31 + (state.text_end[rows].long() & _M32)) & _M32
+        dig = (dig * 31 + (state.nseg[rows].long() & _M32)) & _M32
+        out[rows] = dig
+    return out
+
+
+# Reference constructor options this port does not carry yet, with the
+# values that leave them off (``seg_shards=1`` is a one-shard fleet: off).
 _OPTIONS_OFF = {
-    "checkpoint_store": (None,), "checkpoint_every": (0,),
-    "watchdog_every": (0,), "readmit_after_steps": (0,),
-    "poison_budget": (0,), "spare_slots": (0,), "seg_shards": (0, 1),
-    "seg_lane_segments": (0,), "seg_rebalance_every": (0,),
+    "spare_slots": (0,), "seg_shards": (0, 1), "seg_lane_segments": (0,),
+    "seg_rebalance_every": (0,),
 }
 
 
@@ -78,14 +216,20 @@ class DocBatchEngine:
         ops_per_step: int = 16,
         ob_slots: int = 8,
         megastep_k: int = 1,
-        recovery: str = "off",
+        recovery: str = "grow",
+        max_growths: int = 4,
+        checkpoint_store=None,
+        checkpoint_every: int = 0,
+        doc_keys: list[str] | None = None,
+        watchdog_every: int = 0,
+        watchdog_sample: int = 4,
+        readmit_after_steps: int = 0,
+        poison_budget: int = 0,
         device=DEFAULT_DEVICE,
         **options,
     ) -> None:
-        if recovery != "off":
-            raise NotImplementedError(
-                f"recovery={recovery!r}: this port supports recovery='off' only"
-            )
+        if recovery not in ("grow", "oracle", "off"):
+            raise ValueError(f"recovery={recovery!r}: expected grow, oracle or off")
         for name, value in options.items():
             if name not in _OPTIONS_OFF:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -97,6 +241,8 @@ class DocBatchEngine:
         self.max_insert_len = max_insert_len
         self.ops_per_step = ops_per_step
         self.megastep_k = max(1, megastep_k)
+        self.recovery = recovery
+        self.max_growths = max_growths
         self.hosts = [_DocHost(max_insert_len) for _ in range(n_docs)]
         self.geometry = {
             "max_segments": max_segments,
@@ -105,6 +251,53 @@ class DocBatchEngine:
             "text_capacity": text_capacity,
             "ob_slots": ob_slots,
         }
+        # Recovery lanes (doc -> overflow lane / oracle replica), and the
+        # quarantine lane: docs whose op stream (or device state) proved
+        # bad, served by a validated host oracle until readmission.
+        self.overflow: dict[int, _OverflowLane] = {}
+        self.oracles: dict[int, RefMergeTree] = {}
+        self.quarantine: dict[int, RefMergeTree] = {}
+        self.quarantine_reason: dict[int, str] = {}
+        self.checkpoint_store = checkpoint_store
+        self.checkpoint_every = checkpoint_every
+        # Checkpoint-plane lock: step/ingest/maybe_checkpoint/restore take
+        # it, so a sweep only ever sees the engine at an op boundary.
+        # Re-entrant because step() calls into checkpointing under it.
+        self.ckpt_lock = threading.RLock()
+        # Durable writes happen outside ckpt_lock, serialized here with
+        # per-doc seq fencing (models/recovery.write_checkpoint_records).
+        self._ckpt_io_lock = threading.Lock()
+        self._ckpt_saved_seq: dict[int, int] = {}
+        self.recovery_tracker = RecoveryTracker()
+        # Record-file mtimes last seen by a refresh restore.
+        self._trail_mtime: dict[int, float] = {}
+        self.doc_keys = list(doc_keys) if doc_keys is not None else [
+            str(d) for d in range(n_docs)
+        ]
+        if len(self.doc_keys) != n_docs:
+            raise ValueError(f"{len(self.doc_keys)} doc_keys for {n_docs} docs")
+        self.watchdog_every = watchdog_every
+        self.watchdog_sample = watchdog_sample
+        self._watchdog_cursor = 0
+        self._steps_since_watchdog = 0
+        # Watchdog pre-filter: per doc the (digest, last_seq) pair recorded
+        # when it last PASSED a check.  Skipping needs both unchanged: the
+        # digest alone cannot tell "no ops applied" from "ops silently
+        # dropped by the kernel".
+        self._verified_digest: dict[int, tuple[int, int]] = {}
+        # Quarantine readmission policy: retry after ``readmit_after_steps``
+        # steps, doubling per flap; more than ``poison_budget`` flaps (0 =
+        # no budget) routes the doc to the oracle for good.
+        self.readmit_after_steps = readmit_after_steps
+        self.poison_budget = poison_budget
+        self._step_count = 0
+        self._flaps: dict[int, int] = {}
+        self._readmit_due: dict[int, int] = {}
+        self._readmit_interval: dict[int, int] = {}
+        self.counters = HealthCounters(
+            megastep_dispatches=0, megastep_slices=0, ops_staged=0,
+            ob_gate_syncs=0,  # device reads of the obliterate gate
+        )
         pm = self._pm = dispatch_plane()
         self.mesh = pm.doc_mesh(self.device)
         proto = mk.init_state(
@@ -117,25 +310,69 @@ class DocBatchEngine:
         # Docs with a nonempty host queue, maintained by ingest and drain.
         self._busy: set[int] = set()
         self._stage: StagingRing | None = None
-        self.counters: dict[str, int] = {
-            "megastep_dispatches": 0, "megastep_slices": 0, "ops_staged": 0,
-            "ob_gate_syncs": 0,  # device reads of the obliterate gate
-        }
 
     # ------------------------------------------------------------------ ingest
     def ingest(self, doc_idx: int, msg: SequencedMessage) -> None:
         """Stage one sequenced message for a document (host-side decode);
-        application is deferred to the next ``step``."""
+        application is deferred to the next ``step``.  Serialized on
+        ``ckpt_lock``."""
+        with self.ckpt_lock:
+            return self._ingest_one(doc_idx, msg)
+
+    def _ingest_one(self, doc_idx: int, msg: SequencedMessage) -> None:
         h = self.hosts[doc_idx]
+        if h.mode is None:
+            h.mode = "obj"
         h.min_seq = max(h.min_seq, msg.min_seq)
         if msg.type == MessageType.JOIN:
             h.quorum[msg.contents["clientId"]] = msg.contents["short"]
             return
         if msg.type != MessageType.OP:
             return
-        rows = self._encode(h, msg)
+        if h.base_seq and msg.seq <= h.base_seq:
+            # Already folded into the durable checkpoint (a restarted
+            # consumer replaying from an older offset): skip.
+            self.counters.bump("checkpointed_ops_skipped")
+            return
+        h.last_seq = max(h.last_seq, msg.seq)
+        h.ops_since_ckpt += 1
+        if not h.dirty_since:
+            h.dirty_since = time.monotonic()
+        if h.boot_counting:
+            self.counters.bump("boot_replay_len")
+        if doc_idx in self.quarantine:
+            # Serviceable while quarantined: validated oracle apply (a
+            # malformed op drops, counted); the log keeps the tail.
+            self._oracle_apply_validated(self.quarantine[doc_idx], h, msg)
+            if self.recovery != "off":
+                h.log.append(msg)
+            return
+        if doc_idx in self.oracles:
+            # Oracle-routed docs never replay again: no log retained.
+            self._oracle_apply_validated(self.oracles[doc_idx], h, msg)
+            return
+        if self.recovery != "off":
+            h.log.append(msg)
+        try:
+            rows = self._encode(h, msg)
+        except NotImplementedError:
+            # Legal-but-unsupported wire form: loud, and never applied, so
+            # it leaves the replay log.
+            if h.log and h.log[-1] is msg:
+                h.log.pop()
+            h.ops_since_ckpt -= 1
+            raise
+        except (ValueError, KeyError, TypeError) as e:
+            if self.recovery == "off":
+                raise  # no retained log to rebuild from: surface it
+            # Decode failure: malformed for THIS doc only.
+            self._quarantine_doc(doc_idx, f"decode: {e}")
+            return
+        self.counters.bump("ops_staged", len(rows))
+        if doc_idx in self.overflow:
+            self.overflow[doc_idx].queue.extend_rows(rows)
+            return
         h.queue.extend_rows(rows)
-        self.counters["ops_staged"] += len(rows)
         if h.queue:
             self._busy.add(doc_idx)
 
@@ -147,6 +384,8 @@ class DocBatchEngine:
         empty = np.zeros((self.max_insert_len,), np.int32)
         if kind == DeltaType.INSERT:
             if not isinstance(c["seg"], str):
+                # Marker/annotated specs are legal wire forms this engine
+                # cannot encode yet: a loud feature gap, never poison.
                 raise NotImplementedError(
                     "engine supports plain-text insert segs only; got "
                     f"{type(c['seg']).__name__}"
@@ -183,17 +422,50 @@ class DocBatchEngine:
             )]
         raise ValueError(f"unsupported op type {kind}")
 
+    @staticmethod
+    def _oracle_apply(tree: RefMergeTree, h: _DocHost, msg: SequencedMessage) -> None:
+        """Apply one wire OP message to a host oracle replica."""
+        c = msg.contents
+        kind = c["type"]
+        client = h.quorum[msg.client_id]
+        if kind == DeltaType.INSERT:
+            tree.apply_insert(c["pos1"], c["seg"], msg.seq, client, msg.ref_seq)
+        elif kind == DeltaType.REMOVE:
+            tree.apply_remove(c["pos1"], c["pos2"], msg.seq, client, msg.ref_seq)
+        elif kind == DeltaType.ANNOTATE:
+            for prop, value in c["props"].items():
+                tree.apply_annotate(
+                    c["pos1"], c["pos2"], int(prop), value,
+                    msg.seq, client, msg.ref_seq,
+                )
+        elif kind in (DeltaType.OBLITERATE, DeltaType.OBLITERATE_SIDED):
+            p1, s1, p2, s2 = decode_obliterate_places(c)
+            tree.apply_obliterate(p1, s1, p2, s2, msg.seq, client, msg.ref_seq)
+        else:
+            raise ValueError(f"unsupported op type {kind}")
+
     def _prop_slot_for(self, h: _DocHost, prop: int) -> int:
         """Intern a property id to a kernel prop slot (range-checked)."""
+        return self._prop_slot_for_geom(h, prop, self.geometry)
+
+    def _prop_slot_for_geom(self, h: _DocHost, prop: int, geom: dict) -> int:
+        """Intern a property id against ``geom``'s prop slots (live
+        encoding and replay-base restores share one table)."""
         if prop not in h.prop_slot:
             slot = len(h.prop_slot)
-            if slot >= self.geometry["prop_slots"]:
+            if slot >= geom["prop_slots"]:
                 raise ValueError(
-                    f"document exhausted its {self.geometry['prop_slots']} prop "
-                    f"slots; raise prop_slots to accommodate prop id {prop}"
+                    f"document exhausted its {geom['prop_slots']} prop slots; "
+                    f"raise prop_slots to accommodate prop id {prop}"
                 )
             h.prop_slot[prop] = slot
         return h.prop_slot[prop]
+
+    def ingest_batch(self, doc_idxs, msgs) -> int:
+        raise NotImplementedError("the columnar ingest path is not ported yet")
+
+    def ingest_lines(self, doc_idx: int, data: bytes) -> int:
+        raise NotImplementedError("the native ingest path is not ported yet")
 
     # ------------------------------------------------------------------- step
     def _drain_into(self, docs: list[int], ops: np.ndarray,
@@ -249,60 +521,772 @@ class DocBatchEngine:
         dev_ops, dev_payloads = stage.upload(ops, payloads)
         syncs = mk.apply_megastep.ob_gate_syncs
         self.state = self._megastep(self.state, dev_ops, dev_payloads, kinds=kinds)
-        self.counters["ob_gate_syncs"] += mk.apply_megastep.ob_gate_syncs - syncs
-        self.counters["megastep_dispatches"] += 1
-        self.counters["megastep_slices"] += K
+        self.counters.bump("ob_gate_syncs", mk.apply_megastep.ob_gate_syncs - syncs)
+        self.counters.bump("megastep_dispatches")
+        self.counters.bump("megastep_slices", K)
         return K
 
     def step(self) -> int:
-        """Run megasteps until all staged ops are applied; returns the
-        number of [D, B] slices applied.  Error bits latch on device
-        (``errors()``); nothing is recovered (``recovery="off"``)."""
+        """Run megasteps until all staged ops are applied (batch and
+        overflow lanes); returns the number of [D, B] slices applied.  Then,
+        unless recovery is off, recover every latched doc (``errors()`` is
+        all zero on return), run the watchdog and readmissions when due,
+        and write the cadence checkpoints (after ``ckpt_lock`` releases)."""
+        with self.ckpt_lock:
+            had_work = bool(
+                self._busy or any(ln.queue for ln in self.overflow.values())
+            )
+            steps = self._step_fleet()
+            if had_work and self.recovery_tracker.active:
+                self.recovery_tracker.complete()
+        self.maybe_checkpoint()
+        return steps
+
+    def _step_fleet(self) -> int:
         steps = 0
         while self._busy:
             steps += self._full_step(sorted(self._busy))
+        self._step_lanes()
+        self._step_count += 1
+        if self.recovery != "off":
+            self.recover()
+            self._steps_since_watchdog += 1
+            if (
+                self.watchdog_every
+                and self._steps_since_watchdog >= self.watchdog_every
+            ):
+                self._steps_since_watchdog = 0
+                self.watchdog()
+            if self.readmit_after_steps:
+                self._maybe_readmit()
         return steps
 
+    def _lane_apply(self, state: mk.DocState, rows_ops: np.ndarray,
+                    rows_payloads: np.ndarray) -> mk.DocState:
+        """Apply up to B op rows to a one-document lane state (zero-padded
+        to one [1, B] slice, as the reference stages a lane chunk)."""
+        B = self.ops_per_step
+        ops = np.zeros((1, B, mk.OP_FIELDS), np.int32)
+        payloads = np.zeros((1, B, self.max_insert_len), np.int32)
+        ops[0, : len(rows_ops)] = rows_ops
+        payloads[0, : len(rows_payloads)] = rows_payloads
+        return mk.apply_ops(state, ops, payloads)
+
+    def _step_lanes(self) -> None:
+        B = self.ops_per_step
+        for lane in self.overflow.values():
+            while lane.queue:
+                src_ops, src_payloads = lane.queue.take(min(B, len(lane.queue)))
+                lane.state = self._lane_apply(lane.state, src_ops, src_payloads)
+
+    def _maybe_readmit(self) -> None:
+        """Backoff-scheduled quarantine readmission."""
+        for d, due_step in list(self._readmit_due.items()):
+            if self._step_count < due_step or d not in self.quarantine:
+                if d not in self.quarantine:
+                    self._readmit_due.pop(d, None)
+                continue
+            if self.readmit(d):
+                self.counters.bump("auto_readmissions")
+            else:
+                # The state no longer fits the batch geometry: double the
+                # backoff and retry later (still serviceable meanwhile).
+                interval = min(
+                    2 * self._readmit_interval.get(d, self.readmit_after_steps),
+                    self.readmit_after_steps << 16,
+                )
+                self._readmit_interval[d] = interval
+                self._readmit_due[d] = self._step_count + interval
+
     def compact(self) -> None:
-        """Advance MSNs and run zamboni eviction across the fleet."""
+        """Advance MSNs and run zamboni eviction across the fleet, its
+        overflow lanes and its host oracles."""
         mins = np.array([h.min_seq for h in self.hosts], np.int32)
         self.state = self._compact(
             self.state, self._pm.shard_docs(torch.from_numpy(mins), self.mesh)
         )
+        for d, lane in self.overflow.items():
+            lane.state = _fleet_compact_body(
+                lane.state, np.asarray([self.hosts[d].min_seq], np.int32)
+            )
+        for d, tree in self.oracles.items():
+            tree.update_min_seq(self.hosts[d].min_seq)
+        for d, tree in self.quarantine.items():
+            tree.update_min_seq(self.hosts[d].min_seq)
 
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError(
-            "checkpoints, recovery lanes, the watchdog, migration and "
-            "engine-promoted segment lanes are not ported yet"
+    # --------------------------------------------------------------- recovery
+    def recover(self) -> list[int]:
+        """Recover every flagged doc; returns the doc indices recovered.
+        One scalar read of the batch's error count per call (the error
+        vector is read only when it is nonzero) and one read of the
+        overflow lanes' error scalars.  Capacity bits grow-and-replay (or
+        oracle-route); poison bits (ERR_POS_RANGE alone) quarantine."""
+        recovered: list[int] = []
+        if self.error_count():
+            err = self.state.error.cpu().numpy().copy()
+            for d in np.flatnonzero(err).tolist():
+                if d in self.overflow or d in self.oracles or d in self.quarantine:
+                    continue
+                bits = int(err[d])
+                if mk.is_capacity_error(bits):
+                    self._recover_doc(d, bits, growths=0)
+                else:  # poison: ERR_POS_RANGE with no capacity bit
+                    self._quarantine_doc(d, f"error bits {bits:#x}")
+                # Retire the batch row's latch: future ops route to the lane.
+                self.state.error[d] = 0
+                recovered.append(d)
+        if self.overflow:
+            lanes = list(self.overflow.items())
+            lane_bits = torch.cat([ln.state.error for _, ln in lanes]).tolist()
+            for (d, lane), bits in zip(lanes, lane_bits):
+                if bits:
+                    if mk.is_capacity_error(bits):
+                        self._recover_doc(d, bits, growths=lane.growths)
+                    else:
+                        self._quarantine_doc(d, f"error bits {bits:#x}")
+                    recovered.append(d)
+        if recovered:
+            self.counters.emit(recovered_docs=len(recovered))
+        return recovered
+
+    def _make_lane(self, state: mk.DocState, geometry: dict[str, int],
+                   growths: int) -> _OverflowLane:
+        return _OverflowLane(
+            state, geometry, growths, RowQueue(mk.OP_FIELDS, self.max_insert_len)
         )
 
-    maybe_checkpoint = restore_from_checkpoints = watchdog = _not_ported
-    readmit = migrate_doc = enable_segment_sharding = _not_ported
+    def _recover_doc(self, d: int, bits: int, growths: int) -> None:
+        h = self.hosts[d]
+        geom = dict(
+            self.overflow[d].geometry if d in self.overflow else self.geometry
+        )
+        while self.recovery == "grow" and growths < self.max_growths:
+            growths += 1
+            geom = self._grown_geometry(geom, bits)
+            if h.base_summary is not None:
+                # The replay base must fit before a single op applies.
+                geom = self._fit_geometry(geom, h.base_summary, len(h.prop_slot))
+            state = self._replay(h, geom)
+            new_bits = int(state.error[0])
+            if new_bits == 0:
+                self.overflow[d] = self._make_lane(state, geom, growths)
+                self.counters.bump("capacity_recoveries")
+                return
+            bits = new_bits
+            if mk.is_poison_error(bits):
+                # POS_RANGE surviving replay at grown capacity: the op
+                # stream itself is malformed.
+                self._quarantine_doc(
+                    d, f"error bits {bits:#x} during replay at {geom}"
+                )
+                return
+        # Growth exhausted (or policy is oracle): the host replica takes over.
+        self.overflow.pop(d, None)
+        tree = self._oracle_from_base(h)
+        for msg in h.log:
+            self._oracle_apply(tree, h, msg)
+        tree.update_min_seq(h.min_seq)
+        self.oracles[d] = tree
+        self.counters.bump("oracle_routes")
+
+    @staticmethod
+    def _grown_geometry(base: dict[str, int], bits: int) -> dict[str, int]:
+        geom = dict(base)
+        if bits & mk.ERR_SEG_OVERFLOW:
+            geom["max_segments"] *= 2
+        if bits & mk.ERR_TEXT_OVERFLOW:
+            geom["text_capacity"] *= 2
+        if bits & mk.ERR_REM_OVERFLOW:
+            geom["remove_slots"] *= 2
+        if bits & mk.ERR_OB_OVERFLOW:
+            geom["ob_slots"] *= 2
+        return geom
+
+    @staticmethod
+    def _fit_geometry(
+        geom: dict[str, int], summary: dict, min_prop_slots: int = 0
+    ) -> dict[str, int]:
+        """Grow ``geom`` (doubling) until the checkpoint summary fits — a
+        replay base must never itself overflow.  ``min_prop_slots`` covers
+        the slots the doc's prop table already interned."""
+        geom = dict(geom)
+        n_seg = len(summary["segments"])
+        n_text = sum(len(e["text"]) for e in summary["segments"])
+        n_rem = max((len(e["removes"]) for e in summary["segments"]), default=0)
+        n_ob = len(summary.get("obliterates", []))
+        while geom["max_segments"] < n_seg:
+            geom["max_segments"] *= 2
+        while geom["text_capacity"] < n_text:
+            geom["text_capacity"] *= 2
+        while geom["remove_slots"] < n_rem:
+            geom["remove_slots"] *= 2
+        while geom["ob_slots"] < n_ob:
+            geom["ob_slots"] *= 2
+        while geom["prop_slots"] < min_prop_slots:
+            geom["prop_slots"] *= 2
+        return geom
+
+    def _replay(self, h: _DocHost, geom: dict[str, int]) -> mk.DocState:
+        """Re-apply the retained wire log on a one-document state with
+        ``geom`` on the engine's device — from the checkpoint base when
+        one exists (bounded replay), from scratch otherwise."""
+        if h.base_summary is not None:
+            state = kb.summary_to_state(
+                h.base_summary, geom,
+                lambda p: self._prop_slot_for_geom(h, p, geom), device=self.device,
+            )
+        else:
+            state = mk.init_state(
+                geom["max_segments"], geom["remove_slots"], geom["prop_slots"],
+                geom["text_capacity"], geom["ob_slots"], device=self.device,
+            )
+        state = mk.batch_state(state, 1)
+        rows: list[tuple[np.ndarray, np.ndarray]] = []
+        for msg in h.log:
+            rows.extend(self._encode(h, msg))
+        self.counters.gauge("recovery_replay_len", len(h.log))
+        B = self.ops_per_step
+        for i in range(0, len(rows), B):
+            chunk = rows[i : i + B]
+            state = self._lane_apply(
+                state, np.stack([op for op, _ in chunk]),
+                np.stack([payload for _, payload in chunk]),
+            )
+        return state
+
+    # ------------------------------------------------------------- quarantine
+    def _oracle_from_base(self, h: _DocHost) -> RefMergeTree:
+        """A host oracle seeded with the doc's checkpoint base (or empty)."""
+        tree = RefMergeTree()
+        if h.base_summary is not None:
+            tree.import_summary(h.base_summary)
+        return tree
+
+    def _oracle_apply_validated(
+        self, tree: RefMergeTree, h: _DocHost, msg: SequencedMessage
+    ) -> bool:
+        """Apply one wire op to a quarantine oracle behind a validation
+        gate: positions must resolve inside the op's own perspective and
+        the sender must be in the quorum.  A malformed op is dropped and
+        counted — it can corrupt neither this replica nor the batch."""
+        try:
+            c = msg.contents
+            client = h.quorum[msg.client_id]  # KeyError: unknown sender
+            n = tree.visible_length(msg.ref_seq, client)
+            kind = c["type"]
+            if kind == DeltaType.INSERT:
+                if not isinstance(c["seg"], str):
+                    raise NotImplementedError(
+                        f"unsupported seg spec {type(c['seg']).__name__}"
+                    )
+                if not (0 <= c["pos1"] <= n):
+                    raise ValueError(f"insert pos {c['pos1']} > length {n}")
+            elif kind in (DeltaType.REMOVE, DeltaType.ANNOTATE):
+                if not (0 <= c["pos1"] < c["pos2"] <= n):
+                    raise ValueError(
+                        f"range [{c['pos1']},{c['pos2']}) outside length {n}"
+                    )
+            elif kind in (DeltaType.OBLITERATE, DeltaType.OBLITERATE_SIDED):
+                p1, s1, p2, s2 = decode_obliterate_places(c)
+                validate_obliterate_places(p1, s1, p2, s2, n)
+            self._oracle_apply(tree, h, msg)
+            return True
+        except NotImplementedError:
+            raise  # feature gap, not poison: stay loud
+        except Exception:  # noqa: BLE001 — the gate IS the handler
+            self.counters.bump("poison_ops_dropped")
+            return False
+
+    def _quarantine_doc(self, d: int, reason: str) -> None:
+        """Evict one doc from the device batch into the validated host
+        oracle lane: checkpoint base + validated replay of the retained
+        tail (malformed ops drop).  The rest of the batch is untouched."""
+        h = self.hosts[d]
+        tree = self._oracle_from_base(h)
+        self.counters.gauge("quarantine_replay_len", len(h.log))
+        for msg in h.log:
+            self._oracle_apply_validated(tree, h, msg)
+        tree.update_min_seq(h.min_seq)
+        self.overflow.pop(d, None)
+        flaps = self._flaps[d] = self._flaps.get(d, 0) + 1
+        if self.poison_budget and flaps > self.poison_budget:
+            # Flapping: route to the oracle lane permanently (serviceable,
+            # never auto-readmitted).
+            self.quarantine.pop(d, None)
+            self.quarantine_reason.pop(d, None)
+            self._readmit_due.pop(d, None)
+            self._readmit_interval.pop(d, None)
+            self.oracles[d] = tree
+            self.counters.bump("poison_routed_docs")
+        else:
+            self.quarantine[d] = tree
+            self.quarantine_reason[d] = reason
+            if self.readmit_after_steps:
+                # Exponential backoff: 1 flap -> base, 2 -> 2x, 3 -> 4x...
+                interval = self.readmit_after_steps << min(flaps - 1, 16)
+                self._readmit_interval[d] = interval
+                self._readmit_due[d] = self._step_count + interval
+        h.queue.clear()
+        self._busy.discard(d)
+        self.state.error[d] = 0
+        self.counters.bump("quarantines")
+
+    def _put_row(self, d: int, row: mk.DocState) -> None:
+        """Write a one-document state (tensors or numpy) into batch row d."""
+        for x, y in zip(mk.leaves(self.state), mk.leaves(row)):
+            x[d] = torch.as_tensor(y).to(x.device)
+
+    def readmit(self, d: int) -> bool:
+        """Re-admit a quarantined doc to the lockstep batch: pack the
+        oracle's (validated) state at the batch geometry into the doc's
+        row.  Returns False — the doc stays quarantined — when the state no
+        longer fits the batch geometry."""
+        tree = self.quarantine.get(d)
+        if tree is None:
+            return False
+        h = self.hosts[d]
+        summary = tree.export_summary()
+        try:
+            row = kb.summary_to_state_host(
+                summary, self.geometry,
+                lambda p: self._prop_slot_for_geom(h, p, self.geometry),
+            )
+        except (ValueError, IndexError):
+            return False
+        self._put_row(d, row)
+        del self.quarantine[d]
+        self.quarantine_reason.pop(d, None)
+        self._readmit_due.pop(d, None)
+        self._readmit_interval.pop(d, None)
+        # Fresh device truth: the watchdog re-verifies it next sweep.
+        self._verified_digest.pop(d, None)
+        # The oracle state becomes the new replay base: the dropped poison
+        # ops are gone from both the state and the log.
+        h.base_summary = summary
+        h.base_seq = max(h.base_seq, h.last_seq)
+        h.log = [m for m in h.log if m.seq > h.base_seq]
+        self.counters.bump("readmissions")
+        return True
+
+    def migrate_doc(self, d: int, dst_shard: int) -> bool:
+        raise NotImplementedError("doc migration is not ported yet")
+
+    def enable_segment_sharding(self, d: int, s_local: int = 0,
+                                text_capacity: int = 0) -> bool:
+        raise NotImplementedError("engine-promoted segment lanes are not ported yet")
+
+    def adopt_boot_snapshot(self, doc_idx: int, record: dict):
+        raise NotImplementedError("boot-snapshot adoption is not ported yet")
+
+    # --------------------------------------------------------------- watchdog
+    def watchdog(self, sample: int | None = None) -> list[int]:
+        """Cross-check a rotating sample of batch docs against a host-oracle
+        replay of checkpoint + tail; quarantine (the oracle wins) on
+        mismatch.  Returns the doc indices that failed the check."""
+        if self.recovery == "off":
+            return []
+        eligible = [
+            d for d in range(self.n_docs)
+            if not (
+                d in self.overflow or d in self.oracles or d in self.quarantine
+            )
+            and self.hosts[d].mode == "obj"
+            and not self.hosts[d].queue
+        ]
+        if not eligible:
+            return []
+        # Device-digest pre-filter: one digest of the fleet per sweep (one
+        # device-to-host read).  A doc whose digest AND ingested seq both
+        # match its last passed check is skipped (counted).
+        digests = fleet_digest(self.state).cpu().tolist()
+        drifted = []
+        for d in eligible:
+            if self._verified_digest.get(d) == (digests[d], self.hosts[d].last_seq):
+                self.counters.bump("watchdog_prefiltered")
+            else:
+                drifted.append(d)
+        eligible = drifted
+        if not eligible:
+            return []
+        k = sample if sample is not None else self.watchdog_sample
+        start = self._watchdog_cursor
+        picks = [
+            eligible[(start + i) % len(eligible)]
+            for i in range(min(k, len(eligible)))
+        ]
+        self._watchdog_cursor = (start + len(picks)) % max(len(eligible), 1)
+        failed: list[int] = []
+        for d in picks:
+            h = self.hosts[d]
+            try:
+                tree = self._oracle_from_base(h)
+                for msg in h.log:
+                    self._oracle_apply(tree, h, msg)
+                expected = tree.visible_text()
+            except Exception:  # noqa: BLE001 — a log the strict path rejects
+                self._quarantine_doc(d, "watchdog: oracle replay failed")
+                failed.append(d)
+                continue
+            self.counters.bump("watchdog_checks")
+            if mk.visible_text(self.doc_state(d)) != expected:
+                self.counters.bump("watchdog_mismatches")
+                self._quarantine_doc(d, "watchdog: device/oracle divergence")
+                failed.append(d)
+            else:
+                # Passed: pin (digest, seq) until the row or stream moves.
+                self._verified_digest[d] = (digests[d], self.hosts[d].last_seq)
+        return failed
+
+    # ------------------------------------------------------------- checkpoint
+    def maybe_checkpoint(self, force: bool = False, docs=None) -> list[int]:
+        """Write durable checkpoint records for docs whose op count since
+        the last checkpoint reached ``checkpoint_every`` (every dirty doc
+        when ``force``; ``docs`` restricts the sweep to an explicit list,
+        checkpointed whenever dirty), then truncate their replay logs to
+        the tail.  The records are built under ``ckpt_lock`` and written
+        after it is released.  Returns the doc indices checkpointed."""
+        if self.checkpoint_store is None:
+            return []
+        if docs is None and not force and self.checkpoint_every <= 0:
+            return []
+        with self.ckpt_lock:
+            out, pending = self._checkpoint_sweep(force, docs)
+        write_checkpoint_records(self, pending)
+        return out
+
+    def checkpoint_stale(
+        self, max_ops_behind: int = 0, max_seconds_behind: float = 0.0
+    ) -> list[int]:
+        """Bounded-staleness sweep: checkpoint every dirty doc whose
+        durable record is ``max_ops_behind`` applied ops or
+        ``max_seconds_behind`` seconds behind the live stream (0 disables
+        that bound).  Returns the doc indices checkpointed."""
+        if self.checkpoint_store is None or not (
+            max_ops_behind or max_seconds_behind
+        ):
+            return []
+        now = time.monotonic()
+        with self.ckpt_lock:
+            due = stale_due_docs(
+                self.hosts, self.n_docs, max_ops_behind, max_seconds_behind, now,
+            )
+            if not due:
+                return []
+            out, pending = self._checkpoint_sweep(force=False, docs=due)
+            if out:
+                self.counters.bump("stale_checkpoints_written", len(out))
+        write_checkpoint_records(self, pending)
+        return out
+
+    def _checkpoint_sweep(
+        self, force: bool, docs
+    ) -> tuple[list[int], list[tuple[int, int, dict]]]:
+        """Build-and-account half of a checkpoint sweep (under
+        ``ckpt_lock``); the returned records are written after release."""
+        candidates = range(self.n_docs) if docs is None else docs
+        due = [
+            d for d in candidates
+            if self.hosts[d].ops_since_ckpt > 0
+            and (
+                force or docs is not None
+                or self.hosts[d].ops_since_ckpt >= self.checkpoint_every
+            )
+        ]
+        if not due:
+            return [], []  # host-side check only: no device read paid
+        out: list[int] = []
+        pending: list[tuple[int, int, dict]] = []
+        # ONE bulk device-to-host copy of the fleet state covers every due
+        # batch doc; the per-doc summary walks then slice host arrays.
+        host_state = (
+            mk.to_numpy(self.state)
+            if any(
+                d not in self.quarantine
+                and d not in self.oracles
+                and d not in self.overflow
+                for d in due
+            )
+            else None
+        )
+        for d in due:
+            h = self.hosts[d]
+            if h.queue or (d in self.overflow and self.overflow[d].queue):
+                continue  # staged-but-unapplied ops: state is mid-step
+            lane = "batch"
+            geometry = None
+            prop_names = {v: k for k, v in h.prop_slot.items()}
+            if d in self.quarantine:
+                lane = "quarantine"
+                summary = self.quarantine[d].export_summary()
+            elif d in self.oracles:
+                lane = "oracle"
+                summary = self.oracles[d].export_summary()
+            elif d in self.overflow:
+                lane = "overflow"
+                ln = self.overflow[d]
+                row = mk.to_numpy(mk.doc_row(ln.state, 0))
+                if int(row.error):
+                    continue
+                geometry = ln.geometry
+                growths = ln.growths
+                summary = kb.state_to_summary(row, prop_names)
+            else:
+                row = mk.tree_map(lambda x, _d=d: x[_d], host_state)
+                if int(row.error):
+                    continue  # never checkpoint a poisoned row
+                summary = kb.state_to_summary(row, prop_names)
+            record = {
+                "engine": "doc_batch",
+                "lane": lane,
+                "summary": summary,
+                "quorum": h.quorum,
+                "prop_slot": {str(k): v for k, v in h.prop_slot.items()},
+                "min_seq": h.min_seq,
+                "mode": h.mode,
+            }
+            if geometry is not None:
+                record["geometry"] = geometry
+                record["growths"] = growths
+            pending.append((d, h.last_seq, record))
+            h.base_seq = h.last_seq
+            h.base_summary = summary
+            h.log = [m for m in h.log if m.seq > h.base_seq]
+            h.ops_since_ckpt = 0
+            h.dirty_since = 0.0
+            h.boot_counting = False  # a new durable floor ends the boot phase
+            self.counters.bump("checkpoints_written")
+            out.append(d)
+        return out, pending
+
+    def _queue_depth(self, d: int) -> int:
+        """Staged-but-unapplied rows of doc ``d`` (batch queue + lane)."""
+        lane = self.overflow.get(d)
+        return len(self.hosts[d].queue) + (len(lane.queue) if lane else 0)
+
+    def restore_from_checkpoints(
+        self,
+        store=None,
+        parallel: bool = True,
+        max_workers: int | None = None,
+        refresh: bool = False,
+    ) -> list[int]:
+        """Engine restart path: load each doc's durable checkpoint record,
+        rebuild its state (batch row, overflow lane, or oracle/quarantine
+        replica) and set the seq floor so the upstream replay of ops the
+        checkpoint already covers is skipped.  Returns restored doc
+        indices.
+
+        ``parallel`` (default) loads the records concurrently and seeds
+        every batch-lane doc with one host stack and one ``index_copy_``
+        per state leaf; ``parallel=False`` loads and writes doc by doc —
+        the same state.  ``refresh`` re-adopts, for already-restored docs
+        with no staged work, a record strictly newer than their floor."""
+        store = store if store is not None else self.checkpoint_store
+        if store is None:
+            return []
+        with self.ckpt_lock:
+            return self._restore(store, parallel, max_workers, refresh)
+
+    def _restore(self, store, parallel, max_workers, refresh) -> list[int]:
+        t_start = time.monotonic()
+        candidates, cand_mtime = placement.restore_candidates(
+            self, store, refresh, self._queue_depth
+        )
+        if not candidates:
+            return []
+        records = load_checkpoint_records(
+            store, [self.doc_keys[d] for d in candidates],
+            parallel=parallel, max_workers=max_workers,
+        )
+        restored: list[int] = []
+        batch_rows: list[tuple[int, mk.DocState]] = []
+        for i, d in enumerate(candidates):
+            rec = records.get(i)
+            if rec is not None and d in cand_mtime:
+                self._trail_mtime[d] = cand_mtime[d]
+            if rec is None or rec.get("engine") != "doc_batch":
+                continue
+            h = self.hosts[d]
+            if refresh and h.restored:
+                if int(rec["seq"]) <= h.last_seq:
+                    continue  # nothing newer to adopt
+                self.counters.bump("checkpoint_refreshes")
+            if refresh:
+                self._drop_restored_identity(d)
+            h.quorum = dict(rec.get("quorum", {}))
+            h.prop_slot = {int(k): v for k, v in rec.get("prop_slot", {}).items()}
+            h.min_seq = rec.get("min_seq", 0)
+            h.base_seq = h.last_seq = int(rec["seq"])
+            h.base_summary = rec["summary"]
+            h.mode = "obj"
+            h.restored = True
+            h.boot_counting = True
+            lane = rec.get("lane", "batch")
+            if lane in ("oracle", "quarantine"):
+                tree = RefMergeTree()
+                tree.import_summary(rec["summary"])
+                tree.update_min_seq(h.min_seq)
+                if lane == "oracle":
+                    self.oracles[d] = tree
+                else:
+                    self.quarantine[d] = tree
+                    self.quarantine_reason[d] = "restored"
+                    if self.readmit_after_steps:
+                        # Schedule readmission like a first flap.
+                        self._flaps.setdefault(d, 1)
+                        self._readmit_interval[d] = self.readmit_after_steps
+                        self._readmit_due[d] = (
+                            self._step_count + self.readmit_after_steps
+                        )
+            elif lane == "overflow":
+                geom = {k: int(v) for k, v in rec["geometry"].items()}
+                self.overflow[d] = self._make_lane(
+                    self._lane_state(rec["summary"], h, geom), geom,
+                    int(rec.get("growths", 1)),
+                )
+            else:
+                try:
+                    row = kb.summary_to_state_host(
+                        rec["summary"], self.geometry,
+                        lambda p, _h=h: self._prop_slot_for_geom(
+                            _h, p, self.geometry
+                        ),
+                    )
+                except (ValueError, IndexError):
+                    # The record outgrew the batch geometry (a restart with
+                    # smaller capacity): an overflow lane at a fitted one.
+                    geom = self._fit_geometry(
+                        self.geometry, rec["summary"], len(h.prop_slot)
+                    )
+                    self.overflow[d] = self._make_lane(
+                        self._lane_state(rec["summary"], h, geom), geom, 1
+                    )
+                else:
+                    if parallel:
+                        batch_rows.append((d, row))
+                    else:
+                        self._put_row(d, row)
+            restored.append(d)
+            self.counters.bump("docs_restored")
+        if batch_rows:
+            self._scatter_rows(
+                [d for d, _ in batch_rows],
+                mk.tree_map(lambda *xs: np.stack(xs), *[r for _, r in batch_rows]),
+            )
+        if restored and not refresh:
+            # A real restore opens a recovery incident: the clock runs until
+            # the first post-restore op applies.
+            self.recovery_tracker.begin(t_start)
+        return restored
+
+    def _scatter_rows(self, docs: list[int], stacked: mk.DocState) -> None:
+        """The parallel restore's scatter: host rows stacked [n, ...] (numpy)
+        into the batch rows ``docs`` — one host-to-device copy and one
+        ``index_copy_`` per state leaf."""
+        idx = torch.tensor(docs, device=self.device)
+        for x, y in zip(mk.leaves(self.state), mk.leaves(stacked)):
+            x.index_copy_(0, idx, torch.from_numpy(y).to(x.device))
+
+    def _lane_state(self, summary: dict, h: _DocHost, geom: dict) -> mk.DocState:
+        """A summary packed at ``geom`` as an overflow lane's state."""
+        return mk.batch_state(
+            kb.summary_to_state(
+                summary, geom, lambda p: self._prop_slot_for_geom(h, p, geom),
+                device=self.device,
+            ),
+            1,
+        )
+
+    def _drop_restored_identity(self, d: int) -> None:
+        """Forget a doc's prior adoption before a refresh re-seed (the doc
+        has no staged work by contract)."""
+        self.overflow.pop(d, None)
+        self.oracles.pop(d, None)
+        self.quarantine.pop(d, None)
+        self.quarantine_reason.pop(d, None)
+        self._readmit_due.pop(d, None)
+        self._readmit_interval.pop(d, None)
+        self._verified_digest.pop(d, None)
+        h = self.hosts[d]
+        h.log.clear()
+        h.queue.clear()
+        self._busy.discard(d)
 
     # ------------------------------------------------------------------ views
     def error_count(self) -> int:
-        """Docs with a latched error bit (one scalar read)."""
+        """Batch docs with a latched error bit (one scalar read)."""
         return self._pm.error_count(self.state.error)
 
     def health(self) -> dict:
-        out = dict(self.counters)
-        out["megastep_k"] = self.megastep_k
-        out["staging_overlap_packs"] = (
-            self._stage.overlapped_packs if self._stage is not None else 0
+        """Degraded-mode health counters: the engine's counters and gauges,
+        the recovery clock, and the lane and checkpoint surfaces."""
+        self.counters.gauge("megastep_k", self.megastep_k)
+        self.counters.gauge(
+            "staging_overlap_packs",
+            self._stage.overlapped_packs if self._stage is not None else 0,
         )
-        return out
+        self.recovery_tracker.emit_gauges(self.counters)
+        now = time.monotonic()
+        self.counters.gauge(
+            "dirty_docs", sum(1 for h in self.hosts if h.ops_since_ckpt > 0)
+        )
+        self.counters.gauge(
+            "checkpoint_age_s",
+            round(
+                max(
+                    (now - h.dirty_since for h in self.hosts if h.dirty_since),
+                    default=0.0,
+                ),
+                3,
+            ),
+        )
+        snap = self.counters.snapshot()
+        snap.update(
+            quarantined_docs=len(self.quarantine),
+            overflow_docs=len(self.overflow),
+            oracle_docs=len(self.oracles),
+            checkpoint_age_seqs=max(
+                (h.last_seq - h.base_seq for h in self.hosts if h.last_seq),
+                default=0,
+            ),
+            retained_log_msgs=sum(len(h.log) for h in self.hosts),
+            quarantine_flaps=sum(self._flaps.values()),
+            readmits_scheduled=len(self._readmit_due),
+        )
+        return snap
 
     def doc_state(self, doc_idx: int) -> mk.DocState:
+        """A doc's one-document state: its overflow lane's, else its batch
+        row (views)."""
+        if doc_idx in self.overflow:
+            return mk.doc_row(self.overflow[doc_idx].state, 0)
         return mk.doc_row(self.state, doc_idx)
 
     def text(self, doc_idx: int) -> str:
+        if doc_idx in self.quarantine:
+            return self.quarantine[doc_idx].visible_text()
+        if doc_idx in self.oracles:
+            return self.oracles[doc_idx].visible_text()
         return mk.visible_text(self.doc_state(doc_idx))
 
     def annotations(self, doc_idx: int) -> list[dict[int, int]]:
+        if doc_idx in self.quarantine:
+            return self.quarantine[doc_idx].annotations()
+        if doc_idx in self.oracles:
+            return self.oracles[doc_idx].annotations()
         raw = mk.annotations(self.doc_state(doc_idx))
         inv = {v: k for k, v in self.hosts[doc_idx].prop_slot.items()}
         return [{inv[p]: v for p, v in d.items()} for d in raw]
 
     def errors(self) -> np.ndarray:
-        """Per-doc error vector (doc-indexed)."""
-        return self.state.error.cpu().numpy()
+        """Per-doc error vector across batch and overflow lanes.  Oracle
+        and quarantined docs read 0: they are isolated and serviceable —
+        their degraded state surfaces through ``health()``."""
+        err = self.state.error.cpu().numpy().copy()
+        for d, lane in self.overflow.items():
+            err[d] = int(lane.state.error[0])
+        for d in self.oracles:
+            err[d] = 0
+        for d in self.quarantine:
+            err[d] = 0
+        return err

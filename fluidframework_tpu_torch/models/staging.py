@@ -78,6 +78,10 @@ class RowQueue:
         self.head = h + n
         return self.ops[h : h + n], self.payloads[h : h + n]
 
+    def clear(self) -> None:
+        """Drop every pending row."""
+        self.head = self.tail = 0
+
 
 class OverloadGate:
     """Per-doc ingest watermark hysteresis (credit-based flow control): a

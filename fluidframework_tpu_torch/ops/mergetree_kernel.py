@@ -53,6 +53,26 @@ ERR_REM_OVERFLOW = 4
 ERR_POS_RANGE = 8
 ERR_OB_OVERFLOW = 16
 
+# Error classes the engine's recovery branches on: capacity bits are
+# recoverable by growing the implicated axis and replaying; anything else
+# (ERR_POS_RANGE alone) means the op stream itself is malformed and the
+# document leaves the device batch (quarantine).
+ERR_CAPACITY_MASK = (
+    ERR_SEG_OVERFLOW | ERR_TEXT_OVERFLOW | ERR_REM_OVERFLOW | ERR_OB_OVERFLOW
+)
+
+
+def is_capacity_error(bits: int) -> bool:
+    """True iff the latched bits are recoverable by growth + replay (any
+    capacity bit: ERR_POS_RANGE beside one is usually a cascade that
+    replay at grown capacity resolves)."""
+    return bits != 0 and (bits & ERR_CAPACITY_MASK) != 0
+
+
+def is_poison_error(bits: int) -> bool:
+    """True iff the bits indicate a malformed op stream (quarantine lane)."""
+    return bits != 0 and (bits & ERR_CAPACITY_MASK) == 0
+
 # Marker codepoints (the reserved plane of dds/markers.py): positions but no
 # text in the host text view.
 MARKER_CP_BASE = 0xE000

@@ -102,16 +102,20 @@ def test_engine_latches_errors_like_reference():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError):
-        DocBatchEngine(2, recovery="grow", device="cpu")
-    with pytest.raises(NotImplementedError):
-        DocBatchEngine(2, checkpoint_store=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        DocBatchEngine(2, seg_shards=2, device="cpu")
-    eng = DocBatchEngine(2, device="cpu", seg_shards=1)
-    for method in ("maybe_checkpoint", "watchdog", "migrate_doc", "enable_segment_sharding"):
+    """What is still unported raises: multi-shard segment lanes, spare
+    slots, migration, engine-promoted segment lanes, the columnar ingest
+    path and boot-snapshot adoption."""
+    for option in ({"seg_shards": 2}, {"spare_slots": 4}):
         with pytest.raises(NotImplementedError):
-            getattr(eng, method)(0)
+            DocBatchEngine(2, device="cpu", **option)
+    eng = DocBatchEngine(2, device="cpu", seg_shards=1)
+    for method, args in (
+        ("migrate_doc", (0, 0)), ("enable_segment_sharding", (0,)),
+        ("ingest_batch", ([0], [_join("w0", 0)])),
+        ("adopt_boot_snapshot", (0, {})),
+    ):
+        with pytest.raises(NotImplementedError):
+            getattr(eng, method)(*args)
 
 
 def test_engine_default_device_is_the_card():
