@@ -887,6 +887,8 @@ def phase_recovery(seed: int, card: str, device: str, n_docs: int = 10_000,
             "checkpoint_docs": len(written), "checkpoint_bytes": ck_bytes,
             "checkpoint_s": checkpoint_s, "restore_docs": len(restored),
             "restore_s": restore_s, **scatter, "peak_mem_bytes": peak_mem,
+            # Since K4's measurement: the restore's second engine included.
+            "peak_mem_restore_bytes": torch.cuda.max_memory_allocated() if on_card else None,
             "checkpointed_ops_skipped": skipped,
             "k1_launches": resolve_positions.launches - launches0,
             **{k: health.get(k) for k in (
