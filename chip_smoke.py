@@ -41,10 +41,13 @@ It builds every hand-written kernel of the port from ``csrc/`` with nvcc
 5. ``long_doc``: the long-document query plane's resolve at Q=256 over
    262,144 segments (K1), mark and visible length, against numpy.
 
-Phases 2-5 are the port's main path: K1's launch counter is set to 0
-just before each of them and read just after, and a path that runs K1
-(phases 4 and 5) fails the run if it never launched.  Then it prints the ``kernels`` summary line, the
-card's name and power limit, and, last, the ``{"ok": true, ...}`` line.
+The fleet's traffic is made once, before phase 2, and shared by phases 2
+and 3 (a ``traffic`` line gives its generation time).  Phases 2-5 are
+the port's main path: K1's launch counter is set to 0 just before each
+of them and read just after, and a path that runs K1 (phases 4 and 5)
+fails the run if it never launched.  Then it prints the ``kernels``
+summary line, the card's name and power limit, and, last, the
+``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
 CUDA card, or a directory without the port.
 """
@@ -52,7 +55,6 @@ CUDA card, or a directory without the port.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
 import shutil
@@ -91,7 +93,6 @@ def zipf_counts(n_docs: int, ops_per_step: int, a: float) -> np.ndarray:
     return np.maximum(1, np.round(ops_per_step * w / w[0]).astype(np.int64))
 
 
-@functools.lru_cache(maxsize=4)
 def fleet_traffic(n_docs: int, rounds: int, ops_per_round: int, ins_len: int,
                   seed: int, writers: int = 4):
     """Zipf-skewed multi-writer SharedString traffic as sequenced wire
@@ -457,18 +458,19 @@ FLEET_GEOM = dict(max_segments=1024, text_capacity=8192, remove_slots=4,
                   prop_slots=2, ops_per_step=16, megastep_k=8, max_insert_len=16)
 
 
-def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
+def phase_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000,
                 rounds: int = 16, step_every: int = 8, sample: int = 64,
                 recovery: str = "grow", geom: dict = FLEET_GEOM) -> dict:
+    """The fleet at ``recovery`` on ``device``: the first ``rounds`` rounds
+    of ``traffic`` (``fleet_traffic``'s joins and rounds for ``n_docs``)."""
     import torch
 
     from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
 
     geom = dict(geom, recovery=recovery)
-    t0 = time.perf_counter()
-    joins, rounds_msgs = fleet_traffic(n_docs, rounds, geom["ops_per_step"], 8, seed)
-    gen_s = time.perf_counter() - t0
+    joins, rounds_msgs = traffic[0], traffic[1][:rounds]
+    check(len(rounds_msgs) == rounds, f"fleet: traffic holds {len(rounds_msgs)} rounds")
     on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -526,7 +528,7 @@ def phase_fleet(seed: int, card: str, device: str, n_docs: int = 10_000,
         "phase": "fleet", "card": card, "recovery": recovery, "docs": n_docs,
         "rounds": rounds, "ops_applied": ops_applied, "slices": slices,
         "megasteps": eng.counters.get("megastep_dispatches"),
-        "traffic_gen_s": gen_s, "ingest_s": ingest_s, "step_s": step_s,
+        "ingest_s": ingest_s, "step_s": step_s,
         "compact_s": compact_s, "wall_s": wall_s, "ops_per_s": ops_applied / wall_s,
         "slice_s": clock.slice_s, "slice_rows": clock.slice_rows,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else None,
@@ -663,12 +665,13 @@ def digest_bound(state) -> tuple[int, float]:
     return nbytes, nbytes / H100_BYTES_PER_S * 1e3
 
 
-def phase_recovery(seed: int, card: str, device: str, n_docs: int = 10_000,
+def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_000,
                    rounds: int = 16, step_every: int = 8, sample: int = 64,
-                   geom: dict = FLEET_GEOM, tamper_docs: int = 256,
-                   ckpt_docs: int | None = None) -> dict:
+                   geom: dict = FLEET_GEOM, tamper_docs: int = 256) -> dict:
     """The recovery and durability path at the fleet phase's geometry on
-    ``device``: traffic with seeded faults through ``recovery="grow"``, a
+    ``device``: ``traffic`` (``fleet_traffic``'s joins and at least
+    ``rounds`` + 2 rounds for ``n_docs``) with seeded faults through
+    ``recovery="grow"``, a
     CPU replay of the faulted docs and a sample, two watchdog sweeps (K4
     timed against its bound), a tamper check, a forced checkpoint sweep,
     a restore into a fresh engine, and traffic after it."""
@@ -687,8 +690,9 @@ def phase_recovery(seed: int, card: str, device: str, n_docs: int = 10_000,
             torch.cuda.synchronize()
 
     geom = dict(geom, recovery="grow")
+    joins, rounds_msgs = traffic
+    check(len(rounds_msgs) >= rounds + 2, f"recovery: traffic holds {len(rounds_msgs)} rounds")
     t0 = time.perf_counter()
-    joins, rounds_msgs = fleet_traffic(n_docs, rounds + 2, geom["ops_per_step"], 8, seed)
     plan, faults = fault_traffic(n_docs, rounds, 2, geom, seed)
     gen_s = time.perf_counter() - t0
     if on_card:
@@ -809,16 +813,12 @@ def phase_recovery(seed: int, card: str, device: str, n_docs: int = 10_000,
         del tw
 
         # Checkpoint sweep, then restore into a fresh engine.
-        docs = None
-        if ckpt_docs is not None:
-            docs = sorted(np.random.default_rng(seed + 5).choice(
-                n_docs, size=ckpt_docs, replace=False).tolist())
         t1 = time.perf_counter()
-        written = eng.maybe_checkpoint(force=True, docs=docs)
+        written = eng.maybe_checkpoint(force=True)
         checkpoint_s = time.perf_counter() - t1
         ck_root = os.path.join(ck_dir, "checkpoints")
         ck_bytes = sum(os.path.getsize(os.path.join(ck_root, n)) for n in os.listdir(ck_root))
-        check(len(written) == (n_docs if docs is None else len(docs)), f"checkpointed {len(written)}")
+        check(len(written) == n_docs, f"checkpointed {len(written)}")
         eng2 = DocBatchEngine(n_docs, device=device, checkpoint_store=CheckpointStore(ck_dir), **geom)
         t1 = time.perf_counter()
         restored = eng2.restore_from_checkpoints()
@@ -879,7 +879,7 @@ def phase_recovery(seed: int, card: str, device: str, n_docs: int = 10_000,
         out = {
             "phase": "recovery", "card": card, "docs": n_docs, "rounds": rounds,
             "recovery": "grow", "faults": {k: len(v) for k, v in plan.items()},
-            "traffic_gen_s": gen_s, "ops_applied": ops_applied, "wall_s": wall_s,
+            "fault_gen_s": gen_s, "ops_applied": ops_applied, "wall_s": wall_s,
             "ops_per_s": ops_applied / wall_s, "recover_s": timers["recover"],
             "replay_s": timers["_recover_doc"],
             "cpu_replay_docs": len(pick), "cpu_replay_s": cpu_replay_s,
@@ -1018,9 +1018,6 @@ def phase_long_doc(seed: int, card: str, device: str, S: int = 262_144, Q: int =
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ckpt-docs", type=int, default=None,
-                    help="checkpoint a seeded subset of this many docs in the "
-                         "recovery phase (default: every doc)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1055,10 +1052,16 @@ def main(argv=None) -> int:
         fn(*args, **kw)
         paths[name] = rk.resolve_positions.launches
 
-    path("fleet", phase_fleet, args.seed, card, "cuda", recovery="grow")
+    # One traffic for every fleet turn and the recovery phase (which
+    # takes two rounds past the fleet's 16), made outside the timed runs.
+    t0 = time.perf_counter()
+    traffic = fleet_traffic(10_000, 18, FLEET_GEOM["ops_per_step"], 8, args.seed)
+    emit({"phase": "traffic", "docs": 10_000, "rounds": 18,
+          "traffic_gen_s": time.perf_counter() - t0})
+    path("fleet", phase_fleet, args.seed, card, "cuda", traffic, recovery="grow")
     for recovery in ("off", "grow", "grow", "off"):
-        phase_fleet(args.seed, card, "cuda", recovery=recovery)
-    path("recovery", phase_recovery, args.seed, card, "cuda", ckpt_docs=args.ckpt_docs)
+        phase_fleet(args.seed, card, "cuda", traffic, recovery=recovery)
+    path("recovery", phase_recovery, args.seed, card, "cuda", traffic)
     path("hot_doc", phase_hot_doc, args.seed, card, "cuda")
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
     for name in ("hot_doc", "long_doc"):

@@ -22,7 +22,6 @@ import dataclasses
 import json
 import os
 import shutil
-import tempfile
 import time
 
 import jax
@@ -100,13 +99,12 @@ def test_summary_that_does_not_fit_raises(ref_states):
 
 # ---------------------------------------------------------- the store
 
-def _stores():
-    tmp = tempfile.mkdtemp()
-    return CheckpointStore(tmp), RefStore(tmp)
+def _stores(directory):
+    return CheckpointStore(str(directory)), RefStore(str(directory))
 
 
-def test_store_names_and_cross_reads():
-    port, ref = _stores()
+def test_store_names_and_cross_reads(tmp_path):
+    port, ref = _stores(tmp_path)
     ids = ["plain-doc_1.x", "a b", "sl/ash", "pc%t", "dØc", "%25", "doc-€"]
     for i, doc in enumerate(ids):
         port.save(doc, i, {"engine": "doc_batch", "x": [i]})
@@ -120,8 +118,8 @@ def test_store_names_and_cross_reads():
     }
 
 
-def test_store_torn_write_and_legacy_names():
-    port, ref = _stores()
+def test_store_torn_write_and_legacy_names(tmp_path):
+    port, ref = _stores(tmp_path)
     port.save("doc0", 7, {"engine": "doc_batch"})
     with open(port._path("doc0"), "w") as f:
         f.write('{"truncated')
@@ -175,10 +173,10 @@ def _files(directory: str) -> dict[str, bytes]:
 
 
 @pytest.fixture(scope="module")
-def checkpointed():
+def checkpointed(tmp_path_factory):
     """Both engines over ``_rounds`` with a store each; the file bytes of
     both stores after every step, and a copy of the round-0 store."""
-    dirs = (tempfile.mkdtemp(), tempfile.mkdtemp())
+    dirs = tuple(str(tmp_path_factory.mktemp(name)) for name in ("ref", "port"))
     ref, port = engines(
         3, checkpoint_store=None, doc_keys=["d0", "d/1", "dØ2"], **GEOM,
     )
@@ -187,7 +185,7 @@ def checkpointed():
     feed((ref, port), 1, [_join("w0", 0)])
     feed((ref, port), 2, [_join("w0", 0)])
     snapshots = []
-    round0 = tempfile.mkdtemp()
+    round0 = str(tmp_path_factory.mktemp("round0"))
     for r, msgs in enumerate(_rounds()):
         for d, ms in msgs.items():
             feed((ref, port), d, ms)
@@ -268,12 +266,12 @@ def test_geometry_outgrown_record_restores_fitted(checkpointed):
     assert port2.overflow[0].geometry["max_segments"] == 2
 
 
-def test_refresh_restore_adopts_newer_records_only():
+def test_refresh_restore_adopts_newer_records_only(tmp_path):
     """A trailing engine (``refresh=True``) re-adopts a record strictly
     newer than its floor, and skips unchanged record files."""
     writers = engines()
-    writers[0].checkpoint_store = RefStore(tempfile.mkdtemp())
-    writers[1].checkpoint_store = CheckpointStore(tempfile.mkdtemp())
+    writers[0].checkpoint_store = RefStore(str(tmp_path / "ref"))
+    writers[1].checkpoint_store = CheckpointStore(str(tmp_path / "port"))
     for d in range(2):
         feed(writers, d, [_join("w0", 0), _ins(1, 0, "ab"), _ins(2, 1, "cd")])
     for eng in writers:
@@ -293,14 +291,14 @@ def test_refresh_restore_adopts_newer_records_only():
     assert standby[1].health()["checkpoint_refreshes"] == 1
 
 
-def test_bounded_replay_after_checkpoint():
+def test_bounded_replay_after_checkpoint(tmp_path):
     """A poisoned doc's quarantine replay and a later overflow's grow
     replay cover the checkpoint tail, not the whole history."""
     D, ROUNDS, CKPT = 2, 10, 4
     sched = _schedule(D, ROUNDS, poison=(1, 7))
     ref, port = engines(D, checkpoint_every=CKPT)
-    ref.checkpoint_store = RefStore(tempfile.mkdtemp())
-    port.checkpoint_store = CheckpointStore(tempfile.mkdtemp())
+    ref.checkpoint_store = RefStore(str(tmp_path / "ref"))
+    port.checkpoint_store = CheckpointStore(str(tmp_path / "port"))
     for d in range(D):
         feed((ref, port), d, [_join("w0", 0)])
     seen = [0] * D
@@ -318,10 +316,10 @@ def test_bounded_replay_after_checkpoint():
     assert h["checkpoints_written"] > 0
 
 
-def test_checkpoint_stale_honors_ops_and_seconds_bounds():
+def test_checkpoint_stale_honors_ops_and_seconds_bounds(tmp_path):
     ref, port = engines(checkpoint_every=10**6)
-    ref.checkpoint_store = RefStore(tempfile.mkdtemp())
-    port.checkpoint_store = CheckpointStore(tempfile.mkdtemp())
+    ref.checkpoint_store = RefStore(str(tmp_path / "ref"))
+    port.checkpoint_store = CheckpointStore(str(tmp_path / "port"))
     for d in range(2):
         feed((ref, port), d, [_join("w0", 0)])
     feed((ref, port), 0, [_ins(1, 0, "aa"), _ins(2, 0, "bb")])
