@@ -40,14 +40,42 @@ It builds every hand-written kernel of the port from ``csrc/`` with nvcc
    equals the single lane on the same trace.
 5. ``long_doc``: the long-document query plane's resolve at Q=256 over
    262,144 segments (K1), mark and visible length, against numpy.
+6. ``fleet_programs``: the fleet programs timed alone beside their bytes
+   bounds — K2 (one K=8 ``apply_megastep`` of the fleet's second
+   megastep, [8, 10,000, 16]), K3 (``set_min_seq`` + ``compact`` of the
+   10,000 docs) and K6 (``apply_megastep_seg`` and ``compact_seg`` at the
+   hot document); their launches per path follow in a
+   ``fleet_programs_launches`` line.
+7. ``tree_fleet``: 1,024 SharedTree docs of ``bench.py``'s config-5
+   stream (4 writers with their own subtrees and one shared subtree, 8
+   edits per writer a round with one round of ref lag, 40% string
+   leaves; capacity 2,048, pool 16,384, B=32, K=8) through
+   ``TreeBatchEngine.ingest``/``step`` for 4 rounds: no error bits, the
+   4 seeded docs that pass 2,048 rows (and only they) routed to the host
+   fallback, a CPU replay of 64 sampled docs and the 4 identical (raw
+   columns, ``tree_json``, ``values``, ``em.summarize()``); a forced
+   checkpoint sweep restored into a fresh engine identically, and both
+   engines identical through one more round.
+8. ``tree_deep``: one doc seeded with a 10,000-leaf mixed-type subtree
+   under 32 writer subtrees, then 32 writers x 8 edits x 4 rounds;
+   ``device_fraction`` 1.0 and identical to a CPU replay.
+9. ``tree_churn``: 256 docs whose writers alternate inserts and removes
+   (capacity 128): compaction (K8) must run; a sample of 64 identical to
+   a CPU replay.
+10. ``tree_programs``: K7 (``apply_nested_megastep``) on the largest ring
+    the tree fleet ran and K8 (``compact_nested``) on its last compaction
+    input, timed alone beside their bytes bounds and held against the CPU
+    on 64 docs.
 
-The fleet's traffic is made once, before phase 2, and shared by phases 2
-and 3 (a ``traffic`` line gives its generation time).  Phases 2-5 are
-the port's main path: K1's launch counter is set to 0 just before each
-of them and read just after, and a path that runs K1 (phases 4 and 5)
-fails the run if it never launched.  Then it prints the ``kernels``
-summary line, the card's name and power limit, and, last, the
-``{"ok": true, ...}`` line.
+The fleet's traffic is made once, before phase 2, and shared by phases
+2, 3 and 6 (a ``traffic`` line gives its generation time); each tree
+path makes its own from the seed, outside its timed window.  Phases 2-5
+and 7-9 are the port's main path: the launch counters of K1, of the
+fleet programs and of K7 and K8 are set to 0 just before each of them
+and read just after, and a path that runs K1 (phases 4 and 5), K7
+(phases 7-9) or K8 (phases 7 and 9) fails the run if it never launched.
+Then it prints the ``kernels`` summary line (K1, K7, K8), the card's
+name and power limit, and, last, the ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
 CUDA card, or a directory without the port.
 """
@@ -1015,6 +1043,534 @@ def phase_long_doc(seed: int, card: str, device: str, S: int = 262_144, Q: int =
     return out
 
 
+# ------------------------------------------------- fleet programs alone
+
+def nbytes_of(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_program(fn, iters: int, prof_iters: int | None = None) -> dict:
+    """Call time (CUDA events over ``iters`` back-to-back calls) and device
+    time (torch.profiler over ``prof_iters`` calls, every activity) of one
+    device program."""
+    return {"ms": cuda_ms(fn, iters, warmup=1),
+            "device_ms": _device_sum(device_ms_by_name(fn, prof_iters or iters))}
+
+
+def state_bound(state_leaves, ring_leaves=()) -> tuple[int, float]:
+    """The bytes bound of a program that reads and writes a state once and
+    reads an op ring once, at the card's memory rate."""
+    nbytes = 2 * nbytes_of(state_leaves) + nbytes_of(ring_leaves)
+    return nbytes, nbytes / H100_BYTES_PER_S * 1e3
+
+
+def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
+                         geom: dict = FLEET_GEOM, hot_S: int = 16_384,
+                         hot_T: int = 131_072, hot_rounds: int = 96) -> dict:
+    """K2 (``apply_megastep``), K3 (``set_min_seq`` + ``compact``) and K6
+    (``apply_megastep_seg``, ``compact_seg``) timed alone on the card.
+
+    K2 and K3 run at the fleet phase's geometry on the state and ring of
+    its second megastep: an engine takes rounds 0-7 of ``traffic`` and
+    steps and compacts, then rounds 8-15 are drained into one K=8 ring.
+    K6 runs at the hot document's geometry on the state after half of its
+    trace, with the next K x B chunk.  Each is printed beside its bytes
+    bound (state read and written once, plus the ring)."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine, _fleet_compact_body
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.parallel import mesh as pm
+
+    joins, rounds_msgs = traffic
+    eng = DocBatchEngine(n_docs, device="cuda", **dict(geom, recovery="off"))
+    for d, m in joins:
+        eng.ingest(d, m)
+    for r in range(8):
+        for d, m in rounds_msgs[r]:
+            eng.ingest(d, m)
+    eng.step()
+    eng.compact()
+    for r in range(8, 16):
+        for d, m in rounds_msgs[r]:
+            eng.ingest(d, m)
+    busy = sorted(eng._busy)
+    K = eng._select_k(busy)
+    stage = eng._staging()
+    ops, pays = stage.acquire(K, eng.capacity)
+    for k in range(K):
+        stage.mark(k, eng._drain_into(busy, ops[k], pays[k]))
+        busy = [d for d in busy if d in eng._busy]
+    kinds = ops[..., 0].copy()
+    dev_ops, dev_pays = stage.upload(ops, pays)
+    state = eng.state
+    torch.cuda.synchronize()
+    k2 = time_program(lambda: mk.apply_megastep(state, dev_ops, dev_pays, kinds=kinds), 2, 1)
+    after = mk.apply_megastep(state, dev_ops, dev_pays, kinds=kinds)
+    mins = torch.as_tensor([h.min_seq for h in eng.hosts], dtype=torch.int32, device="cuda")
+    k3 = time_program(lambda: _fleet_compact_body(after, mins), 5)
+    k2_bytes, k2_bound = state_bound(mk.leaves(state), (dev_ops, dev_pays))
+    k3_bytes, k3_bound = state_bound(mk.leaves(state), (mins,))
+    del eng, state, after
+
+    L, Kh, B = 8, 8, 16
+    h_ops, h_pays, h_refs = four_writer_trace(seed, hot_rounds, L)
+    chunks = len(h_ops) // (Kh * B)
+    mesh = pm.docs_segs_mesh("cuda", seg_shards=1)
+    proto = mk.init_state(hot_S, 4, 2, hot_T, 8, device="cuda")
+    blocked = mk.seg_shard_state(proto, 1)
+    seg_prog = pm.mesh_seg_program(mk.apply_megastep_seg, mesh, pm.seg_state_specs(blocked))
+    seg_compact = pm.mesh_seg_program(mk.compact_seg, mesh)
+    seg = pm.shard_seg_state(blocked, mesh)
+
+    def chunk(c):
+        rows = slice(c * Kh * B, (c + 1) * Kh * B)
+        return (h_ops[rows].reshape(Kh, B, 8), h_pays[rows].reshape(Kh, B, L),
+                int(h_refs[(c + 1) * Kh * B - 1]))
+
+    for c in range(chunks // 2):
+        o, p, ms = chunk(c)
+        seg = seg_compact(seg_prog(seg, o, p), ms)
+    o, p, ms = chunk(chunks // 2)
+    o_t, p_t = torch.from_numpy(o).cuda(), torch.from_numpy(p).cuda()
+    okinds = o[..., 0].copy()
+    torch.cuda.synchronize()
+    k6_mega = time_program(lambda: seg_prog(seg, o_t, p_t, kinds=okinds), 2, 1)
+    seg_after = seg_prog(seg, o_t, p_t, kinds=okinds)
+    k6_compact = time_program(lambda: seg_compact(seg_after, ms), 5)
+    k6_bytes, k6_bound = state_bound(mk.leaves(seg), (o_t, p_t))
+    k6c_bytes, k6c_bound = state_bound(mk.leaves(seg))
+    out = {
+        "phase": "fleet_programs", "card": card,
+        "k2": {"shape": [K, n_docs, geom["ops_per_step"]], **k2,
+               "bound_ms": k2_bound, "bound_bytes": k2_bytes, "bound_by": "bytes"},
+        "k3": {"docs": n_docs, **k3, "bound_ms": k3_bound, "bound_bytes": k3_bytes,
+               "bound_by": "bytes"},
+        "k6_megastep": {"shape": [Kh, B], "S": hot_S, "T": hot_T, **k6_mega,
+                        "bound_ms": k6_bound, "bound_bytes": k6_bytes, "bound_by": "bytes"},
+        "k6_compact": {"S": hot_S, "T": hot_T, **k6_compact, "bound_ms": k6c_bound,
+                       "bound_bytes": k6c_bytes, "bound_by": "bytes"},
+    }
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------- tree paths
+
+# The tree fleet's geometry (``bench.py`` ``bench_config5`` at fleet width).
+TREE_FLEET_GEOM = dict(capacity=2048, pool_capacity=16_384, ops_per_step=32, megastep_k=8)
+TREE_DEEP_GEOM = dict(capacity=16_384, pool_capacity=65_536, ops_per_step=32, megastep_k=8)
+TREE_CHURN_GEOM = dict(capacity=128, pool_capacity=1024, ops_per_step=32, megastep_k=8)
+
+
+def tree_traffic(seed: int, n_docs: int, rounds: int, writers: int = 4,
+                 ops_per_writer: int = 8, faulted=(), fault_edits: int = 0,
+                 fault_leaves: int = 32, shared_leaves: int = 0, churn: bool = False):
+    """SharedTree edit streams of ``bench.py``'s ``bench_config5`` shape as
+    sequenced wire messages: per doc ``writers`` writer-owned subtrees
+    (an ``obj`` node whose ``kids`` field starts as one leaf) plus one
+    shared subtree, seeded by writer 0, then ``rounds`` rounds in which
+    each writer submits ``ops_per_writer`` edits with its ref_seq at the
+    round start (one round of lag).  Even edits insert into the shared
+    ``kids`` at 0 (concurrent inserts that rebase against each other),
+    odd ones set (half) or insert (half) in the writer's own subtree;
+    leaves are 40% strings of 3-10 chars, else ints.
+
+    - ``shared_leaves``: the shared subtree starts with that many leaves,
+      and the whole seed is one commit;
+    - ``churn``: each writer alternates an insert and a remove in its own
+      subtree instead;
+    - ``faulted`` docs: writer 0 adds ``fault_edits`` edits a round, each
+      inserting ``fault_leaves`` int leaves into its own subtree.
+
+    Returns ``rounds + 1`` lists of (doc, message): the seed round, then
+    one per round."""
+    from fluidframework_tpu_torch.dds.tree.changeset import (
+        commit_to_json, make_insert, make_remove, make_set_value,
+    )
+    from fluidframework_tpu_torch.dds.tree.forest import Node
+    from fluidframework_tpu_torch.dds.tree.schema import leaf
+    from fluidframework_tpu_torch.protocol.messages import MessageType, SequencedMessage
+
+    rng = np.random.default_rng(seed)
+    W = writers
+    faulted = set(int(d) for d in faulted)
+
+    def rand_leaf():
+        if rng.random() < 0.4:
+            n = int(rng.integers(3, 11))
+            return leaf("".join(chr(97 + int(c)) for c in rng.integers(0, 26, n)))
+        return leaf(int(rng.integers(1000)))
+
+    def msg(seq, ref, w, rev, change):
+        return SequencedMessage(
+            client_id=f"w{w}", client_seq=rev, ref_seq=ref, seq=seq,
+            min_seq=max(0, ref - 1), type=MessageType.OP,
+            contents={"type": "edit", "sid": f"s{w}", "rev": rev,
+                      "changes": commit_to_json([change])})
+
+    out = [[] for _ in range(rounds + 1)]
+    for d in range(n_docs):
+        nodes = [Node(type="obj", fields={"kids": [leaf(0)]}) for _ in range(W)]
+        nodes.append(Node(type="obj", fields={"kids": (
+            [rand_leaf() for _ in range(shared_leaves)] if shared_leaves else [leaf(0)])}))
+        if shared_leaves:
+            seed_changes = [make_insert([], "", 0, nodes)]
+        else:
+            seed_changes = [make_insert([], "", i, [n]) for i, n in enumerate(nodes)]
+        seq = 0
+        for ch in seed_changes:
+            seq += 1
+            out[0].append((d, msg(seq, seq - 1, 0, seq, ch)))
+        revs = [seq] * W
+        sizes = [1] * W
+        for r in range(1, rounds + 1):
+            ref = seq
+            for w in range(W):
+                for k in range(ops_per_writer):
+                    seq += 1
+                    revs[w] += 1
+                    if churn:
+                        if k % 2 == 1 and sizes[w] > 0:
+                            ch = make_remove([("", w)], "kids", int(rng.integers(sizes[w])), 1)
+                            sizes[w] -= 1
+                        else:
+                            ch = make_insert([("", w)], "kids", int(rng.integers(sizes[w] + 1)),
+                                             [rand_leaf()])
+                            sizes[w] += 1
+                    elif k % 2 == 0:
+                        ch = make_insert([("", W)], "kids", 0, [rand_leaf()])
+                    elif rng.random() < 0.5 and sizes[w] > 0:
+                        ch = make_set_value([("", w), ("kids", int(rng.integers(sizes[w])))],
+                                            rand_leaf().value)
+                    else:
+                        ch = make_insert([("", w)], "kids", int(rng.integers(sizes[w] + 1)),
+                                         [rand_leaf()])
+                        sizes[w] += 1
+                    out[r].append((d, msg(seq, ref, w, revs[w], ch)))
+                if w == 0 and d in faulted:
+                    for _ in range(fault_edits):
+                        seq += 1
+                        revs[w] += 1
+                        ch = make_insert([("", w)], "kids", 0, [
+                            leaf(int(v)) for v in rng.integers(1000, size=fault_leaves)])
+                        sizes[w] += fault_leaves
+                        out[r].append((d, msg(seq, ref, w, revs[w], ch)))
+    return out
+
+
+class ProgramRecorder:
+    """Keeps the inputs of the largest K7 call (``apply_nested_megastep``)
+    and of the last K8 call (``compact_nested``) made on a tree path, for
+    timing them alone afterwards.  Installs by wrapping the two module
+    functions (their launch counts stay on ``tk._K7`` and ``tk._K8``);
+    ``close()`` restores them."""
+
+    def __init__(self, tk):
+        import torch
+
+        self.tk = tk
+        self.mega, self.compact = tk.apply_nested_megastep, tk.compact_nested
+        self.mega_args = None
+        self.compact_state = None
+
+        def mega(s, ops, payloads, host_ops=None):
+            if s.parent.is_cuda and (self.mega_args is None or ops.shape[0] > self.mega_args[1].shape[0]):
+                self.mega_args = (tk.tree_map(torch.clone, s), ops.clone(), payloads.clone(),
+                                  None if host_ops is None else host_ops.copy())
+            return self.mega(s, ops, payloads, host_ops=host_ops)
+
+        def compact(s):
+            if s.parent.is_cuda:
+                self.compact_state = tk.tree_map(torch.clone, s)
+            return self.compact(s)
+
+        tk.apply_nested_megastep, tk.compact_nested = mega, compact
+
+    def close(self) -> None:
+        self.tk.apply_nested_megastep, self.tk.compact_nested = self.mega, self.compact
+
+
+def _drive_tree(eng, rounds_msgs, local=None, on_card: bool = False) -> dict:
+    """Ingest each round's messages (those of the docs in ``local``,
+    renumbered through it, when given) and step after each round."""
+    import torch
+
+    ingest_s = step_s = 0.0
+    edits = slices = 0
+    for msgs in rounds_msgs:
+        t = time.perf_counter()
+        for d, m in msgs:
+            if local is None:
+                eng.ingest(d, m)
+            elif d in local:
+                eng.ingest(local[d], m)
+            else:
+                continue
+            edits += 1
+        ingest_s += time.perf_counter() - t
+        t = time.perf_counter()
+        slices += eng.step()
+        if on_card:
+            torch.cuda.synchronize()
+        step_s += time.perf_counter() - t
+    return {"edits": edits, "ingest_s": ingest_s, "step_s": step_s, "slices": slices}
+
+
+def _tree_views_equal(a, da: int, b, db: int) -> bool:
+    """Two tree engines hold the same document: lane, ``tree_json`` and
+    ``values`` and the EditManager summary, compared as JSON text (True
+    and 1 differ; a restored summary holds lists where the live one holds
+    tuples)."""
+    return (
+        (da in a.fallbacks) == (db in b.fallbacks)
+        and json.dumps(a.tree_json(da)) == json.dumps(b.tree_json(db))
+        and json.dumps(a.values(da)) == json.dumps(b.values(db))
+        and json.dumps(a.hosts[da].em.summarize(), sort_keys=True)
+        == json.dumps(b.hosts[db].em.summarize(), sort_keys=True)
+    )
+
+
+def _tree_docs_identical(a, da: int, b, db: int) -> bool:
+    """``_tree_views_equal`` and every raw column of the two device rows."""
+    import torch
+
+    return _tree_views_equal(a, da, b, db) and all(
+        torch.equal(x[da].cpu(), y[db].cpu()) for x, y in zip(a.state, b.state)
+    )
+
+
+def _tree_replay(geom, rounds_msgs, docs) -> tuple:
+    """The listed docs' streams through a TreeBatchEngine on the CPU,
+    stepped at the same rounds; returns (engine, doc -> local index)."""
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+
+    local = {int(d): j for j, d in enumerate(docs)}
+    ref = TreeBatchEngine(len(docs), device="cpu", **geom)
+    t = time.perf_counter()
+    _drive_tree(ref, rounds_msgs, local)
+    return ref, local, time.perf_counter() - t
+
+
+def _tree_run_line(name, card, eng, run, gen_s, on_card, compacts) -> dict:
+    import torch
+
+    h = eng.health()
+    wall = run["ingest_s"] + run["step_s"]
+    return {
+        "phase": name, "card": card, "docs": eng.n_docs, "edits": run["edits"],
+        "traffic_gen_s": gen_s, "ingest_s": run["ingest_s"], "step_s": run["step_s"],
+        "edits_per_s": run["edits"] / wall,
+        "host_translation_edits_per_s": run["edits"] / run["ingest_s"],
+        "slices": run["slices"], "dispatches": h["megastep_dispatches"],
+        "compacts": compacts, "fallback_docs": sorted(eng.fallbacks),
+        "device_fraction": eng.device_fraction(),
+        "translation_plan_hit_rate": h["translation_plan_hit_rate"],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+    }
+
+
+def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
+                     rounds: int = 4, n_faulted: int = 4, sample: int = 64,
+                     fault_edits: int = 24, geom: dict = TREE_FLEET_GEOM,
+                     recorder=None) -> dict:
+    """The SharedTree fleet: ``bench_config5``'s stream at ``n_docs`` docs
+    through ``TreeBatchEngine.ingest``/``step`` (a step after every
+    round), with ``n_faulted`` seeded docs whose writer 0 inserts
+    ``fault_edits`` x 32 extra leaves a round until they pass
+    ``capacity`` rows: they must latch on the device and route to the host
+    fallback.  Then a CPU replay of a seeded sample plus the faulted docs
+    (raw columns, views and summaries identical, same fallbacks), a forced
+    checkpoint sweep restored into a fresh engine (every doc's views and
+    summary equal), and one more round through both engines."""
+    import torch
+
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
+
+    on_card = device == "cuda"
+    rng = np.random.default_rng(seed + 11)
+    faulted = sorted(int(d) for d in rng.choice(n_docs, size=n_faulted, replace=False))
+    t0 = time.perf_counter()
+    traffic = tree_traffic(seed, n_docs, rounds + 1, faulted=faulted, fault_edits=fault_edits)
+    gen_s = time.perf_counter() - t0
+    main_rounds, extra = traffic[:rounds + 1], traffic[rounds + 1:]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_tree_ckpt_")
+    try:
+        eng = TreeBatchEngine(n_docs, device=device, checkpoint_store=CheckpointStore(ck_dir), **geom)
+        k8_0 = tk._K8.launches
+        run = _drive_tree(eng, main_rounds, on_card=on_card)
+        line = _tree_run_line("tree_fleet", card, eng, run, gen_s, on_card,
+                              tk._K8.launches - k8_0)
+        check(not eng.errors().any(), "tree_fleet: error bits left after step()")
+        check(sorted(eng.fallbacks) == faulted,
+              f"tree_fleet: fallbacks {sorted(eng.fallbacks)}, expected the faulted docs {faulted}")
+        others = [h for d, h in enumerate(eng.hosts) if d not in eng.fallbacks]
+        check(all(h.device_commits == h.total_commits for h in others),
+              "tree_fleet: a commit of a device doc did not apply on the device")
+        total = sum(h.total_commits for h in eng.hosts)
+        host_only = sum(eng.hosts[d].total_commits - eng.hosts[d].device_commits for d in faulted)
+        check(eng.device_fraction() == (total - host_only) / total,
+              "tree_fleet: device_fraction is not the faulted docs' post-routing commits")
+
+        pick = np.random.default_rng(seed + 1).choice(
+            [d for d in range(n_docs) if d not in faulted], size=min(sample, n_docs - n_faulted),
+            replace=False)
+        docs = sorted(int(d) for d in pick) + faulted
+        ref, local, replay_s = _tree_replay(geom, main_rounds, docs)
+        same = sum(_tree_docs_identical(eng, d, ref, local[d]) for d in docs)
+        check(same == len(docs), f"tree_fleet: {len(docs) - same} of {len(docs)} docs differ from the CPU replay")
+        check(sorted(ref.fallbacks) == sorted(local[d] for d in faulted),
+              "tree_fleet: the CPU replay routed other docs")
+
+        t = time.perf_counter()
+        written = eng.maybe_checkpoint(force=True)
+        sweep_s = time.perf_counter() - t
+        ck_bytes = sum(os.path.getsize(os.path.join(root, f))
+                       for root, _dirs, files in os.walk(ck_dir) for f in files)
+        check(len(written) == n_docs, f"tree_fleet: checkpointed {len(written)} of {n_docs} docs")
+        eng2 = TreeBatchEngine(n_docs, device=device, checkpoint_store=CheckpointStore(ck_dir), **geom)
+        t = time.perf_counter()
+        restored = eng2.restore_from_checkpoints()
+        restore_s = time.perf_counter() - t
+        t = time.perf_counter()
+        eng2.step()
+        if on_card:
+            torch.cuda.synchronize()
+        rematerialize_s = time.perf_counter() - t
+        check(len(restored) == n_docs, f"tree_fleet: restored {len(restored)} of {n_docs} docs")
+        same = sum(_tree_views_equal(eng, d, eng2, d) for d in range(n_docs))
+        check(same == n_docs, f"tree_fleet: {n_docs - same} restored docs differ")
+        _drive_tree(eng, extra, on_card=on_card)
+        _drive_tree(eng2, extra, on_card=on_card)
+        same = sum(_tree_views_equal(eng, d, eng2, d) for d in range(n_docs))
+        check(same == n_docs, f"tree_fleet: {n_docs - same} docs differ after a round past the restore")
+        check(not eng.errors().any() and not eng2.errors().any(),
+              "tree_fleet: error bits after the round past the restore")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    line.update({
+        "rounds": rounds, "faulted": faulted, "replayed_docs": len(docs),
+        "cpu_replay_s": replay_s, "checkpoint_s": sweep_s, "checkpoint_bytes": ck_bytes,
+        "restore_s": restore_s, "rematerialize_s": rematerialize_s,
+        "restored_identical": n_docs, "identical_after_extra_round": n_docs,
+    })
+    emit(line)
+    return line
+
+
+def phase_tree_deep(seed: int, card: str, device: str, writers: int = 32, rounds: int = 4,
+                    leaves: int = 10_000, geom: dict = TREE_DEEP_GEOM) -> dict:
+    """``BASELINE.json`` config 5's shape: one document seeded by one commit
+    of ``writers`` writer subtrees and a shared subtree of ``leaves``
+    mixed-type leaves, then ``writers`` x 8 edits a round for ``rounds``
+    rounds; the whole doc stays on the device and equals a CPU replay."""
+    import torch
+
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    traffic = tree_traffic(seed + 5, 1, rounds, writers=writers, shared_leaves=leaves)
+    gen_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    eng = TreeBatchEngine(1, device=device, **geom)
+    k8_0 = tk._K8.launches
+    run = _drive_tree(eng, traffic, on_card=on_card)
+    line = _tree_run_line("tree_deep", card, eng, run, gen_s, on_card,
+                          tk._K8.launches - k8_0)
+    check(not eng.errors().any(), "tree_deep: error bits left after step()")
+    check(not eng.fallbacks and eng.device_fraction() == 1.0,
+          f"tree_deep: device_fraction {eng.device_fraction()}, fallbacks {sorted(eng.fallbacks)}")
+    ref, local, replay_s = _tree_replay(geom, traffic, [0])
+    check(_tree_docs_identical(eng, 0, ref, 0), "tree_deep: the doc differs from its CPU replay")
+    line.update({"writers": writers, "rounds": rounds, "seed_leaves": leaves,
+                 "nodes": int(eng.state.alive.sum()), "cpu_replay_s": replay_s})
+    emit(line)
+    return line
+
+
+def phase_tree_churn(seed: int, card: str, device: str, n_docs: int = 256, rounds: int = 8,
+                     sample: int = 64, geom: dict = TREE_CHURN_GEOM) -> dict:
+    """Insert/remove churn: each writer alternates an insert and a remove
+    in its own subtree, so the host's row bound passes 75% of ``capacity``
+    while live rows stay low; K8 (``compact_nested``) must run, and a
+    seeded sample equals its CPU replay."""
+    import torch
+
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    traffic = tree_traffic(seed + 9, n_docs, rounds, churn=True)
+    gen_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    eng = TreeBatchEngine(n_docs, device=device, **geom)
+    k8_0 = tk._K8.launches
+    run = _drive_tree(eng, traffic, on_card=on_card)
+    k8 = tk._K8.launches - k8_0
+    line = _tree_run_line("tree_churn", card, eng, run, gen_s, on_card, k8)
+    check(not eng.errors().any() and not eng.fallbacks,
+          f"tree_churn: error bits or fallbacks {sorted(eng.fallbacks)}")
+    if on_card:
+        check(k8 > 0, "tree_churn: compact_nested never launched")
+    docs = sorted(int(d) for d in np.random.default_rng(seed + 2).choice(
+        n_docs, size=min(sample, n_docs), replace=False))
+    ref, local, replay_s = _tree_replay(geom, traffic, docs)
+    same = sum(_tree_docs_identical(eng, d, ref, local[d]) for d in docs)
+    check(same == len(docs), f"tree_churn: {len(docs) - same} of {len(docs)} docs differ from the CPU replay")
+    line.update({"rounds": rounds, "live_rows_max": int(eng.state.alive.sum(-1).max()),
+                 "replayed_docs": len(docs), "cpu_replay_s": replay_s})
+    emit(line)
+    return line
+
+
+def time_tree_programs(card: str, recorder, cmp_docs: int = 64) -> dict:
+    """K7 and K8 timed alone on the inputs the recorder kept from the tree
+    fleet, held against the same call on the CPU for the first
+    ``cmp_docs`` docs (exact), beside their bytes bounds."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    out = {"phase": "tree_programs", "card": card}
+    if recorder.mega_args is not None:
+        s, ops, pays, host_ops = recorder.mega_args
+        fn = lambda: tk.apply_nested_megastep(s, ops, pays, host_ops=host_ops)  # noqa: E731
+        got = fn()
+        n = min(cmp_docs, s.parent.shape[0])
+        cpu_s = tk.tree_map(lambda x: x[:n].cpu(), s)
+        want = tk.apply_nested_megastep(cpu_s, ops[:, :n].cpu(), pays[:, :n].cpu(),
+                                        host_ops=None if host_ops is None else host_ops[:, :n])
+        err = max(int((g[:n].cpu().long() - w.long()).abs().max()) for g, w in zip(got, want))
+        nbytes, bound = state_bound(list(s), (ops, pays))
+        out["k7"] = {"shape": list(ops.shape[:3]), **time_program(fn, 3),
+                     "bound_ms": bound, "bound_bytes": nbytes, "bound_by": "bytes",
+                     "max_abs_err": err, "compared_docs": n}
+        check(err == 0, f"K7 on the card differs from the CPU by {err}")
+    if recorder.compact_state is not None:
+        s = recorder.compact_state
+        fn = lambda: tk.compact_nested(s)  # noqa: E731
+        got = fn()
+        n = min(cmp_docs, s.parent.shape[0])
+        want = tk.compact_nested(tk.tree_map(lambda x: x[:n].cpu(), s))
+        err = max(int((g[:n].cpu().long() - w.long()).abs().max()) for g, w in zip(got, want))
+        nbytes, bound = state_bound(list(s))
+        out["k8"] = {"docs": s.parent.shape[0], **time_program(fn, 5),
+                     "bound_ms": bound, "bound_bytes": nbytes, "bound_by": "bytes",
+                     "max_abs_err": err, "compared_docs": n}
+        check(err == 0, f"K8 on the card differs from the CPU by {err}")
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1040,20 +1596,35 @@ def main(argv=None) -> int:
           "library": str(rk.library_path().name)})
     k = phase_kernels(args.seed, card)
 
-    # The main path, phase by phase: K1's launch count is set to 0 just
-    # before each path and read just after it; the paths that run K1 (the
-    # segment lane and the long-document plane) fail if it never launched.
-    # The fleet runs at recovery="grow" and then, to price recovery's
-    # per-step error-count read and log, in turns off, grow, grow, off.
-    paths = {}
+    # The main path, phase by phase: the launch counts of K1, of the fleet
+    # programs (K2, K3, K6) and of the tree programs (K7, K8) are set to 0
+    # just before each path and read just after it.  A path that runs a
+    # kernel fails if it never launched: K1 on the segment lane and the
+    # long-document plane, K7 on every tree path, K8 on the tree fleet (its
+    # faulted docs pass the compaction watermark) and the churn path.  The
+    # fleet runs at recovery="grow" and then, to price recovery's per-step
+    # error-count read and log, in turns off, grow, grow, off.
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    counters = {"resolve_positions": rk.resolve_positions,
+                "apply_megastep": mk.apply_megastep, "compact": mk.compact,
+                "apply_megastep_seg": mk.apply_megastep_seg, "compact_seg": mk.compact_seg,
+                "apply_nested_megastep": tk.apply_nested_megastep,
+                "compact_nested": tk.compact_nested}
+    paths = {name: {} for name in counters}
 
     def path(name, fn, *args, **kw):
-        rk.resolve_positions.launches = 0
-        fn(*args, **kw)
-        paths[name] = rk.resolve_positions.launches
+        for c in counters.values():
+            c.launches = 0
+        out = fn(*args, **kw)
+        for prog, c in counters.items():
+            paths[prog][name] = c.launches
+        return out
 
-    # One traffic for every fleet turn and the recovery phase (which
-    # takes two rounds past the fleet's 16), made outside the timed runs.
+    # One traffic for every fleet turn, the recovery phase (which takes two
+    # rounds past the fleet's 16) and the fleet programs' timing, made
+    # outside the timed runs.
     t0 = time.perf_counter()
     traffic = fleet_traffic(10_000, 18, FLEET_GEOM["ops_per_step"], 8, args.seed)
     emit({"phase": "traffic", "docs": 10_000, "rounds": 18,
@@ -1064,19 +1635,54 @@ def main(argv=None) -> int:
     path("recovery", phase_recovery, args.seed, card, "cuda", traffic)
     path("hot_doc", phase_hot_doc, args.seed, card, "cuda")
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
+    phase_fleet_programs(args.seed, card, traffic)
+    del traffic
+    recorder = ProgramRecorder(tk)
+    try:
+        path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda", recorder=recorder)
+    finally:
+        recorder.close()
+    path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
+    path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
+    tree = time_tree_programs(card, recorder)
     for name in ("hot_doc", "long_doc"):
-        check(paths[name] > 0, f"K1 was never launched on the {name} path")
-    launches = sum(paths.values())
+        check(paths["resolve_positions"][name] > 0, f"K1 was never launched on the {name} path")
+    for name in ("tree_fleet", "tree_deep", "tree_churn"):
+        check(paths["apply_nested_megastep"][name] > 0, f"K7 was never launched on the {name} path")
+    for name in ("tree_fleet", "tree_churn"):
+        check(paths["compact_nested"][name] > 0, f"K8 was never launched on the {name} path")
 
+    emit({"phase": "fleet_programs_launches", **{prog: paths[prog] for prog in (
+        "apply_megastep", "compact", "apply_megastep_seg", "compact_seg")}})
+    k7, k8 = tree["k7"], tree["k8"]
     emit({"kernels": [{
         "name": "resolve_positions", "route": "cuda",
         "source": "fluidframework_tpu_torch/csrc/resolve_positions.cu",
         "replaces": "fluidframework_tpu/ops/pallas_kernels.py:65",
-        "launches": launches, "launches_by_path": paths,
+        "launches": sum(paths["resolve_positions"].values()),
+        "launches_by_path": paths["resolve_positions"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"], "device_ms": k["kernel_device_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+    }, {
+        "name": "apply_nested_megastep", "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/tree_kernel.py",
+        "replaces": "fluidframework_tpu/ops/tree_kernel.py:648",
+        "launches": sum(paths["apply_nested_megastep"].values()),
+        "launches_by_path": paths["apply_nested_megastep"],
+        "max_abs_err": k7["max_abs_err"], "ms": k7["ms"], "device_ms": k7["device_ms"],
+        "plain_ms": k7["ms"], "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "compact_nested", "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/tree_kernel.py",
+        "replaces": "fluidframework_tpu/ops/tree_kernel.py:666",
+        "launches": sum(paths["compact_nested"].values()),
+        "launches_by_path": paths["compact_nested"],
+        "max_abs_err": k8["max_abs_err"], "ms": k8["ms"], "device_ms": k8["device_ms"],
+        "plain_ms": k8["ms"], "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
+        "library_ms": None,
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,1159 @@
+"""The SharedTree changeset algebra: marks, rebase, invert, apply.
+
+The port's own copy of ``fluidframework_tpu/dds/tree/changeset.py``
+(unchanged): the port imports nothing of the JAX package, so it keeps the
+host algebra here.
+
+Reference parity: the ChangeRebaser contract (tree/src/core/rebase/
+changeRebaser.ts:41 — rebase/invert laws) realized by one uniform mark-based
+field change kind (sequence-field, feature-libraries/sequence-field/), which
+subsumes the reference's optional/value fields (a value field is a
+1-element sequence; a set is remove+insert). Node value overwrites are a
+separate LWW slot on ``NodeChange`` like the reference's value changesets.
+
+Coordinates discipline: ``rebase(a, b)`` requires a and b to share an input
+context and returns a in the context *after* b. Convergence does NOT rely on
+OT transform properties — the EditManager constructs the trunk version of
+every commit deterministically from the same inputs on every replica
+(editmanager.py), so identical state follows by construction; the rebase
+laws are still property-tested (tests/test_tree_changeset.py) because they
+are what makes rebased edits preserve intent.
+
+Tie-break rules (deterministic, documented contract):
+- concurrent inserts at one position: the earlier-sequenced content stays
+  left; a rebased insert lands after it.
+- an insert into a concurrently-removed range slides to the range start.
+- remove/remove overlap: the later remove drops the overlap (cells already
+  gone); modify under a removed node is dropped.
+- concurrent value sets: later-sequenced wins (rebased set survives).
+
+Enrichment (repair data): ``apply_node_change`` fills ``Remove.detached``
+and value-change old values in place, so applied changes are invertible —
+the reference's resubmit/undo enrichment (defaultResubmitMachine.ts).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+# Kind codes are the protocol-layer mark schema (shared with the pooled
+# columns and the device kernels); re-exported here so dds-internal users
+# keep their historical import site.
+from ...protocol.mark_schema import (  # noqa: F401  (re-export shim)
+    K_INSERT,
+    K_MODIFY,
+    K_MOVEIN,
+    K_MOVEOUT,
+    K_REMOVE,
+    K_SKIP,
+)
+from .forest import Node
+
+
+# ---------------------------------------------------------------------------
+# Mark model
+# ---------------------------------------------------------------------------
+
+
+@dataclass(slots=True)
+class Skip:
+    """Pass over ``count`` nodes unchanged (consumes N, produces N)."""
+
+    K = K_SKIP  # protocol mark-schema kind code (class-level, not a field)
+
+    count: int
+
+
+@dataclass(slots=True)
+class Insert:
+    """Insert ``content`` at the current position (consumes 0, produces N)."""
+
+    K = K_INSERT
+
+    content: list[Node]
+
+
+@dataclass(slots=True)
+class Remove:
+    """Remove ``count`` nodes (consumes N, produces 0). ``detached`` holds
+    the removed subtrees once applied (repair data for invert/revive)."""
+
+    K = K_REMOVE
+
+    count: int
+    detached: Optional[list[Node]] = None
+
+
+@dataclass(slots=True)
+class Modify:
+    """Apply a nested NodeChange to one node (consumes 1, produces 1)."""
+
+    K = K_MODIFY
+
+    change: "NodeChange"
+
+
+@dataclass(slots=True)
+class MoveOut:
+    """Detach ``count`` nodes into the move register ``id`` (consumes N,
+    produces 0).  ``offset`` is the first node's index within the ORIGINAL
+    move — rebasing can split one move into discontiguous pieces, and the
+    register must keep the move's original internal order regardless of
+    where the pieces ended up (ref sequence-field moveOut/moveIn pair with
+    cell ids)."""
+
+    K = K_MOVEOUT
+
+    count: int
+    id: int
+    offset: int = 0
+
+
+@dataclass(slots=True)
+class MoveIn:
+    """Attach nodes of move register ``id`` here (consumes 0, produces
+    ``count``).  ``offset`` selects which original-move offsets to attach
+    (None = the whole register, sorted by offset) — needed when inverting a
+    split move, whose inverse returns each piece to its own origin."""
+
+    K = K_MOVEIN
+
+    id: int
+    count: int
+    offset: int | None = None
+
+
+Mark = Skip | Insert | Remove | Modify | MoveOut | MoveIn
+
+
+@dataclass(slots=True)
+class NodeChange:
+    """Changes to one node: an optional value overwrite plus per-field
+    changes.  ``value`` is (new,) before apply and (new, old) after
+    (enriched for invert).
+
+    A field change is EITHER a bare ``list[Mark]`` (the sequence field
+    kind — wire format unchanged) or a kind-tagged change object
+    (field_kinds.py: optional/value/registered extensions); every
+    node-level operation dispatches per field through the registry
+    (ref modular-schema/fieldKind.ts)."""
+
+    value: Optional[tuple] = None
+    fields: dict[str, Any] = field(default_factory=dict)
+
+    def is_empty(self) -> bool:
+        from .field_kinds import kind_of
+
+        return self.value is None and all(
+            kind_of(fc).is_empty(fc) for fc in self.fields.values()
+        )
+
+
+# ---------------------------------------------------------------------------
+# Codec (wire format for ops/summaries)
+# ---------------------------------------------------------------------------
+
+
+def marks_to_json(marks: list[Mark]) -> list:
+    out = []
+    for m in marks:
+        if isinstance(m, Skip):
+            out.append(["s", m.count])
+        elif isinstance(m, Insert):
+            out.append(["i", [n.to_json() for n in m.content]])
+        elif isinstance(m, Remove):
+            out.append(
+                ["r", m.count]
+                if m.detached is None
+                else ["r", m.count, [n.to_json() for n in m.detached]]
+            )
+        elif isinstance(m, MoveOut):
+            out.append(["mo", m.count, m.id, m.offset])
+        elif isinstance(m, MoveIn):
+            out.append(["mi", m.id, m.count, m.offset])
+        else:
+            out.append(["m", change_to_json(m.change)])
+    return out
+
+
+def marks_from_json(data: list) -> list[Mark]:
+    out: list[Mark] = []
+    for e in data:
+        kind = e[0]
+        if kind == "s":
+            out.append(Skip(e[1]))
+        elif kind == "i":
+            out.append(Insert([Node.from_json(n) for n in e[1]]))
+        elif kind == "r":
+            out.append(
+                Remove(e[1], [Node.from_json(n) for n in e[2]] if len(e) > 2 else None)
+            )
+        elif kind == "mo":
+            out.append(MoveOut(e[1], e[2], e[3] if len(e) > 3 else 0))
+        elif kind == "mi":
+            out.append(MoveIn(e[1], e[2], e[3] if len(e) > 3 else None))
+        else:
+            out.append(Modify(change_from_json(e[1])))
+    return out
+
+
+def change_to_json(change: NodeChange) -> dict:
+    from .field_kinds import field_change_to_json
+
+    out: dict[str, Any] = {}
+    if change.value is not None:
+        out["v"] = list(change.value)
+    if change.fields:
+        out["f"] = {
+            k: field_change_to_json(fc) for k, fc in change.fields.items()
+        }
+    return out
+
+
+def change_from_json(data: dict) -> NodeChange:
+    from .field_kinds import field_change_from_json
+
+    return NodeChange(
+        value=tuple(data["v"]) if "v" in data else None,
+        fields={
+            k: field_change_from_json(m) for k, m in data.get("f", {}).items()
+        },
+    )
+
+
+def _clone_mark(m: Mark) -> Mark:
+    if isinstance(m, Skip):
+        return Skip(m.count)
+    if isinstance(m, Insert):
+        return Insert([n.clone() for n in m.content])
+    if isinstance(m, Remove):
+        return Remove(
+            m.count,
+            [n.clone() for n in m.detached] if m.detached is not None else None,
+        )
+    if isinstance(m, MoveOut):
+        return MoveOut(m.count, m.id, m.offset)
+    if isinstance(m, MoveIn):
+        return MoveIn(m.id, m.count, m.offset)
+    return Modify(clone_change(m.change))
+
+
+def _clone_field_change(fc):
+    """Deep clone of one field change: mark lists clone mark-by-mark
+    (SequenceFieldKind.clone is intentionally shallow for the rebase hot
+    path), other kinds through their registry clone."""
+    from .field_kinds import kind_of
+
+    if isinstance(fc, list):
+        return [_clone_mark(m) for m in fc]
+    return kind_of(fc).clone(fc)
+
+
+def clone_change(change: NodeChange) -> NodeChange:
+    """Structural deep clone — no JSON codec pass; every sequenced commit
+    is cloned once for the trunk-forest apply (shared_tree.py), so this
+    is delta-pump hot-path code."""
+    return NodeChange(
+        value=tuple(change.value) if change.value is not None else None,
+        fields={
+            k: _clone_field_change(fc) for k, fc in change.fields.items()
+        },
+    )
+
+
+# ---------------------------------------------------------------------------
+# Rebase
+# ---------------------------------------------------------------------------
+
+
+def _consumes(m: Mark) -> int:
+    if isinstance(m, (Skip, Remove, MoveOut)):
+        return m.count
+    if isinstance(m, Modify):
+        return 1
+    return 0
+
+
+def _emit(out: list[Mark], m: Mark) -> None:
+    """Append a mark, coalescing adjacent same-kind runs."""
+    if isinstance(m, (Skip, Remove, MoveOut)) and m.count == 0:
+        return
+    if isinstance(m, MoveIn) and m.count == 0:
+        return
+    if out:
+        last = out[-1]
+        if isinstance(last, Skip) and isinstance(m, Skip):
+            out[-1] = Skip(last.count + m.count)
+            return
+        if (
+            isinstance(last, Remove)
+            and isinstance(m, Remove)
+            and (last.detached is None) == (m.detached is None)
+        ):
+            out[-1] = Remove(
+                last.count + m.count,
+                (last.detached + m.detached) if last.detached is not None else None,
+            )
+            return
+        if isinstance(last, Insert) and isinstance(m, Insert):
+            out[-1] = Insert(last.content + m.content)
+            return
+        if (
+            isinstance(last, MoveOut)
+            and isinstance(m, MoveOut)
+            and last.id == m.id
+            and last.offset + last.count == m.offset
+        ):
+            out[-1] = MoveOut(last.count + m.count, last.id, last.offset)
+            return
+    out.append(m)
+
+
+class _Fates:
+    """Per-input-node fates and boundary maps of one mark list ``b``.
+
+    For every input position of b's context: whether the node survives into
+    b's output, where it lands (moves followed to their destination), and
+    any nested change b applied to it.  For every input boundary: the output
+    boundary before/after b's productions there — the sided tie-break
+    coordinates for rebasing boundary marks (Insert/MoveIn)."""
+
+    GONE = ("gone", None, None)
+
+    def __init__(self, b: list[Mark]) -> None:
+        # fate[i] = ("keep", out_pos, nested_change|None) | ("gone",..)
+        #         | ("moved", (move_id, offset), nested)
+        self.fate: list[tuple] = []
+        # MoveIn sites in mark order: (id, slice offset|None, count, out base)
+        self._move_ins: list[tuple[int, int | None, int, int]] = []
+        self._move_offsets: dict[int, list[int]] = {}  # id -> piece offsets
+        self._offset_dest: dict[tuple[int, int], int] | None = None
+        in_pos = 0
+        out_pos = 0
+        b_start = {}  # out position when each input boundary is reached
+        prods = {}    # outputs b produces AT each input boundary
+        for m in b:
+            if in_pos not in b_start:
+                b_start[in_pos] = out_pos
+            if isinstance(m, Skip):
+                for _ in range(m.count):
+                    self.fate.append(("keep", out_pos, None))
+                    out_pos += 1
+                    in_pos += 1
+                    b_start.setdefault(in_pos, out_pos)
+            elif isinstance(m, Modify):
+                self.fate.append(("keep", out_pos, m.change))
+                out_pos += 1
+                in_pos += 1
+                b_start.setdefault(in_pos, out_pos)
+            elif isinstance(m, Remove):
+                for _ in range(m.count):
+                    self.fate.append(self.GONE)
+                    in_pos += 1
+                    b_start.setdefault(in_pos, out_pos)
+            elif isinstance(m, MoveOut):
+                for off in range(m.count):
+                    self.fate.append(("moved", (m.id, m.offset + off), None))
+                    self._move_offsets.setdefault(m.id, []).append(
+                        m.offset + off
+                    )
+                    in_pos += 1
+                    b_start.setdefault(in_pos, out_pos)
+            elif isinstance(m, Insert):
+                prods[in_pos] = prods.get(in_pos, 0) + len(m.content)
+                out_pos += len(m.content)
+            elif isinstance(m, MoveIn):
+                self._move_ins.append((m.id, m.offset, m.count, out_pos))
+                prods[in_pos] = prods.get(in_pos, 0) + m.count
+                out_pos += m.count
+        self._tail_in = in_pos
+        self._tail_out = out_pos
+        self._b_start = b_start
+        self._prods = prods
+
+    def _dest_of(self, mid: int, off: int) -> int | None:
+        """Output position of the moved node with original offset ``off`` —
+        resolved by replaying apply_marks' register pop policy over b's
+        MoveIn sites (slice MoveIns of one id each take their own nodes)."""
+        if self._offset_dest is None:
+            self._offset_dest = {}
+            remaining = {
+                k: sorted(v) for k, v in self._move_offsets.items()
+            }
+            for in_id, in_off, count, base in self._move_ins:
+                pool = remaining.get(in_id, [])
+                if in_off is None:
+                    picked = pool[:]
+                else:
+                    picked = [o for o in pool if o >= in_off][:count]
+                for i, o in enumerate(picked):
+                    self._offset_dest[(in_id, o)] = base + i
+                remaining[in_id] = [o for o in pool if o not in picked]
+        return self._offset_dest.get((mid, off))
+
+    def node(self, i: int) -> tuple[str, int | None, "NodeChange | None"]:
+        """(kind, out_pos, nested) for input node i — moves resolved per
+        piece offset (split moves keep original internal order; slice
+        MoveIns each own their offsets)."""
+        if i < len(self.fate):
+            kind, payload, nested = self.fate[i]
+            if kind == "moved":
+                mid, off = payload
+                dest = self._dest_of(mid, off)
+                if dest is None:
+                    return ("gone", None, nested)  # dangling move register
+                return ("keep", dest, nested)
+            return (kind, payload, nested)
+        # Beyond b's marks: implicit trailing Skip.
+        return ("keep", self._tail_out + (i - self._tail_in), None)
+
+    def out_boundary(self, p: int, after_productions: bool) -> int:
+        """Output boundary for input boundary p.  ``after_productions``
+        implements the tie-break: True puts the rebased boundary mark AFTER
+        b's own Insert/MoveIn content at p (a is the later-sequenced side),
+        False before it.  A boundary inside a b-removed run slides to the
+        run's start (both sided forms collapse there)."""
+        if p in self._b_start:
+            before = self._b_start[p]
+        else:
+            # Beyond b's marks: implicit trailing Skip (every interior
+            # boundary is recorded during the walk).
+            assert p >= self._tail_in, f"unrecorded interior boundary {p}"
+            return self._tail_out + (p - self._tail_in)
+        if not after_productions:
+            return before
+        # Only productions AT THIS input boundary count: content b produced
+        # at later (possibly output-adjacent) boundaries stays to the right
+        # of a mark anchored at p.
+        return before + self._prods.get(p, 0)
+
+
+def rebase_marks(a: list[Mark], b: list[Mark], a_after: bool = True) -> list[Mark]:
+    """Rebase mark list ``a`` over ``b`` (same input context) — the result
+    reads against the context with b applied.
+
+    ``a_after`` is the tie-break side (sided OT): True when a is the
+    later-sequenced change (its inserts land after b's at a shared position);
+    False when a is the earlier-sequenced/trunk change being carried over a
+    local pending one (its inserts stay left). The two sides are exact
+    mirrors, which is what makes the convergence square commute.
+
+    Algorithm (fate map, two phases): phase 1 computes every b-context
+    node's fate — surviving output position (moves followed to their
+    destination, ref sequence-field move effects), removal, or nested
+    change — plus sided output coordinates for every input boundary.
+    Phase 2 re-places each of a's marks by fate (per-node marks follow
+    their node; boundary marks map through the sided boundary), sorts by
+    output position, and emits with Skip gaps.  Unlike a stream merge this
+    handles marks whose target moved LEFT of the cursor, which is what
+    makes Move a first-class mark."""
+    fates = _Fates(b)
+    # Placements: (out_pos, kind_order, seq, mark) — kind_order 0 for
+    # boundary marks (land before the node at that position), 1 for node
+    # marks; seq preserves a's original order among equals.
+    placements: list[tuple[int, int, int, Mark]] = []
+    move_alive: dict[int, set[int]] = {}  # a's move id -> surviving offsets
+    pending_movein: list[tuple[int, int, int, MoveIn]] = []
+    in_pos = 0
+    seq = 0
+    for m in a:
+        seq += 1
+        if isinstance(m, Skip):
+            in_pos += m.count
+        elif isinstance(m, Insert):
+            bp = fates.out_boundary(in_pos, after_productions=a_after)
+            placements.append((bp, 0, seq, Insert(m.content)))
+        elif isinstance(m, MoveIn):
+            bp = fates.out_boundary(in_pos, after_productions=a_after)
+            pending_movein.append((bp, 0, seq, MoveIn(m.id, m.count, m.offset)))
+        elif isinstance(m, Modify):
+            kind, pos, nested = fates.node(in_pos)
+            if kind == "keep":
+                change = (
+                    rebase_node_change(m.change, nested, a_after)
+                    if nested is not None
+                    else m.change
+                )
+                placements.append((pos, 1, seq, Modify(change)))
+            in_pos += 1
+        elif isinstance(m, Remove):
+            for off in range(m.count):
+                kind, pos, _nested = fates.node(in_pos)
+                if kind == "keep":
+                    det = (
+                        [m.detached[off]] if m.detached is not None else None
+                    )
+                    placements.append((pos, 1, seq, Remove(1, det)))
+                in_pos += 1
+        elif isinstance(m, MoveOut):
+            alive = move_alive.setdefault(m.id, set())
+            for off in range(m.count):
+                # Move-vs-move conflict: when b ALSO moved this node, the
+                # later-sequenced move owns it — the earlier side's MoveOut
+                # drops (ref sequence-field move-effect competition).
+                b_moved = (
+                    in_pos < len(fates.fate)
+                    and fates.fate[in_pos][0] == "moved"
+                )
+                kind, pos, _nested = fates.node(in_pos)
+                if kind == "keep" and not (b_moved and not a_after):
+                    placements.append(
+                        (pos, 1, seq, MoveOut(1, m.id, m.offset + off))
+                    )
+                    alive.add(m.offset + off)
+                in_pos += 1
+    # MoveIn counts shrink to the surviving MoveOut offsets of their slice;
+    # fully-emptied moves drop.
+    for bp, ko, sq, mi in pending_movein:
+        alive = move_alive.get(mi.id, set())
+        if mi.offset is None:
+            n_alive = len(alive)
+        else:
+            n_alive = sum(
+                1 for o in alive if mi.offset <= o < mi.offset + mi.count
+            )
+        if n_alive > 0:
+            placements.append((bp, ko, sq, MoveIn(mi.id, n_alive, mi.offset)))
+
+    placements.sort(key=lambda t: (t[0], t[1], t[2]))
+    out: list[Mark] = []
+    cursor = 0
+    for pos, _ko, _sq, mark in placements:
+        if pos > cursor:
+            _emit(out, Skip(pos - cursor))
+            cursor = pos
+        _emit(out, mark)
+        cursor += _consumes(mark)
+    return out
+
+
+_kind_of = None
+
+
+def _get_kind_of():
+    """Lazily-cached field_kinds.kind_of (changeset cannot import
+    field_kinds at module scope — field_kinds imports changeset — and the
+    per-call ``from .field_kinds import kind_of`` paid importlib overhead
+    on every rebase/compose dispatch in the trunk-translation hot path)."""
+    global _kind_of
+    if _kind_of is None:
+        from .field_kinds import kind_of as k
+
+        _kind_of = k
+    return _kind_of
+
+
+def rebase_node_change(a: NodeChange, b: NodeChange, a_after: bool = True) -> NodeChange:
+    """Rebase one node's change over another's. Value: the later-sequenced
+    set wins (LWW) — a keeps its value when it is the later side, and drops
+    it when the earlier side is carried over a later set. Fields: pairwise
+    per-kind rebase through the registry."""
+    kind_of = _kind_of or _get_kind_of()
+
+    value = a.value
+    if a.value is not None and b.value is not None and not a_after:
+        value = None
+    out = NodeChange(value=value)
+    for key, a_fc in a.fields.items():
+        b_fc = b.fields.get(key)
+        if b_fc is None:
+            out.fields[key] = kind_of(a_fc).clone(a_fc)
+            continue
+        kind = kind_of(a_fc)
+        b_kind = kind_of(b_fc)
+        if kind is not b_kind:
+            if getattr(kind, "is_sequence", False) and getattr(
+                b_kind, "is_sequence", False
+            ):
+                # Sequence FAMILY (one pooled span, one object list):
+                # same algebra, different storage — rebase through the
+                # shared mark-list view.  The object-list result is what
+                # a pure-object replica computes, so replicas converge
+                # regardless of which representation each one holds.
+                out.fields[key] = rebase_marks(
+                    kind.as_mark_list(a_fc), b_kind.as_mark_list(b_fc),
+                    a_after,
+                )
+                continue
+            # Two producers spoke genuinely different kinds for one field
+            # (a typed view racing an untyped/schema-less writer).
+            # Degrade DETERMINISTICALLY instead of crashing the delta
+            # pump: the later-sequenced side drops its field change, the
+            # earlier side carries through untouched — every replica
+            # computes the same outcome from the same sequence order.
+            if a_after:
+                continue
+            out.fields[key] = kind_of(a_fc).clone(a_fc)
+            continue
+        out.fields[key] = kind.rebase(a_fc, b_fc, a_after)
+    return out
+
+
+def compose_node_change(a: NodeChange, b: NodeChange) -> NodeChange:
+    """Compose node changes (b reads a's output context; result reads a's
+    input context) — the third leg of the ChangeRebaser triple
+    (changeRebaser.ts:41), dispatched per field kind."""
+    kind_of = _kind_of or _get_kind_of()
+
+    if b.value is not None:
+        # Enrichment is carried by tuple LENGTH (2 = applied), never by the
+        # prior's None-ness — None is a legitimate recorded prior.
+        a_applied = a.value is not None and len(a.value) == 2
+        if a_applied or len(b.value) == 2:
+            value = (b.value[0], a.value[1] if a_applied else b.value[1])
+        else:
+            value = (b.value[0],)
+    else:
+        value = a.value
+    out = NodeChange(value=value)
+    for key in {**a.fields, **b.fields}:
+        a_fc, b_fc = a.fields.get(key), b.fields.get(key)
+        # One-sided branches CLONE: applying the composed change enriches
+        # it in place (value tuples, Remove.detached), and sharing
+        # structure with the inputs would silently rewrite the original
+        # commits (applied_log / trunk) and corrupt their later invert.
+        if a_fc is None:
+            out.fields[key] = _clone_field_change(b_fc)
+        elif b_fc is None:
+            out.fields[key] = _clone_field_change(a_fc)
+        elif kind_of(a_fc) is kind_of(b_fc):
+            out.fields[key] = kind_of(a_fc).compose(a_fc, b_fc)
+        else:
+            out.fields[key] = _compose_mixed_kinds(a_fc, b_fc)
+    return out
+
+
+def _compose_mixed_kinds(a_fc, b_fc):
+    """Compose a field's SEQUENTIAL history written under two different
+    kinds (mixed typed/untyped producers, which rebase now tolerates):
+
+    - a later optional SET shadows everything a did -> b alone;
+    - a later optional NESTED edit targets the field's single resident
+      node -> fold as a Modify at position 0 of a's marks;
+    - later sequence marks over an optional change -> convert a to its
+      mark/content form and fold b in (collapsing to <=1 node).
+    """
+    from .field_kinds import OptionalChange, compose_marks, kind_of
+
+    # Normalize sequence-family operands to bare mark lists (a pooled
+    # columnar span composes through the same object algebra — compose is
+    # an offline path, never the pooled trunk fold).
+    if not isinstance(a_fc, (list, OptionalChange)):
+        k = kind_of(a_fc)
+        if getattr(k, "is_sequence", False):
+            a_fc = k.as_mark_list(a_fc)
+    if not isinstance(b_fc, (list, OptionalChange)):
+        k = kind_of(b_fc)
+        if getattr(k, "is_sequence", False):
+            b_fc = k.as_mark_list(b_fc)
+    if isinstance(a_fc, list) and isinstance(b_fc, list):
+        # Both were sequence-family (one pooled, one object): after
+        # normalization this is a plain sequence compose.
+        return compose_marks(a_fc, b_fc)
+    if isinstance(b_fc, OptionalChange):
+        if b_fc.set is not None:
+            # Whole-content shadow — but b's recorded prior (set[1]) lives
+            # in a's OUTPUT context, and the composed change reads a's
+            # INPUT context: unwind a's marks from the prior so that
+            # invert(compose) restores a's input state, not the
+            # intermediate (mirrors the _safe_invert unwind in
+            # OptionalFieldKind.compose).
+            out = kind_of(b_fc).clone(b_fc)
+            if len(out.set) == 2 and out.set[1] is not None:
+                content = [out.set[1]]
+                try:
+                    inv = invert_marks(a_fc)
+                except AssertionError:
+                    # Unapplied/unenriched a: no repair data to protect.
+                    inv = None
+                if inv is not None:
+                    try:
+                        apply_marks(content, inv)
+                    except (IndexError, AssertionError):
+                        # a's output had residents beyond the recorded
+                        # prior; keep the prior as-is (deterministic
+                        # degrade, same on every replica).
+                        pass
+                    else:
+                        out.set = (out.set[0], content[0] if content else None)
+            return out
+        return compose_marks(a_fc, [Modify(b_fc.nested)])
+    # a is the optional change; b is sequence marks over a's output.
+    assert isinstance(a_fc, OptionalChange)
+    if a_fc.set is None:
+        return compose_marks([Modify(a_fc.nested)], b_fc)
+    new = a_fc.set[0]
+    content = [new.clone()] if new is not None else []
+    apply_marks(content, [_clone_mark(m) for m in b_fc])
+    return OptionalChange(
+        kind=a_fc.kind,
+        set=(content[0] if content else None,) + tuple(a_fc.set[1:]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Invert (requires an applied/enriched change)
+# ---------------------------------------------------------------------------
+
+
+def invert_marks(marks: list[Mark]) -> list[Mark]:
+    # Per-id original offsets of this changeset's MoveOut pieces: inverting
+    # a MoveIn that received a SPLIT move must hand each node back under its
+    # original offset (the destination block's order is sorted-offsets).
+    offsets_by_id: dict[int, list[int]] = {}
+    for m in marks:
+        if isinstance(m, MoveOut):
+            offsets_by_id.setdefault(m.id, []).extend(
+                range(m.offset, m.offset + m.count)
+            )
+    out: list[Mark] = []
+    for m in marks:
+        if isinstance(m, Skip):
+            _emit(out, m)
+        elif isinstance(m, Insert):
+            _emit(out, Remove(len(m.content), [n.clone() for n in m.content]))
+        elif isinstance(m, Remove):
+            assert m.detached is not None, "invert of unapplied remove"
+            _emit(out, Insert([n.clone() for n in m.detached]))
+        elif isinstance(m, MoveOut):
+            # The inverse moves this piece back to its own origin.
+            _emit(out, MoveIn(m.id, m.count, m.offset))
+        elif isinstance(m, MoveIn):
+            if m.offset is not None:
+                _emit(out, MoveOut(m.count, m.id, m.offset))
+            else:
+                # The destination block holds the surviving pieces in
+                # sorted-original-offset order: move each back out under its
+                # own offset so the returning MoveIn pieces find it.
+                for off in sorted(offsets_by_id.get(m.id, range(m.count))):
+                    _emit(out, MoveOut(1, m.id, off))
+        else:
+            _emit(out, Modify(invert_node_change(m.change)))
+    return out
+
+
+def invert_node_change(change: NodeChange) -> NodeChange:
+    from .field_kinds import kind_of
+
+    value = None
+    if change.value is not None:
+        assert len(change.value) == 2, "invert of unapplied value change"
+        value = (change.value[1], change.value[0])
+    return NodeChange(
+        value=value,
+        fields={k: kind_of(fc).invert(fc) for k, fc in change.fields.items()},
+    )
+
+
+# ---------------------------------------------------------------------------
+# Apply (mutates the forest; enriches the change in place)
+# ---------------------------------------------------------------------------
+
+
+class _MoveRegister:
+    """Placeholder emitted where a MoveIn lands before its MoveOut has been
+    walked (moves can point either direction); resolved in a second pass."""
+
+    def __init__(self, move_id: int, count: int, offset: int | None) -> None:
+        self.move_id = move_id
+        self.count = count
+        self.offset = offset
+
+
+def apply_marks(nodes: list[Node], marks: list[Mark]) -> None:
+    """Single-pass rebuild: consume the input node list per mark, emitting
+    the output; MoveIn emits a register placeholder patched once every
+    MoveOut of the list has detached its nodes (a move may land left OR
+    right of its source).
+
+    Skip/Modify-only lists (the trunk checkpoint fold's dominant shape —
+    value sets and nested edits) apply IN PLACE: no output list rebuild,
+    no O(field) extend per edit."""
+    structural = False
+    for m in marks:
+        if not isinstance(m, (Skip, Modify)):
+            structural = True
+            break
+    if not structural:
+        pos = 0
+        for m in marks:
+            if isinstance(m, Skip):
+                pos += m.count
+            else:
+                apply_node_change(nodes[pos], m.change)
+                pos += 1
+        assert pos <= len(nodes), "marks walk past end of field"
+        return
+    out: list = []
+    registers: dict[int, dict[int, Node]] = {}  # id -> {original offset: node}
+    pos = 0
+    for m in marks:
+        if isinstance(m, Skip):
+            out.extend(nodes[pos : pos + m.count])
+            pos += m.count
+        elif isinstance(m, Insert):
+            out.extend(n.clone() for n in m.content)
+        elif isinstance(m, Remove):
+            assert pos + m.count <= len(nodes), "remove past end of field"
+            m.detached = [n for n in nodes[pos : pos + m.count]]
+            pos += m.count
+        elif isinstance(m, MoveOut):
+            assert pos + m.count <= len(nodes), "move-out past end of field"
+            reg = registers.setdefault(m.id, {})
+            for off in range(m.count):
+                reg[m.offset + off] = nodes[pos + off]
+            pos += m.count
+        elif isinstance(m, MoveIn):
+            out.append(_MoveRegister(m.id, m.count, m.offset))
+        else:
+            apply_node_change(nodes[pos], m.change)
+            out.append(nodes[pos])
+            pos += 1
+    assert pos <= len(nodes), "marks walk past end of field"
+    out.extend(nodes[pos:])
+    resolved: list[Node] = []
+    for item in out:
+        if isinstance(item, _MoveRegister):
+            reg = registers.get(item.move_id, {})
+            if item.offset is None:
+                picked = sorted(reg)
+            else:
+                # A slice MoveIn (inverse of a split move): its own offsets.
+                picked = sorted(o for o in reg if o >= item.offset)[: item.count]
+            assert len(picked) == item.count, (
+                f"move register {item.move_id}: {len(picked)} nodes for a "
+                f"MoveIn of {item.count}"
+            )
+            resolved.extend(reg.pop(o) for o in picked)
+        else:
+            resolved.append(item)
+    nodes[:] = resolved
+
+
+def apply_node_change(node: Node, change: NodeChange) -> None:
+    from .field_kinds import kind_of
+
+    if change.value is not None:
+        new = change.value[0]
+        change.value = (new, node.value)
+        node.value = new
+    for key, fc in change.fields.items():
+        kind_of(fc).apply(node.fields.setdefault(key, []), fc)
+
+
+# ---------------------------------------------------------------------------
+# Commits: atomic sequences of changesets (transactions) + constraints
+# ---------------------------------------------------------------------------
+# A commit is a list of NodeChanges applied in order as ONE sequenced unit —
+# the wire/trunk form of a transaction (ref shared-tree Transactor squashes
+# into one commit; here the sequence itself is the unit, so no separate
+# compose algebra is needed: rebase/invert/apply fold over the elements).
+#
+# Revision constraints (ref shared-tree runtime.constraints /
+# modular-changeset revision constraints): a commit may declare that a node
+# must still satisfy a predicate at sequencing time; rebasing the commit
+# over a concurrent change that breaks the predicate turns the WHOLE commit
+# into a no-op (``violated``).  Constraint paths rebase along with the
+# commit so later checks stay in valid coordinates.
+#
+#   {"type": "nodeInDocument", "path": [[field, idx], ...]}
+#       violated when a concurrent change detaches/replaces any node on
+#       the path (ref nodeExistsConstraint).
+#   {"type": "noChange", "path": [...]}
+#       additionally violated when the subtree at path was edited at all.
+
+
+class Commit(list):
+    """list[NodeChange] plus constraint metadata.  Plain lists remain
+    accepted everywhere (constraint-free commits)."""
+
+    def __init__(self, changes=(), constraints=None, violated=False) -> None:
+        super().__init__(changes)
+        self.constraints = list(constraints or [])
+        self.violated = violated
+
+
+def _commit_meta(c) -> tuple[list, bool]:
+    return getattr(c, "constraints", []), getattr(c, "violated", False)
+
+
+def rebase_constraint_path(
+    path: list, change: NodeChange
+) -> tuple[list | None, bool]:
+    """Carry a constraint path through one NodeChange.  Returns
+    (rebased path | None when a node on the path was detached/replaced,
+    whether the subtree at the path was edited)."""
+    from .field_kinds import kind_of
+
+    cur: NodeChange | None = change
+    out: list = []
+    for key, idx in path:
+        fc = cur.fields.get(key) if cur is not None else None
+        if fc is None:
+            out.append([key, idx])
+            cur = None
+            continue
+        kind = kind_of(fc)
+        if getattr(kind, "is_sequence", False):
+            # Sequence-family kinds (object mark lists AND pooled columnar
+            # spans) expose the mark-list view the fate map walks.
+            fates = _Fates(kind.as_mark_list(fc))
+            k, pos, nested = fates.node(idx)
+            if k != "keep":
+                return None, True
+            out.append([key, pos])
+            cur = nested
+        else:  # optional/value: a set replaces the resident node
+            if fc.set is not None:
+                return None, True
+            out.append([key, idx])
+            cur = fc.nested
+    touched = cur is not None and not cur.is_empty()
+    return out, touched
+
+
+def _rebase_constraints(
+    constraints: list, x: NodeChange
+) -> tuple[list, bool]:
+    """All constraint paths through one concurrent change; returns
+    (updated constraints, violated)."""
+    out = []
+    for c in constraints:
+        path, touched = rebase_constraint_path(c["path"], x)
+        if path is None or (c["type"] == "noChange" and touched):
+            return constraints, True
+        out.append({**c, "path": path})
+    return out, False
+
+
+def rebase_commit_over_change(
+    a: "Commit", x: NodeChange, a_after: bool = True
+) -> "Commit":
+    """Rebase the commit a = [c1..cn] over one change x sharing c1's input
+    context: each element rebases over x carried through its predecessors.
+
+    Constraints evaluate ONLY on the later/unsequenced side
+    (``a_after=True``): a commit that is already sequenced settled its
+    constraints at sequencing time, and re-judging it against LATER local
+    pending edits (the bridge's a_after=False leg) would void it on some
+    replicas only — divergence."""
+    constraints, violated = _commit_meta(a)
+    if constraints and not violated and a_after:
+        constraints, violated = _rebase_constraints(constraints, x)
+        if violated:
+            return Commit([], constraints, violated=True)
+    out = Commit(constraints=constraints, violated=violated)
+    if violated:
+        return out
+    for c in a:
+        out.append(rebase_node_change(c, x, a_after))
+        x = rebase_node_change(x, c, not a_after)
+    return out
+
+
+def rebase_commit(a: "Commit", b: "Commit", a_after: bool = True) -> "Commit":
+    """Rebase commit a over commit b (same input context).  Constraint
+    violation anywhere in b voids a (the transaction no-ops)."""
+    for x in b:
+        a = rebase_commit_over_change(a, x, a_after)
+        # Carrying x forward happens inside the helper per element; for the
+        # next b element we need a's ORIGINAL context advanced by x, which
+        # is exactly what successive iteration provides.
+    return a
+
+
+def invert_commit(cs: "Commit") -> "Commit":
+    return Commit([invert_node_change(c) for c in reversed(cs)])
+
+
+def compose_commit(cs: "Commit") -> NodeChange:
+    """Squash a commit into ONE NodeChange (offline tooling; the trunk
+    pipeline keeps commits as element lists)."""
+    if not cs:
+        return NodeChange()
+    out = cs[0]
+    for c in cs[1:]:
+        out = compose_node_change(out, c)
+    return out
+
+
+def apply_commit(root: Node, cs: "Commit") -> None:
+    for c in cs:
+        apply_node_change(root, c)
+
+
+def rollback_staged(root: Node, staged: list[NodeChange], applied_log: list[NodeChange]) -> None:
+    """Transaction abort: invert and apply the staged changes newest-first,
+    recording the inverses on the coordinate trail (shared by channel and
+    branch transactions)."""
+    for change in reversed(staged):
+        inverse = invert_commit([change])
+        apply_commit(root, inverse)
+        applied_log.extend(inverse)
+
+
+def clone_commit(cs: "Commit") -> "Commit":
+    constraints, violated = _commit_meta(cs)
+    return Commit(
+        [clone_change(c) for c in cs],
+        [dict(c, path=[list(p) for p in c["path"]]) for c in constraints],
+        violated,
+    )
+
+
+def commit_to_json(cs: "Commit"):
+    changes = [change_to_json(c) for c in cs]
+    constraints, violated = _commit_meta(cs)
+    if not constraints and not violated:
+        return changes  # bare-list wire shape (constraint-free compat)
+    return {"changes": changes, "constraints": constraints,
+            "violated": violated}
+
+
+def commit_from_json(data) -> "Commit":
+    if isinstance(data, dict):
+        return Commit(
+            [change_from_json(c) for c in data["changes"]],
+            data.get("constraints"),
+            data.get("violated", False),
+        )
+    return Commit([change_from_json(c) for c in data])
+
+
+# ---------------------------------------------------------------------------
+# Edit builders (path-addressed convenience constructors)
+# ---------------------------------------------------------------------------
+
+
+def _wrap(path: list[tuple[str, int]], leaf: NodeChange) -> NodeChange:
+    """Nest a NodeChange under a path of (field_key, index) steps."""
+    for key, idx in reversed(path):
+        leaf = NodeChange(fields={key: [Skip(idx), Modify(leaf)]} if idx else {key: [Modify(leaf)]})
+    return leaf
+
+
+def make_set_value(path: list[tuple[str, int]], value: Any) -> NodeChange:
+    """Overwrite the leaf value of the node at ``path``."""
+    assert path, "cannot set a value on the virtual root"
+    prefix, (key, idx) = path[:-1], path[-1]
+    inner = NodeChange(value=(value,))
+    marks: list[Mark] = [Skip(idx)] if idx else []
+    marks.append(Modify(inner))
+    return _wrap(prefix, NodeChange(fields={key: marks}))
+
+
+def make_insert_marks(index: int, content: list[Node]) -> list[Mark]:
+    marks: list[Mark] = [Skip(index)] if index else []
+    marks.append(Insert([n.clone() for n in content]))
+    return marks
+
+
+def make_remove_marks(index: int, count: int) -> list[Mark]:
+    marks: list[Mark] = [Skip(index)] if index else []
+    marks.append(Remove(count))
+    return marks
+
+
+def make_insert(
+    path: list[tuple[str, int]], field_key: str, index: int, content: list[Node]
+) -> NodeChange:
+    """Insert ``content`` at ``index`` of ``field_key`` under the node at
+    ``path`` (path [] addresses the virtual root / root field)."""
+    return _wrap(path, NodeChange(fields={field_key: make_insert_marks(index, content)}))
+
+
+def make_remove(
+    path: list[tuple[str, int]], field_key: str, index: int, count: int
+) -> NodeChange:
+    return _wrap(path, NodeChange(fields={field_key: make_remove_marks(index, count)}))
+
+
+def make_optional_set(
+    path: list[tuple[str, int]], field_key: str, content: "Node | None",
+    kind: str = "optional",
+) -> NodeChange:
+    """Replace the whole content of an optional/value field under ``path``
+    (None clears an optional field; ref optional-field set/clear)."""
+    from .field_kinds import OptionalChange
+
+    return _wrap(path, NodeChange(fields={
+        field_key: OptionalChange(
+            kind=kind, set=(content.clone() if content is not None else None,)
+        )
+    }))
+
+
+def make_optional_edit(
+    path: list[tuple[str, int]], field_key: str, nested: NodeChange,
+    kind: str = "optional",
+) -> NodeChange:
+    """Edit the node RESIDENT in an optional/value field (same-kind nested
+    form — a field's kind is fixed by schema, so edits and sets of one
+    field always rebase under the same registry entry)."""
+    from .field_kinds import OptionalChange
+
+    return _wrap(path, NodeChange(fields={
+        field_key: OptionalChange(kind=kind, nested=nested)
+    }))
+
+
+def node_exists_constraint(path: list[tuple[str, int]]) -> dict:
+    """The transaction no-ops if the node at ``path`` was detached by a
+    concurrent edit (ref runtime.constraints nodeInDocument)."""
+    return {"type": "nodeInDocument", "path": [list(p) for p in path]}
+
+
+def no_change_constraint(path: list[tuple[str, int]]) -> dict:
+    """Stricter: the transaction no-ops if the subtree at ``path`` was
+    edited at all concurrently."""
+    return {"type": "noChange", "path": [list(p) for p in path]}
+
+
+_move_counter = 0
+
+
+def make_move_marks(src_index: int, count: int, dst_index: int) -> list[Mark]:
+    """The field-level mark list of a same-field move (see make_move)."""
+    global _move_counter
+    _move_counter += 1
+    mid = _move_counter
+    marks: list[Mark] = []
+    if dst_index <= src_index:
+        if dst_index:
+            marks.append(Skip(dst_index))
+        marks.append(MoveIn(mid, count))
+        if src_index > dst_index:
+            marks.append(Skip(src_index - dst_index))
+        marks.append(MoveOut(count, mid))
+    elif dst_index >= src_index + count:
+        if src_index:
+            marks.append(Skip(src_index))
+        marks.append(MoveOut(count, mid))
+        gap = dst_index - src_index - count
+        if gap:
+            marks.append(Skip(gap))
+        marks.append(MoveIn(mid, count))
+    else:  # destination inside the moved range: identity
+        if src_index:
+            marks.append(Skip(src_index))
+        marks.append(MoveOut(count, mid))
+        marks.append(MoveIn(mid, count))
+    return marks
+
+
+def make_move(
+    path: list[tuple[str, int]],
+    field_key: str,
+    src_index: int,
+    count: int,
+    dst_index: int,
+) -> NodeChange:
+    """Move ``count`` nodes from ``src_index`` to the boundary ``dst_index``
+    of the same field, both in PRE-move coordinates (ref sequence-field
+    moveOut/moveIn pair).  A destination inside the moved range is the
+    identity move."""
+    return _wrap(
+        path,
+        NodeChange(fields={field_key: make_move_marks(src_index, count, dst_index)}),
+    )

@@ -18,3 +18,11 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
             "false; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def count_launch(x: torch.Tensor, fn) -> None:
+    """Count one run of the device program ``fn`` on ``fn.launches`` when
+    ``x`` (one of its inputs) lives on a CUDA device: the launch counts
+    that ``chip_smoke.py`` reads per path."""
+    if x.is_cuda:
+        fn.launches += 1

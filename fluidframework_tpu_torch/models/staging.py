@@ -72,11 +72,25 @@ class RowQueue:
             t += 1
         self.tail = t
 
+    def extend_block(self, ops: np.ndarray, payloads: np.ndarray) -> None:
+        """Land [M, F] / [M, L] row blocks as two slice copies."""
+        m = ops.shape[0]
+        if not m:
+            return
+        self._room(m)
+        self.ops[self.tail : self.tail + m] = ops
+        self.payloads[self.tail : self.tail + m] = payloads
+        self.tail += m
+
     def take(self, n: int) -> tuple[np.ndarray, np.ndarray]:
         """Dequeue ``n`` rows as views (copy out before the next append)."""
         h = self.head
         self.head = h + n
         return self.ops[h : h + n], self.payloads[h : h + n]
+
+    def pending(self) -> tuple[np.ndarray, np.ndarray]:
+        """Views of everything queued (watermark accounting)."""
+        return self.ops[self.head : self.tail], self.payloads[self.head : self.tail]
 
     def clear(self) -> None:
         """Drop every pending row."""
@@ -111,6 +125,19 @@ class OverloadGate:
         for d in to_resume:
             self.paused.discard(d)
         return to_pause, to_resume
+
+    def watermarks(self, megastep_budget: int) -> dict:
+        """The flow-control contract numbers (``ingest_watermarks``)."""
+        return {"megastep_budget": megastep_budget, "high": self.high, "low": self.low}
+
+    def emit_gauges(self, counters, megastep_budget: int, queue_depth_max: int) -> None:
+        """The health() surface of the gate: is any doc over its watermark,
+        how many, how deep, and how many pause transitions so far."""
+        counters.gauge("megastep_budget", megastep_budget)
+        counters.gauge("overload", int(bool(self.paused)))
+        counters.gauge("overloaded_docs", len(self.paused))
+        counters.gauge("overload_events", self.events)
+        counters.gauge("queue_depth_max", queue_depth_max)
 
 
 class _StageBuf:

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, count_launch, resolve_device
 from ..protocol.messages import SIDE_AFTER, SIDE_BEFORE
 from ..protocol.stamps import ALL_ACKED, LOCAL_BASE, NO_REMOVE
 from .resolve_kernel import resolve_positions
@@ -909,6 +909,7 @@ def apply_megastep(s: DocState, ops, payloads, kinds=None) -> DocState:
     ops: int32[K, D, B, 8]; payloads: int32[K, D, B, L] (host numpy or
     tensors); ``kinds``: the host-side int[K, D, B] op kinds, when the
     caller has them (saves a device read of the ring)."""
+    count_launch(s.nseg, apply_megastep)
     dev = s.nseg.device
     if kinds is None:
         kinds = _host_kinds(ops)
@@ -923,6 +924,7 @@ def apply_megastep(s: DocState, ops, payloads, kinds=None) -> DocState:
 
 
 apply_megastep.ob_gate_syncs = 0
+apply_megastep.launches = 0
 
 
 # -------------------------------------------------------------- compaction
@@ -975,6 +977,14 @@ def compact(s: DocState, ob_flag=None) -> DocState:
     (reference zamboni.ts:33), keeping segments that anchor a live
     obliterate.  ``ob_flag`` gates the [D, OB, S] anchor match (default:
     one device read of the obliterate tables)."""
+    count_launch(s.nseg, compact)
+    return _compact(s, ob_flag)
+
+
+compact.launches = 0
+
+
+def _compact(s: DocState, ob_flag=None) -> DocState:
     if ob_flag is None:
         ob_flag = bool((s.ob_key >= 0).any())
     alive = _alive(s)
@@ -1247,6 +1257,7 @@ def apply_megastep_seg(s: DocState, ops, payloads, group=None, kinds=None) -> Do
     obliterate gate).  ``s`` is the shard's local view — per-segment columns
     [S_local], ``nseg`` int32[1] (this shard's live count), the text pool,
     scalars and obliterate table replicated; ops/payloads are replicated."""
+    count_launch(s.nseg, apply_megastep_seg)
     g = group if group is not None else SingleShardGroup()
     dev = s.nseg.device
     if kinds is None:
@@ -1263,13 +1274,20 @@ def apply_megastep_seg(s: DocState, ops, payloads, group=None, kinds=None) -> Do
     return _batch_to_seg(st)
 
 
+apply_megastep_seg.launches = 0
+
+
 def compact_seg(s: DocState, min_seq, group=None) -> DocState:
     """Zamboni on the seg-sharded layout: replicated ``set_min_seq``, then
     a shard-local stable compaction (order is preserved within each shard,
     so the global concatenation order is preserved)."""
+    count_launch(s.nseg, compact_seg)
     st = _seg_to_batch(s)
     m = _as_tensor(min_seq, s.nseg.device).reshape(1)
-    return _batch_to_seg(compact(set_min_seq(st, m)))
+    return _batch_to_seg(_compact(set_min_seq(st, m)))
+
+
+compact_seg.launches = 0
 
 
 # ----------------------------------------------------- host-side seg packing

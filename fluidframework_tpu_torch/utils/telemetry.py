@@ -32,6 +32,14 @@ class HealthCounters:
     def gauge(self, name: str, value: Any) -> None:
         self._values[name] = value
 
+    def ratio(self, name: str, numerator: str, denominator: str) -> None:
+        """Derived gauge: ``numerator``/``denominator`` counter ratio at
+        snapshot time (0.0 while the denominator is empty)."""
+        den = self._values.get(denominator, 0)
+        self._values[name] = (
+            round(self._values.get(numerator, 0) / den, 2) if den else 0.0
+        )
+
     def get(self, name: str, default: Any = 0) -> Any:
         return self._values.get(name, default)
 

@@ -149,3 +149,44 @@ def test_seg_lane_on_card_matches_cpu(cuda_device):
             assert rk.resolve_positions.launches > before
     for a, b in zip(tk.leaves(out["cpu"]), tk.leaves(out["cuda"])):
         assert torch.equal(a, b.cpu())
+
+
+def test_tree_megastep_and_compact_on_card_match_cpu(cuda_device):
+    """A tiny nested-forest megastep (K7) and compaction (K8) on the card
+    equal the same calls on the CPU, leaf for leaf, and count their
+    launches on the card only."""
+    from fluidframework_tpu_torch.ops import tree_kernel as nk
+
+    rng = np.random.default_rng(1)
+    K, D, B, L, N, P = 2, 4, 8, 8, 32, 64
+    t = nk._TGT
+    shape = (K, D, B)
+    ops = np.zeros(shape + (nk.NESTED_OP_FIELDS,), np.int32)
+    ops[..., 0] = rng.choice([1, 1, 2, 3, 4, 5], size=shape)
+    ops[..., 1] = 1 + np.arange(K * D * B).reshape(shape)
+    ops[..., 2] = rng.choice([0, 0, 1], size=shape)
+    ops[..., 3] = 0
+    ops[..., 4] = rng.integers(0, 3, size=shape)
+    ops[..., t] = rng.integers(0, 2, size=shape)
+    ops[..., t + 1] = rng.integers(0, 3, size=shape)
+    ops[..., t + 2] = rng.integers(0, 3, size=shape)
+    ops[..., t + 3] = rng.integers(0, 4, size=shape)
+    vk = rng.integers(0, 5, size=shape)
+    ops[..., t + 5] = vk
+    ops[..., t + 4] = np.where((vk == nk.VKIND_STR) | (vk == nk.VKIND_F64),
+                               rng.integers(0, L + 1, size=shape), rng.integers(0, 99, size=shape))
+    pays = rng.integers(0, 200, size=shape + (L,)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = nk.batch_nested(nk.init_nested_forest(N, P, device=dev), D)
+        before = (nk.apply_nested_megastep.launches, nk.compact_nested.launches)
+        st = nk.apply_nested_megastep(st, torch.from_numpy(ops).to(dev),
+                                      torch.from_numpy(pays).to(dev), host_ops=ops[..., :3])
+        out[dev] = (st, nk.compact_nested(st))
+        after = (nk.apply_nested_megastep.launches, nk.compact_nested.launches)
+        assert [a - b for a, b in zip(after, before)] == ([1, 1] if dev == "cuda" else [0, 0])
+    for (a_st, a_c), (b_st, b_c) in [(out["cpu"], out["cuda"])]:
+        for a, b in zip(list(a_st) + list(a_c), list(b_st) + list(b_c)):
+            assert a.dtype == b.dtype == torch.int32
+            assert torch.equal(a, b.cpu())
+    assert int(out["cpu"][0].nrow.max()) > 0

@@ -49,7 +49,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 12  # every module of the port was imported
+    assert int(proc.stdout.strip()) >= 35  # every module of the port was imported
 
 
 def test_blocker_blocks_the_jax_package():
