@@ -77,10 +77,20 @@ def ring(rng, shape, kinds=KINDS):
 
 
 def test_init_and_state_transfer():
+    """Both packages start from the same forest: the port's state made
+    from the reference's leaves (``nested_state_from_numpy``) after a
+    reference ring, then one more ring through each."""
     ref = ref_fleet()
     assert_forests_equal(ref, port_fleet(), "init")
+    rng = np.random.default_rng(4)
+    ops, pays = ring(rng, (D, B))
+    ref = _ref_ops(ref, jnp.asarray(ops), jnp.asarray(pays))
     port = tk.nested_state_from_numpy([np.asarray(x) for x in ref], device="cpu")
     assert_forests_equal(ref, port, "from numpy")
+    ops, pays = ring(rng, (D, B))
+    ref = _ref_ops(ref, jnp.asarray(ops), jnp.asarray(pays))
+    port = tk.apply_nested_ops(port, torch.from_numpy(ops), torch.from_numpy(pays))
+    assert_forests_equal(ref, port, "after")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
