@@ -62,10 +62,12 @@ It builds every hand-written kernel of the port from ``csrc/`` with nvcc
 9. ``tree_churn``: 256 docs whose writers alternate inserts and removes
    (capacity 128): compaction (K8) must run; a sample of 64 identical to
    a CPU replay.
-10. ``tree_programs``: K7 (``apply_nested_megastep``) on the largest ring
-    the tree fleet ran and K8 (``compact_nested``) on its last compaction
-    input, timed alone beside their bytes bounds and held against the CPU
-    on 64 docs.
+10. ``tree_programs``: K7 (``apply_nested_megastep``) on the ring the
+    tree fleet stages from one more round, and K8 (``compact_nested``) on
+    the fleet's state, timed alone beside their bytes bounds and held
+    against the CPU on 64 docs; then K7's two routes (masked over every
+    doc, or on the gathered rows of the docs that hold a kind) timed in
+    turns on that ring with its ops kept for 1/16 to all of the docs.
 
 The fleet's traffic is made once, before phase 2, and shared by phases
 2, 3 and 6 (a ``traffic`` line gives its generation time); each tree
@@ -1259,38 +1261,6 @@ def tree_traffic(seed: int, n_docs: int, rounds: int, writers: int = 4,
     return out
 
 
-class ProgramRecorder:
-    """Keeps the inputs of the largest K7 call (``apply_nested_megastep``)
-    and of the last K8 call (``compact_nested``) made on a tree path, for
-    timing them alone afterwards.  Installs by wrapping the two module
-    functions (their launch counts stay on ``tk._K7`` and ``tk._K8``);
-    ``close()`` restores them."""
-
-    def __init__(self, tk):
-        import torch
-
-        self.tk = tk
-        self.mega, self.compact = tk.apply_nested_megastep, tk.compact_nested
-        self.mega_args = None
-        self.compact_state = None
-
-        def mega(s, ops, payloads, host_ops=None):
-            if s.parent.is_cuda and (self.mega_args is None or ops.shape[0] > self.mega_args[1].shape[0]):
-                self.mega_args = (tk.tree_map(torch.clone, s), ops.clone(), payloads.clone(),
-                                  None if host_ops is None else host_ops.copy())
-            return self.mega(s, ops, payloads, host_ops=host_ops)
-
-        def compact(s):
-            if s.parent.is_cuda:
-                self.compact_state = tk.tree_map(torch.clone, s)
-            return self.compact(s)
-
-        tk.apply_nested_megastep, tk.compact_nested = mega, compact
-
-    def close(self) -> None:
-        self.tk.apply_nested_megastep, self.tk.compact_nested = self.mega, self.compact
-
-
 def _drive_tree(eng, rounds_msgs, local=None, on_card: bool = False) -> dict:
     """Ingest each round's messages (those of the docs in ``local``,
     renumbered through it, when given) and step after each round."""
@@ -1372,8 +1342,7 @@ def _tree_run_line(name, card, eng, run, gen_s, on_card, compacts) -> dict:
 
 def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
                      rounds: int = 4, n_faulted: int = 4, sample: int = 64,
-                     fault_edits: int = 24, geom: dict = TREE_FLEET_GEOM,
-                     recorder=None) -> dict:
+                     fault_edits: int = 24, geom: dict = TREE_FLEET_GEOM) -> tuple:
     """The SharedTree fleet: ``bench_config5``'s stream at ``n_docs`` docs
     through ``TreeBatchEngine.ingest``/``step`` (a step after every
     round), with ``n_faulted`` seeded docs whose writer 0 inserts
@@ -1382,7 +1351,9 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
     fallback.  Then a CPU replay of a seeded sample plus the faulted docs
     (raw columns, views and summaries identical, same fallbacks), a forced
     checkpoint sweep restored into a fresh engine (every doc's views and
-    summary equal), and one more round through both engines."""
+    summary equal), and one more round through both engines.  Returns the
+    phase's line and the inputs of a K7 ring that the engine stages from a
+    further round (``tree_fleet_ring``), for timing K7 and K8 alone."""
     import torch
 
     from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
@@ -1393,18 +1364,18 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
     rng = np.random.default_rng(seed + 11)
     faulted = sorted(int(d) for d in rng.choice(n_docs, size=n_faulted, replace=False))
     t0 = time.perf_counter()
-    traffic = tree_traffic(seed, n_docs, rounds + 1, faulted=faulted, fault_edits=fault_edits)
+    traffic = tree_traffic(seed, n_docs, rounds + 2, faulted=faulted, fault_edits=fault_edits)
     gen_s = time.perf_counter() - t0
-    main_rounds, extra = traffic[:rounds + 1], traffic[rounds + 1:]
+    main_rounds, extra, ring_round = traffic[:rounds + 1], traffic[rounds + 1:rounds + 2], traffic[-1]
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     ck_dir = tempfile.mkdtemp(prefix="chip_smoke_tree_ckpt_")
     try:
         eng = TreeBatchEngine(n_docs, device=device, checkpoint_store=CheckpointStore(ck_dir), **geom)
-        k8_0 = tk._K8.launches
+        k8_0 = tk.compact_nested.launches
         run = _drive_tree(eng, main_rounds, on_card=on_card)
         line = _tree_run_line("tree_fleet", card, eng, run, gen_s, on_card,
-                              tk._K8.launches - k8_0)
+                              tk.compact_nested.launches - k8_0)
         check(not eng.errors().any(), "tree_fleet: error bits left after step()")
         check(sorted(eng.fallbacks) == faulted,
               f"tree_fleet: fallbacks {sorted(eng.fallbacks)}, expected the faulted docs {faulted}")
@@ -1450,6 +1421,7 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
         check(same == n_docs, f"tree_fleet: {n_docs - same} docs differ after a round past the restore")
         check(not eng.errors().any() and not eng2.errors().any(),
               "tree_fleet: error bits after the round past the restore")
+        ring = tree_fleet_ring(eng, ring_round)
     finally:
         shutil.rmtree(ck_dir, ignore_errors=True)
     line.update({
@@ -1459,7 +1431,26 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
         "restored_identical": n_docs, "identical_after_extra_round": n_docs,
     })
     emit(line)
-    return line
+    return line, ring
+
+
+def tree_fleet_ring(eng, msgs) -> tuple:
+    """K7's inputs as the engine's next step would see them: ``msgs``
+    ingested, then one ring staged from the queues as ``_step_fleet``
+    stages it (the engine's own ``_select_k``, ``_staging`` and
+    ``_drain_into``).  Returns (state, ops, payloads, host ops)."""
+    for d, m in msgs:
+        eng.ingest(d, m)
+    busy = sorted(eng._busy)
+    K = eng._select_k(busy)
+    stage = eng._staging()
+    ops, pays = stage.acquire(K, eng.n_docs)
+    for k in range(K):
+        stage.mark(k, eng._drain_into(busy, ops[k], pays[k]))
+        busy = [d for d in busy if d in eng._busy]
+    host_ops = ops[..., :3].copy()
+    dev_ops, dev_pays = stage.upload(ops, pays)
+    return eng.state, dev_ops, dev_pays, host_ops
 
 
 def phase_tree_deep(seed: int, card: str, device: str, writers: int = 32, rounds: int = 4,
@@ -1480,10 +1471,10 @@ def phase_tree_deep(seed: int, card: str, device: str, writers: int = 32, rounds
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     eng = TreeBatchEngine(1, device=device, **geom)
-    k8_0 = tk._K8.launches
+    k8_0 = tk.compact_nested.launches
     run = _drive_tree(eng, traffic, on_card=on_card)
     line = _tree_run_line("tree_deep", card, eng, run, gen_s, on_card,
-                          tk._K8.launches - k8_0)
+                          tk.compact_nested.launches - k8_0)
     check(not eng.errors().any(), "tree_deep: error bits left after step()")
     check(not eng.fallbacks and eng.device_fraction() == 1.0,
           f"tree_deep: device_fraction {eng.device_fraction()}, fallbacks {sorted(eng.fallbacks)}")
@@ -1513,9 +1504,9 @@ def phase_tree_churn(seed: int, card: str, device: str, n_docs: int = 256, round
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     eng = TreeBatchEngine(n_docs, device=device, **geom)
-    k8_0 = tk._K8.launches
+    k8_0 = tk.compact_nested.launches
     run = _drive_tree(eng, traffic, on_card=on_card)
-    k8 = tk._K8.launches - k8_0
+    k8 = tk.compact_nested.launches - k8_0
     line = _tree_run_line("tree_churn", card, eng, run, gen_s, on_card, k8)
     check(not eng.errors().any() and not eng.fallbacks,
           f"tree_churn: error bits or fallbacks {sorted(eng.fallbacks)}")
@@ -1532,41 +1523,64 @@ def phase_tree_churn(seed: int, card: str, device: str, n_docs: int = 256, round
     return line
 
 
-def time_tree_programs(card: str, recorder, cmp_docs: int = 64) -> dict:
-    """K7 and K8 timed alone on the inputs the recorder kept from the tree
-    fleet, held against the same call on the CPU for the first
-    ``cmp_docs`` docs (exact), beside their bytes bounds."""
+def time_tree_programs(card: str, ring, cmp_docs: int = 64,
+                       shares=(1 / 16, 1 / 4, 1 / 2, 1)) -> dict:
+    """K7 on the tree fleet's staged ring and K8 on its state, timed alone
+    and held against the same call on the CPU for the first ``cmp_docs``
+    docs (exact), beside their bytes bounds.
+
+    Then K7's routes on that ring: for each share f, the ops of all docs
+    but the first f x D become NOOP rows, and the ring runs with every
+    kind on the masked route (``SUBSET_FRACTION`` past D) and on the
+    gathered route (``SUBSET_FRACTION`` 0), in turns masked, gathered,
+    gathered, masked."""
     import torch
 
     from fluidframework_tpu_torch.ops import tree_kernel as tk
 
+    s, ops, pays, host_ops = ring
+    D = s.parent.shape[0]
+    n = min(cmp_docs, D)
+
+    def k7(o=ops, h=host_ops):
+        return tk.apply_nested_megastep(s, o, pays, host_ops=h)
+
+    def max_err(got, want):
+        return max(int((g[:n].cpu().long() - w.long()).abs().max()) for g, w in zip(got, want))
+
+    cpu_s = tk.tree_map(lambda x: x[:n].cpu(), s)
+    want = tk.apply_nested_megastep(cpu_s, ops[:, :n].cpu(), pays[:, :n].cpu(),
+                                    host_ops=host_ops[:, :n])
+    err7 = max_err(k7(), want)
+    check(err7 == 0, f"K7 on the card differs from the CPU by {err7}")
+    nbytes, bound = state_bound(list(s), (ops, pays))
     out = {"phase": "tree_programs", "card": card}
-    if recorder.mega_args is not None:
-        s, ops, pays, host_ops = recorder.mega_args
-        fn = lambda: tk.apply_nested_megastep(s, ops, pays, host_ops=host_ops)  # noqa: E731
-        got = fn()
-        n = min(cmp_docs, s.parent.shape[0])
-        cpu_s = tk.tree_map(lambda x: x[:n].cpu(), s)
-        want = tk.apply_nested_megastep(cpu_s, ops[:, :n].cpu(), pays[:, :n].cpu(),
-                                        host_ops=None if host_ops is None else host_ops[:, :n])
-        err = max(int((g[:n].cpu().long() - w.long()).abs().max()) for g, w in zip(got, want))
-        nbytes, bound = state_bound(list(s), (ops, pays))
-        out["k7"] = {"shape": list(ops.shape[:3]), **time_program(fn, 3),
-                     "bound_ms": bound, "bound_bytes": nbytes, "bound_by": "bytes",
-                     "max_abs_err": err, "compared_docs": n}
-        check(err == 0, f"K7 on the card differs from the CPU by {err}")
-    if recorder.compact_state is not None:
-        s = recorder.compact_state
-        fn = lambda: tk.compact_nested(s)  # noqa: E731
-        got = fn()
-        n = min(cmp_docs, s.parent.shape[0])
-        want = tk.compact_nested(tk.tree_map(lambda x: x[:n].cpu(), s))
-        err = max(int((g[:n].cpu().long() - w.long()).abs().max()) for g, w in zip(got, want))
-        nbytes, bound = state_bound(list(s))
-        out["k8"] = {"docs": s.parent.shape[0], **time_program(fn, 5),
-                     "bound_ms": bound, "bound_bytes": nbytes, "bound_by": "bytes",
-                     "max_abs_err": err, "compared_docs": n}
-        check(err == 0, f"K8 on the card differs from the CPU by {err}")
+    out["k7"] = {"shape": list(ops.shape[:3]), **time_program(k7, 3),
+                 "bound_ms": bound, "bound_bytes": nbytes, "bound_by": "bytes",
+                 "max_abs_err": err7, "compared_docs": n}
+    err8 = max_err(tk.compact_nested(s), tk.compact_nested(cpu_s))
+    check(err8 == 0, f"K8 on the card differs from the CPU by {err8}")
+    nbytes, bound = state_bound(list(s))
+    out["k8"] = {"docs": D, **time_program(lambda: tk.compact_nested(s), 5),
+                 "bound_ms": bound, "bound_bytes": nbytes, "bound_by": "bytes",
+                 "max_abs_err": err8, "compared_docs": n}
+
+    split = tk.SUBSET_FRACTION
+    routes = {}
+    try:
+        for f in shares:
+            keep = max(1, round(f * D))
+            o, h = ops.clone(), host_ops.copy()
+            o[:, keep:] = 0
+            h[:, keep:] = 0
+            turns = {"masked": [], "gathered": []}
+            for route in ("masked", "gathered", "gathered", "masked"):
+                tk.SUBSET_FRACTION = 2 * D if route == "masked" else 0
+                turns[route].append(time_program(lambda: k7(o, h), 3, 1))
+            routes[f"{keep}/{D}"] = turns
+    finally:
+        tk.SUBSET_FRACTION = split
+    out["k7_routes"] = routes
     emit(out)
     return out
 
@@ -1637,14 +1651,11 @@ def main(argv=None) -> int:
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
     phase_fleet_programs(args.seed, card, traffic)
     del traffic
-    recorder = ProgramRecorder(tk)
-    try:
-        path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda", recorder=recorder)
-    finally:
-        recorder.close()
+    _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda")
     path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
     path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
-    tree = time_tree_programs(card, recorder)
+    tree = time_tree_programs(card, ring)
+    del ring
     for name in ("hot_doc", "long_doc"):
         check(paths["resolve_positions"][name] > 0, f"K1 was never launched on the {name} path")
     for name in ("tree_fleet", "tree_deep", "tree_churn"):
@@ -1672,7 +1683,7 @@ def main(argv=None) -> int:
         "launches": sum(paths["apply_nested_megastep"].values()),
         "launches_by_path": paths["apply_nested_megastep"],
         "max_abs_err": k7["max_abs_err"], "ms": k7["ms"], "device_ms": k7["device_ms"],
-        "plain_ms": k7["ms"], "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+        "plain_ms": None, "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
         "library_ms": None,
     }, {
         "name": "compact_nested", "route": "torch",
@@ -1681,7 +1692,7 @@ def main(argv=None) -> int:
         "launches": sum(paths["compact_nested"].values()),
         "launches_by_path": paths["compact_nested"],
         "max_abs_err": k8["max_abs_err"], "ms": k8["ms"], "device_ms": k8["device_ms"],
-        "plain_ms": k8["ms"], "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
+        "plain_ms": None, "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
         "library_ms": None,
     }]})
     print(card, flush=True)

@@ -28,7 +28,8 @@ Raw columns, views, fallbacks and checkpoint files are identical to the
 reference engine's for the same message stream.  Not ported
 (``NotImplementedError``): a mesh, spare slots and migration
 (``migrate_doc``, ``rebalance_hot_shards``), boot-snapshot adoption,
-``device_rebase=True`` and the native wire path (``ingest_lines``).  The
+``device_rebase=True``, ``plan_cache=False`` (the reference's per-row
+emit path) and the native wire path (``ingest_lines``).  The
 reference's flight-recorder spans and recompile watchdog are not carried.
 """
 
@@ -209,10 +210,11 @@ _POOLED_VKINDS = tuple(int(p) for p in tk._POOLED)
 
 # Reference constructor options this port does not carry yet, with the
 # values that leave them off (``native_wire`` only picks the decoder of
-# ``ingest_lines``, which is not ported: either value leaves it off).
+# ``ingest_lines``, which is not ported: either value leaves it off;
+# ``plan_cache=False`` is the reference's per-row emit path).
 _OPTIONS_OFF = {
     "mesh": (None,), "spare_slots": (0,), "device_rebase": (False, None),
-    "native_wire": (True, False), "telemetry": (None,),
+    "native_wire": (True, False), "telemetry": (None,), "plan_cache": (True,),
 }
 
 
@@ -233,7 +235,6 @@ class TreeBatchEngine:
         checkpoint_every: int = 0,
         doc_keys: list[str] | None = None,
         megastep_k: int = 1,
-        plan_cache: bool = True,
         mark_pool: bool = True,
         overload_high_watermark: int = 0,
         overload_low_watermark: int = 0,
@@ -289,9 +290,7 @@ class TreeBatchEngine:
         # (the virtual root's field in the materializer).
         self._fields: dict[str, int] = {ROOT_FIELD: 0}
         self._types: dict[str, int] = {}
-        # Translation plan cache: commit shape -> row-layout plan;
-        # ``plan_cache=False`` keeps the per-row emit path.
-        self.plan_cache = plan_cache
+        # Translation plan cache: commit shape -> row-layout plan.
         self._plans: dict[tuple, _TranslationPlan] = {}
         self._collector = _FlattenCollector()
         self._PLAN_CACHE_MAX = 4096
@@ -451,10 +450,8 @@ class TreeBatchEngine:
         positions (and every path step's sibling index) are valid in the
         state produced by the ops emitted before it, so sequential device
         application reproduces the simultaneous mark semantics exactly.
-        With the plan cache on (default) the walk only collects, and the
-        row work replays a cached per-shape plan."""
-        if not self.plan_cache:
-            return self._flatten_legacy(trunk_commit, seq)
+        The walk only collects, and the row work replays a cached
+        per-shape plan."""
         col = self._collector
         col.reset()
         for change in trunk_commit:
@@ -472,48 +469,6 @@ class TreeBatchEngine:
         else:
             self.counters.bump("translation_plan_hits")
         return plan.fill(col.dyn, col.pay, seq)
-
-    def _flatten_legacy(self, trunk_commit, seq: int) -> tuple[np.ndarray, np.ndarray]:
-        """The per-row emit path: one numpy row pair per emit."""
-        ops_rows: list[np.ndarray] = []
-        pay_rows: list[np.ndarray] = []
-        L = self.max_insert_len
-        empty = np.zeros((L,), np.int32)
-
-        def emit(kind, steps, fld, pos=0, count=0, dst=0, value=0,
-                 vkind=0, ntype=0, payload=None):
-            if len(steps) > tk.MAX_PATH:
-                raise UnsupportedShape("path deeper than kernel MAX_PATH")
-            op = np.zeros((tk.NESTED_OP_FIELDS,), np.int32)
-            op[0], op[1], op[2] = kind, seq, len(steps)
-            for k, (f, i) in enumerate(steps):
-                op[3 + 2 * k], op[4 + 2 * k] = f, i
-            t = tk._TGT
-            op[t], op[t + 1], op[t + 2], op[t + 3] = fld, pos, count, dst
-            op[t + 4], op[t + 5], op[t + 6] = value, vkind, ntype
-            ops_rows.append(op)
-            if payload is None:
-                pay_rows.append(empty)
-            else:
-                tag, data = payload
-                pay = np.zeros((L,), np.int32)
-                if tag == "v":
-                    pay[0] = data
-                else:
-                    pay[: len(data)] = data
-                pay_rows.append(pay)
-
-        for change in trunk_commit:
-            if change.value is not None:
-                raise UnsupportedShape("value change on the virtual root")
-            for key, fc in change.fields.items():
-                self._walk_field(fc, (), self._field_id(key), emit)
-        if not ops_rows:
-            return (
-                np.zeros((0, tk.NESTED_OP_FIELDS), np.int32),
-                np.zeros((0, L), np.int32),
-            )
-        return np.stack(ops_rows), np.stack(pay_rows)
 
     def _walk_field(self, fc, steps: tuple, fid: int, emit) -> None:
         """Dispatch one field change by kind: sequence mark lists walk;

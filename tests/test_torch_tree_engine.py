@@ -114,14 +114,14 @@ def test_engine_matches_reference(stream):
 
 
 @pytest.mark.parametrize("option", [
-    {"megastep_k": 4, "ops_per_step": 8}, {"plan_cache": False}, {"mark_pool": False},
+    {"megastep_k": 4, "ops_per_step": 8}, {"pool_capacity": 24}, {"mark_pool": False},
     {"capacity": 8},
-], ids=["megastep", "no_plan_cache", "object_marks", "overflow"])
+], ids=["megastep", "pool_overflow", "object_marks", "overflow"])
 def test_engine_options_match_reference(option):
     svc, _ = drive_nested_docs(4, seed=29, steps=30, mixed=True)
     ref, port = _pair(_logs(svc, 4), **option)
     assert_engines_equal(ref, port)
-    if "capacity" in option:
+    if "capacity" in option or "pool_capacity" in option:
         assert port.fallbacks and not port.errors().any()
         assert port.health()["fallback_routes"] == len(port.fallbacks)
 
@@ -388,13 +388,13 @@ def test_ingest_batch_and_watermarks_match_reference():
 
 def test_unported_options_raise():
     for option in ({"mesh": object()}, {"spare_slots": 2}, {"device_rebase": True},
-                   {"telemetry": object()}):
+                   {"telemetry": object()}, {"plan_cache": False}):
         with pytest.raises(NotImplementedError):
             TreeBatchEngine(2, device="cpu", **option)
     with pytest.raises(TypeError):
         TreeBatchEngine(2, device="cpu", no_such_option=1)
     eng = TreeBatchEngine(2, device="cpu", mesh=None, spare_slots=0, device_rebase=False,
-                          native_wire=False)
+                          native_wire=False, plan_cache=True)
     for method, args in (
         ("migrate_doc", (0, 0)), ("rebalance_hot_shards", ()),
         ("adopt_boot_snapshot", (0, {})), ("ingest_lines", (0, b"")),
