@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--seed N]
 
 It builds every hand-written kernel of the port from ``csrc/`` with nvcc
-(sm_90a), then runs these phases on the card, one JSON line each:
+(sm_90a; one compile per source, started together, then one link), then
+runs these phases on the card, one JSON line each:
 
 1. ``kernels``: K1 (``resolve_positions``) against its plain PyTorch
    version on the same card tensors — edge cases, the edges of its tiles,
@@ -15,6 +16,13 @@ It builds every hand-written kernel of the port from ``csrc/`` with nvcc
    (Q=1, S=16,384), its call time (CUDA events) and device time
    (torch.profiler) beside its bound and the same function in PyTorch
    calls (``torch.cumsum`` then ``torch.searchsorted``).
+1b. ``rebase_kernel``: K9 (``rebase_window``) against its plain PyTorch
+   version on the same card tensors and on the CPU, exact on every output
+   of every step, at ``bench.py``'s microbench windows (W=256 and W=4,096
+   windows of C=8 multi-insert commits) and one tree_deep window (W=1,
+   C=256); call and device time, the plain version's, the host pooled
+   fold's over the same windows, the bytes bound; then one window per
+   ``DeviceRebaser.fold`` (the serving form) against the pooled fold.
 2. ``fleet``: config-3 geometry (10,000 SharedString docs, S=1024,
    T=8192, R=4, P=2, B=16, K=8) fed Zipf-skewed 4-writer insert/remove
    traffic through ``DocBatchEngine.ingest``/``step``/``compact``; no error
@@ -68,16 +76,31 @@ It builds every hand-written kernel of the port from ``csrc/`` with nvcc
     against the CPU on 64 docs; then K7's two routes (masked over every
     doc, or on the gathered rows of the docs that hold a kind) timed in
     turns on that ring with its ops kept for 1/16 to all of the docs.
+11. ``tree_rebase``: config 5 with the device rebase window (K9) on:
+    tree_deep's stream (its phase 8 engine, the pooled fold, is the other
+    side) and the tree fleet's cut to 256 docs, in turns on, off, off, on;
+    every doc's summary and tree JSON identical between the settings;
+    ingest s, edits/s, ``device_rebase_fraction``, ``rebase_fallbacks``,
+    ``rebase_windows``.
+12. ``map_lww``: config 2 — one map (K=256) fed 64 batches of 256
+    SET/DELETE ops plus a CLEAR, then 10,000 maps through
+    ``apply_batch_fleet``, 16 batches; both equal a CPU run exactly.
+13. ``matrix``: config 4 — one 256 x 256 matrix seeded with 128 rows and
+    columns, 16 steps of 64 SET_CELL ops from 64 writers with two of
+    writer 0's row and column inserts and removes interleaved in each and
+    FWW on some cells; the state and ``to_grid`` equal a CPU run exactly.
 
 The fleet's traffic is made once, before phase 2, and shared by phases
 2, 3 and 6 (a ``traffic`` line gives its generation time); each tree
-path makes its own from the seed, outside its timed window.  Phases 2-5
-and 7-9 are the port's main path: the launch counters of K1, of the
-fleet programs and of K7 and K8 are set to 0 just before each of them
-and read just after, and a path that runs K1 (phases 4 and 5), K7
-(phases 7-9) or K8 (phases 7 and 9) fails the run if it never launched.
-Then it prints the ``kernels`` summary line (K1, K7, K8), the card's
-name and power limit, and, last, the ``{"ok": true, ...}`` line.
+path makes its own from the seed, outside its timed window.  Phases 2-5,
+7-9 and 11-13 are the port's main path: the launch counters of K1, of the
+fleet programs, of K7 and K8, of K9 and of the map and matrix programs
+are set to 0 just before each of them and read just after, and a path
+that runs K1 (phases 4 and 5), K7 (phases 7-9 and 11), K8 (phases 7 and
+9), K9 (phase 11), the map program (12) or the matrix program (13) fails
+the run if it never launched.  Then it prints the ``kernels`` summary
+line (K1, K7, K8, K9, map, matrix), the card's name and power limit,
+and, last, the ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
 CUDA card, or a directory without the port.
 """
@@ -85,6 +108,7 @@ CUDA card, or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -1453,12 +1477,20 @@ def tree_fleet_ring(eng, msgs) -> tuple:
     return eng.state, dev_ops, dev_pays, host_ops
 
 
+def tree_deep_traffic(seed: int, writers: int = 32, rounds: int = 4, leaves: int = 10_000):
+    """tree_deep's stream (``tree_traffic`` of one doc seeded by one commit
+    with a shared subtree of ``leaves`` leaves)."""
+    return tree_traffic(seed + 5, 1, rounds, writers=writers, shared_leaves=leaves)
+
+
 def phase_tree_deep(seed: int, card: str, device: str, writers: int = 32, rounds: int = 4,
-                    leaves: int = 10_000, geom: dict = TREE_DEEP_GEOM) -> dict:
+                    leaves: int = 10_000, geom: dict = TREE_DEEP_GEOM) -> tuple:
     """``BASELINE.json`` config 5's shape: one document seeded by one commit
     of ``writers`` writer subtrees and a shared subtree of ``leaves``
     mixed-type leaves, then ``writers`` x 8 edits a round for ``rounds``
-    rounds; the whole doc stays on the device and equals a CPU replay."""
+    rounds; the whole doc stays on the device and equals a CPU replay.
+    Returns the phase's line and its engine (the pooled fold's result that
+    the ``tree_rebase`` path holds its device window against)."""
     import torch
 
     from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
@@ -1466,7 +1498,7 @@ def phase_tree_deep(seed: int, card: str, device: str, writers: int = 32, rounds
 
     on_card = device == "cuda"
     t0 = time.perf_counter()
-    traffic = tree_traffic(seed + 5, 1, rounds, writers=writers, shared_leaves=leaves)
+    traffic = tree_deep_traffic(seed, writers, rounds, leaves)
     gen_s = time.perf_counter() - t0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1483,7 +1515,7 @@ def phase_tree_deep(seed: int, card: str, device: str, writers: int = 32, rounds
     line.update({"writers": writers, "rounds": rounds, "seed_leaves": leaves,
                  "nodes": int(eng.state.alive.sum()), "cpu_replay_s": replay_s})
     emit(line)
-    return line
+    return line, eng
 
 
 def phase_tree_churn(seed: int, card: str, device: str, n_docs: int = 256, rounds: int = 8,
@@ -1585,6 +1617,431 @@ def time_tree_programs(card: str, ring, cmp_docs: int = 64,
     return out
 
 
+# ------------------------------------------------------- K9 and tree_rebase
+
+def rebase_microbench_windows(seed: int, n_windows: int, window: int = 8) -> tuple:
+    """``bench.py``'s ``_rebase_kernel_microbench`` windows: each folds one
+    multi-insert commit ([Skip, Insert, ...]: 4 one-leaf inserts at
+    distinct positions of 32, in one field) through ``window`` such commits.
+    Returns (pool, [(c, xs)])."""
+    from fluidframework_tpu_torch.dds.tree import mark_pool as mp
+    from fluidframework_tpu_torch.dds.tree.changeset import Commit, Insert, NodeChange, Skip, _wrap
+    from fluidframework_tpu_torch.dds.tree.schema import leaf
+
+    rng = np.random.default_rng(seed)
+    pool = mp.MarkPool()
+
+    def multi_insert():
+        marks, cur = [], 0
+        for p in sorted(int(p) for p in rng.choice(32, size=4, replace=False)):
+            if p > cur:
+                marks.append(Skip(p - cur))
+                cur = p
+            marks.append(Insert([leaf(int(rng.integers(1000)))]))
+        return mp.pool_commit(pool, Commit([_wrap([("", 0)], NodeChange(fields={"kids": marks}))]))
+
+    return pool, [(multi_insert(), [multi_insert() for _ in range(window)])
+                  for _ in range(n_windows)]
+
+
+def tree_deep_window(seed: int, window: int = 256) -> tuple:
+    """One window of tree_deep's shape: the 257th edit of its stream folded
+    through the 256 edits before it (32 writers' inserts into the shared
+    subtree, sets and inserts in their own).  Returns (pool, [(c, xs)])."""
+    from fluidframework_tpu_torch.dds.tree import mark_pool as mp
+
+    pool = mp.MarkPool()
+    traffic = tree_deep_traffic(seed, rounds=2)
+    commits = [mp.pool_commit_from_json(pool, m.contents["changes"])
+               for msgs in traffic[1:] for _d, m in msgs]
+    return pool, [(commits[window], commits[:window])]
+
+
+def _fold_json(c, xs) -> str:
+    from fluidframework_tpu_torch.dds.tree.changeset import commit_to_json
+
+    return json.dumps([commit_to_json(c)] + [commit_to_json(x) for x in xs])
+
+
+def time_serving_folds(reb, windows, encs, host, host_ms: float) -> dict:
+    """The serving form of K9, one window per ``DeviceRebaser.fold`` (pack,
+    one copy up, one launch, one copy down, decode), over ``windows``,
+    held against the pooled fold's results ``host`` (``host_ms`` in all).
+    The fold's cost is split by timing its parts alone on the same
+    windows: ``_dispatch`` (pack and the device round trip), and the
+    launch alone on one window's rows already on the card, synchronized
+    after each call."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
+
+    W, C = len(windows), len(windows[0][1])
+    cap = 1 << (C - 1).bit_length()
+    gc.collect()
+    t = time.perf_counter()
+    folds = [reb.fold(c, xs) for c, xs in windows]
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t
+    same = sum(_fold_json(fc, fx) == _fold_json(hc, hx)
+               for (fc, fx, _st), (hc, hx) in zip(folds, host))
+    check(same == W, f"K9 serving folds: {W - same} of {W} differ from the pooled fold")
+    check(reb.stats()["rebase_fallbacks"] == 0, "K9 serving folds fell back")
+    t = time.perf_counter()
+    for enc_c, xe in encs:
+        reb._dispatch(enc_c, xe, cap)
+    dispatch_s = time.perf_counter() - t
+    enc_c, xe = encs[0]
+    dev = reb.device
+    c1 = torch.from_numpy(enc_c.row[None]).to(dev)
+    x1 = torch.from_numpy(np.stack([x.row for x in xe])[None]).to(dev)
+    e1 = torch.ones((1, C), dtype=torch.uint8, device=dev)
+    for _ in range(3):
+        rk9.rebase_window(c1, x1, e1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(W):
+        rk9.rebase_window(c1, x1, e1)
+        torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t
+    return {"windows": W, "C": C, "fold_us_per_window": fold_s / W * 1e6,
+            "dispatch_us_per_window": dispatch_s / W * 1e6,
+            "launch_sync_us_per_window": launch_s / W * 1e6,
+            "one_window_device_ms": _device_sum(
+                device_ms_by_name(lambda: rk9.rebase_window(c1, x1, e1), 20), "rebase_window"),
+            "pooled_fold_us_per_window": host_ms / W * 1e3, "identical": same}
+
+
+def phase_rebase_kernel(seed: int, card: str) -> dict:
+    """K9 (``rebase_window``) against its plain version on the same card
+    tensors (and on the CPU), exact on every output of every step, at
+    three shapes: ``bench.py``'s microbench windows at W=256 and W=4,096
+    (C=8) and one tree_deep window (W=1, C=256).  For each: call and device
+    time, the plain version's time, the host pooled fold
+    (``mark_pool.rebase_pair``) over the same windows, and the bytes bound
+    (packed inputs read once, outputs written once; the window itself is a
+    serial chain of C steps).  Then the serving form, one window per fold
+    (``DeviceRebaser.fold``: one copy up, one launch, one copy down, the
+    decode), against the pooled fold on the W=256 windows, identical."""
+    import torch
+
+    from fluidframework_tpu_torch.dds.tree import mark_pool as mp
+    from fluidframework_tpu_torch.dds.tree.device_rebase import DeviceRebaser
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
+
+    dev = torch.device("cuda")
+    out = {"phase": "rebase_kernel", "card": card}
+    shapes = (("microbench_256", lambda: rebase_microbench_windows(seed, 256), 50, 5),
+              ("microbench_4096", lambda: rebase_microbench_windows(seed + 1, 4096), 20, 3),
+              ("tree_deep_window", lambda: tree_deep_window(seed), 20, 1))
+    serving = None
+    for name, make, iters, plain_iters in shapes:
+        pool, windows = make()
+        reb = DeviceRebaser(pool, device=dev)
+        encs = [(reb.encode_commit(c), [reb.encode_commit(x) for x in xs]) for c, xs in windows]
+        check(all(e is not None and all(x is not None for x in xe) for e, xe in encs),
+              f"K9 {name}: a window commit is not device-encodable")
+        W, C = len(windows), len(windows[0][1])
+        c_rows = torch.from_numpy(np.stack([e.row for e, _ in encs]))
+        xs_rows = torch.from_numpy(np.stack([np.stack([x.row for x in xe]) for _, xe in encs]))
+        elig = torch.ones((W, C), dtype=torch.uint8)
+        cd, xd, ed = c_rows.to(dev), xs_rows.to(dev), elig.to(dev)
+        got = rk9.rebase_window(cd, xd, ed)
+        want = rk9.rebase_window_plain(cd, xd, ed)
+        want_cpu = rk9.rebase_window_plain(c_rows, xs_rows, elig)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        check(all(torch.equal(g.cpu(), w.cpu()) and torch.equal(g.cpu(), wc)
+                  for g, w, wc in zip(got, want, want_cpu)),
+              f"K9 disagrees with its plain version at {name} (W={W}, C={C})")
+        gc.collect()  # a collection inside the timed fold would be the previous shape's
+        t = time.perf_counter()
+        host = []
+        for c, xs in windows:
+            new_xs = []
+            for x in xs:
+                c, xw = mp.rebase_pair(c, x)
+                new_xs.append(xw)
+            host.append((c, new_xs))
+        host_ms = (time.perf_counter() - t) * 1e3
+
+        def kernel():
+            return rk9.rebase_window(cd, xd, ed)
+
+        by_name = device_ms_by_name(kernel, iters)
+        nbytes = nbytes_of([cd, xd, ed, *got])
+        out[name] = {
+            "W": W, "C": C, "valid_steps": int(got[1][..., 0].sum()), "max_abs_err": err,
+            "ms": cuda_ms(kernel, iters, warmup=2),
+            "device_ms": _device_sum(by_name, "rebase_window"),
+            "call_device_ms": _device_sum(by_name),
+            "plain_ms": cuda_ms(lambda: rk9.rebase_window_plain(cd, xd, ed), plain_iters, warmup=1),
+            "host_fold_ms": host_ms,
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_bytes": nbytes, "bound_by": "bytes",
+            "library_ms": None,
+        }
+        if name == "microbench_256":
+            serving = time_serving_folds(reb, windows, encs, host, host_ms)
+        del pool, windows, reb, encs, host, got, want, want_cpu
+    out["serving"] = serving
+    out["note"] = ("a window is a serial chain of C dependent steps; the bytes bound "
+                   "ignores that chain")
+    emit(out)
+    return out
+
+
+def phase_tree_rebase(seed: int, card: str, device: str, deep, fleet_docs: int = 256,
+                      rounds: int = 4, deep_geom: dict = TREE_DEEP_GEOM,
+                      deep_shape: dict | None = None) -> dict:
+    """BASELINE config 5 through ``TreeBatchEngine`` with the device rebase
+    window (K9) on and off, on the same streams: tree_deep's (one doc, a
+    10,000-leaf seed commit, 32 writers x 8 edits x 4 rounds; ``deep`` is
+    the tree_deep path's engine, the pooled fold) and the tree fleet's cut
+    to ``fleet_docs`` docs (its writers and edits kept), in turns on, off,
+    off, on.  Every doc's ``em.summarize()`` and ``tree_json`` must be
+    byte-identical between the settings; ingest s, edits/s and the
+    rebaser's gauges per run.  ``deep_geom`` and ``deep_shape`` (the
+    ``tree_deep_traffic`` arguments) must be those of ``deep``'s run."""
+    import torch
+
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+
+    on_card = device == "cuda"
+    deep_shape = deep_shape or {}
+
+    def views(eng, d):
+        return (json.dumps(eng.hosts[d].em.summarize(), sort_keys=True),
+                json.dumps(eng.tree_json(d), sort_keys=True))
+
+    def run(n_docs, geom, traffic, device_rebase):
+        eng = TreeBatchEngine(n_docs, device=device, device_rebase=device_rebase, **geom)
+        r = _drive_tree(eng, traffic, on_card=on_card)
+        h = eng.health()
+        line = {"device_rebase": device_rebase, "edits": r["edits"], "ingest_s": r["ingest_s"],
+                "step_s": r["step_s"], "edits_per_s": r["edits"] / (r["ingest_s"] + r["step_s"]),
+                "host_translation_edits_per_s": r["edits"] / r["ingest_s"]}
+        for k in ("device_rebase_fraction", "rebase_fallbacks", "rebase_windows",
+                  "device_rebase_steps", "rebase_encode_rejects"):
+            line[k] = h.get(k)
+        check(not eng.errors().any(), "tree_rebase: error bits left after step()")
+        return eng, line
+
+    out = {"phase": "tree_rebase", "card": card}
+    deep_eng, deep_on = run(1, deep_geom, tree_deep_traffic(seed, **deep_shape), True)
+    check(views(deep_eng, 0) == views(deep, 0),
+          "tree_rebase: tree_deep's summary or tree JSON differs between device_rebase on and off")
+    check(deep_on["device_rebase_fraction"] > 0, "tree_rebase: tree_deep resolved no step on K9")
+    out["tree_deep"] = {"on": deep_on, "identical_docs": 1}
+    del deep_eng
+
+    traffic = tree_traffic(seed + 13, fleet_docs, rounds)
+    turns, first = [], {}
+    for setting in (True, False, False, True):
+        eng, line = run(fleet_docs, TREE_FLEET_GEOM, traffic, setting)
+        turns.append(line)
+        first.setdefault(setting, eng)
+        del eng
+    same = sum(views(first[True], d) == views(first[False], d) for d in range(fleet_docs))
+    check(same == fleet_docs,
+          f"tree_rebase: {fleet_docs - same} of {fleet_docs} fleet docs differ between settings")
+    check(all(t["device_rebase_fraction"] > 0 for t in turns if t["device_rebase"]),
+          "tree_rebase: the fleet resolved no step on K9")
+    out["tree_fleet"] = {"docs": fleet_docs, "rounds": rounds, "turns": turns,
+                         "identical_docs": same}
+    if on_card:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------ map and matrix
+
+def map_ops(rng, shape, K: int) -> tuple:
+    """SET/DELETE ops over ``shape`` (maps x ops) with keys in [0, K)."""
+    kinds = rng.integers(1, 3, size=shape).astype(np.int32)
+    keys = rng.integers(0, K, size=shape).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, size=shape).astype(np.int32)
+    return kinds, keys, vals
+
+
+def phase_map_lww(seed: int, card: str, device: str, K: int = 256, B: int = 256,
+                  batches: int = 64, n_maps: int = 10_000, fleet_batches: int = 16) -> dict:
+    """BASELINE config 2: one SharedMap of K=256 key slots fed ``batches``
+    batches of B=256 SET/DELETE ops, plus a CLEAR sequenced halfway,
+    through ``apply_batch``; then a fleet of ``n_maps`` maps through
+    ``apply_batch_fleet``, ``fleet_batches`` batches of B ops a map.  Both
+    end states, and ``host_items`` of sampled maps,
+    must equal a CPU run's exactly.  Ops/s (host upload included), and the
+    fleet program's call and device time beside its bytes bound."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import map_kernel as mpk
+
+    on_card = device == "cuda"
+    rng = np.random.default_rng(seed + 21)
+    seq = 0
+    one = []
+    for i in range(batches):
+        if i == batches // 2:  # the CLEAR, sequenced between two batches
+            seq += 1
+            one.append(tuple(np.asarray([v], np.int32) for v in (mpk.MapOpKind.CLEAR, -1, 0, seq)))
+        kinds, keys, vals = map_ops(rng, (B,), K)
+        one.append((kinds, keys, vals, np.arange(seq + 1, seq + B + 1, dtype=np.int32)))
+        seq += B
+    state = mpk.init_state(K, device=device)
+    t = time.perf_counter()
+    for batch in one:
+        state = mpk.apply_batch(state, *batch)
+    if on_card:
+        torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    cpu = mpk.init_state(K, device="cpu")
+    for batch in one:
+        cpu = mpk.apply_batch(cpu, *batch)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(state, cpu)),
+          "map_lww: the single map differs from its CPU run")
+    check(mpk.host_items(state) == mpk.host_items(cpu), "map_lww: host_items differ")
+
+    fleet = mpk.batch_state(mpk.init_state(K, device=device), n_maps)
+    fleet_cpu = mpk.batch_state(mpk.init_state(K, device="cpu"), n_maps)
+    fleet_s = 0.0
+    last = None
+    for i in range(fleet_batches):
+        kinds, keys, vals = map_ops(rng, (n_maps, B), K)
+        seqs = (seq + 1 + np.arange(n_maps * B, dtype=np.int64).reshape(n_maps, B)).astype(np.int32)
+        seq += n_maps * B
+        batch = tuple(torch.from_numpy(a) for a in (kinds, keys, vals, seqs))
+        t = time.perf_counter()
+        fleet = mpk.apply_batch_fleet(fleet, *batch)
+        if on_card:
+            torch.cuda.synchronize()
+        fleet_s += time.perf_counter() - t
+        fleet_cpu = mpk.apply_batch_fleet(fleet_cpu, *batch)
+        last = batch
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(fleet, fleet_cpu)),
+          "map_lww: the map fleet differs from its CPU run")
+    sample = np.random.default_rng(seed + 3).choice(n_maps, size=min(64, n_maps), replace=False)
+    for d in sample.tolist():
+        check(mpk.host_items(mpk.MapState(*(x[d] for x in fleet)))
+              == mpk.host_items(mpk.MapState(*(x[d] for x in fleet_cpu))),
+              f"map_lww: host_items of map {d} differ")
+    out = {"phase": "map_lww", "card": card, "K": K, "B": B, "batches": batches,
+           "ops_per_s": (batches * B + 1) / one_s, "live_keys": len(mpk.host_items(state)),
+           "fleet_maps": n_maps, "fleet_batches": fleet_batches,
+           "fleet_ops_per_s": fleet_batches * n_maps * B / fleet_s,
+           "fleet_state_bytes": nbytes_of(fleet)}
+    if on_card:
+        dev_batch = tuple(x.to(device) for x in last)
+        nbytes, bound = state_bound(list(fleet), dev_batch)
+        out["fleet_program"] = {"shape": [n_maps, K, B],
+                                **time_program(lambda: mpk.apply_batch_fleet(fleet, *dev_batch), 10),
+                                "bound_ms": bound, "bound_bytes": nbytes, "bound_by": "bytes",
+                                "max_abs_err": 0}
+    emit(out)
+    return out
+
+
+MATRIX_GEOM = dict(max_rows=256, max_cols=256, max_segments=128)
+
+
+def matrix_traffic(seed: int, steps: int = 16, B: int = 64, writers: int = 64,
+                   seeded: int = 128) -> list:
+    """BASELINE config 4's traffic: writer 0 seeds ``seeded`` rows and
+    columns, then ``steps`` steps of ``B`` SET_CELL ops from ``writers``
+    writers at the step's ref_seq (about one in ten with the FWW flag),
+    with two of writer 0's row or column inserts and removes interleaved
+    in each step.  Returns the seed ops and one [B + 2, 8] array a step."""
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+
+    K = mxk.MatrixOpKind
+    rng = np.random.default_rng(seed + 31)
+    seed_ops = np.asarray([[K.INSERT_ROWS, 1, 0, 0, 0, seeded, 0, 0],
+                           [K.INSERT_COLS, 2, 0, 1, 0, seeded, 0, 0]], np.int32)
+    rows = cols = seeded
+    seq = 2
+    out = []
+    for s in range(steps):
+        ref, n_rows, n_cols = seq, rows, cols
+        ops = np.zeros((B + 2, mxk.MATRIX_OP_FIELDS), np.int32)
+        for b in range(B + 2):
+            seq += 1
+            if b in (0, B // 2):
+                axis_rows = (s + b) % 2 == 0
+                n = rows if axis_rows else cols
+                insert = (s // 2 + b) % 2 == 0
+                kind = (K.INSERT_ROWS if axis_rows else K.INSERT_COLS) if insert else \
+                    (K.REMOVE_ROWS if axis_rows else K.REMOVE_COLS)
+                pos = int(rng.integers(0, n + 1 if insert else n))
+                ops[b] = [kind, seq, 0, seq - 1, pos, 1, 0, 0]
+                delta = 1 if insert else -1
+                if axis_rows:
+                    rows += delta
+                else:
+                    cols += delta
+            else:
+                ops[b] = [K.SET_CELL, seq, b % writers, ref, int(rng.integers(0, n_rows)),
+                          int(rng.integers(0, n_cols)), int(rng.integers(0, 1 << 20)),
+                          int(rng.random() < 0.1)]
+        out.append(ops)
+    return [seed_ops] + out
+
+
+def mk_leaves(state) -> list:
+    """Every tensor of a matrix state, both permutation merge-trees' too."""
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    return mk.leaves(state.rows) + mk.leaves(state.cols) + list(state[2:])
+
+
+def phase_matrix(seed: int, card: str, device: str, steps: int = 16, B: int = 64) -> dict:
+    """BASELINE config 4: one SharedMatrix of 256 x 256 cells (128
+    permutation segments) seeded with 128 rows and columns, then ``steps``
+    steps of ``B`` SET_CELL ops from 64 writers through ``apply_ops``,
+    writer 0's row and column inserts and removes interleaved (two a
+    step), FWW on some cells.  The end
+    state (both permutation merge-trees' raw columns included) and
+    ``to_grid`` must equal a CPU run's exactly, with no error bit.  Ops/s,
+    and one step's program call and device time beside its bytes bound."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+
+    on_card = device == "cuda"
+    traffic = matrix_traffic(seed, steps, B)
+    state = mxk.apply_ops(mxk.init_state(**MATRIX_GEOM, device=device), traffic[0])
+    if on_card:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    for ops in traffic[1:]:
+        state = mxk.apply_ops(state, ops)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    cpu = mxk.init_state(**MATRIX_GEOM, device="cpu")
+    for ops in traffic:
+        cpu = mxk.apply_ops(cpu, ops)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(mk_leaves(state), mk_leaves(cpu))),
+          "matrix: the end state differs from its CPU run")
+    grid = mxk.to_grid(state)
+    check(grid == mxk.to_grid(cpu), "matrix: to_grid differs from the CPU run")
+    check(int(state.error) == 0 and int(state.rows.error) == 0 and int(state.cols.error) == 0,
+          "matrix: error bits set")
+    check(int(state.fww) == 1, "matrix: no FWW write was seen")
+    out = {"phase": "matrix", "card": card, "shape": [MATRIX_GEOM["max_rows"], MATRIX_GEOM["max_cols"]],
+           "steps": steps, "B": B, "ops": steps * (B + 2), "ops_per_s": steps * (B + 2) / wall,
+           "grid_rows": len(grid), "grid_cols": len(grid[0]) if grid else 0,
+           "cells_set": sum(v is not None for row in grid for v in row)}
+    if on_card:
+        ops_dev = torch.as_tensor(traffic[-1], device=device)
+        kinds = traffic[-1][:, 0]
+        nbytes, bound = state_bound(mk_leaves(state), (ops_dev,))
+        out["step_program"] = {"shape": [B + 2, mxk.MATRIX_OP_FIELDS],
+                               **time_program(lambda: mxk.apply_ops(state, ops_dev, kinds), 3, 1),
+                               "bound_ms": bound, "bound_bytes": nbytes, "bound_by": "bytes",
+                               "max_abs_err": 0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1598,6 +2055,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
     try:
+        from fluidframework_tpu_torch.ops import cuda_build
         from fluidframework_tpu_torch.ops import resolve_kernel as rk
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run from the repository root",
@@ -1605,27 +2063,36 @@ def main(argv=None) -> int:
         return 3
     card = card_label()
     t0 = time.perf_counter()
-    rk.build(verbose=True)
+    cuda_build.build(verbose=True)
     emit({"phase": "build", "card": card, "build_s": time.perf_counter() - t0,
-          "library": str(rk.library_path().name)})
+          "library": str(cuda_build.library_path().name),
+          "sources": [src.name for src in cuda_build.sources()]})
     k = phase_kernels(args.seed, card)
+    k9 = phase_rebase_kernel(args.seed, card)
 
     # The main path, phase by phase: the launch counts of K1, of the fleet
-    # programs (K2, K3, K6) and of the tree programs (K7, K8) are set to 0
-    # just before each path and read just after it.  A path that runs a
-    # kernel fails if it never launched: K1 on the segment lane and the
-    # long-document plane, K7 on every tree path, K8 on the tree fleet (its
-    # faulted docs pass the compaction watermark) and the churn path.  The
+    # programs (K2, K3, K6), of the tree programs (K7, K8), of K9 and of the
+    # map and matrix programs are set to 0 just before each path and read
+    # just after it.  A path that runs a kernel fails if it never launched:
+    # K1 on the segment lane and the long-document plane, K7 on every tree
+    # path, K8 on the tree fleet (its faulted docs pass the compaction
+    # watermark) and the churn path, K9 on the device rebase path, the map
+    # and matrix programs on theirs.  The
     # fleet runs at recovery="grow" and then, to price recovery's per-step
     # error-count read and log, in turns off, grow, grow, off.
+    from fluidframework_tpu_torch.ops import map_kernel as mpk
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
     from fluidframework_tpu_torch.ops import tree_kernel as tk
 
     counters = {"resolve_positions": rk.resolve_positions,
                 "apply_megastep": mk.apply_megastep, "compact": mk.compact,
                 "apply_megastep_seg": mk.apply_megastep_seg, "compact_seg": mk.compact_seg,
                 "apply_nested_megastep": tk.apply_nested_megastep,
-                "compact_nested": tk.compact_nested}
+                "compact_nested": tk.compact_nested, "rebase_window": rk9.rebase_window,
+                "apply_batch_fleet": mpk.apply_batch_fleet,
+                "apply_ops_fleet": mxk.apply_ops_fleet}
     paths = {name: {} for name in counters}
 
     def path(name, fn, *args, **kw):
@@ -1652,20 +2119,29 @@ def main(argv=None) -> int:
     phase_fleet_programs(args.seed, card, traffic)
     del traffic
     _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda")
-    path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
+    _line, deep = path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
     path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
     tree = time_tree_programs(card, ring)
     del ring
+    path("tree_rebase", phase_tree_rebase, args.seed, card, "cuda", deep)
+    del deep
+    mp_line = path("map_lww", phase_map_lww, args.seed, card, "cuda")
+    mx_line = path("matrix", phase_matrix, args.seed, card, "cuda")
     for name in ("hot_doc", "long_doc"):
         check(paths["resolve_positions"][name] > 0, f"K1 was never launched on the {name} path")
-    for name in ("tree_fleet", "tree_deep", "tree_churn"):
+    for name in ("tree_fleet", "tree_deep", "tree_churn", "tree_rebase"):
         check(paths["apply_nested_megastep"][name] > 0, f"K7 was never launched on the {name} path")
+    check(paths["rebase_window"]["tree_rebase"] > 0, "K9 was never launched on the tree_rebase path")
+    check(paths["apply_batch_fleet"]["map_lww"] > 0, "the map program never ran on the map_lww path")
+    check(paths["apply_ops_fleet"]["matrix"] > 0, "the matrix program never ran on the matrix path")
     for name in ("tree_fleet", "tree_churn"):
         check(paths["compact_nested"][name] > 0, f"K8 was never launched on the {name} path")
 
     emit({"phase": "fleet_programs_launches", **{prog: paths[prog] for prog in (
         "apply_megastep", "compact", "apply_megastep_seg", "compact_seg")}})
     k7, k8 = tree["k7"], tree["k8"]
+    k9m = k9["microbench_256"]
+    mp_prog, mx_prog = mp_line["fleet_program"], mx_line["step_program"]
     emit({"kernels": [{
         "name": "resolve_positions", "route": "cuda",
         "source": "fluidframework_tpu_torch/csrc/resolve_positions.cu",
@@ -1694,6 +2170,35 @@ def main(argv=None) -> int:
         "max_abs_err": k8["max_abs_err"], "ms": k8["ms"], "device_ms": k8["device_ms"],
         "plain_ms": None, "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "rebase_window", "route": "cuda",
+        "source": "fluidframework_tpu_torch/csrc/rebase_window.cu",
+        "replaces": "fluidframework_tpu/ops/tree_kernel.py:1146",
+        "launches": sum(paths["rebase_window"].values()),
+        "launches_by_path": paths["rebase_window"],
+        "max_abs_err": max(k9[n]["max_abs_err"] for n in (
+            "microbench_256", "microbench_4096", "tree_deep_window")),
+        "shape": [k9m["W"], k9m["C"]], "ms": k9m["ms"], "device_ms": k9m["device_ms"],
+        "plain_ms": k9m["plain_ms"], "bound_ms": k9m["bound_ms"], "bound_by": k9m["bound_by"],
+        "library_ms": None, "host_fold_ms": k9m["host_fold_ms"],
+    }, {
+        "name": "apply_batch_fleet", "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/map_kernel.py",
+        "replaces": "fluidframework_tpu/ops/map_kernel.py:59",
+        "launches": sum(paths["apply_batch_fleet"].values()),
+        "launches_by_path": paths["apply_batch_fleet"],
+        "max_abs_err": mp_prog["max_abs_err"], "shape": mp_prog["shape"],
+        "ms": mp_prog["ms"], "device_ms": mp_prog["device_ms"], "plain_ms": None,
+        "bound_ms": mp_prog["bound_ms"], "bound_by": mp_prog["bound_by"], "library_ms": None,
+    }, {
+        "name": "apply_ops_fleet", "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/matrix_kernel.py",
+        "replaces": "fluidframework_tpu/ops/matrix_kernel.py:184",
+        "launches": sum(paths["apply_ops_fleet"].values()),
+        "launches_by_path": paths["apply_ops_fleet"],
+        "max_abs_err": mx_prog["max_abs_err"], "shape": mx_prog["shape"],
+        "ms": mx_prog["ms"], "device_ms": mx_prog["device_ms"], "plain_ms": None,
+        "bound_ms": mx_prog["bound_ms"], "bound_by": mx_prog["bound_by"], "library_ms": None,
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """EditManager: deterministic trunk construction from sequenced commits.
 
-The port's own copy of ``fluidframework_tpu/dds/tree/editmanager.py``
-(without the device rebase window): the port imports nothing of the JAX
-package, so it keeps the host algebra here.
+The port's own copy of ``fluidframework_tpu/dds/tree/editmanager.py``:
+the port imports nothing of the JAX package, so it keeps the host algebra
+here.
 
 Reference parity: tree/src/shared-tree-core/editManager.ts:73 — a trunk of
 sequenced commits plus per-peer branches that cache each peer's in-flight
@@ -144,9 +144,13 @@ class EditManager:
     Pass a shared ``MarkPool`` so a fleet's gauges aggregate, or ``True``
     for a private pool.
 
-    ``device_rebase`` (the reference's batched rebase window) is not
-    ported: only ``None`` is accepted, and the window fold always runs on
-    the host."""
+    ``device_rebase`` (requires ``mark_pool``) dispatches each window
+    fold's eligible prefix through the rebase window kernel K9
+    (dds/tree/device_rebase.py); ineligible or invalidated steps finish
+    on the pooled fold, counted in the rebaser's fallback gauges.  Pass
+    a shared ``DeviceRebaser`` so a fleet shares one interning table and
+    one set of counters (and picks K9's device), or ``True`` for a
+    private one on the card."""
 
     def __init__(
         self,
@@ -171,9 +175,13 @@ class EditManager:
             self._mp = mp
             self.pool = mark_pool if isinstance(mark_pool, mp.MarkPool) \
                 else mp.MarkPool()
-        if device_rebase is not None:
-            raise NotImplementedError(
-                "device_rebase (the batched rebase window) is not ported yet"
+        self.rebaser = None
+        if device_rebase and self.pool is not None:
+            from .device_rebase import DeviceRebaser
+
+            self.rebaser = (
+                device_rebase if isinstance(device_rebase, DeviceRebaser)
+                else DeviceRebaser(self.pool)
             )
 
     def _pool_commit(self, commit: Commit) -> Commit:
@@ -264,13 +272,23 @@ class EditManager:
             # commits); the peer stream keeps sharing unchanged spans
             # instead of re-materializing every mark per window entry.
             c = self._pool_commit(change)
-            rebase_pair = self._mp.rebase_pair
-            for i in range(len(xs)):
-                tseq, x = xs[i]
-                nxt, xw = rebase_pair(c, x)
-                xs[i] = (tseq, xw)
-                c = nxt
-                stage_list.append((tseq, c))
+            if self.rebaser is not None and xs:
+                # Device window: eligible prefix in one K9 launch, pooled-
+                # fold suffix (byte-identical either way; every host-
+                # finished step counted in the rebaser's gauges).
+                c, new_xs, stage_vals = self.rebaser.fold(
+                    c, [x for _t, x in xs])
+                for i in range(len(xs)):
+                    xs[i] = (xs[i][0], new_xs[i])
+                    stage_list.append((xs[i][0], stage_vals[i]))
+            else:
+                rebase_pair = self._mp.rebase_pair
+                for i in range(len(xs)):
+                    tseq, x = xs[i]
+                    nxt, xw = rebase_pair(c, x)
+                    xs[i] = (tseq, xw)
+                    c = nxt
+                    stage_list.append((tseq, c))
             ret = self._mp.unpool_commit(c)
             pooled_ret = c
             br.inflight.append((revision, self._pool_commit(change)))

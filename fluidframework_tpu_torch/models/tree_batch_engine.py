@@ -25,11 +25,13 @@ in lockstep device megasteps.
   one whole-content insert through the normal step.
 
 Raw columns, views, fallbacks and checkpoint files are identical to the
-reference engine's for the same message stream.  Not ported
-(``NotImplementedError``): a mesh, spare slots and migration
+reference engine's for the same message stream.  ``device_rebase=True``
+folds each EditManager window through K9 (``dds/tree/device_rebase.py``)
+on the engine's device, with one ``DeviceRebaser`` shared by the fleet.
+Not ported (``NotImplementedError``): a mesh, spare slots and migration
 (``migrate_doc``, ``rebalance_hot_shards``), boot-snapshot adoption,
-``device_rebase=True``, ``plan_cache=False`` (the reference's per-row
-emit path) and the native wire path (``ingest_lines``).  The
+``plan_cache=False`` (the reference's per-row emit path) and the native
+wire path (``ingest_lines``).  The
 reference's flight-recorder spans and recompile watchdog are not carried.
 """
 
@@ -53,6 +55,7 @@ from ..dds.tree.changeset import (
     apply_commit,
     commit_from_json,
 )
+from ..dds.tree.device_rebase import DeviceRebaser
 from ..dds.tree.editmanager import EditManager
 from ..dds.tree.field_kinds import OptionalChange
 from ..dds.tree.forest import ROOT_FIELD, Forest, Node
@@ -213,7 +216,7 @@ _POOLED_VKINDS = tuple(int(p) for p in tk._POOLED)
 # ``ingest_lines``, which is not ported: either value leaves it off;
 # ``plan_cache=False`` is the reference's per-row emit path).
 _OPTIONS_OFF = {
-    "mesh": (None,), "spare_slots": (0,), "device_rebase": (False, None),
+    "mesh": (None,), "spare_slots": (0,),
     "native_wire": (True, False), "telemetry": (None,), "plan_cache": (True,),
 }
 
@@ -236,6 +239,7 @@ class TreeBatchEngine:
         doc_keys: list[str] | None = None,
         megastep_k: int = 1,
         mark_pool: bool = True,
+        device_rebase: bool = False,
         overload_high_watermark: int = 0,
         overload_low_watermark: int = 0,
         device=DEFAULT_DEVICE,
@@ -261,9 +265,16 @@ class TreeBatchEngine:
         # One pooled mark store shared by every doc's EditManager (fleet-wide
         # gauges); ``mark_pool=False`` keeps the object-mark fold.
         self.markpool = MarkPool() if mark_pool else None
+        # Device rebase window: one shared DeviceRebaser on the engine's
+        # device, so the fleet shares the field-interning table and the
+        # gauges (device_rebase_fraction / rebase_fallbacks), as the shared
+        # MarkPool.  Requires the pooled fold.
+        self.rebaser = None
+        if device_rebase and self.markpool is not None:
+            self.rebaser = DeviceRebaser(self.markpool, device=self.device)
         self.hosts = [
             _TreeHost(
-                em=EditManager(mark_pool=self.markpool),
+                em=EditManager(mark_pool=self.markpool, device_rebase=self.rebaser),
                 queue=RowQueue(tk.NESTED_OP_FIELDS, max_insert_len),
             )
             for _ in range(n_docs)
@@ -876,7 +887,7 @@ class TreeBatchEngine:
                 self.counters.bump("checkpoint_refreshes")
             if refresh:
                 self._drop_restored_identity(d)
-            h.em = EditManager(mark_pool=self.markpool)
+            h.em = EditManager(mark_pool=self.markpool, device_rebase=self.rebaser)
             h.em.load(rec["em"])
             h.base_seq = h.last_seq = int(rec["seq"])
             h.restored = True
@@ -976,6 +987,12 @@ class TreeBatchEngine:
                 round(hits / total, 4) if total else 0.0,
             )
             for k, v in ps.items():
+                self.counters.gauge(k, v)
+        # Device-rebase surface: the share of window steps resolved by K9;
+        # fallbacks are the pooled-fold remainder (ineligible commits and
+        # invalidated steps), counted, never silent.
+        if self.rebaser is not None:
+            for k, v in self.rebaser.stats().items():
                 self.counters.gauge(k, v)
         self.overload_gate.emit_gauges(
             self.counters, self.megastep_k * self.ops_per_step,

@@ -15,88 +15,23 @@ inside that tile whose inclusive prefix first passes q.
 the plain PyTorch version (``resolve_positions_plain``); a CUDA tensor
 launches the hand-written kernels of ``csrc/resolve_positions.cu`` or
 raises — there is no fallback.  The kernels are compiled with ``nvcc`` for
-``sm_90a`` into ``fluidframework_tpu_torch/_build/`` at first use and
-loaded with ctypes.  ``resolve_positions.launches`` counts the wrapper
-calls that launched on the card (two kernels each), and nothing else.
+``sm_90a`` into the port's one kernel library at first use and loaded
+with ctypes (``ops/cuda_build.py``).  ``resolve_positions.launches`` counts
+the wrapper calls that launched on the card (two kernels each), and nothing
+else.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import sys
-from pathlib import Path
-
 import torch
+
+from . import cuda_build
 
 I32 = torch.int32
 # Segments per tile of the two-level search, for the kernels and the plain
 # version alike (the kernels take it as an argument).  At the long-document
 # size, 262,144 segments, it makes 128 tile-sum blocks for the H100's 132 SMs.
 TILE = 2048
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "resolve_positions.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
-_lib = None
-
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def library_path() -> Path:
-    """Build output keyed by the source's content hash, so an edited
-    source never loads a stale library."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libresolve_positions-{digest}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel if its library is missing; returns its path.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills),
-    printed to standard error."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    if verbose and proc.stderr:
-        print(proc.stderr, end="", file=sys.stderr, flush=True)
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.resolve_positions_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def _check(lens: torch.Tensor, positions: torch.Tensor) -> None:
@@ -182,7 +117,7 @@ def resolve_positions(
     out = torch.empty((3, *positions.shape), dtype=I32, device=lens.device)
     if D and Q:
         tile_sum = torch.empty(D * -(-S // TILE), dtype=I32, device=lens.device)
-        rc = _load().resolve_positions_launch(
+        rc = cuda_build.load().resolve_positions_launch(
             lens.data_ptr(), positions.data_ptr(), out.data_ptr(),
             tile_sum.data_ptr(), D, S, Q, TILE,
             # The raw current stream, as torch's own kernel launchers read it

@@ -546,3 +546,351 @@ def encode_pooled_words(v) -> tuple[int, int, list[int] | None]:
     if isinstance(v, str):
         return VKIND_STR, len(v), [ord(c) for c in v]
     raise ValueError(f"unsupported leaf value type: {v!r}")
+
+
+# ------------------------------------------------------- the rebase window (K9)
+#
+# The EditManager window fold on integer columns (reference
+# ``rebase_window_kernel``): one incoming single-change commit ``c`` folds
+# through a window of C in-flight entries ``xs``, each step the mirrored
+# bridge pair rebase_pair(c, x) on padded mark columns.  Object payloads
+# never ride the columns: every output mark carries a source-index range
+# into its ORIGINAL commit's marks (composed across steps for the carried
+# c), and the host decode re-attaches payloads from those handles.  What
+# the columns cannot express (Modify-vs-Modify collisions, out-of-order
+# placements, output overflow, detached-payload Removes that shift) sets a
+# per-step invalid flag; the first invalid or ineligible step kills every
+# later one, and the host finishes that suffix on the pooled fold.
+#
+# This is the plain form, batched over a leading window axis W and walking
+# the C steps in order: every encoding field carries [W, ...] (the window's
+# entries [W, C, ...]).  ``ops/rebase_kernel.py`` holds the hand CUDA
+# kernel of the same function and its packed-row wrapper.
+
+REBASE_MAX_MARKS = 12   # M: widest leaf mark list a window entry may carry
+REBASE_MAX_DEPTH = 4    # PD: deepest interior [Skip, Modify] path
+
+# Device mark codes (``protocol/mark_schema.py`` ``TreeMarkKind``).
+_NOOP, _SKIP, _INSERT, _REMOVE, _MODIFY = 0, 1, 2, 3, 4
+
+
+class RebaseEnc(NamedTuple):
+    """Device encoding of one eligible single-change pooled Commit, with a
+    leading window axis: ``dep`` and ``n`` are [W], every other field
+    [W, PD(+1)] or [W, M].
+
+    Interior levels 0..dep-1 are exactly [Skip(pos[l]), Modify] chains
+    (the nested-commit wire norm); level ``dep`` is the leaf: a flat mark
+    list over field ``fld[dep]``, or a value-only NodeChange when
+    ``fld[dep] < 0``.  ``val[l]`` flags a value overwrite at level l.
+    ``slo/shi`` map each leaf mark to its source-index range in the
+    ORIGINAL commit's columns — the object-payload handles."""
+
+    dep: torch.Tensor   # [W]          number of interior levels
+    fld: torch.Tensor   # [W, PD+1]    interned field ids; fld[dep] < 0 = value leaf
+    pos: torch.Tensor   # [W, PD]      interior skip offsets
+    val: torch.Tensor   # [W, PD+1]    value-present flags
+    kind: torch.Tensor  # [W, M]       leaf device-coded kinds (0 pads)
+    cnt: torch.Tensor   # [W, M]       leaf counts
+    det: torch.Tensor   # [W, M]       Remove-with-detached flags
+    n: torch.Tensor     # [W]          live leaf marks
+    slo: torch.Tensor   # [W, M]       source range lo (original mark index)
+    shi: torch.Tensor   # [W, M]       source range hi (inclusive)
+
+
+class _LegOut(NamedTuple):
+    kind: torch.Tensor   # [W, M] rebased mark kinds
+    cnt: torch.Tensor    # [W, M]
+    lo: torch.Tensor     # [W, M] source range into the leg's own input marks
+    hi: torch.Tensor     # [W, M]
+    n: torch.Tensor      # [W]
+    bad: torch.Tensor    # [W] bool: collision / out-of-order / overflow
+    ident: torch.Tensor  # [W] bool: output columnar-equal to the input
+
+
+class RebaseStepOut(NamedTuple):
+    valid: torch.Tensor   # [W, C] bool: this step's result is usable
+    id_c: torch.Tensor    # [W, C] bool: c came through bit-identical
+    id_x: torch.Tensor    # [W, C] bool: x came through bit-identical
+    x: RebaseEnc          # rebased window entries (src into their own marks)
+    stage: RebaseEnc      # c after each step (src into the ORIGINAL c)
+    x_drop: torch.Tensor  # [W, C, PD+1] int32 value-LWW drops applied to x
+
+
+def _csum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 cumsum over the last axis (jnp keeps int32)."""
+    return torch.cumsum(x, -1, dtype=I32)
+
+
+def _gat(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-row ``x[w, idx[w, ...]]`` with the index clamped into range."""
+    return x.gather(-1, idx.clamp(0, x.shape[-1] - 1).long())
+
+
+def _cons(k: torch.Tensor, c: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """``c`` where the kind is ``a`` or ``b``, 1 at a Modify, else 0."""
+    return torch.where((k == a) | (k == b), c, (k == _MODIFY).to(I32))
+
+
+def _flat_leg(ak, ac, bk, bc, a_after: bool) -> _LegOut:
+    """One bridge leg over flat move-free columns [W, M]: rebase a over b.
+
+    Byte-matches mark_pool._rebase_cols: fate runs for b, per-a-mark
+    placements, and the sorted gap-and-coalesce emission as one masked
+    program."""
+    W, M = ak.shape
+    dev = ak.device
+    a_live = ak != _NOOP
+    b_live = bk != _NOOP
+
+    # --- phase 1: fate-run decomposition of b ------------------------------
+    consB = _cons(bk, bc, _SKIP, _REMOVE)
+    prodB = _cons(bk, bc, _SKIP, _INSERT)
+    inE = _csum(consB)
+    inS = inE - consB
+    outS = _csum(prodB) - prodB
+    tail_in = consB.sum(-1, dtype=I32)[:, None]
+    tail_out = prodB.sum(-1, dtype=I32)[:, None]
+    goneB = b_live & (bk == _REMOVE)
+    modB = b_live & (bk == _MODIFY)
+    runB = b_live & (consB > 0)
+
+    consA = _cons(ak, ac, _SKIP, _REMOVE)
+    a_in = _csum(consA) - consA
+
+    # --- insert-boundary placement (the sided boundary map) ----------------
+    p = a_in[:, :, None]                                  # [W, M, 1]
+    inS_, inE_, outS_ = inS[:, None, :], inE[:, None, :], outS[:, None, :]
+    covB = runB[:, None, :] & (inS_ < p) & (p <= inE_)
+    before_run = torch.where(goneB[:, None, :], outS_, outS_ + (p - inS_))
+    has_cov = covB.any(-1)
+    before = torch.where(covB, before_run, 0).sum(-1, dtype=I32)
+    before = torch.where(
+        a_in == 0, 0, torch.where(has_cov, before, tail_out + (a_in - tail_in))
+    ).to(I32)
+    if a_after:
+        prods_at = torch.where(
+            ((bk == _INSERT) & b_live)[:, None, :] & (inS_ == p), bc[:, None, :], 0
+        ).sum(-1, dtype=I32)
+        bp = before + prods_at
+    else:
+        bp = before
+
+    # --- phase 2: node placement as batched segment intersection -----------
+    isnode = a_live & ((ak == _REMOVE) | (ak == _MODIFY))
+    modA = a_live & (ak == _MODIFY)
+    e_a = a_in + consA
+    lo = torch.maximum(p, inS_)
+    hi = torch.minimum(e_a[:, :, None], inE_)
+    overlap = runB[:, None, :] & (hi > lo)
+    seg_ok = overlap & isnode[:, :, None] & ~goneB[:, None, :]
+    seg_pos = outS_ + (lo - inS_)
+    seg_cnt = hi - lo
+    coll = (modA[:, :, None] & modB[:, None, :] & overlap).flatten(1).any(-1)
+    tlo = torch.maximum(a_in, tail_in)
+    tail_ok = isnode & (e_a > tlo)
+    tail_pos = tail_out + (tlo - tail_in)
+    tail_cnt = e_a - tlo
+
+    # --- atom table: (a-mark j) x (insert | b-run segs | tail), row-major ---
+    NS = M + 2
+    T = M * NS
+    ins_ok = a_live & (ak == _INSERT)
+    atom_ok = torch.cat([ins_ok[..., None], seg_ok, tail_ok[..., None]], -1)
+    pos_f = torch.cat([bp[..., None], seg_pos, tail_pos[..., None]], -1).reshape(W, T)
+    cnt_f = torch.cat([ac[..., None], seg_cnt, tail_cnt[..., None]], -1).reshape(W, T)
+    kk = ak[:, :, None].expand(W, M, NS).reshape(W, T)
+    j_f = torch.arange(M, dtype=I32, device=dev)[:, None].expand(M, NS).reshape(T)
+
+    # --- phase 3: coalescing emission as prefix passes ----------------------
+    ok0 = atom_ok.reshape(W, T) & (cnt_f > 0)
+    mc = torch.where(ok0, cnt_f, 0)
+    consumed = torch.where(kk == _REMOVE, cnt_f, (kk == _MODIFY).to(I32))
+    end_f = pos_f + consumed
+    ar = torch.arange(T, dtype=I32, device=dev).expand(W, T)
+    lastok = torch.cummax(torch.where(ok0, ar, -1), -1).values
+    prev_idx = torch.cat([torch.full((W, 1), -1, dtype=I32, device=dev), lastok[:, :-1]], -1)
+    has_prev = prev_idx >= 0
+    gap = pos_f - torch.where(has_prev, _gat(end_f, prev_idx), 0)
+    prev_kind = torch.where(has_prev, _gat(kk, prev_idx), _NOOP)
+    merge = ok0 & (prev_kind == kk) & (gap == 0) & ((kk == _REMOVE) | (kk == _INSERT))
+    start = ok0 & ~merge
+    wskip = start & (gap > 0)
+    grp = _csum(start.to(I32))
+    nsk = _csum(wskip.to(I32))
+    csum = _csum(mc)
+    nsa = torch.cummin(torch.where(start, ar, T).flip(-1), -1).values.flip(-1)
+    gend = torch.minimum(
+        torch.cat([nsa[:, 1:], torch.full((W, 1), T, dtype=I32, device=dev)], -1) - 1,
+        torch.full((), T - 1, dtype=I32, device=dev),
+    )
+    gsum = _gat(csum, gend) - csum + mc
+    ghi = _gat(torch.cummax(torch.where(ok0, j_f, -1), -1).values, gend)
+    slot = (grp - 1 + nsk).contiguous()
+    out_n = grp[:, -1] + nsk[:, -1]
+    srange = torch.arange(M, dtype=I32, device=dev).expand(W, M).contiguous()
+    hit = torch.searchsorted(slot, srange, right=False).clamp(max=T - 1)
+    sl = slot.gather(-1, hit)
+    is_mark = start.gather(-1, hit) & (sl == srange)
+    is_skip = wskip.gather(-1, hit) & (sl == srange + 1)
+    ok_k = torch.where(is_mark, kk.gather(-1, hit), torch.where(is_skip, _SKIP, 0)).to(I32)
+    ok_c = torch.where(is_mark, gsum.gather(-1, hit), torch.where(is_skip, gap.gather(-1, hit), 0)).to(I32)
+    ok_lo = torch.where(is_mark, j_f[hit], 0).to(I32)
+    ok_hi = torch.where(is_mark, ghi.gather(-1, hit), 0).to(I32)
+    bad = coll | (ok0 & (gap < 0)).any(-1) | (out_n > M)
+    a_n = a_live.sum(-1, dtype=I32)
+    ident = (out_n == a_n) & (ok_k == ak).all(-1) & (ok_c == ac).all(-1)
+    return _LegOut(ok_k, ok_c, ok_lo, ok_hi, out_n.to(I32), bad, ident)
+
+
+def _synth_interior(p: torch.Tensor):
+    """[Skip(p), Modify] (or [Modify] at p == 0) as padded [W, M] columns."""
+    W = p.shape[0]
+    M = REBASE_MAX_MARKS
+    kind = torch.zeros((W, M), dtype=I32, device=p.device)
+    cnt = torch.zeros_like(kind)
+    pos = p > 0
+    kind[:, 0] = torch.where(pos, _SKIP, _MODIFY)
+    kind[:, 1] = torch.where(pos, _MODIFY, _NOOP)
+    cnt[:, 0] = torch.where(pos, p, 1)
+    cnt[:, 1] = pos.to(I32)
+    return kind, cnt
+
+
+def _pick(f: torch.Tensor, a: RebaseEnc, b: RebaseEnc) -> RebaseEnc:
+    """Field-wise ``where(f, a, b)`` with ``f`` [W] (every field, ``fld``
+    included, as the reference's ``tree_map``)."""
+    return RebaseEnc(*(
+        torch.where(f.view(-1, *([1] * (u.dim() - 1))), u, v) for u, v in zip(a, b)
+    ))
+
+
+def _pair_step(c: RebaseEnc, x: RebaseEnc, elig: torch.Tensor):
+    """One mirrored bridge pair rebase_pair(c, x) on [W] encodings.
+
+    Walks the common interior path to the divergence level, then either
+    short-circuits (disjoint fields / positions / value-only leaves — the
+    identity mask) or runs both flat legs at the diverging field.  Returns
+    (c', the step's outputs)."""
+    PD = REBASE_MAX_DEPTH
+    M = REBASE_MAX_MARKS
+    dev = c.dep.device
+    li = torch.arange(PD, dtype=I32, device=dev)
+    match = (li < c.dep[:, None]) & (li < x.dep[:, None]) & \
+        (c.fld[:, :PD] == x.fld[:, :PD]) & (c.pos == x.pos)
+    lstar = torch.cumprod(match.to(I32), -1).sum(-1, dtype=I32)
+    c_int = lstar < c.dep
+    x_int = lstar < x.dep
+    f_c = _gat(c.fld, lstar[:, None])[:, 0]
+    f_x = _gat(x.fld, lstar[:, None])[:, 0]
+    case_d = (f_c < 0) | (f_x < 0)
+    case_a = ~case_d & (f_c != f_x)
+    engage = ~case_d & ~case_a & ~(c_int & x_int)
+
+    lp = torch.clamp(lstar, max=PD - 1)[:, None]
+    pc = _gat(c.pos, lp)[:, 0]
+    px = _gat(x.pos, lp)[:, 0]
+    sk_c, sc_c = _synth_interior(pc)
+    sk_x, sc_x = _synth_interior(px)
+    Ak = torch.where(c_int[:, None], sk_c, c.kind)
+    Ac = torch.where(c_int[:, None], sc_c, c.cnt)
+    Bk = torch.where(x_int[:, None], sk_x, x.kind)
+    Bc = torch.where(x_int[:, None], sc_x, x.cnt)
+
+    legC = _flat_leg(Ak, Ac, Bk, Bc, a_after=True)
+    legX = _flat_leg(Bk, Bc, Ak, Ac, a_after=False)
+
+    # detached-payload Removes may pass through untouched, never transform
+    det_c = ~c_int & (c.det > 0).any(-1) & ~legC.ident
+    det_x = ~x_int & (x.det > 0).any(-1) & ~legX.ident
+    step_bad = engage & (legC.bad | legX.bad | det_c | det_x)
+    step_ok = elig & ~step_bad
+
+    # value LWW along the shared spine (levels 0..lstar)
+    lvl = torch.arange(PD + 1, dtype=I32, device=dev)
+    drop_x = (c.val > 0) & (x.val > 0) & (lvl <= lstar[:, None])
+
+    # interior fate: did the synthesized Modify survive, and where?
+    mi = torch.arange(M, dtype=I32, device=dev)
+    surv_c = ((legC.kind == _MODIFY) & (mi < legC.n[:, None])).any(-1)
+    surv_x = ((legX.kind == _MODIFY) & (mi < legX.n[:, None])).any(-1)
+    npos_c = torch.where(legC.kind[:, 0] == _SKIP, legC.cnt[:, 0], 0)
+    npos_x = torch.where(legX.kind[:, 0] == _SKIP, legX.cnt[:, 0], 0)
+
+    def rebuild(side: RebaseEnc, leg: _LegOut, is_int, surv, npos, drops):
+        trunc = (is_int & ~surv)[:, None]
+        t_dep = torch.where(is_int & ~surv, lstar, side.dep)
+        t_pos = torch.where((is_int & surv)[:, None] & (li == lstar[:, None]),
+                            npos[:, None], side.pos)
+        t_val = torch.where((lvl <= t_dep[:, None]) & ~drops, side.val, 0)
+        glo = _gat(side.slo, leg.lo)
+        ghi = _gat(side.shi, leg.hi)
+        live = mi < leg.n[:, None]
+        leaf = ~is_int[:, None]
+        t_kind = torch.where(leaf, torch.where(live, leg.kind, 0), side.kind)
+        t_cnt = torch.where(leaf, torch.where(live, leg.cnt, 0), side.cnt)
+        t_det = torch.where(leaf, torch.where(
+            live & (leg.kind == _REMOVE), _gat(side.det, leg.lo), 0), side.det)
+        t_n = torch.where(~is_int, leg.n, torch.where(is_int & ~surv, 0, side.n))
+        t_slo = torch.where(leaf, torch.where(live, glo, 0), side.slo)
+        t_shi = torch.where(leaf, torch.where(live, ghi, 0), side.shi)
+        z = lambda t: torch.where(trunc, 0, t).to(I32)
+        return RebaseEnc(t_dep.to(I32), side.fld, t_pos.to(I32), t_val.to(I32),
+                         z(t_kind), z(t_cnt), z(t_det), t_n.to(I32), z(t_slo), z(t_shi))
+
+    changed_c = engage & torch.where(c_int, ~(surv_c & (npos_c == pc)), ~legC.ident)
+    changed_x = engage & torch.where(x_int, ~(surv_x & (npos_x == px)), ~legX.ident)
+
+    new_c = rebuild(c, legC, c_int, surv_c, npos_c, torch.zeros_like(drop_x))
+    new_x = rebuild(x, legX, x_int, surv_x, npos_x, drop_x)
+
+    out_c = _pick(step_ok & engage & changed_c, new_c, c)
+    # x's value drops apply in EVERY case; marks only when the pair engaged
+    base_x = x._replace(val=torch.where(drop_x, 0, x.val).to(I32))
+    out_x = _pick(step_ok & engage & changed_x, new_x, base_x)
+
+    any_drop = (drop_x & (x.val > 0)).any(-1)
+    id_c = step_ok & ~(engage & changed_c)
+    id_x = step_ok & ~(engage & changed_x) & ~any_drop
+    return out_c, (step_ok, id_c, id_x, out_x, out_c, drop_x.to(I32))
+
+
+def rebase_window_kernel(c: RebaseEnc, xs: RebaseEnc, elig: torch.Tensor):
+    """Fold W incoming commits through their windows: ``c`` fields [W, ...],
+    ``xs`` fields [W, C, ...], ``elig`` [W, C] gating each step (the host
+    pads windows and marks host-only entries ineligible).  Prefix validity:
+    the first bad or ineligible step kills every later step's ``valid``
+    bit.  Returns (final c, per-step ``RebaseStepOut`` with [W, C] leading
+    axes).  The plain form of K9: the C steps in order, each masked over
+    the W windows (the reference's ``rebase_window_jit`` is W = 1, its
+    ``rebase_window_batched`` any W)."""
+    C = elig.shape[1]
+    elig = elig.to(torch.bool)
+    dead = torch.zeros_like(elig[:, 0])
+    steps = []
+    for i in range(C):
+        x = RebaseEnc(*(f[:, i] for f in xs))
+        c, out = _pair_step(c, x, elig[:, i] & ~dead)
+        dead = dead | ~out[0]
+        steps.append(out)
+    cols = list(zip(*steps))
+    stack = lambda ts: torch.stack(ts, 1)
+    encs = lambda es: RebaseEnc(*(stack(f) for f in zip(*es)))
+    return c, RebaseStepOut(stack(cols[0]), stack(cols[1]), stack(cols[2]),
+                            encs(cols[3]), encs(cols[4]), stack(cols[5]))
+
+
+def rebase_flat_pair_kernel(ak, ac, bk, bc):
+    """Both bridge legs of one flat pair, [M] columns (differential-test
+    surface)."""
+    strip = lambda leg: _LegOut(*(f[0] for f in leg))
+    a = (ak[None], ac[None], bk[None], bc[None])
+    return (strip(_flat_leg(*a, a_after=True)),
+            strip(_flat_leg(a[2], a[3], a[0], a[1], a_after=False)))
+
+
+def rebase_enc_from_numpy(enc, device=DEFAULT_DEVICE) -> RebaseEnc:
+    """A ``RebaseEnc`` from numpy-readable fields in ``RebaseEnc`` order (a
+    reference encoding read with ``np.asarray``), as int32 tensors."""
+    dev = resolve_device(device)
+    return RebaseEnc(*(torch.as_tensor(np.array(f, np.int32)).to(dev) for f in enc))

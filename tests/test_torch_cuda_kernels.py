@@ -190,3 +190,63 @@ def test_tree_megastep_and_compact_on_card_match_cpu(cuda_device):
             assert a.dtype == b.dtype == torch.int32
             assert torch.equal(a, b.cpu())
     assert int(out["cpu"][0].nrow.max()) > 0
+
+
+# ------------------------------------------------------------------- K9
+
+def rebase_windows(seed, W, C):
+    """Packed K9 inputs (c [W, 76], xs [W, C, 76], elig [W, C] uint8) from
+    seeded random encodings: every field in its range, so collisions,
+    value drops, detached removes, shared spines and dead steps occur."""
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
+    from fluidframework_tpu_torch.ops import tree_kernel as ttk
+
+    M, PD = ttk.REBASE_MAX_MARKS, ttk.REBASE_MAX_DEPTH
+    rng = np.random.default_rng(seed)
+
+    def encs(n):
+        kind = np.zeros((n, M), np.int64)
+        cnt = np.zeros((n, M), np.int64)
+        live = rng.integers(0, M + 1, n)
+        for w in range(n):
+            kind[w, :live[w]] = rng.integers(1, 5, live[w])
+            cnt[w, :live[w]] = rng.integers(1, 5, live[w])
+        fields = (rng.integers(0, PD + 1, n), rng.integers(-1, 3, (n, PD + 1)),
+                  rng.integers(0, 4, (n, PD)), rng.integers(0, 2, (n, PD + 1)), kind, cnt,
+                  (rng.random((n, M)) < 0.1) * (kind == 3), live,
+                  rng.integers(0, M, (n, M)), rng.integers(0, M, (n, M)))
+        return rk9.pack_enc(ttk.rebase_enc_from_numpy(fields, "cpu"))
+
+    c = encs(W)
+    xs = encs(W * C).view(W, C, rk9.ENC_WORDS)
+    elig = torch.as_tensor((rng.random((W, C)) < 0.95).astype(np.uint8))
+    return c, xs, elig
+
+
+@pytest.mark.parametrize("W,C", [(1, 1), (1, 64), (37, 8), (300, 3)])
+def test_rebase_window_matches_plain_on_card(cuda_device, W, C):
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
+
+    c, xs, elig = rebase_windows(W * 1000 + C, W, C)
+    want_final, want_steps = rk9.rebase_window_plain(c, xs, elig)
+    before = rk9.rebase_window.launches
+    final, steps = rk9.rebase_window(c.to(cuda_device), xs.to(cuda_device), elig.to(cuda_device))
+    torch.cuda.synchronize()
+    assert rk9.rebase_window.launches == before + 1
+    assert torch.equal(final.cpu(), want_final)
+    assert torch.equal(steps.cpu(), want_steps)
+    # the plain form on the card's tensors is the same function
+    pf, ps = rk9.rebase_window_plain(c.to(cuda_device), xs.to(cuda_device), elig.to(cuda_device))
+    assert torch.equal(pf.cpu(), want_final) and torch.equal(ps.cpu(), want_steps)
+
+
+def test_rebase_window_refuses_bad_inputs_on_card(cuda_device):
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
+
+    c, xs, elig = (t.to(cuda_device) for t in rebase_windows(5, 4, 3))
+    with pytest.raises(TypeError):
+        rk9.rebase_window(c, xs, elig.to(torch.int32))
+    with pytest.raises(ValueError):
+        rk9.rebase_window(c, xs[:, :, :-1], elig)
+    with pytest.raises(ValueError):
+        rk9.rebase_window(c, xs, elig.cpu())

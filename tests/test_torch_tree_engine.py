@@ -115,8 +115,8 @@ def test_engine_matches_reference(stream):
 
 @pytest.mark.parametrize("option", [
     {"megastep_k": 4, "ops_per_step": 8}, {"pool_capacity": 24}, {"mark_pool": False},
-    {"capacity": 8},
-], ids=["megastep", "pool_overflow", "object_marks", "overflow"])
+    {"capacity": 8}, {"device_rebase": True},
+], ids=["megastep", "pool_overflow", "object_marks", "overflow", "device_rebase"])
 def test_engine_options_match_reference(option):
     svc, _ = drive_nested_docs(4, seed=29, steps=30, mixed=True)
     ref, port = _pair(_logs(svc, 4), **option)
@@ -387,7 +387,7 @@ def test_ingest_batch_and_watermarks_match_reference():
 
 
 def test_unported_options_raise():
-    for option in ({"mesh": object()}, {"spare_slots": 2}, {"device_rebase": True},
+    for option in ({"mesh": object()}, {"spare_slots": 2},
                    {"telemetry": object()}, {"plan_cache": False}):
         with pytest.raises(NotImplementedError):
             TreeBatchEngine(2, device="cpu", **option)

@@ -103,8 +103,27 @@ def test_editmanager_fold_matches_reference(stream, pooled):
 
 
 def test_device_rebase_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        EditManager(mark_pool=True, device_rebase=True)
+    """The device rebase window is ported: an EditManager with a CPU
+    ``DeviceRebaser`` folds a stream exactly as the reference's
+    ``device_rebase=True`` fold (trunk commits and summary), and a private
+    rebaser asks for the card (it raises where there is none)."""
+    import torch
+
+    from fluidframework_tpu_torch.dds.tree.device_rebase import DeviceRebaser
+
+    log = STREAMS["flat"]().document("doc0").sequencer.log
+    ref = _Fold(RefEditManager, rcs, rmp, True)
+    ref.em = RefEditManager(mark_pool=ref.pool, device_rebase=True)
+    port = _Fold(EditManager, cs, mp, True)
+    port.em = EditManager(mark_pool=port.pool, device_rebase=DeviceRebaser(port.pool, device="cpu"))
+    for msg, edit in _edits(log):
+        assert port.add(msg, edit) == ref.add(msg, edit)
+    assert port.summary() == ref.summary()
+    assert port.em.rebaser.stats() == ref.em.rebaser.stats()
+    assert port.em.rebaser.windows > 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            EditManager(mark_pool=True, device_rebase=True)
 
 
 def test_changeset_codec_and_apply_match_reference():
