@@ -102,3 +102,23 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_kernel_library_types_every_entry_point_and_refuses_without_nvcc(monkeypatch, tmp_path):
+    """Every ``extern "C"`` entry point of ``csrc/*.cu`` has its argument
+    types in ``cuda_build.ENTRY_POINTS`` (ctypes would otherwise pass each
+    pointer as a 32-bit int), and a build without ``nvcc`` raises."""
+    import re
+
+    from fluidframework_tpu_torch.ops import cuda_build
+
+    entries = set()
+    for src in cuda_build.sources():
+        entries |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
+    assert entries == set(cuda_build.ENTRY_POINTS)
+    assert {"resolve_positions.cu", "rebase_window.cu"} <= {s.name for s in cuda_build.sources()}
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "library_path", lambda: tmp_path / "absent.so")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build()
