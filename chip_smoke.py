@@ -391,6 +391,26 @@ def time_k1(rk, lens, qs, iters: int, plain_iters: int) -> dict:
     }
 
 
+def k1_mismatch(qs, plane: str, got, want, want_cpu, again) -> str:
+    """What a K1 disagreement was, for its failure message: the output
+    plane; how many queries differ between the kernel, the plain version on
+    the card and the plain version on the CPU; the first few such queries
+    with the three values; and whether a second launch on the same inputs
+    gave the same kernel output."""
+    q = qs.reshape(-1)
+    g, w, wc = (t.reshape(-1) for t in (got, want, want_cpu))
+    at = ((g != w) | (g != wc) | (w != wc)).nonzero().flatten()[:4].tolist()
+    return json.dumps({
+        "plane": plane,
+        "kernel_vs_plain_card": int((got != want).sum()),
+        "kernel_vs_plain_cpu": int((got != want_cpu).sum()),
+        "plain_card_vs_plain_cpu": int((want != want_cpu).sum()),
+        "first": [{"at": i, "q": int(q[i]), "kernel": int(g[i]), "plain_card": int(w[i]),
+                   "plain_cpu": int(wc[i])} for i in at],
+        "second_launch_same": bool((again == got).all()),
+    })
+
+
 def phase_kernels(seed: int, card: str) -> dict:
     """K1 on the card against its plain version on the same card tensors
     (and the plain version on the CPU), exact; then timings at the
@@ -428,11 +448,13 @@ def phase_kernels(seed: int, card: str) -> dict:
         want = rk.resolve_positions_plain(lt, qt)
         want_cpu = rk.resolve_positions_plain(torch.from_numpy(lens), torch.from_numpy(qs))
         torch.cuda.synchronize()
-        for g, w, wc in zip(got, want, want_cpu):
-            err = int((g.long() - w.long()).abs().max())
-            max_err = max(max_err, err)
-            check(torch.equal(g.cpu(), w.cpu()) and torch.equal(g.cpu(), wc),
-                  f"K1 disagrees with its plain version at lens {lens.shape}, queries {qs.shape}")
+        for plane, g, w, wc in zip(("idx", "off", "hit"), got, want, want_cpu):
+            g, w = g.cpu(), w.cpu()
+            max_err = max(max_err, int((g.long() - w.long()).abs().max()))
+            if not (torch.equal(g, w) and torch.equal(g, wc)):
+                again = rk.resolve_positions(lt, qt)[("idx", "off", "hit").index(plane)].cpu()
+                check(False, f"K1 disagrees with its plain version at lens {lens.shape}, "
+                             f"queries {qs.shape}: " + k1_mismatch(qs, plane, g, w, wc, again))
         hits += int(got[2].sum())
 
     lt = torch.from_numpy(big_lens).to(dev)
@@ -1719,15 +1741,17 @@ def time_serving_folds(reb, windows, encs, host, host_ms: float) -> dict:
 
 def phase_rebase_kernel(seed: int, card: str) -> dict:
     """K9 (``rebase_window``) against its plain version on the same card
-    tensors (and on the CPU), exact on every output of every step, at
-    three shapes: ``bench.py``'s microbench windows at W=256 and W=4,096
-    (C=8) and one tree_deep window (W=1, C=256).  For each: call and device
-    time, the plain version's time, the host pooled fold
-    (``mark_pool.rebase_pair``) over the same windows, and the bytes bound
-    (packed inputs read once, outputs written once; the window itself is a
-    serial chain of C steps).  Then the serving form, one window per fold
-    (``DeviceRebaser.fold``: one copy up, one launch, one copy down, the
-    decode), against the pooled fold on the W=256 windows, identical."""
+    tensors (and on the CPU), exact on every output of every step, at four
+    shapes: ``bench.py``'s microbench windows at W=256 and W=4,096 (C=8),
+    one tree_deep window (W=1, C=256) and the serving shape tree_rebase
+    launches (W=1, C=16: a fold of 9-16 entries pads to 16).  For each:
+    call and device time, device us per step of the window's chain (the W
+    windows run side by side), the plain version's time, the host pooled
+    fold (``mark_pool.rebase_pair``) over the same windows, and the bytes
+    bound (packed inputs read once, outputs written once; the window itself
+    is a serial chain of C steps).  Then the serving form, one window per
+    fold (``DeviceRebaser.fold``: one copy up, one launch, one copy down,
+    the decode), against the pooled fold on the W=256 windows, identical."""
     import torch
 
     from fluidframework_tpu_torch.dds.tree import mark_pool as mp
@@ -1738,7 +1762,8 @@ def phase_rebase_kernel(seed: int, card: str) -> dict:
     out = {"phase": "rebase_kernel", "card": card}
     shapes = (("microbench_256", lambda: rebase_microbench_windows(seed, 256), 50, 5),
               ("microbench_4096", lambda: rebase_microbench_windows(seed + 1, 4096), 20, 3),
-              ("tree_deep_window", lambda: tree_deep_window(seed), 20, 1))
+              ("tree_deep_window", lambda: tree_deep_window(seed), 20, 1),
+              ("serving_16", lambda: rebase_microbench_windows(seed + 2, 1, window=16), 50, 3))
     serving = None
     for name, make, iters, plain_iters in shapes:
         pool, windows = make()
@@ -1775,10 +1800,12 @@ def phase_rebase_kernel(seed: int, card: str) -> dict:
 
         by_name = device_ms_by_name(kernel, iters)
         nbytes = nbytes_of([cd, xd, ed, *got])
+        device_ms = _device_sum(by_name, "rebase_window")
         out[name] = {
             "W": W, "C": C, "valid_steps": int(got[1][..., 0].sum()), "max_abs_err": err,
             "ms": cuda_ms(kernel, iters, warmup=2),
-            "device_ms": _device_sum(by_name, "rebase_window"),
+            "device_ms": device_ms,
+            "us_per_step": device_ms * 1e3 / C if device_ms is not None else None,
             "call_device_ms": _device_sum(by_name),
             "plain_ms": cuda_ms(lambda: rk9.rebase_window_plain(cd, xd, ed), plain_iters, warmup=1),
             "host_fold_ms": host_ms,
@@ -2185,8 +2212,9 @@ def main(argv=None) -> int:
         "launches": sum(paths["rebase_window"].values()),
         "launches_by_path": paths["rebase_window"],
         "max_abs_err": max(k9[n]["max_abs_err"] for n in (
-            "microbench_256", "microbench_4096", "tree_deep_window")),
+            "microbench_256", "microbench_4096", "tree_deep_window", "serving_16")),
         "shape": [k9m["W"], k9m["C"]], "ms": k9m["ms"], "device_ms": k9m["device_ms"],
+        "us_per_step": k9m["us_per_step"],
         "plain_ms": k9m["plain_ms"], "bound_ms": k9m["bound_ms"], "bound_by": k9m["bound_by"],
         "library_ms": None, "host_fold_ms": k9m["host_fold_ms"],
     }, {

@@ -16,22 +16,49 @@
 // for every step, including the steps after the first invalid one, exactly
 // as the plain form computes them.
 //
-// What bounds it: neither bytes nor operations.  A window is a serial chain
-// of C steps, each two legs of dependent scans (a few hundred integer
-// operations over 168 atoms), so one window's time is latency; W windows run
-// side by side, one warp each.  The design keeps that chain on chip:
-//   - one warp per window (a block holds up to WPB windows; W = 1 is one
-//     warp); the carried c, the current x and every leg table stay in the
-//     warp's slice of shared memory across the C steps;
-//   - each leg's per-mark prefix sums over M are warp scans (__shfl_up_sync);
-//   - the [M, M] overlap tables are 144 entries per leg: lane j < M walks
-//     a-mark j against the M b-runs;
-//   - the atom table has T = M (M + 2) = 168 entries: lane l < 28 owns the
-//     6 consecutive atoms [6 l, 6 l + 6), scans them serially, and a warp
-//     scan carries the chunk totals across lanes (forward cumsum / cummax,
-//     and with __shfl_down_sync the reverse cummin);
-//   - the 12 output slots are binary searches over the monotone slot column;
-//   - integer arithmetic throughout.
+// What bounds it: neither bytes nor operations but a per-step dependency
+// chain.  A window moves 304 bytes in and 640 out a step and does a few
+// thousand integer operations; step i + 1 cannot start before step i's c'
+// and prefix-validity bit exist, and inside a step every pass (fate runs,
+// placements, coalescing, emission, rebuild) reads the one before.  So a
+// window's time is C times one step's latency; with many windows in flight
+// the instructions a step executes matter too.  The design shortens the chain
+// and keeps every pass to a few instructions a thread:
+//   - one block of 384 threads per window, both legs at once: the two
+//     flat_leg calls of a step read the same four [M] columns and write
+//     disjoint outputs, so threads [0, 192) run leg 0 (c over x) and
+//     [192, 384) leg 1 (x over c).  A leg syncs only its own six warps
+//     (named barriers 1 and 2, three times a step); the block syncs twice,
+//     where both legs hand their outputs to the pair step's tail and where
+//     c' and the next x are handed to the next step;
+//   - a prologue warp per leg computes the step's spine (a ballot over the
+//     PD levels) and the leg's fate runs: lanes 0-15 the a marks, 16-31 the
+//     b marks, two 16-lane shuffle scans of 4 rounds, into shared memory;
+//   - one thread per atom: a leg's atom table is T = M (M + 2) = 168 atoms,
+//     a-mark j's 14 atoms (insert | M b-runs | tail) on half-warp j (lanes
+//     14 and 15 idle).  The insert boundary needs no loop over the b-runs:
+//     at most one b-run covers a mark's offset (a ballot and a shuffle),
+//     and the inserts at it are a 16-lane shuffle sum;
+//   - the coalescing passes are ballots: the previous live atom, the group
+//     and skip counts and out_n are bit scans and population counts of
+//     per-warp ballots, shared through 6 words a leg and combined by a
+//     3-round shuffle scan;
+//   - each start atom (and each gap-skip atom) writes its output slot, and
+//     every live atom adds its count to its group's slot and raises the
+//     slot's source bound (shared atomics): no cumsum, no search for the
+//     group's end, no search over the monotone slot column.  This gives
+//     exactly the reference's emission, its clamp to T - 1 included (see
+//     the emit note below);
+//   - the window's entry rows are staged in shared memory ahead of the
+//     steps, CHUNK rows at a time in two buffers with cp.async, so a step
+//     never waits on device memory, for any C;
+//   - the working set is 13,568 bytes of static shared memory a block
+//     (staging 9,728, c double-buffered 608, the two legs' tables 1,616
+//     each; kinds, source indices and flags uint8, counts and positions
+//     int32) and 40 registers a thread, so a multiprocessor holds 4 windows
+//     (1,536 threads; 528 windows a wave on 132 multiprocessors);
+//   - integer arithmetic throughout.  The reference's clamped gathers stay
+//     clamped (side.slo/shi/det[leg.lo/hi], kk[prev]).
 #ifndef RW_EMULATE
 #include <cuda_runtime.h>
 #endif
@@ -41,16 +68,22 @@ namespace {
 constexpr int M = 12;          // REBASE_MAX_MARKS
 constexpr int PD = 4;          // REBASE_MAX_DEPTH
 constexpr int NS = M + 2;      // atom slots per a-mark: insert | M b-runs | tail
-constexpr int T = M * NS;      // atoms per leg
-constexpr int CH = 6;          // atoms per lane
-constexpr int NL = T / CH;     // lanes that own atoms
+constexpr int HALF = 16;       // threads per a-mark (one half-warp)
+constexpr int LEG = M * HALF;  // threads per leg
+constexpr int LEG_WARPS = LEG / 32;
+constexpr int THREADS = 2 * LEG;
 constexpr int ENC = 76;        // words per packed encoding
 constexpr int STEP = 3 + 2 * ENC + PD + 1;  // words per step row
-constexpr int WPB = 4;         // windows (warps) per block at most
+constexpr int CHUNK = 16;      // entry rows per staging buffer
+constexpr int MIN_BLOCKS = 4;  // resident windows a multiprocessor must fit (caps registers at 40)
+constexpr int PIECES = ENC / 4;  // 16-byte pieces per row
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned LOW = 0x0000ffffu;
 
-static_assert(NL * CH == T && NL <= 32, "atom chunks must cover the table");
-static_assert(STEP == 160, "step row layout");
+static_assert(NS <= HALF && LEG % 32 == 0, "an a-mark's atoms fit a half-warp");
+static_assert(LEG_WARPS <= 8, "a 3-round scan covers the leg's warps");
+static_assert(STEP == 160 && ENC % 4 == 0, "row layout");
+static_assert(STEP <= THREADS, "one thread per step-row word");
 
 // Packed encoding offsets.
 constexpr int O_DEP = 0, O_FLD = 1, O_POS = 6, O_VAL = 10, O_KIND = 15,
@@ -61,223 +94,78 @@ constexpr int S_VALID = 0, S_IDC = 1, S_IDX = 2, S_X = 3, S_STAGE = 3 + ENC,
 // Device mark codes (protocol/mark_schema.py TreeMarkKind).
 constexpr int NOOP = 0, SKIP = 1, INSERT = 2, REMOVE = 3, MODIFY = 4;
 
-struct Leg {
-  int kind[M], cnt[M], lo[M], hi[M];
-  int n, bad, ident;
+// One leg's tables.
+struct LegTab {
+  // the prologue's: fate runs of the b marks, offsets of the a marks
+  int ain[M], acons[M], acnt[M];
+  int inS[M], inE[M], outS[M], bcons[M], bcnt[M];
+  int tail_in, tail_out;
+  int spine, pc, px;             // the step's spine (see SP_*)
+  int a_n, adet;                 // live a marks; any a mark with a detached payload
+  // the atoms'
+  int endf[LEG];                 // atom's end position (read as the previous atom's)
+  unsigned okb[LEG_WARPS], stb[LEG_WARPS], wsb[LEG_WARPS];  // per-warp ballots
+  int badw[LEG_WARPS];
+  int meta;                      // out_n << 1 | bad
+  // the leg's output columns
+  int cnt[M], hi[M];
+  unsigned char akind[M], bkind[M], kk[LEG], kind[M], lo[M];
 };
 
-// One window's working set (about 9 KB).
-struct Warp {
-  int c[ENC], x[ENC], nc[ENC];
-  int ak[M], ac[M], bk[M], bc[M];  // leg inputs: the c side, the x side
-  Leg leg[2];                      // 0: c over x (a_after), 1: x over c
-  int inS[M], inE[M], outS[M], consB[M];
-  int kk[T], pos[T], endf[T], gap[T], mc[T], csum[T], cmj[T], slot[T], gend[T];
-  unsigned char ok0[T], start[T], wskip[T];
+struct __align__(16) Block {
+  int rows[2][CHUNK][ENC];       // staged window entries
+  int c[2][ENC];                 // the carried c, double-buffered
+  LegTab leg[2];                 // 0: c over x (a_after), 1: x over c
 };
 
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+// ----------------------------------------------------------- row staging
 
-__device__ __forceinline__ int warp_incl_sum(int v) {
-  const int lane = lane_id();
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(FULL, v, d);
-    if (lane >= d) v += u;
-  }
-  return v;
+#ifdef RW_EMULATE
+// The host build copies in place of the asynchronous copy.
+__device__ __forceinline__ void copy16(int* dst, const int* src) {
+  for (int k = 0; k < 4; ++k) dst[k] = src[k];
+}
+__device__ __forceinline__ void copy_commit() {}
+__device__ __forceinline__ void copy_wait_all_but_one() {}
+#else
+__device__ __forceinline__ void copy16(int* dst, const int* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void copy_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// Named barrier ID over one leg's threads (bar.sync ID, LEG).
+template <int ID>
+__device__ __forceinline__ void leg_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(LEG) : "memory");
+}
+#endif
+
+__device__ __forceinline__ void sync_leg(int leg) {
+  if (leg) leg_sync<2>(); else leg_sync<1>();
 }
 
-__device__ __forceinline__ int warp_incl_max(int v) {
-  const int lane = lane_id();
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(FULL, v, d);
-    if (lane >= d) v = max(v, u);
-  }
-  return v;
+// Start the copy of `nrows` entry rows (16-byte aligned: a row is 304
+// bytes) from device memory into `dst`, then commit one copy group (every
+// thread commits one, empty or not).
+__device__ __forceinline__ void stage_rows(int (*dst)[ENC], const int* src, int nrows) {
+  int* d = &dst[0][0];
+  for (int p = threadIdx.x; p < nrows * PIECES; p += THREADS) copy16(d + 4 * p, src + 4 * p);
+  copy_commit();
 }
 
-// min over this lane and every later lane
-__device__ __forceinline__ int warp_suffix_min(int v) {
-  const int lane = lane_id();
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_down_sync(FULL, v, d);
-    if (lane + d < 32) v = min(v, u);
-  }
-  return v;
-}
+// ------------------------------------------------------------ small helpers
+
+__device__ __forceinline__ unsigned mask_lt(int lane) { return (1u << lane) - 1u; }
+__device__ __forceinline__ unsigned mask_le(int lane) { return (2u << lane) - 1u; }
+__device__ __forceinline__ int last_bit(unsigned v) { return 31 - __clz((int)v); }
+__device__ __forceinline__ int first_bit(unsigned v) { return __ffs((int)v) - 1; }
 
 // input consumed (SKIP/REMOVE: the count) or produced (SKIP/INSERT), 1 at a MODIFY
 __device__ __forceinline__ int extent(int k, int c, int other) {
   return (k == SKIP || k == other) ? c : (k == MODIFY ? 1 : 0);
-}
-
-__device__ __forceinline__ void put_atom(Warp& s, int t, bool ok, int pos, int cnt, int kind) {
-  const bool live = ok && cnt > 0;
-  s.ok0[t] = live;
-  s.kk[t] = kind;
-  s.pos[t] = pos;
-  s.mc[t] = live ? cnt : 0;
-  s.endf[t] = pos + (kind == REMOVE ? cnt : (kind == MODIFY ? 1 : 0));
-}
-
-// One bridge leg: rebase the a marks over the b marks (both [M] in shared
-// memory, written before the call with a __syncwarp).
-__device__ void flat_leg(Warp& s, const int* ak, const int* ac, const int* bk,
-                         const int* bc, bool a_after, Leg& out) {
-  const int lane = lane_id();
-
-  // --- phase 1: fate runs of b (lane i < M holds b-mark i), a's offsets ---
-  const int bki = lane < M ? bk[lane] : NOOP;
-  const int bci = lane < M ? bc[lane] : 0;
-  const int consb = extent(bki, bci, REMOVE);
-  const int prodb = extent(bki, bci, INSERT);
-  const int inc_in = warp_incl_sum(consb);
-  const int inc_out = warp_incl_sum(prodb);
-  const int tail_in = __shfl_sync(FULL, inc_in, 31);
-  const int tail_out = __shfl_sync(FULL, inc_out, 31);
-  if (lane < M) {
-    s.inS[lane] = inc_in - consb;
-    s.inE[lane] = inc_in;
-    s.outS[lane] = inc_out - prodb;
-    s.consB[lane] = consb;
-  }
-  const int aki = lane < M ? ak[lane] : NOOP;
-  const int aci = lane < M ? ac[lane] : 0;
-  const int consa = extent(aki, aci, REMOVE);
-  const int a_in = warp_incl_sum(consa) - consa;
-  __syncwarp();
-
-  // --- phase 2: lane j < M places a-mark j against every b-run ------------
-  bool coll_j = false;
-  if (lane < M) {
-    const bool a_live = aki != NOOP;
-    const bool isnode = a_live && (aki == REMOVE || aki == MODIFY);
-    const bool modA = a_live && aki == MODIFY;
-    const int e_a = a_in + consa;
-    const int base = lane * NS;
-    bool has_cov = false;
-    int before = 0, prods = 0;
-    for (int i = 0; i < M; ++i) {
-      const int k = bk[i];
-      const bool blive = k != NOOP;
-      const int iS = s.inS[i], iE = s.inE[i], oS = s.outS[i];
-      const bool runB = blive && s.consB[i] > 0;
-      const bool gone = blive && k == REMOVE;
-      if (runB && iS < a_in && a_in <= iE) {
-        has_cov = true;
-        before += gone ? oS : oS + (a_in - iS);
-      }
-      if (k == INSERT && iS == a_in) prods += bc[i];
-      const int lo = max(a_in, iS), hi = min(e_a, iE);
-      const bool overlap = runB && hi > lo;
-      put_atom(s, base + 1 + i, overlap && isnode && !gone, oS + (lo - iS), hi - lo, aki);
-      coll_j = coll_j || (modA && k == MODIFY && overlap);
-    }
-    before = a_in == 0 ? 0 : (has_cov ? before : tail_out + (a_in - tail_in));
-    put_atom(s, base, a_live && aki == INSERT, before + (a_after ? prods : 0), aci, aki);
-    const int tlo = max(a_in, tail_in);
-    put_atom(s, base + NS - 1, isnode && e_a > tlo, tail_out + (tlo - tail_in), e_a - tlo, aki);
-  }
-  const bool coll = __any_sync(FULL, coll_j);
-  const int a_n = __popc(__ballot_sync(FULL, lane < M && aki != NOOP));
-  __syncwarp();
-
-  // --- phase 3: coalescing emission over the atom table -------------------
-  const bool owns = lane < NL;
-  const int t0 = lane * CH;
-  // pass A: the last live atom before each chunk (exclusive cummax)
-  int last = -1;
-  if (owns)
-    for (int k = 0; k < CH; ++k)
-      if (s.ok0[t0 + k]) last = t0 + k;
-  int prev = __shfl_up_sync(FULL, warp_incl_max(last), 1);
-  if (lane == 0) prev = -1;
-  // pass B: gaps and merge decisions; chunk totals
-  int n_start = 0, n_skip = 0, s_mc = 0, m_j = -1, first_start = T;
-  bool neg_gap = false;
-  if (owns) {
-    for (int k = 0; k < CH; ++k) {
-      const int t = t0 + k;
-      const bool ok = s.ok0[t];
-      const int kind = s.kk[t];
-      const int gap = s.pos[t] - (prev >= 0 ? s.endf[prev] : 0);
-      const int pkind = prev >= 0 ? s.kk[prev] : NOOP;
-      const bool merge = ok && pkind == kind && gap == 0 && (kind == REMOVE || kind == INSERT);
-      const bool st = ok && !merge;
-      const bool ws = st && gap > 0;
-      s.gap[t] = gap;
-      s.start[t] = st;
-      s.wskip[t] = ws;
-      n_start += st;
-      n_skip += ws;
-      s_mc += s.mc[t];
-      neg_gap = neg_gap || (ok && gap < 0);
-      if (st && first_start == T) first_start = t;
-      if (ok) {
-        m_j = t / NS;
-        prev = t;
-      }
-    }
-  }
-  const int inc_start = warp_incl_sum(n_start);
-  const int inc_skip = warp_incl_sum(n_skip);
-  const int inc_mc = warp_incl_sum(s_mc);
-  int mj = __shfl_up_sync(FULL, warp_incl_max(m_j), 1);
-  if (lane == 0) mj = -1;
-  int nsa = __shfl_down_sync(FULL, warp_suffix_min(first_start), 1);
-  if (lane == 31) nsa = T;
-  const int out_n = __shfl_sync(FULL, inc_start, 31) + __shfl_sync(FULL, inc_skip, 31);
-  const bool any_neg = __any_sync(FULL, neg_gap);
-  if (owns) {
-    // pass C: inclusive group ids, skip counts, count sums, last source j
-    int g = inc_start - n_start, ns = inc_skip - n_skip, cs = inc_mc - s_mc;
-    for (int k = 0; k < CH; ++k) {
-      const int t = t0 + k;
-      g += s.start[t];
-      ns += s.wskip[t];
-      cs += s.mc[t];
-      if (s.ok0[t]) mj = t / NS;
-      s.slot[t] = g - 1 + ns;
-      s.csum[t] = cs;
-      s.cmj[t] = mj;
-    }
-    // pass D (backward): each group's last atom = next start - 1
-    for (int k = CH - 1; k >= 0; --k) {
-      const int t = t0 + k;
-      s.gend[t] = min(nsa - 1, T - 1);
-      if (s.start[t]) nsa = t;
-    }
-  }
-  __syncwarp();
-
-  // output slot s = lane: the first atom whose slot reaches s
-  bool diff = false;
-  if (lane < M) {
-    int lo = 0, hi = T;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (s.slot[mid] < lane) lo = mid + 1; else hi = mid;
-    }
-    const int h = min(lo, T - 1);
-    const int sl = s.slot[h];
-    const bool is_mark = s.start[h] && sl == lane;
-    const bool is_skip = s.wskip[h] && sl == lane + 1;
-    const int ge = s.gend[h];
-    const int k = is_mark ? s.kk[h] : (is_skip ? SKIP : 0);
-    const int cnt = is_mark ? s.csum[ge] - s.csum[h] + s.mc[h] : (is_skip ? s.gap[h] : 0);
-    out.kind[lane] = k;
-    out.cnt[lane] = cnt;
-    out.lo[lane] = is_mark ? h / NS : 0;
-    out.hi[lane] = is_mark ? s.cmj[ge] : 0;
-    diff = k != ak[lane] || cnt != ac[lane];
-  }
-  const bool any_diff = __any_sync(FULL, diff);
-  if (lane == 0) {
-    out.n = out_n;
-    out.bad = coll || any_neg || out_n > M;
-    out.ident = out_n == a_n && !any_diff;
-  }
-  __syncwarp();
 }
 
 // [Skip(p), Modify] (or [Modify] at p == 0), column i
@@ -290,9 +178,231 @@ __device__ __forceinline__ int synth_cnt(int p, int i) {
 
 __device__ __forceinline__ int clamp_m(int i) { return min(max(i, 0), M - 1); }
 
+// The step's spine word: lstar (3 bits) | these flags | drops << 8.
+constexpr int SP_CINT = 1 << 3, SP_XINT = 1 << 4, SP_ENGAGE = 1 << 5;
+
+// --------------------------------------------------------- leg prologue
+//
+// Run by the leg's first warp: the spine from the shared c and x, then the
+// leg's two mark columns (synthesized [Skip(p), Modify] on an interior
+// side), lane r of lanes 0-15 holding a-mark r and of lanes 16-31 b-mark r,
+// with their prefix sums, into the leg's table.  Zeroes the leg's output
+// columns for the emission's atomics.
+__device__ __forceinline__ void prologue(LegTab& g, int leg, const int* c, const int* x,
+                                         int lane) {
+  // spine: lanes l <= PD hold level l of both sides
+  const int cdep = c[O_DEP], xdep = x[O_DEP];
+  const int l = min(lane, PD), lp = min(lane, PD - 1);
+  const int cf = c[O_FLD + l], xf = x[O_FLD + l];
+  const int cp = c[O_POS + lp], xp = x[O_POS + lp];
+  const int cv = c[O_VAL + l], xv = x[O_VAL + l];
+  const bool match = lane < PD && lane < cdep && lane < xdep && cf == xf && cp == xp;
+  const int lstar = first_bit(~__ballot_sync(FULL, match));  // leading matched levels
+  const int f_c = __shfl_sync(FULL, cf, lstar), f_x = __shfl_sync(FULL, xf, lstar);
+  const int lpos = min(lstar, PD - 1);
+  const int pc = __shfl_sync(FULL, cp, lpos), px = __shfl_sync(FULL, xp, lpos);
+  const unsigned drops = __ballot_sync(FULL, lane <= PD && cv > 0 && xv > 0 && lane <= lstar);
+  const bool c_int = lstar < cdep, x_int = lstar < xdep;
+  const bool case_d = f_c < 0 || f_x < 0;
+  const bool case_a = !case_d && f_c != f_x;
+  const bool engage = !case_d && !case_a && !(c_int && x_int);
+
+  // mark columns: leg 0 rebases c (a) over x (b), leg 1 x over c
+  const int r = lane & (HALF - 1);
+  const bool is_b = lane >= HALF;
+  const bool on_x = is_b != (leg != 0);
+  const int* side = on_x ? x : c;
+  const int rr = min(r, M - 1);
+  int k = side[O_KIND + rr], n = side[O_CNT + rr];
+  const int det = side[O_DET + rr];
+  if (on_x ? x_int : c_int) {
+    const int p = on_x ? px : pc;
+    k = synth_kind(p, r);
+    n = synth_cnt(p, r);
+  }
+  if (r >= M) k = n = 0;
+  const int cons = extent(k, n, REMOVE), prod = extent(k, n, INSERT);
+  int s1 = cons, s2 = prod;
+#pragma unroll
+  for (int d = 1; d < HALF; d <<= 1) {
+    const int u1 = __shfl_up_sync(FULL, s1, d, HALF);
+    const int u2 = __shfl_up_sync(FULL, s2, d, HALF);
+    if (r >= d) {
+      s1 += u1;
+      s2 += u2;
+    }
+  }
+  const unsigned live = __ballot_sync(FULL, k != NOOP);
+  const unsigned dets = __ballot_sync(FULL, r < M && det > 0);
+  if (r < M) {
+    if (is_b) {
+      g.inS[r] = s1 - cons;
+      g.inE[r] = s1;
+      g.outS[r] = s2 - prod;
+      g.bcons[r] = cons;
+      g.bcnt[r] = n;
+      g.bkind[r] = (unsigned char)k;
+    } else {
+      g.ain[r] = s1 - cons;
+      g.acons[r] = cons;
+      g.acnt[r] = n;
+      g.akind[r] = (unsigned char)k;
+      g.cnt[r] = 0;
+      g.hi[r] = 0;
+      g.kind[r] = 0;
+      g.lo[r] = 0;
+    }
+  }
+  if (lane == 31) {  // the b side's totals
+    g.tail_in = s1;
+    g.tail_out = s2;
+  }
+  if (lane == 0) {
+    g.spine = lstar | (c_int ? SP_CINT : 0) | (x_int ? SP_XINT : 0) |
+              (engage ? SP_ENGAGE : 0) | (int)(drops << 8);
+    g.pc = pc;
+    g.px = px;
+    g.a_n = __popc(live & LOW);
+    g.adet = (dets & LOW) != 0;
+  }
+}
+
+// --------------------------------------------------------------- one leg
+//
+// Rebase the a marks over the b marks from the prologue's columns into the
+// leg's output columns and meta word.  The calling thread is leg thread
+// `lt`: a-mark j = lt / 16, atom slot r = lt % 16 (0 insert, 1..M the
+// b-run r - 1, M + 1 the tail, above that idle).  Ends with the outputs
+// written, not yet synced.
+__device__ __forceinline__ void flat_leg(LegTab& g, int leg, int lt) {
+  const int lane = lt & 31, wl = lt >> 5, j = lt >> 4, r = lt & (HALF - 1);
+  const unsigned half = (lane & HALF) ? ~LOW : LOW;
+  const bool a_after = leg == 0;
+
+  // --- phase 2: this thread's atom -----------------------------------------
+  const int aki = g.akind[j], aci = g.acnt[j], a_in = g.ain[j], e_a = a_in + g.acons[j];
+  const int tail_in = g.tail_in, tail_out = g.tail_out;
+  const bool brun = r >= 1 && r <= M;
+  const int i = clamp_m(r - 1);
+  const int kb = brun ? g.bkind[i] : NOOP, cb = g.bcnt[i], consb = brun ? g.bcons[i] : 0;
+  const int inS = g.inS[i], inE = g.inE[i], outS = g.outS[i];
+  const bool runB = kb != NOOP && consb > 0;
+  const bool gone = kb == REMOVE;
+  // the insert boundary: the b-runs are disjoint intervals (inS, inE], so at
+  // most one covers a_in; the inserts sitting at a_in are summed
+  const bool cov = runB && inS < a_in && a_in <= inE;
+  const unsigned covb = __ballot_sync(FULL, cov) & half;
+  const int bcov = __shfl_sync(FULL, gone ? outS : outS + (a_in - inS),
+                               covb ? first_bit(covb) : lane);
+  const bool ins_at = kb == INSERT && inS == a_in;
+  int prd = ins_at ? cb : 0;
+  if (__ballot_sync(FULL, ins_at)) {
+#pragma unroll
+    for (int m = HALF / 2; m; m >>= 1) prd += __shfl_xor_sync(FULL, prd, m, HALF);
+  }
+  const bool isnode = aki == REMOVE || aki == MODIFY;
+  bool ok = false, coll = false;
+  int pos = 0, cnt = 0;
+  if (r == 0) {  // insert
+    const int before = a_in == 0 ? 0 : (covb ? bcov : tail_out + (a_in - tail_in));
+    ok = aki == INSERT;
+    pos = before + (a_after ? prd : 0);
+    cnt = aci;
+  } else if (brun) {  // a-mark j against b-run r - 1
+    const int lo = max(a_in, inS), hi = min(e_a, inE);
+    const bool overlap = runB && hi > lo;
+    ok = overlap && isnode && !gone;
+    pos = outS + (lo - inS);
+    cnt = hi - lo;
+    coll = aki == MODIFY && kb == MODIFY && overlap;
+  } else if (r == M + 1) {  // tail
+    const int tlo = max(a_in, tail_in);
+    ok = isnode && e_a > tlo;
+    pos = tail_out + (tlo - tail_in);
+    cnt = e_a - tlo;
+  }
+  const bool ok0 = ok && cnt > 0;
+  const unsigned okball = __ballot_sync(FULL, ok0);
+  g.endf[lt] = pos + (aki == REMOVE ? cnt : (aki == MODIFY ? 1 : 0));
+  g.kk[lt] = (unsigned char)aki;
+  if (lane == 0) g.okb[wl] = okball;
+  sync_leg(leg);
+
+  // --- phase 3a: previous live atom, merges, group starts -------------------
+  // lane v < LEG_WARPS holds warp v's word
+  const unsigned okv = lane < LEG_WARPS ? g.okb[lane] : 0u;
+  const unsigned live_w = __ballot_sync(FULL, okv != 0) & mask_lt(wl);
+  const unsigned okp = __shfl_sync(FULL, okv, live_w ? last_bit(live_w) : 0);
+  const unsigned mine = okball & mask_lt(lane);
+  const int prev = mine ? wl * 32 + last_bit(mine)
+                        : (live_w ? last_bit(live_w) * 32 + last_bit(okp) : -1);
+  const bool has_prev = prev >= 0;
+  const int pend = g.endf[has_prev ? prev : 0];
+  const int pk = has_prev ? (int)g.kk[prev] : NOOP;
+  const int gap = pos - (has_prev ? pend : 0);
+  const bool merge = ok0 && pk == aki && gap == 0 && (aki == REMOVE || aki == INSERT);
+  const bool start = ok0 && !merge;
+  const bool ws = start && gap > 0;
+  const unsigned stball = __ballot_sync(FULL, start);
+  const unsigned wsball = __ballot_sync(FULL, ws);
+  const bool wbad = __any_sync(FULL, coll || (ok0 && gap < 0));
+  if (lane == 0) {
+    g.stb[wl] = stball;
+    g.wsb[wl] = wsball;
+    g.badw[wl] = wbad;
+  }
+  sync_leg(leg);
+
+  // --- phase 3b: slots and emission -----------------------------------------
+  // per warp: group starts in the low 16 bits, gap skips in the high (<= 168 each)
+  const int cv = lane < LEG_WARPS ? __popc(g.stb[lane]) | __popc(g.wsb[lane]) << 16 : 0;
+  const bool badv = lane < LEG_WARPS && g.badw[lane];
+  int incl = cv;
+#pragma unroll
+  for (int d = 1; d < LEG_WARPS; d <<= 1) {
+    const int u = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += u;
+  }
+  const int before_me = __shfl_sync(FULL, incl - cv, wl);
+  const int total = __shfl_sync(FULL, incl, LEG_WARPS - 1);
+  const int grp = (before_me & LOW) + __popc(stball & mask_le(lane));
+  const int nsk = (before_me >> 16) + __popc(wsball & mask_le(lane));
+  const int out_n = (total & LOW) + (total >> 16);
+  const bool bad = __any_sync(FULL, badv) || out_n > M;
+  // Emit.  slot = groups - 1 + skips so far is monotone in the atom order
+  // and rises only at a start atom, by 1 (a mark) or 2 (a gap skip, then a
+  // mark), and a group's atoms share their start's slot.  So for s < out_n
+  // the reference's first atom with slot >= s is the start atom writing s
+  // here; its group's count is the sum of the group's live counts (csum at
+  // the group's end minus csum before its start) and its source bound the
+  // last live atom's a-mark, the largest in the group; for s >= out_n its
+  // search runs off the end, clamps to T - 1 and matches nothing: the
+  // zeroed slot.
+  const int slot = grp - 1 + nsk;
+  if (ok0 && slot < M) {
+    atomicAdd(&g.cnt[slot], cnt);
+    atomicMax(&g.hi[slot], j);
+    if (start) {
+      g.kind[slot] = (unsigned char)aki;
+      g.lo[slot] = (unsigned char)j;
+    }
+  }
+  if (ws && slot - 1 < M) {  // no group owns the skip's slot
+    g.kind[slot - 1] = SKIP;
+    g.cnt[slot - 1] = gap;
+  }
+  if (lt == 0) g.meta = out_n << 1 | (bad ? 1 : 0);
+}
+
+// The leg's output for the rebuild.
+struct LegOut {
+  const LegTab* g;
+  int n;
+};
+
 // Word w of one side rebuilt from its leg's output (the reference's rebuild).
-__device__ int rebuilt(const int* side, const Leg& L, bool is_int, bool surv, int npos,
-                       int lstar, unsigned drops, int w) {
+__device__ int rebuilt(const int* side, LegOut L, bool is_int, bool surv, int npos, int lstar,
+                       unsigned drops, int w) {
   const bool trunc = is_int && !surv;
   const int t_dep = trunc ? lstar : side[O_DEP];
   if (w == O_DEP) return t_dep;
@@ -306,134 +416,128 @@ __device__ int rebuilt(const int* side, const Leg& L, bool is_int, bool surv, in
   if (trunc) return 0;
   if (is_int) return side[w];
   const int f = (w - O_KIND) / M, i = (w - O_KIND) % M;
-  const bool live = i < L.n;
-  if (!live) return 0;
+  if (i >= L.n) return 0;
+  const int kind = L.g->kind[i];
   switch (f) {
-    case 0: return L.kind[i];
-    case 1: return L.cnt[i];
-    case 2: return L.kind[i] == REMOVE ? side[O_DET + clamp_m(L.lo[i])] : 0;
-    case 3: return side[O_SLO + clamp_m(L.lo[i])];
-    default: return side[O_SHI + clamp_m(L.hi[i])];
+    case 0: return kind;
+    case 1: return L.g->cnt[i];
+    case 2: return kind == REMOVE ? side[O_DET + clamp_m(L.g->lo[i])] : 0;
+    case 3: return side[O_SLO + clamp_m(L.g->lo[i])];
+    default: return side[O_SHI + clamp_m(L.g->hi[i])];
   }
 }
 
-// One mirrored bridge pair on s.c and s.x; writes the step row to `row` and
-// leaves c' in s.c.  `dead` is the window's prefix-validity carry.
-__device__ void pair_step(Warp& s, bool elig, bool& dead, int* row) {
-  const int lane = lane_id();
-  const int* c = s.c;
-  const int* x = s.x;
-  const int cdep = c[O_DEP], xdep = x[O_DEP];
-  int lstar = 0;
-  for (int l = 0; l < PD; ++l) {
-    if (!(l < cdep && l < xdep && c[O_FLD + l] == x[O_FLD + l] && c[O_POS + l] == x[O_POS + l]))
-      break;
-    ++lstar;
+// The pair step's tail, on threads [0, STEP): both legs' verdicts, the step
+// row's word `tid`, and c' (word tid - S_STAGE) into `cn`.  Returns the
+// step's validity.
+__device__ __forceinline__ bool pair_tail(const LegTab& g0, const LegTab& g1, const int* c,
+                                          const int* x, int* cn, bool el, bool dead, int tid,
+                                          int* row) {
+  const int lane = tid & 31;
+  const int sp = g0.spine;
+  const int lstar = sp & 7;
+  const bool c_int = sp & SP_CINT, x_int = sp & SP_XINT, engage = sp & SP_ENGAGE;
+  const unsigned drops = (unsigned)sp >> 8;
+  const int n0 = g0.meta >> 1, n1 = g1.meta >> 1;
+  // lane s < M checks leg 0's output slot s, lane 16 + s leg 1's
+  const LegTab& gl = lane < HALF ? g0 : g1;
+  const int s = clamp_m(lane & (HALF - 1));
+  const bool in_slot = (lane & (HALF - 1)) < M;
+  const int kd = gl.kind[s];
+  const unsigned diff =
+      __ballot_sync(FULL, in_slot && (kd != gl.akind[s] || gl.cnt[s] != gl.acnt[s]));
+  const unsigned surv =
+      __ballot_sync(FULL, in_slot && kd == MODIFY && s < (lane < HALF ? n0 : n1));
+  const bool ident_c = n0 == g0.a_n && !(diff & LOW);
+  const bool ident_x = n1 == g1.a_n && !(diff & ~LOW);
+  const bool surv_c = surv & LOW, surv_x = surv & ~LOW;
+  const bool det_c = !c_int && g0.adet && !ident_c;
+  const bool det_x = !x_int && g1.adet && !ident_x;
+  const bool step_bad = engage && ((g0.meta & 1) || (g1.meta & 1) || det_c || det_x);
+  const bool ok = el && !dead && !step_bad;
+  const int npos_c = g0.kind[0] == SKIP ? g0.cnt[0] : 0;
+  const int npos_x = g1.kind[0] == SKIP ? g1.cnt[0] : 0;
+  const bool changed_c = engage && (c_int ? !(surv_c && npos_c == g0.pc) : !ident_c);
+  const bool changed_x = engage && (x_int ? !(surv_x && npos_x == g0.px) : !ident_x);
+  const bool apply_c = ok && changed_c, apply_x = ok && changed_x;
+  int v;
+  if (tid == S_VALID) {
+    v = ok;
+  } else if (tid == S_IDC) {
+    v = ok && !changed_c;
+  } else if (tid == S_IDX) {
+    v = ok && !changed_x && drops == 0;
+  } else if (tid < S_STAGE) {
+    const int k = tid - S_X, l = k - O_VAL;
+    v = apply_x ? rebuilt(x, LegOut{&g1, n1}, x_int, surv_x, npos_x, lstar, drops, k)
+                : ((l >= 0 && l <= PD && ((drops >> l) & 1u)) ? 0 : x[k]);
+  } else if (tid < S_DROP) {
+    const int k = tid - S_STAGE;
+    v = apply_c ? rebuilt(c, LegOut{&g0, n0}, c_int, surv_c, npos_c, lstar, 0u, k) : c[k];
+    cn[k] = v;
+  } else {
+    v = (drops >> (tid - S_DROP)) & 1u;
   }
-  const bool c_int = lstar < cdep, x_int = lstar < xdep;
-  const int f_c = c[O_FLD + lstar], f_x = x[O_FLD + lstar];
-  const bool case_d = f_c < 0 || f_x < 0;
-  const bool case_a = !case_d && f_c != f_x;
-  const bool engage = !case_d && !case_a && !(c_int && x_int);
-  const int lp = min(lstar, PD - 1);
-  const int pc = c[O_POS + lp], px = x[O_POS + lp];
-  if (lane < M) {
-    s.ak[lane] = c_int ? synth_kind(pc, lane) : c[O_KIND + lane];
-    s.ac[lane] = c_int ? synth_cnt(pc, lane) : c[O_CNT + lane];
-    s.bk[lane] = x_int ? synth_kind(px, lane) : x[O_KIND + lane];
-    s.bc[lane] = x_int ? synth_cnt(px, lane) : x[O_CNT + lane];
-  }
-  __syncwarp();
-  flat_leg(s, s.ak, s.ac, s.bk, s.bc, true, s.leg[0]);
-  flat_leg(s, s.bk, s.bc, s.ak, s.ac, false, s.leg[1]);
-  const Leg& LC = s.leg[0];
-  const Leg& LX = s.leg[1];
-
-  const bool any_cdet = __any_sync(FULL, lane < M && c[O_DET + lane] > 0);
-  const bool any_xdet = __any_sync(FULL, lane < M && x[O_DET + lane] > 0);
-  const bool det_c = !c_int && any_cdet && !LC.ident;
-  const bool det_x = !x_int && any_xdet && !LX.ident;
-  const bool step_bad = engage && (LC.bad || LX.bad || det_c || det_x);
-  const bool ok = elig && !dead && !step_bad;
-
-  unsigned drops = 0;
-  bool any_drop = false;
-  for (int l = 0; l <= PD; ++l) {
-    const bool d = c[O_VAL + l] > 0 && x[O_VAL + l] > 0 && l <= lstar;
-    drops |= (unsigned)d << l;
-    any_drop = any_drop || d;
-  }
-  bool surv_c = false, surv_x = false;
-  for (int i = 0; i < M; ++i) {
-    surv_c = surv_c || (LC.kind[i] == MODIFY && i < LC.n);
-    surv_x = surv_x || (LX.kind[i] == MODIFY && i < LX.n);
-  }
-  const int npos_c = LC.kind[0] == SKIP ? LC.cnt[0] : 0;
-  const int npos_x = LX.kind[0] == SKIP ? LX.cnt[0] : 0;
-  const bool changed_c = engage && (c_int ? !(surv_c && npos_c == pc) : !LC.ident);
-  const bool changed_x = engage && (x_int ? !(surv_x && npos_x == px) : !LX.ident);
-  const bool apply_c = ok && engage && changed_c;
-  const bool apply_x = ok && engage && changed_x;
-
-  for (int w = lane; w < ENC; w += 32) {
-    int xv;
-    if (apply_x) {
-      xv = rebuilt(x, LX, x_int, surv_x, npos_x, lstar, drops, w);
-    } else {
-      const int l = w - O_VAL;
-      xv = (l >= 0 && l <= PD && ((drops >> l) & 1u)) ? 0 : x[w];
-    }
-    const int cv = apply_c ? rebuilt(c, LC, c_int, surv_c, npos_c, lstar, 0u, w) : c[w];
-    row[S_X + w] = xv;
-    row[S_STAGE + w] = cv;
-    s.nc[w] = cv;
-  }
-  if (lane <= PD) row[S_DROP + lane] = (drops >> lane) & 1u;
-  if (lane == 0) {
-    row[S_VALID] = ok;
-    row[S_IDC] = ok && !(engage && changed_c);
-    row[S_IDX] = ok && !(engage && changed_x) && !any_drop;
-  }
-  __syncwarp();
-  for (int w = lane; w < ENC; w += 32) s.c[w] = s.nc[w];
-  __syncwarp();
-  dead = dead || !ok;
+  row[tid] = v;
+  return ok;
 }
 
-__global__ void rebase_window_kernel(const int* __restrict__ c_in, const int* __restrict__ xs,
-                                     const unsigned char* __restrict__ elig,
-                                     int* __restrict__ final_c, int* __restrict__ steps,
-                                     int W, int C) {
-  __shared__ Warp smem[WPB];
-  const int lane = lane_id();
-  const int wib = threadIdx.x >> 5;
-  const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + wib;
-  if (w >= W) return;  // the whole warp leaves together
-  Warp& s = smem[wib];
-  for (int k = lane; k < ENC; k += 32) s.c[k] = c_in[w * ENC + k];
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    rebase_window_kernel(const int* __restrict__ c_in, const int* __restrict__ xs,
+                         const unsigned char* __restrict__ elig, int* __restrict__ final_c,
+                         int* __restrict__ steps, int W, int C) {
+  __shared__ Block sm;
+  const int tid = threadIdx.x;
+  const int leg = tid >= LEG;
+  const int lt = tid - leg * LEG;
+  const long long w = blockIdx.x;
+  if (w >= W) return;  // the whole block leaves together
+  const int* xw = xs + w * C * ENC;
+  for (int k = tid; k < ENC; k += THREADS) sm.c[0][k] = c_in[w * ENC + k];
+  stage_rows(sm.rows[0], xw, min(C, CHUNK));
+  stage_rows(sm.rows[1], xw + CHUNK * ENC, min(max(C - CHUNK, 0), CHUNK));
   bool dead = false;
+  int cur = 0;
   for (int i = 0; i < C; ++i) {
-    const long long r = w * C + i;
-    for (int k = lane; k < ENC; k += 32) s.x[k] = xs[r * ENC + k];
-    __syncwarp();
-    pair_step(s, elig[r] != 0, dead, steps + r * STEP);
+    const int q = i / CHUNK, rr = i - q * CHUNK;
+    if (rr == 0) {
+      copy_wait_all_but_one();
+      __syncthreads();
+    }
+    const bool el = elig[w * C + i] != 0;
+    const int* c = sm.c[cur];
+    const int* x = sm.rows[q & 1][rr];
+    LegTab& g = sm.leg[leg];
+    // both legs at once: leg 0 rebases c over x, leg 1 x over c
+    if (lt < 32) prologue(g, leg, c, x, lt);
+    sync_leg(leg);
+    flat_leg(g, leg, lt);
+    __syncthreads();
+    if (tid < STEP)
+      dead = !pair_tail(sm.leg[0], sm.leg[1], c, x, sm.c[cur ^ 1], el, dead, tid,
+                        steps + (w * C + i) * STEP) || dead;
+    __syncthreads();  // c' and the next x handed over; the legs' tables free
+    if (rr == CHUNK - 1)
+      stage_rows(sm.rows[q & 1], xw + (q + 2) * CHUNK * ENC, min(max(C - (q + 2) * CHUNK, 0), CHUNK));
+    cur ^= 1;
   }
-  for (int k = lane; k < ENC; k += 32) final_c[w * ENC + k] = s.c[k];
+  for (int k = tid; k < ENC; k += THREADS) final_c[w * ENC + k] = sm.c[cur][k];
 }
 
 }  // namespace
 
 #ifndef RW_EMULATE
 // c[W, 76], xs[W, C, 76] and elig[W, C] (uint8) in; final_c[W, 76] and
-// steps[W, C, 160] out, all contiguous on the device.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// steps[W, C, 160] out, all contiguous on the device, xs 16-byte aligned
+// (cudaErrorMisalignedAddress otherwise).  Launches one block of 384 threads
+// per window on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int rebase_window_launch(const void* c, const void* xs, const void* elig,
                                     void* final_c, void* steps, int W, int C, void* stream) {
   if (W <= 0) return 0;
-  const int wpb = W < WPB ? W : WPB;
-  rebase_window_kernel<<<(W + wpb - 1) / wpb, 32 * wpb, 0, (cudaStream_t)stream>>>(
-      (const int*)c, (const int*)xs, (const unsigned char*)elig, (int*)final_c, (int*)steps,
-      W, C);
+  if ((unsigned long long)xs & 15ull) return (int)cudaErrorMisalignedAddress;
+  rebase_window_kernel<<<W, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)c, (const int*)xs, (const unsigned char*)elig, (int*)final_c, (int*)steps, W,
+      C);
   return (int)cudaGetLastError();
 }
 #endif

@@ -22,6 +22,13 @@ PyTorch form on the CPU).  The division of labour:
   reference's own semantics for ineligible and invalidated steps, counted
   in ``fallback_steps``, never silent.
 
+``fold`` is safe for concurrent callers: it holds the rebaser's lock from
+the pack to the end of the pooled suffix.  The lock must cover the
+read-back, because the ``non_blocking`` copy reads the reused pinned
+buffer until the step rows come back; and it must cover the decode and
+the suffix, because both seal spans into the shared ``MarkPool``, whose
+allocator is not thread-safe.
+
 Object payloads (insert content, nested Modify changesets, detached Remove
 subtrees) never ride the device, so decoded commits serialize byte-
 identically to the pooled fold's outputs.  The reference's flight-recorder
@@ -29,6 +36,8 @@ spans are not carried.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -94,11 +103,13 @@ class DeviceRebaser:
     """Window dispatcher shared by a fleet's EditManagers (one instance
     keeps the field-interning table and the health counters fleet-wide,
     mirroring the engines' shared MarkPool).  ``device`` is where K9 runs:
-    the card by default, ``"cpu"`` for its plain form."""
+    the card by default, ``"cpu"`` for its plain form.  One fold runs at a
+    time (``_lock``; see the module note)."""
 
     def __init__(self, pool, device=DEFAULT_DEVICE) -> None:
         self.pool = pool
         self.device = resolve_device(device)
+        self._lock = threading.Lock()
         self._fields: dict[str, int] = {}
         self._host: dict[int, torch.Tensor] = {}  # window cap -> input buffer
         self.device_steps = 0     # window steps resolved on device
@@ -326,7 +337,11 @@ class DeviceRebaser:
         """One EditManager window fold: returns (final c, new xs values,
         stage values), device prefix + pooled-fold suffix.  ``xs`` is the
         list of window commits (tseq bookkeeping stays with the caller);
-        the three return lists line up with it."""
+        the three return lists line up with it.  Serialized on ``_lock``."""
+        with self._lock:
+            return self._fold(c, xs)
+
+    def _fold(self, c: Commit, xs: list):
         n = len(xs)
         enc_c = self.encode_commit(c)
         encs: list = []

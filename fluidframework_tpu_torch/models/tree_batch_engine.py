@@ -27,7 +27,8 @@ in lockstep device megasteps.
 Raw columns, views, fallbacks and checkpoint files are identical to the
 reference engine's for the same message stream.  ``device_rebase=True``
 folds each EditManager window through K9 (``dds/tree/device_rebase.py``)
-on the engine's device, with one ``DeviceRebaser`` shared by the fleet.
+on the engine's device, with one ``DeviceRebaser`` shared by the fleet;
+docs rebuilt by a restore fold on the host, as the reference's do.
 Not ported (``NotImplementedError``): a mesh, spare slots and migration
 (``migrate_doc``, ``rebalance_hot_shards``), boot-snapshot adoption,
 ``plan_cache=False`` (the reference's per-row emit path) and the native
@@ -887,7 +888,9 @@ class TreeBatchEngine:
                 self.counters.bump("checkpoint_refreshes")
             if refresh:
                 self._drop_restored_identity(d)
-            h.em = EditManager(mark_pool=self.markpool, device_rebase=self.rebaser)
+            # Restored EditManagers fold on the host, as the reference's do:
+            # the rebaser's gauges count only the docs it was built with.
+            h.em = EditManager(mark_pool=self.markpool)
             h.em.load(rec["em"])
             h.base_seq = h.last_seq = int(rec["seq"])
             h.restored = True

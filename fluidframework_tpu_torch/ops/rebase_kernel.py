@@ -14,7 +14,8 @@ this module is the packed-row interface both forms share:
 ``rebase_window(c[W, 76], xs[W, C, 76], elig[W, C] uint8)`` returns
 ``(final c [W, 76], steps [W, C, 160])``.  A CPU tensor takes the plain
 version (``rebase_window_plain``); a CUDA tensor launches
-``csrc/rebase_window.cu`` (one warp per window) or raises — on a failed
+``csrc/rebase_window.cu`` (one block of 384 threads per window, both legs
+of a step at once, one thread per atom) or raises — on a failed
 build, a launch error, or a shape or type the kernel does not take.
 ``rebase_window.launches`` counts the launches on the card, and nothing
 else.
@@ -122,6 +123,8 @@ def rebase_window(c: torch.Tensor, xs: torch.Tensor, elig: torch.Tensor):
     if c.device.type != "cuda":
         raise ValueError(f"unsupported device {c.device}")
     c, xs, elig = c.contiguous(), xs.contiguous(), elig.contiguous()
+    if xs.data_ptr() % 16:  # the kernel stages entry rows in 16-byte copies
+        xs = xs.clone()
     W, C = elig.shape
     final = torch.empty((W, ENC_WORDS), dtype=I32, device=c.device)
     steps = torch.empty((W, C, STEP_WORDS), dtype=I32, device=c.device)

@@ -98,6 +98,33 @@ def test_kernel_matches_plain_on_card(cuda_device, n_segs):
     _assert_kernel_matches_plain(cuda_device, *_case(n_segs, n_segs))
 
 
+def test_kernel_repeated_and_swept_matches_plain(cuda_device):
+    """K1 at the long-document shape launched 2,000 times on one upload and
+    200 times on fresh uploads, then 200 random shapes (one doc or three;
+    densities, lengths and segment counts drawn, tile-edge queries): every
+    launch equals the plain version on the CPU."""
+    lens, qs = _case(262_144, 262_144)
+    want = [w.to(cuda_device) for w in
+            rk.resolve_positions_plain(torch.from_numpy(lens), torch.from_numpy(qs))]
+    lt, qt = torch.from_numpy(lens).to(cuda_device), torch.from_numpy(qs).to(cuda_device)
+    for i in range(2_200):
+        if i >= 2_000:
+            lt, qt = torch.from_numpy(lens).to(cuda_device), torch.from_numpy(qs).to(cuda_device)
+        got = rk.resolve_positions(lt, qt)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), f"launch {i}"
+    rng = np.random.default_rng(7)
+    for i in range(200):
+        D = int(rng.choice([1, 3]))
+        S = int(rng.choice([262_144, 100_003, 2048 * int(rng.integers(1, 200)) + int(rng.integers(0, 4))]))
+        lens = rng.integers(0, int(rng.choice([2, 9, 100])), size=(D, S)).astype(np.int32)
+        lens = np.where(rng.random((D, S)) < rng.uniform(0.05, 1.0), lens, 0).astype(np.int32)
+        qs = np.stack([tile_queries(row, rk.TILE, rng, n=700) for row in lens])
+        got = rk.resolve_positions(torch.from_numpy(lens).to(cuda_device),
+                                   torch.from_numpy(qs).to(cuda_device))
+        want = rk.resolve_positions_plain(torch.from_numpy(lens), torch.from_numpy(qs))
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), f"shape {i}: D={D}, S={S}"
+
+
 @pytest.mark.parametrize("name", TILE_CASES)
 def test_kernel_matches_plain_at_tile_edges(cuda_device, name):
     _assert_kernel_matches_plain(cuda_device, *tile_case(name, rk.TILE))
@@ -223,11 +250,95 @@ def rebase_windows(seed, W, C):
     return c, xs, elig
 
 
-@pytest.mark.parametrize("W,C", [(1, 1), (1, 64), (37, 8), (300, 3)])
-def test_rebase_window_matches_plain_on_card(cuda_device, W, C):
+def window_commit(pool, rng, mixed=False):
+    """One pooled commit of one field under a shared interior path:
+    ``bench.py``'s microbench commit (4 one-leaf inserts at distinct
+    positions of 32), or with ``mixed`` a random canonical list of skips,
+    removes, inserts and value modifies."""
+    from fluidframework_tpu_torch.dds.tree.changeset import (
+        Commit, Insert, Modify, NodeChange, Remove, Skip, _wrap,
+    )
+    from fluidframework_tpu_torch.dds.tree.mark_pool import pool_commit
+    from fluidframework_tpu_torch.dds.tree.schema import leaf
+
+    marks = []
+    if not mixed:
+        cur = 0
+        for p in sorted(int(p) for p in rng.choice(32, size=4, replace=False)):
+            if p > cur:
+                marks.append(Skip(p - cur))
+                cur = p
+            marks.append(Insert([leaf(int(rng.integers(1000)))]))
+    else:
+        n = int(rng.integers(0, 8))
+        pos, last = 0, None
+        while pos < n:
+            r = rng.random()
+            if r < 0.25 and last != "S" and pos < n - 1:
+                k = int(rng.integers(1, n - pos))
+                marks.append(Skip(k))
+                pos, last = pos + k, "S"
+            elif r < 0.5 and last != "R":
+                k = int(rng.integers(1, n - pos + 1))
+                marks.append(Remove(k))
+                pos, last = pos + k, "R"
+            elif r < 0.75 and last != "I":
+                marks.append(Insert([leaf(int(rng.integers(99))) for _ in range(int(rng.integers(1, 3)))]))
+                last = "I"
+            else:
+                marks.append(Modify(NodeChange(value=(int(rng.integers(9)),))))
+                pos, last = pos + 1, "M"
+        if rng.random() < 0.4 and last != "I":
+            marks.append(Insert([leaf(7)]))
+    return pool_commit(pool, Commit([_wrap([("", 0)], NodeChange(fields={"kids": marks}))]))
+
+
+def commit_windows(seed, W, C, mixed=False):
+    """Packed K9 inputs from ``window_commit``s encoded by ``DeviceRebaser``:
+    every entry is eligible and every step engages (one shared field)."""
+    from fluidframework_tpu_torch.dds.tree.device_rebase import DeviceRebaser
+    from fluidframework_tpu_torch.dds.tree.mark_pool import MarkPool
+
+    rng = np.random.default_rng(seed)
+    pool = MarkPool()
+    reb = DeviceRebaser(pool, device="cpu")
+
+    def row():
+        while True:
+            enc = reb.encode_commit(window_commit(pool, rng, mixed))
+            if enc is not None:
+                return enc.row
+
+    c = torch.from_numpy(np.stack([row() for _ in range(W)]))
+    xs = torch.from_numpy(np.stack([row() for _ in range(W * C)]).reshape(W, C, -1))
+    return c, xs, torch.ones((W, C), dtype=torch.uint8)
+
+
+# Random encodings (every field in range) and pooled commits; C across the
+# kernel's staging chunks of 16 rows and not a power of two.
+K9_CARD_CASES = [("random", 1, 1), ("random", 1, 64), ("random", 37, 8), ("random", 300, 3),
+                 ("random", 2, 17), ("random", 3, 35), ("insert", 256, 8), ("insert", 1, 16),
+                 ("mixed", 64, 19), ("mixed", 1, 256)]
+
+
+def k9_case_id(case):
+    """A K9 case's test id: ``W-C`` for random encodings, ``kind-W-C`` for
+    commit windows."""
+    kind, W, C = case
+    return f"{W}-{C}" if kind == "random" else f"{kind}-{W}-{C}"
+
+
+def k9_case(kind, W, C):
+    if kind == "random":
+        return rebase_windows(W * 1000 + C, W, C)
+    return commit_windows(W * 1000 + C, W, C, mixed=kind == "mixed")
+
+
+@pytest.mark.parametrize("kind,W,C", K9_CARD_CASES, ids=map(k9_case_id, K9_CARD_CASES))
+def test_rebase_window_matches_plain_on_card(cuda_device, kind, W, C):
     from fluidframework_tpu_torch.ops import rebase_kernel as rk9
 
-    c, xs, elig = rebase_windows(W * 1000 + C, W, C)
+    c, xs, elig = k9_case(kind, W, C)
     want_final, want_steps = rk9.rebase_window_plain(c, xs, elig)
     before = rk9.rebase_window.launches
     final, steps = rk9.rebase_window(c.to(cuda_device), xs.to(cuda_device), elig.to(cuda_device))
@@ -238,6 +349,21 @@ def test_rebase_window_matches_plain_on_card(cuda_device, W, C):
     # the plain form on the card's tensors is the same function
     pf, ps = rk9.rebase_window_plain(c.to(cuda_device), xs.to(cuda_device), elig.to(cuda_device))
     assert torch.equal(pf.cpu(), want_final) and torch.equal(ps.cpu(), want_steps)
+
+
+def test_rebase_window_takes_unaligned_rows_on_card(cuda_device):
+    """Entry rows that do not start on 16 bytes (a view one word into a
+    buffer) are copied before the kernel stages them, never misread."""
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
+
+    c, xs, elig = commit_windows(11, 5, 19, mixed=True)
+    buf = torch.empty(1 + xs.numel(), dtype=torch.int32, device=cuda_device)
+    view = buf[1:].view(xs.shape)
+    view.copy_(xs)
+    assert view.data_ptr() % 16
+    got = rk9.rebase_window(c.to(cuda_device), view, elig.to(cuda_device))
+    for g, w in zip(got, rk9.rebase_window_plain(c, xs, elig)):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_rebase_window_refuses_bad_inputs_on_card(cuda_device):

@@ -61,6 +61,7 @@ from fluidframework_tpu_torch.ops import rebase_kernel as rk
 from fluidframework_tpu_torch.ops import tree_kernel as tk
 
 from test_mark_pool import _engine_msgs, _fuzz_edits
+from test_torch_cuda_kernels import window_commit
 
 M = tk.REBASE_MAX_MARKS
 PD = tk.REBASE_MAX_DEPTH
@@ -334,3 +335,90 @@ def test_engine_device_rebase_identity_and_gauges():
     assert len(keys) == 5 and {k: h[k] for k in keys} == {k: hr[k] for k in keys}
     assert "device_rebase_fraction" not in e0.health()
     assert e1.rebaser.device == torch.device("cpu")
+
+
+def test_restored_engine_gauges_match_reference(tmp_path):
+    """A restore rebuilds EditManagers without the rebaser in both
+    packages: after checkpointing doc 0 of a ``device_rebase=True`` engine,
+    restoring it into a fresh engine and feeding both docs the whole log,
+    the summaries, trees and every ``rebase`` gauge equal the reference's
+    (doc 1 still folds on the window, the restored doc 0 on the host)."""
+    from fluidframework_tpu.server.ordered_log import CheckpointStore as RefStore
+    from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
+
+    msgs = _engine_msgs(3)
+    half = len(msgs) // 2
+
+    def run(cls, store, **kw):
+        make = lambda: cls(2, capacity=4096, ops_per_step=16, pool_capacity=32768,
+                           mark_pool=True, device_rebase=True, checkpoint_store=store, **kw)
+        first = make()
+        for m in msgs[:half]:
+            first.ingest(0, m)
+        first.step()
+        assert first.maybe_checkpoint(force=True, docs=[0]) == [0]
+        eng = make()
+        assert eng.restore_from_checkpoints() == [0]
+        for m in msgs:
+            eng.ingest(0, m)
+            eng.ingest(1, m)
+        sums = [json.dumps(eng.hosts[d].em.summarize(), sort_keys=True) for d in range(2)]
+        eng.step()
+        trees = [json.dumps(eng.tree_json(d), sort_keys=True) for d in range(2)]
+        h = eng.health()
+        return sums, trees, {k: v for k, v in h.items() if "rebase" in k}, h
+
+    sums, trees, gauges, h = run(TreeBatchEngine, CheckpointStore(str(tmp_path / "port")),
+                                 device="cpu")
+    ref_sums, ref_trees, ref_gauges, ref_h = run(RefEngine, RefStore(str(tmp_path / "ref")))
+    assert sums == ref_sums and trees == ref_trees
+    assert len(gauges) == 5 and gauges == ref_gauges
+    assert 0 < gauges["device_rebase_steps"] and gauges["rebase_windows"] > 0
+    assert h["checkpointed_ops_skipped"] == ref_h["checkpointed_ops_skipped"] > 0
+
+
+def _fold_json(c, xs) -> str:
+    return json.dumps([commit_to_json(c)] + [commit_to_json(x) for x in xs])
+
+
+def test_concurrent_folds_through_one_rebaser():
+    """Two threads folding different windows through one CPU
+    ``DeviceRebaser`` (one reused host buffer per window cap, one shared
+    MarkPool) get the pooled fold's result on every fold."""
+    import threading
+
+    from fluidframework_tpu_torch.dds.tree.mark_pool import rebase_pair
+
+    pool = MarkPool()
+    reb = DeviceRebaser(pool, device="cpu")
+    rngs = [np.random.default_rng(50 + t) for t in range(2)]
+    windows = [[(window_commit(pool, rng), [window_commit(pool, rng) for _ in range(8)])
+                for _ in range(6)] for rng in rngs]
+    want = []
+    for ws in windows:
+        out = []
+        for c, xs in ws:
+            new_xs = []
+            for x in xs:
+                c, xw = rebase_pair(c, x)
+                new_xs.append(xw)
+            out.append(_fold_json(c, new_xs))
+        want.append(out)
+    rounds = 8
+    wrong = [0, 0]
+
+    def worker(t):
+        for _ in range(rounds):
+            for (c, xs), w in zip(windows[t], want[t]):
+                fc, fx, _stages = reb.fold(c, xs)
+                wrong[t] += _fold_json(fc, fx) != w
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads), "the folds did not finish within 120 s"
+    assert wrong == [0, 0]
+    stats = reb.stats()
+    assert stats["rebase_windows"] == 2 * rounds * 6 and stats["rebase_fallbacks"] == 0

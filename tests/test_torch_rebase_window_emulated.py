@@ -1,20 +1,26 @@
 """K9's CUDA source, compiled for the host, against its plain PyTorch form.
 
 ``csrc/rebase_window.cu`` cannot be built without ``nvcc``, so this test
-compiles the same source with the host C++ compiler (``-DRW_EMULATE`` drops
-the launch wrapper) against a small header that runs each lane of the warp
-as a ``std::thread`` and makes every warp collective (``__shfl*_sync``,
-``__ballot_sync``, ``__any_sync``, ``__syncwarp``) a barrier-fenced
-exchange.  The emulated kernel must equal ``rebase_window_plain`` on every
-word of every step row.  It checks the kernel's logic (scans, searches,
-the pair step, the row layout), not its compilation for the card or its
-speed: those are ``tests/test_torch_cuda_kernels.py``'s ``cuda`` cases and
-``chip_smoke.py``.  Skips where there is no C++20 compiler.
+compiles the same source with the host C++ compiler against a small header
+that runs each thread of a block (384: twelve warps) as a ``std::thread``,
+blocks in turn.  Every warp collective (``__shfl*_sync`` with its width,
+``__ballot_sync``, ``__any_sync``, ``__syncwarp``) is an exchange fenced by
+the warp's own barrier; ``__syncthreads`` and the named per-leg barriers
+(``bar.sync``) are barriers of the block and of each leg's threads; the
+shared-memory atomics are host atomics.  ``-DRW_EMULATE`` drops the launch
+wrapper and makes the asynchronous row staging (``cp.async``) a plain copy
+with nothing to wait for.  The emulated kernel must equal
+``rebase_window_plain`` on every word of every step row.  It checks the
+kernel's logic (the prologue's scans, the ballots, the emission, the pair
+step, the staging chunks, the row layout), not its compilation for the card
+or its speed: those are ``tests/test_torch_cuda_kernels.py``'s ``cuda``
+cases and ``chip_smoke.py``.  Skips where there is no C++20 compiler.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,13 +31,16 @@ import torch
 
 from fluidframework_tpu_torch.ops import rebase_kernel as rk9
 
-from test_torch_cuda_kernels import rebase_windows
+from test_torch_cuda_kernels import commit_windows, k9_case_id, rebase_windows
 
 SOURCE = Path(rk9.__file__).resolve().parent.parent / "csrc" / "rebase_window.cu"
+# the source's entry rows per staging buffer
+CHUNK = int(re.search(r"constexpr int CHUNK = (\d+);", SOURCE.read_text()).group(1))
 
 _EMU = r"""
 #include <algorithm>
 #include <barrier>
+#include <memory>
 #include <thread>
 #include <vector>
 using std::max;
@@ -39,61 +48,95 @@ using std::min;
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 thread_local Dim3 threadIdx;
 Dim3 blockIdx, blockDim;
-std::barrier<>* g_bar;
-int g_xch[32];
+constexpr int EMU_WARPS = 32;
+std::barrier<>* g_warp_bar[EMU_WARPS];  // one per warp of the block
+std::barrier<>* g_named_bar[16];        // bar.sync ids (0: the whole block)
+int g_xch[EMU_WARPS][2][32];            // per-warp exchange slots, double-buffered
+thread_local unsigned t_round;          // this lane's exchange count
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__
-inline void __syncwarp() { g_bar->arrive_and_wait(); }
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+inline int emu_warp() { return threadIdx.x >> 5; }
+inline void __syncwarp() { g_warp_bar[emu_warp()]->arrive_and_wait(); }
+inline void __syncthreads() { g_named_bar[0]->arrive_and_wait(); }
+template <int ID>
+inline void leg_sync() { g_named_bar[ID]->arrive_and_wait(); }  // bar.sync ID, LEG
+// Every lane of the warp posts v, the warp meets, each lane reads lane src's
+// value (its own where `take` is false).  The slots alternate, so the next
+// exchange cannot overwrite a slot before every lane has read it.
+inline int* post(int v) {
+  int* buf = g_xch[emu_warp()][t_round++ & 1];
+  buf[threadIdx.x & 31] = v;
+  g_warp_bar[emu_warp()]->arrive_and_wait();
+  return buf;
+}
 inline int xchg(int v, int src, bool take) {
+  const int* buf = post(v);
+  return take ? buf[src & 31] : v;
+}
+inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
   const int lane = threadIdx.x & 31;
-  g_bar->arrive_and_wait();
-  g_xch[lane] = v;
-  g_bar->arrive_and_wait();
-  const int r = take ? g_xch[src] : v;
-  g_bar->arrive_and_wait();
-  return r;
+  return xchg(v, (lane & ~(width - 1)) + (src & (width - 1)), true);
 }
-inline int __shfl_sync(unsigned, int v, int src) { return xchg(v, src & 31, true); }
-inline int __shfl_up_sync(unsigned, int v, int d) {
-  const int l = threadIdx.x & 31;
-  return xchg(v, l - d, l >= d);
+inline int __shfl_up_sync(unsigned, int v, int d, int width = 32) {
+  const int lane = threadIdx.x & 31;
+  return xchg(v, lane - d, (lane & (width - 1)) >= d);
 }
-inline int __shfl_down_sync(unsigned, int v, int d) {
-  const int l = threadIdx.x & 31;
-  return xchg(v, l + d, l + d < 32);
+inline int __shfl_down_sync(unsigned, int v, int d, int width = 32) {
+  const int lane = threadIdx.x & 31;
+  return xchg(v, lane + d, (lane & (width - 1)) + d < width);
+}
+inline int __shfl_xor_sync(unsigned, int v, int m, int width = 32) {
+  const int lane = threadIdx.x & 31, src = lane ^ m;
+  return xchg(v, src, (src & ~(width - 1)) <= (lane & ~(width - 1)));
 }
 inline unsigned __ballot_sync(unsigned, int p) {
-  const int lane = threadIdx.x & 31;
-  g_bar->arrive_and_wait();
-  g_xch[lane] = p != 0;
-  g_bar->arrive_and_wait();
+  const int* buf = post(p != 0);
   unsigned r = 0;
-  for (int i = 0; i < 32; ++i) r |= (unsigned)g_xch[i] << i;
-  g_bar->arrive_and_wait();
+  for (int i = 0; i < 32; ++i) r |= (unsigned)buf[i] << i;
   return r;
 }
 inline bool __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+inline int __clz(int v) { return v ? __builtin_clz((unsigned)v) : 32; }
+inline int atomicAdd(int* a, int v) { return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST); }
+inline int atomicMax(int* a, int v) {
+  int old = __atomic_load_n(a, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(a, &old, v, false, __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
 #define RW_EMULATE 1
 #include "SOURCE"
-// One window per block, its 32 lanes as threads, blocks in turn.
+// One window per block, its THREADS threads as std::threads, blocks in turn.
 extern "C" int emu_rebase_window(const int* c, const int* xs, const unsigned char* elig,
                                  int* final_c, int* steps, int W, int C) {
-  std::barrier<> bar(32);
-  g_bar = &bar;
-  blockDim.x = 32;
+  std::vector<std::unique_ptr<std::barrier<>>> bars;
+  for (int i = 0; i < THREADS / 32; ++i) {
+    bars.emplace_back(new std::barrier<>(32));
+    g_warp_bar[i] = bars.back().get();
+  }
+  std::barrier<> block(THREADS), leg0(LEG), leg1(LEG);
+  g_named_bar[0] = &block;
+  g_named_bar[1] = &leg0;
+  g_named_bar[2] = &leg1;
+  blockDim.x = THREADS;
   for (int b = 0; b < W; ++b) {
     blockIdx.x = b;
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < 32; ++l)
-      lanes.emplace_back([=] {
-        threadIdx.x = l;
+    std::vector<std::thread> threads;
+    for (int t = 0; t < THREADS; ++t)
+      threads.emplace_back([=] {
+        threadIdx.x = t;
+        t_round = 0;
         rebase_window_kernel(c, xs, elig, final_c, steps, W, C);
       });
-    for (auto& t : lanes) t.join();
+    for (auto& t : threads) t.join();
   }
   return 0;
 }
@@ -119,11 +162,26 @@ def emulated(tmp_path_factory):
     return fn
 
 
-@pytest.mark.parametrize("W,C", [(1, 12), (5, 6), (9, 3)])
-def test_emulated_kernel_matches_plain(emulated, W, C):
-    c, xs, elig = rebase_windows(7003 + W * 10 + C, W, C)
+# Random encodings (every field in range; valid and dead steps both occur)
+# and pooled commits (every step engages): C past one and two staging
+# chunks (the third chunk reuses the first buffer), C not a power of two,
+# several windows.
+EMULATED_CASES = [
+    ("random", 1, 12), ("random", 5, 6), ("random", 9, 3),
+    ("random", 2, CHUNK + 1), ("random", 1, 2 * CHUNK + 3), ("random", 3, CHUNK + 5),
+    ("insert", 2, 8), ("mixed", 3, CHUNK + 3), ("mixed", 1, 2 * CHUNK + 8),
+]
+
+
+@pytest.mark.parametrize("kind,W,C", EMULATED_CASES, ids=map(k9_case_id, EMULATED_CASES))
+def test_emulated_kernel_matches_plain(emulated, kind, W, C):
+    if kind == "random":
+        c, xs, elig = rebase_windows(7003 + W * 10 + C, W, C)
+    else:
+        c, xs, elig = commit_windows(W * 1000 + C, W, C, mixed=kind == "mixed")
     want_final, want_steps = rk9.rebase_window_plain(c, xs, elig)
-    assert 0 < int(want_steps[..., 0].sum()) < W * C  # valid and dead steps both occur
+    valid = int(want_steps[..., 0].sum())
+    assert 0 < valid < W * C if kind == "random" else valid > W  # dead steps are compared too
     cn, xn, en = (t.numpy().copy() for t in (c, xs, elig))
     final = np.full((W, rk9.ENC_WORDS), -7, np.int32)
     steps = np.full((W, C, rk9.STEP_WORDS), -7, np.int32)
