@@ -3,7 +3,10 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--trace-dir DIR]
+
+``--trace-dir`` writes the Chrome traces of the recorded turns there
+(nothing is written by default).
 
 It builds every hand-written kernel of the port from ``csrc/`` with nvcc
 (sm_90a; one compile per source, started together, then one link), then
@@ -25,11 +28,16 @@ runs these phases on the card, one JSON line each:
    ``DeviceRebaser.fold`` (the serving form) against the pooled fold.
 2. ``fleet``: config-3 geometry (10,000 SharedString docs, S=1024,
    T=8192, R=4, P=2, B=16, K=8) fed Zipf-skewed 4-writer insert/remove
-   traffic through ``DocBatchEngine.ingest``/``step``/``compact``; no error
-   bits, and a seeded sample of 64 docs replayed through the same engine
-   on the CPU gives byte-identical state rows.  Run at ``recovery="grow"``,
-   then, to price recovery, in turns at ``"off"``, ``"grow"``, ``"grow"``,
-   ``"off"``.
+   traffic, a round per ``DocBatchEngine.ingest_batch`` call, through
+   ``step``/``compact``; no error bits, and a seeded sample of 64 docs
+   replayed per message through the same engine on the CPU gives
+   byte-identical state rows.  Run at ``recovery="grow"``, then, to price
+   recovery, in turns at ``"off"``, ``"grow"``, ``"grow"``, ``"off"``: the
+   first grow of the turns ingests per message (``ingest``), the second
+   runs with a flight recorder installed (phase shares of ``ingest``,
+   ``upload``, ``dispatch``, ``readback``, then a recorded checkpoint
+   sweep of the 64 sampled docs).  Each line carries the op-latency p50
+   and p99, the ingest watermarks and the overload gauges.
 3. ``recovery``: the fleet's geometry and traffic at ``recovery="grow"``
    with seeded faults (8 docs past the text capacity, 8 past the segment
    count, 4 with an insert past their length): no error bits, 16 overflow
@@ -63,13 +71,24 @@ runs these phases on the card, one JSON line each:
    fallback, a CPU replay of 64 sampled docs and the 4 identical (raw
    columns, ``tree_json``, ``values``, ``em.summarize()``); a forced
    checkpoint sweep restored into a fresh engine identically, and both
-   engines identical through one more round.
+   engines identical through one more round.  The rounds run with a
+   flight recorder installed: the host fold's phase shares
+   (``host_fold_mark_alloc``/``_rebase``/``_compose``/``_translate``).
 8. ``tree_deep``: one doc seeded with a 10,000-leaf mixed-type subtree
    under 32 writer subtrees, then 32 writers x 8 edits x 4 rounds;
    ``device_fraction`` 1.0 and identical to a CPU replay.
 9. ``tree_churn``: 256 docs whose writers alternate inserts and removes
    (capacity 128): compaction (K8) must run; a sample of 64 identical to
    a CPU replay.
+9b. ``wire_ingest``: ``bench.py``'s config-3 ingest stream (128 docs, 16
+   rounds, 4 writers) as JSON lines through ``ingest_lines`` (the C++
+   encoder, ``native/ingest.cpp``), as messages through ``ingest_batch``
+   and through ``ingest``: ops/s of each; after ``step`` every doc's
+   raw columns and error latch identical across them and a CPU run, the
+   library loaded and every ``ingest_lines`` doc native.  Then
+   tree_churn's stream through ``TreeBatchEngine.ingest_lines``
+   (``native_wire=True``) round by round: every doc identical to the
+   tree_churn engine's, native tree batches and no native decode error.
 10. ``tree_programs``: K7 (``apply_nested_megastep``) on the ring the
     tree fleet stages from one more round, and K8 (``compact_nested``) on
     the fleet's state, timed alone beside their bytes bounds and held
@@ -81,7 +100,8 @@ runs these phases on the card, one JSON line each:
     side) and the tree fleet's cut to 256 docs, in turns on, off, off, on;
     every doc's summary and tree JSON identical between the settings;
     ingest s, edits/s, ``device_rebase_fraction``, ``rebase_fallbacks``,
-    ``rebase_windows``.
+    ``rebase_windows``; the fleet's last turn runs with a flight recorder
+    (the rebase window's encode/dispatch/decode spans).
 12. ``map_lww``: config 2 — one map (K=256) fed 64 batches of 256
     SET/DELETE ops plus a CLEAR, then 10,000 maps through
     ``apply_batch_fleet``, 16 batches; both equal a CPU run exactly.
@@ -93,12 +113,13 @@ runs these phases on the card, one JSON line each:
 The fleet's traffic is made once, before phase 2, and shared by phases
 2, 3 and 6 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
-7-9 and 11-13 are the port's main path: the launch counters of K1, of the
+7-9b and 11-13 are the port's main path: the launch counters of K1, of the
 fleet programs, of K7 and K8, of K9 and of the map and matrix programs
 are set to 0 just before each of them and read just after, and a path
-that runs K1 (phases 4 and 5), K7 (phases 7-9 and 11), K8 (phases 7 and
-9), K9 (phase 11), the map program (12) or the matrix program (13) fails
-the run if it never launched.  Then it prints the ``kernels`` summary
+that runs K1 (phases 4 and 5), K7 (phases 7-9b and 11), K8 (phases 7 and
+9), K9 (phase 11), the fleet program on wire_ingest (9b), the map
+program (12) or the matrix program (13) fails the run if it never
+launched.  Then it prints the ``kernels`` summary
 line (K1, K7, K8, K9, map, matrix), the card's name and power limit,
 and, last, the ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
@@ -109,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import gzip
 import json
 import os
 import shutil
@@ -534,15 +556,58 @@ FLEET_GEOM = dict(max_segments=1024, text_capacity=8192, remove_slots=4,
                   prop_slots=2, ops_per_step=16, megastep_k=8, max_insert_len=16)
 
 
+def install_recorder(capacity: int):
+    """A fresh flight recorder installed as the process's global one."""
+    from fluidframework_tpu_torch.observability import FlightRecorder, install
+
+    return install(FlightRecorder(capacity=capacity))
+
+
+def recorder_line(rec, trace_dir: str | None, name: str, events=None) -> dict:
+    """A trace's summary: phase shares and seconds per span name, events
+    kept and dropped; the Chrome trace goes to ``trace_dir`` when given."""
+    from fluidframework_tpu_torch.observability import phase_shares, phase_totals
+
+    events = rec.events() if events is None else events
+    out = {"events": len(events), "dropped": rec.dropped,
+           "phase_shares": phase_shares(events), "phase_s": phase_totals(events)}
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"{name}.json.gz")
+        with gzip.open(path, "wt") as f:
+            json.dump(rec.chrome_trace(), f)
+        out["trace"] = path
+    return out
+
+
+def latency_gauges(eng) -> dict:
+    """The engine's op-latency, watermark and overload surface."""
+    h = eng.health()
+    return {
+        "latency_samples": h["latency_samples"],
+        "latency_p50_ms": h.get("latency_p50_ms"), "latency_p99_ms": h.get("latency_p99_ms"),
+        "ingest_watermarks": eng.ingest_watermarks(),
+        **{k: h[k] for k in ("overload", "overloaded_docs", "overload_events",
+                             "queue_depth_max")},
+    }
+
+
 def phase_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000,
                 rounds: int = 16, step_every: int = 8, sample: int = 64,
-                recovery: str = "grow", geom: dict = FLEET_GEOM) -> dict:
+                recovery: str = "grow", geom: dict = FLEET_GEOM, ingest: str = "batch",
+                record: bool = False, trace_dir: str | None = None) -> dict:
     """The fleet at ``recovery`` on ``device``: the first ``rounds`` rounds
-    of ``traffic`` (``fleet_traffic``'s joins and rounds for ``n_docs``)."""
+    of ``traffic`` (``fleet_traffic``'s joins and rounds for ``n_docs``),
+    each round through one ``ingest_batch`` call (``ingest="batch"``) or
+    per-message ``ingest`` (``"message"``).  ``record`` installs a flight
+    recorder for the timed window (phase shares in the line), then records
+    a checkpoint sweep of the sampled docs into a scratch store."""
     import torch
 
     from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.observability import uninstall
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
 
     geom = dict(geom, recovery=recovery)
     joins, rounds_msgs = traffic[0], traffic[1][:rounds]
@@ -558,12 +623,16 @@ def phase_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000
     clock = SliceClock(mk)
     ingest_s = step_s = compact_s = 0.0
     slices = 0
+    rec = install_recorder(1 << 16) if record else None
     try:
         t_all = time.perf_counter()
         for r, msgs in enumerate(rounds_msgs):
             t1 = time.perf_counter()
-            for d, m in msgs:
-                eng.ingest(d, m)
+            if ingest == "batch":
+                eng.ingest_batch([d for d, _ in msgs], [m for _, m in msgs])
+            else:
+                for d, m in msgs:
+                    eng.ingest(d, m)
             ingest_s += time.perf_counter() - t1
             if (r + 1) % step_every == 0 or r + 1 == len(rounds_msgs):
                 t1 = time.perf_counter()
@@ -578,8 +647,27 @@ def phase_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000
                 step_s += t2 - t1
                 compact_s += time.perf_counter() - t2
         wall_s = time.perf_counter() - t_all
+        trace = None
+        if rec is not None:
+            trace = recorder_line(rec, trace_dir, f"fleet_{recovery}")
+            # A recorded checkpoint sweep of the sampled docs (outside the
+            # timed window: the fleet runs without a store).
+            ck_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_ckpt_")
+            try:
+                eng.checkpoint_store = CheckpointStore(ck_dir)
+                n0 = len(rec.events())
+                written = eng.maybe_checkpoint(docs=[int(d) for d in pick])
+                check(len(written) == len(pick),
+                      f"fleet: checkpointed {len(written)} of {len(pick)} sampled docs")
+                trace["sampled_checkpoint_s"] = recorder_line(
+                    rec, None, "", rec.events()[n0:])["phase_s"]
+            finally:
+                eng.checkpoint_store = None
+                shutil.rmtree(ck_dir, ignore_errors=True)
     finally:
         clock.close()
+        if rec is not None:
+            uninstall()
     ops_applied = eng.counters.get("ops_staged")
     errored = eng.error_count()
     check(errored == 0, f"fleet latched error bits on {errored} docs")
@@ -601,7 +689,8 @@ def phase_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000
     same = sum(_state_rows_equal(eng.doc_state(int(d)), ref.doc_state(j)) for j, d in enumerate(pick))
     check(same == len(pick), f"{len(pick) - same} of {len(pick)} sampled docs differ from the CPU replay")
     out = {
-        "phase": "fleet", "card": card, "recovery": recovery, "docs": n_docs,
+        "phase": "fleet", "card": card, "recovery": recovery, "ingest": ingest,
+        "recorder": record, "docs": n_docs,
         "rounds": rounds, "ops_applied": ops_applied, "slices": slices,
         "megasteps": eng.counters.get("megastep_dispatches"),
         "ingest_s": ingest_s, "step_s": step_s,
@@ -609,8 +698,12 @@ def phase_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000
         "slice_s": clock.slice_s, "slice_rows": clock.slice_rows,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else None,
         "ob_gate_syncs": eng.health()["ob_gate_syncs"],
+        "ingest_batch_rows": eng.counters.get("ingest_batch_rows"),
         "sampled_docs_identical": same,
+        **latency_gauges(eng),
     }
+    if trace is not None:
+        out["trace"] = trace
     emit(out)
     return out
 
@@ -1394,7 +1487,8 @@ def _tree_run_line(name, card, eng, run, gen_s, on_card, compacts) -> dict:
 
 def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
                      rounds: int = 4, n_faulted: int = 4, sample: int = 64,
-                     fault_edits: int = 24, geom: dict = TREE_FLEET_GEOM) -> tuple:
+                     fault_edits: int = 24, geom: dict = TREE_FLEET_GEOM,
+                     record: bool = False, trace_dir: str | None = None) -> tuple:
     """The SharedTree fleet: ``bench_config5``'s stream at ``n_docs`` docs
     through ``TreeBatchEngine.ingest``/``step`` (a step after every
     round), with ``n_faulted`` seeded docs whose writer 0 inserts
@@ -1403,12 +1497,15 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
     fallback.  Then a CPU replay of a seeded sample plus the faulted docs
     (raw columns, views and summaries identical, same fallbacks), a forced
     checkpoint sweep restored into a fresh engine (every doc's views and
-    summary equal), and one more round through both engines.  Returns the
-    phase's line and the inputs of a K7 ring that the engine stages from a
-    further round (``tree_fleet_ring``), for timing K7 and K8 alone."""
+    summary equal), and one more round through both engines.  ``record``
+    installs a flight recorder over the timed rounds (the host-fold phase
+    shares in the line).  Returns the phase's line and the inputs of a K7
+    ring that the engine stages from a further round
+    (``tree_fleet_ring``), for timing K7 and K8 alone."""
     import torch
 
     from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.observability import uninstall
     from fluidframework_tpu_torch.ops import tree_kernel as tk
     from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
 
@@ -1425,9 +1522,17 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
     try:
         eng = TreeBatchEngine(n_docs, device=device, checkpoint_store=CheckpointStore(ck_dir), **geom)
         k8_0 = tk.compact_nested.launches
-        run = _drive_tree(eng, main_rounds, on_card=on_card)
+        rec = install_recorder(1 << 20) if record else None
+        try:
+            run = _drive_tree(eng, main_rounds, on_card=on_card)
+        finally:
+            if rec is not None:
+                uninstall()
         line = _tree_run_line("tree_fleet", card, eng, run, gen_s, on_card,
                               tk.compact_nested.launches - k8_0)
+        if rec is not None:
+            line["recorder"] = True
+            line["trace"] = recorder_line(rec, trace_dir, "tree_fleet")
         check(not eng.errors().any(), "tree_fleet: error bits left after step()")
         check(sorted(eng.fallbacks) == faulted,
               f"tree_fleet: fallbacks {sorted(eng.fallbacks)}, expected the faulted docs {faulted}")
@@ -1547,11 +1652,13 @@ def phase_tree_deep(seed: int, card: str, device: str, writers: int = 32, rounds
 
 
 def phase_tree_churn(seed: int, card: str, device: str, n_docs: int = 256, rounds: int = 8,
-                     sample: int = 64, geom: dict = TREE_CHURN_GEOM) -> dict:
+                     sample: int = 64, geom: dict = TREE_CHURN_GEOM) -> tuple:
     """Insert/remove churn: each writer alternates an insert and a remove
     in its own subtree, so the host's row bound passes 75% of ``capacity``
     while live rows stay low; K8 (``compact_nested``) must run, and a
-    seeded sample equals its CPU replay."""
+    seeded sample equals its CPU replay.  Returns the line and (the engine,
+    its traffic as per-round, per-doc JSON-lines chunks): the wire_ingest
+    path holds ``ingest_lines`` against it."""
     import torch
 
     from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
@@ -1580,7 +1687,153 @@ def phase_tree_churn(seed: int, card: str, device: str, n_docs: int = 256, round
     line.update({"rounds": rounds, "live_rows_max": int(eng.state.alive.sum(-1).max()),
                  "replayed_docs": len(docs), "cpu_replay_s": replay_s})
     emit(line)
-    return line
+    # The wire_ingest path takes the stream as JSON-lines chunks (bytes,
+    # which the garbage collector does not track), so the messages die here.
+    return line, (eng, [_doc_blobs(n_docs, msgs) for msgs in traffic])
+
+
+def wire_traffic(n_docs: int, rounds: int, writers: int, seed: int) -> tuple:
+    """``bench.py``'s ``_string_ingest_rate`` stream: every round each of
+    ``writers`` writers inserts "abcd" at a random position of every doc,
+    valid at the round start (ref_seq and MSN at the round start).
+    Returns the joins and the ops as (doc, message) lists."""
+    from fluidframework_tpu_torch.protocol.messages import MessageType, SequencedMessage
+
+    rng = np.random.default_rng(seed)
+    joins = [
+        (d, SequencedMessage(
+            seq=0, min_seq=0, ref_seq=0, client_id=f"w{w}", client_seq=0,
+            type=MessageType.JOIN, contents={"clientId": f"w{w}", "short": w}))
+        for d in range(n_docs) for w in range(writers)
+    ]
+    lengths = np.zeros((n_docs,), np.int64)
+    seqs = np.zeros((n_docs,), np.int64)
+    ops = []
+    for r in range(rounds):
+        refs = seqs.copy()
+        for w in range(writers):
+            for d in range(n_docs):
+                pos = int(rng.integers(0, lengths[d] + 1))
+                seqs[d] += 1
+                ops.append((d, SequencedMessage(
+                    seq=int(seqs[d]), min_seq=int(refs[d]), ref_seq=int(refs[d]),
+                    client_id=f"w{w}", client_seq=r, type=MessageType.OP,
+                    contents={"type": 0, "pos1": pos, "seg": "abcd"})))
+        lengths += 4 * writers
+    return joins, ops
+
+
+def _doc_blobs(n_docs: int, msgs) -> list[bytes]:
+    """Each doc's messages as one JSON-lines chunk, in stream order."""
+    parts = [[] for _ in range(n_docs)]
+    for d, m in msgs:
+        parts[d].append(m.wire_line())
+    return [b"".join(p) for p in parts]
+
+
+def phase_wire_ingest(seed: int, card: str, device: str, churn, n_docs: int = 128,
+                      rounds: int = 16, writers: int = 4, geom: dict = FLEET_GEOM) -> dict:
+    """The wire-ingest paths.  ``bench.py``'s config-3 ingest probe stream
+    (``_string_ingest_rate(128, rounds=16, writers=4)``) at config-3
+    geometry goes into four engines: JSON lines through ``ingest_lines``
+    (the C++ encoder), messages through one ``ingest_batch`` call and
+    through per-message ``ingest`` on ``device``, and per-message on the
+    CPU; after ``step`` every doc's raw state columns and error latch are
+    identical across the four, the native library is loaded and every doc
+    of the first engine is in native mode.  Then tree_churn's stream
+    (``churn``: that path's engine, fed through ``ingest``, and its
+    traffic as JSON-lines chunks) goes through a tree engine's ``ingest_lines`` with
+    ``native_wire=True``, round by round: every doc identical to the churn
+    engine's (raw columns, tree JSON, values, summary), with native tree
+    batches and no native decode error."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.native import ingest_native
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    joins, ops = wire_traffic(n_docs, rounds, writers, seed + 21)
+    blobs = _doc_blobs(n_docs, joins + ops)
+    gen_s = time.perf_counter() - t0
+    geom = dict(geom, recovery="off")
+    out = {"phase": "wire_ingest", "card": card, "docs": n_docs, "rounds": rounds,
+           "writers": writers, "ops": len(ops), "wire_bytes": sum(map(len, blobs)),
+           "traffic_gen_s": gen_s}
+
+    engines = {}
+    nat = engines["native"] = DocBatchEngine(n_docs, device=device, **geom)
+    check(ingest_native.loaded(), "wire_ingest: the native ingest library is not loaded")
+    t = time.perf_counter()
+    for d in range(n_docs):
+        nat.ingest_lines(d, blobs[d])
+    out["native_ingest_s"] = time.perf_counter() - t
+    modes = sorted({h.mode for h in nat.hosts})
+    check(modes == ["native"], f"wire_ingest: ingest_lines left docs in modes {modes}")
+    for name, dev in (("batch", device), ("message", device), ("cpu", "cpu")):
+        eng = engines[name] = DocBatchEngine(n_docs, device=dev, **geom)
+        for d, m in joins:
+            eng.ingest(d, m)
+        t = time.perf_counter()
+        if name == "batch":
+            eng.ingest_batch([d for d, _ in ops], [m for _, m in ops])
+        else:
+            for d, m in ops:
+                eng.ingest(d, m)
+        out[f"{name}_ingest_s"] = time.perf_counter() - t
+    for name in ("native", "batch", "message"):
+        out[f"{name}_ingest_ops_per_s"] = len(ops) / out[f"{name}_ingest_s"]
+    for name, eng in engines.items():
+        t = time.perf_counter()
+        eng.step()
+        sync()
+        out[f"{name}_step_s"] = time.perf_counter() - t
+    cpu = engines["cpu"]
+    for name, eng in engines.items():
+        check(np.array_equal(eng.errors(), cpu.errors()),
+              f"wire_ingest: the {name} engine's error latches differ from the CPU run")
+        same = sum(_state_rows_equal(eng.doc_state(d), cpu.doc_state(d)) for d in range(n_docs))
+        check(same == n_docs, f"wire_ingest: {n_docs - same} docs of the {name} engine "
+                              "differ from the CPU run")
+    check(not cpu.errors().any(), "wire_ingest: error bits latched")
+    out["identical_docs"] = n_docs
+    del engines, nat, cpu
+
+    churn_eng, round_blobs = churn
+    tn = churn_eng.n_docs
+    tnat = TreeBatchEngine(tn, device=device, native_wire=True, **TREE_CHURN_GEOM)
+    ingest_s = step_s = 0.0
+    for blobs_r in round_blobs:
+        t = time.perf_counter()
+        for d, blob in enumerate(blobs_r):
+            if blob:
+                tnat.ingest_lines(d, blob)
+        ingest_s += time.perf_counter() - t
+        t = time.perf_counter()
+        tnat.step()
+        sync()
+        step_s += time.perf_counter() - t
+    h = tnat.health()
+    check(h.get("tree_native_batches", 0) > 0, "wire_ingest: no native tree batch")
+    check(h.get("tree_native_decode_errors", 0) == 0,
+          f"wire_ingest: {h.get('tree_native_decode_errors')} native tree decode errors")
+    check(not tnat.errors().any() and sorted(tnat.fallbacks) == sorted(churn_eng.fallbacks),
+          "wire_ingest: tree error bits or fallbacks differ from tree_churn's")
+    same = sum(_tree_docs_identical(tnat, d, churn_eng, d) for d in range(tn))
+    check(same == tn, f"wire_ingest: {tn - same} of {tn} tree docs differ between "
+                      "ingest_lines and ingest")
+    edits = sum(blob.count(b"\n") for blobs_r in round_blobs for blob in blobs_r)
+    out["tree"] = {"docs": tn, "edits": edits, "native_batches": h["tree_native_batches"],
+                   "ingest_lines_s": ingest_s, "step_s": step_s,
+                   "ingest_lines_edits_per_s": edits / ingest_s, "identical_docs": same}
+    emit(out)
+    return out
 
 
 def time_tree_programs(card: str, ring, cmp_docs: int = 64,
@@ -1824,7 +2077,7 @@ def phase_rebase_kernel(seed: int, card: str) -> dict:
 
 def phase_tree_rebase(seed: int, card: str, device: str, deep, fleet_docs: int = 256,
                       rounds: int = 4, deep_geom: dict = TREE_DEEP_GEOM,
-                      deep_shape: dict | None = None) -> dict:
+                      deep_shape: dict | None = None, trace_dir: str | None = None) -> dict:
     """BASELINE config 5 through ``TreeBatchEngine`` with the device rebase
     window (K9) on and off, on the same streams: tree_deep's (one doc, a
     10,000-leaf seed commit, 32 writers x 8 edits x 4 rounds; ``deep`` is
@@ -1832,11 +2085,14 @@ def phase_tree_rebase(seed: int, card: str, device: str, deep, fleet_docs: int =
     to ``fleet_docs`` docs (its writers and edits kept), in turns on, off,
     off, on.  Every doc's ``em.summarize()`` and ``tree_json`` must be
     byte-identical between the settings; ingest s, edits/s and the
-    rebaser's gauges per run.  ``deep_geom`` and ``deep_shape`` (the
+    rebaser's gauges per run.  The fleet's last turn (on) runs with a
+    flight recorder (the rebase window's spans), against the first (on)
+    without.  ``deep_geom`` and ``deep_shape`` (the
     ``tree_deep_traffic`` arguments) must be those of ``deep``'s run."""
     import torch
 
     from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.observability import uninstall
 
     on_card = device == "cuda"
     deep_shape = deep_shape or {}
@@ -1845,16 +2101,25 @@ def phase_tree_rebase(seed: int, card: str, device: str, deep, fleet_docs: int =
         return (json.dumps(eng.hosts[d].em.summarize(), sort_keys=True),
                 json.dumps(eng.tree_json(d), sort_keys=True))
 
-    def run(n_docs, geom, traffic, device_rebase):
+    def run(n_docs, geom, traffic, device_rebase, record=False):
         eng = TreeBatchEngine(n_docs, device=device, device_rebase=device_rebase, **geom)
-        r = _drive_tree(eng, traffic, on_card=on_card)
+        rec = install_recorder(1 << 19) if record else None
+        try:
+            r = _drive_tree(eng, traffic, on_card=on_card)
+        finally:
+            if rec is not None:
+                uninstall()
         h = eng.health()
-        line = {"device_rebase": device_rebase, "edits": r["edits"], "ingest_s": r["ingest_s"],
+        line = {"device_rebase": device_rebase, "recorder": record,
+                "edits": r["edits"], "ingest_s": r["ingest_s"],
                 "step_s": r["step_s"], "edits_per_s": r["edits"] / (r["ingest_s"] + r["step_s"]),
                 "host_translation_edits_per_s": r["edits"] / r["ingest_s"]}
         for k in ("device_rebase_fraction", "rebase_fallbacks", "rebase_windows",
                   "device_rebase_steps", "rebase_encode_rejects"):
             line[k] = h.get(k)
+        if rec is not None:
+            line["trace"] = recorder_line(
+                rec, trace_dir, f"tree_rebase_{'on' if device_rebase else 'off'}")
         check(not eng.errors().any(), "tree_rebase: error bits left after step()")
         return eng, line
 
@@ -1868,8 +2133,8 @@ def phase_tree_rebase(seed: int, card: str, device: str, deep, fleet_docs: int =
 
     traffic = tree_traffic(seed + 13, fleet_docs, rounds)
     turns, first = [], {}
-    for setting in (True, False, False, True):
-        eng, line = run(fleet_docs, TREE_FLEET_GEOM, traffic, setting)
+    for i, setting in enumerate((True, False, False, True)):
+        eng, line = run(fleet_docs, TREE_FLEET_GEOM, traffic, setting, record=i == 3)
         turns.append(line)
         first.setdefault(setting, eng)
         del eng
@@ -2080,6 +2345,8 @@ def phase_matrix(seed: int, card: str, device: str, steps: int = 16, B: int = 64
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-dir", default=None,
+                    help="write the recorded turns' Chrome traces here (none by default)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2114,7 +2381,10 @@ def main(argv=None) -> int:
     # watermark) and the churn path, K9 on the device rebase path, the map
     # and matrix programs on theirs.  The
     # fleet runs at recovery="grow" and then, to price recovery's per-step
-    # error-count read and log, in turns off, grow, grow, off.
+    # error-count read and log, in turns off, grow, grow, off; every turn
+    # ingests a round through one ingest_batch call except the first grow
+    # of the turns (per-message ingest), and the second grow of the turns
+    # runs with a flight recorder installed.
     from fluidframework_tpu_torch.ops import map_kernel as mpk
     from fluidframework_tpu_torch.ops import matrix_kernel as mxk
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
@@ -2146,26 +2416,34 @@ def main(argv=None) -> int:
     emit({"phase": "traffic", "docs": 10_000, "rounds": 18,
           "traffic_gen_s": time.perf_counter() - t0})
     path("fleet", phase_fleet, args.seed, card, "cuda", traffic, recovery="grow")
-    for recovery in ("off", "grow", "grow", "off"):
-        phase_fleet(args.seed, card, "cuda", traffic, recovery=recovery)
+    for recovery, ingest, record in (("off", "batch", False), ("grow", "message", False),
+                                     ("grow", "batch", True), ("off", "batch", False)):
+        phase_fleet(args.seed, card, "cuda", traffic, recovery=recovery, ingest=ingest,
+                    record=record, trace_dir=args.trace_dir)
     path("recovery", phase_recovery, args.seed, card, "cuda", traffic)
     path("hot_doc", phase_hot_doc, args.seed, card, "cuda")
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
     phase_fleet_programs(args.seed, card, traffic)
     del traffic
-    _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda")
+    _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda",
+                       record=True, trace_dir=args.trace_dir)
     _line, deep = path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
-    path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
+    _line, churn = path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
+    path("wire_ingest", phase_wire_ingest, args.seed, card, "cuda", churn)
+    del churn
     tree = time_tree_programs(card, ring)
     del ring
-    path("tree_rebase", phase_tree_rebase, args.seed, card, "cuda", deep)
+    path("tree_rebase", phase_tree_rebase, args.seed, card, "cuda", deep,
+         trace_dir=args.trace_dir)
     del deep
     mp_line = path("map_lww", phase_map_lww, args.seed, card, "cuda")
     mx_line = path("matrix", phase_matrix, args.seed, card, "cuda")
     for name in ("hot_doc", "long_doc"):
         check(paths["resolve_positions"][name] > 0, f"K1 was never launched on the {name} path")
-    for name in ("tree_fleet", "tree_deep", "tree_churn", "tree_rebase"):
+    for name in ("tree_fleet", "tree_deep", "tree_churn", "wire_ingest", "tree_rebase"):
         check(paths["apply_nested_megastep"][name] > 0, f"K7 was never launched on the {name} path")
+    check(paths["apply_megastep"]["wire_ingest"] > 0,
+          "the fleet program was never launched on the wire_ingest path")
     check(paths["rebase_window"]["tree_rebase"] > 0, "K9 was never launched on the tree_rebase path")
     check(paths["apply_batch_fleet"]["map_lww"] > 0, "the map program never ran on the map_lww path")
     check(paths["apply_ops_fleet"]["matrix"] > 0, "the matrix program never ran on the matrix path")

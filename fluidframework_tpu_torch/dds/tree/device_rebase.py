@@ -31,8 +31,10 @@ allocator is not thread-safe.
 
 Object payloads (insert content, nested Modify changesets, detached Remove
 subtrees) never ride the device, so decoded commits serialize byte-
-identically to the pooled fold's outputs.  The reference's flight-recorder
-spans are not carried.
+identically to the pooled fold's outputs.  A fold's three phases are
+flight-recorder spans, as in the reference: ``rebase_kernel_encode``,
+``rebase_kernel_dispatch`` (the round trip: copy up, launch, step rows
+back) and ``rebase_kernel_decode``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from ...device import DEFAULT_DEVICE, resolve_device
+from ...observability.flight_recorder import span
 from ...ops import rebase_kernel as rk
 from ...ops.tree_kernel import REBASE_MAX_DEPTH, REBASE_MAX_MARKS
 from ...protocol.mark_schema import (
@@ -343,14 +346,15 @@ class DeviceRebaser:
 
     def _fold(self, c: Commit, xs: list):
         n = len(xs)
-        enc_c = self.encode_commit(c)
-        encs: list = []
-        if enc_c is not None:
-            for x in xs:
-                e = self.encode_commit(x)
-                if e is None:
-                    break
-                encs.append(e)
+        with span("rebase_kernel_encode", window=n):
+            enc_c = self.encode_commit(c)
+            encs: list = []
+            if enc_c is not None:
+                for x in xs:
+                    e = self.encode_commit(x)
+                    if e is None:
+                        break
+                    encs.append(e)
         p = len(encs)
         k = 0
         new_xs: list = []
@@ -358,22 +362,24 @@ class DeviceRebaser:
         if p:
             self.windows += 1
             cap = 1 << (p - 1).bit_length()
-            steps = self._dispatch(enc_c, encs, cap)
-            outs = rk.unpack_steps(steps)
-            valid = outs.valid
-            while k < p and valid[k]:
-                k += 1
-            for i in range(k):
-                if outs.id_x[i]:
-                    new_xs.append(xs[i])
-                else:
-                    new_xs.append(self._decode_side(
-                        encs[i], outs.x, i, drops=outs.x_drop[i]))
-                if not outs.id_c[i]:
-                    # stage source handles compose into the ORIGINAL c
-                    # across the window's steps — decode against enc_c
-                    c = self._decode_side(enc_c, outs.stage, i)
-                stages.append(c)
+            with span("rebase_kernel_dispatch", window=n, steps=p, cap=cap):
+                steps = self._dispatch(enc_c, encs, cap)
+            with span("rebase_kernel_decode", window=n, steps=p):
+                outs = rk.unpack_steps(steps)
+                valid = outs.valid
+                while k < p and valid[k]:
+                    k += 1
+                for i in range(k):
+                    if outs.id_x[i]:
+                        new_xs.append(xs[i])
+                    else:
+                        new_xs.append(self._decode_side(
+                            encs[i], outs.x, i, drops=outs.x_drop[i]))
+                    if not outs.id_c[i]:
+                        # stage source handles compose into the ORIGINAL c
+                        # across the window's steps — decode against enc_c
+                        c = self._decode_side(enc_c, outs.stage, i)
+                    stages.append(c)
         # pooled-fold suffix: ineligible entries, invalidated steps, and
         # everything behind them (prefix-validity contract)
         for i in range(k, n):

@@ -40,15 +40,35 @@ recovers each flagged document, so no error bit survives a run.
   last passed.
 
 ``recovery="off"`` latches error bits on the per-doc ``error`` column and
-leaves them there (``errors()``).  Not ported yet (``NotImplementedError``):
-multi-shard segment lanes (``seg_shards > 1``, ``seg_lane_segments``,
-``seg_rebalance_every``), spare slots and migration, boot-snapshot
-adoption, the columnar and native ingest paths (``ingest_batch``,
-``ingest_lines``) and cohort steps: every megastep runs fleet-wide.
+leaves them there (``errors()``).
+
+Wire ingest: ``ingest`` decodes one message; ``ingest_batch`` decodes a
+whole mixed-doc batch with vectorized numpy into the per-doc row queues,
+byte-identical to ``ingest`` per message; ``ingest_lines`` stages JSON
+lines through the C++ encoder (``native/ingest_native.py``; the Python
+decode when the library is not built or the doc left the batch).  A doc
+stays on the path that fed it first.
+
+Flow control and observability: ``update_overload`` / ``ingest_watermarks``
+/ ``overloaded`` (``OverloadGate``, pause at ``overload_high_watermark``,
+resume at ``overload_low_watermark``); every ``latency_sample_every``-th op
+is timed from its sequencer stamp to the end of the ``step`` that applied it
+(``op_latency``, ``latency_p50_ms``/``latency_p99_ms`` in ``health()``);
+``telemetry=`` attaches a ``utils.telemetry.Logger``; the serving phases are
+flight-recorder spans (``observability``).  With ``recovery="off"`` nothing
+waits for the device inside ``step``, so a latency sample there times the
+launch, not the apply.  ``health()`` carries no ``recompiles``: the port
+compiles nothing at run time.
+
+Not ported yet (``NotImplementedError``): multi-shard segment lanes
+(``seg_shards > 1``, ``seg_lane_segments``, ``seg_rebalance_every``), spare
+slots and migration, boot-snapshot adoption and cohort steps: every
+megastep runs fleet-wide.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 
@@ -60,13 +80,15 @@ from ..dds.mergetree_ref import RefMergeTree
 from ..dds.shared_string import validate_obliterate_places
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops import mergetree_kernel as mk
+from ..native import ingest_native
+from ..observability.flight_recorder import span
 from ..protocol.messages import (
     DeltaType,
     MessageType,
     SequencedMessage,
     decode_obliterate_places,
 )
-from ..utils.telemetry import HealthCounters
+from ..utils.telemetry import HealthCounters, Histogram, SampledTelemetryHelper
 from . import placement
 from .dispatch import dispatch_plane
 from .recovery import (
@@ -75,16 +97,16 @@ from .recovery import (
     stale_due_docs,
     write_checkpoint_records,
 )
-from .staging import RowQueue, StagingRing
+from .staging import OverloadGate, RowQueue, StagingRing
 
 
 class _DocHost:
     """Host-side per-document bookkeeping."""
 
     __slots__ = (
-        "queue", "quorum", "min_seq", "prop_slot", "log", "mode", "base_seq",
-        "base_summary", "last_seq", "ops_since_ckpt", "dirty_since",
-        "restored", "boot_counting",
+        "queue", "quorum", "min_seq", "prop_slot", "log", "raw_log", "native",
+        "mode", "base_seq", "base_summary", "last_seq", "ops_since_ckpt",
+        "dirty_since", "restored", "boot_counting",
     )
 
     def __init__(self, max_insert_len: int) -> None:
@@ -96,7 +118,10 @@ class _DocHost:
         # sequence order): the replay source for recovery.  Ops at or below
         # ``base_seq`` live in ``base_summary`` (the checkpoint) instead.
         self.log: list[SequencedMessage] = []
-        self.mode: str | None = None  # "obj" once ingested (record field)
+        # Docs fed through the native byte path retain raw lines instead.
+        self.raw_log: list[bytes] = []
+        self.native = None  # NativeIngestEncoder once the byte path is used
+        self.mode: str | None = None  # "obj" | "native", fixed at first ingest
         self.base_seq = 0
         self.base_summary: dict | None = None  # None = empty doc
         self.last_seq = 0  # highest OP seq ingested
@@ -104,7 +129,9 @@ class _DocHost:
         # Monotonic time the doc first went dirty after its last durable
         # checkpoint (0.0 = clean): ``checkpoint_stale``'s seconds bound.
         self.dirty_since = 0.0
-        self.restored = False  # set by restore_from_checkpoints
+        # Set by restore_from_checkpoints: the doc consumes parsed messages
+        # (seq dedupe needs per-message seqs the native encoder cannot skip).
+        self.restored = False
         # Count applied ops as boot_replay_len only until the first
         # checkpoint after a restore.
         self.boot_counting = False
@@ -122,6 +149,17 @@ class _OverflowLane:
         self.geometry = geometry
         self.growths = growths
         self.queue = queue
+
+
+def _i32(v) -> int:
+    """Coerce one wire scalar for the batch walk with the per-message
+    path's failure shape: ``np.array([...], np.int32)`` raises
+    OverflowError on out-of-range ints, where the batch path's int64
+    staging columns would wrap silently on the int32 cast."""
+    v = int(v)
+    if not (-0x80000000 <= v <= 0x7FFFFFFF):
+        raise OverflowError(f"op scalar {v} out of int32 range")
+    return v
 
 
 def _fleet_compact_body(state: mk.DocState, min_seqs) -> mk.DocState:
@@ -225,6 +263,10 @@ class DocBatchEngine:
         watchdog_sample: int = 4,
         readmit_after_steps: int = 0,
         poison_budget: int = 0,
+        telemetry=None,
+        latency_sample_every: int = 16,
+        overload_high_watermark: int = 0,
+        overload_low_watermark: int = 0,
         device=DEFAULT_DEVICE,
         **options,
     ) -> None:
@@ -241,6 +283,14 @@ class DocBatchEngine:
         self.max_insert_len = max_insert_len
         self.ops_per_step = ops_per_step
         self.megastep_k = max(1, megastep_k)
+        # Ingest watermarks: one megastep retires ``budget`` rows per doc;
+        # a deeper queue than ``high`` pauses the doc until it drains to
+        # ``low``.  Defaults: 8x / 1x the budget.
+        budget = self.megastep_k * ops_per_step
+        self.overload_gate = OverloadGate(
+            high=overload_high_watermark or 8 * budget,
+            low=overload_low_watermark or budget,
+        )
         self.recovery = recovery
         self.max_growths = max_growths
         self.hosts = [_DocHost(max_insert_len) for _ in range(n_docs)]
@@ -276,6 +326,9 @@ class DocBatchEngine:
         ]
         if len(self.doc_keys) != n_docs:
             raise ValueError(f"{len(self.doc_keys)} doc_keys for {n_docs} docs")
+        # Build the native encoder here, with no lock held: ingest_lines
+        # only loads it (a compiler run under ckpt_lock would stall ingest).
+        ingest_native.warm()
         self.watchdog_every = watchdog_every
         self.watchdog_sample = watchdog_sample
         self._watchdog_cursor = 0
@@ -295,9 +348,25 @@ class DocBatchEngine:
         self._readmit_due: dict[int, int] = {}
         self._readmit_interval: dict[int, int] = {}
         self.counters = HealthCounters(
+            telemetry,
             megastep_dispatches=0, megastep_slices=0, ops_staged=0,
             ob_gate_syncs=0,  # device reads of the obliterate gate
         )
+        # Sampled step timing (one event per 64 steps; ``flush_telemetry``
+        # drains the tail).
+        self.sampled = (
+            SampledTelemetryHelper(telemetry, "engine_step", sample_every=64)
+            if telemetry is not None
+            else None
+        )
+        # Op latency: sequencer stamp -> end of the step that applied it,
+        # sampled every ``latency_sample_every`` staged ops; pending samples
+        # resolve in ``_lat_flush`` at the end of ``step``.
+        self.latency_sample_every = max(1, latency_sample_every)
+        self.op_latency = Histogram()
+        self._doc_latency: dict[int, Histogram] = {}
+        self._lat_tick = 0
+        self._lat_pending: list[tuple[float, int]] = []
         pm = self._pm = dispatch_plane()
         self.mesh = pm.doc_mesh(self.device)
         proto = mk.init_state(
@@ -321,6 +390,10 @@ class DocBatchEngine:
 
     def _ingest_one(self, doc_idx: int, msg: SequencedMessage) -> None:
         h = self.hosts[doc_idx]
+        assert h.mode != "native" or self._in_lane(doc_idx), (
+            f"doc {doc_idx} already fed through the native byte path; "
+            "pick one ingest path per document"
+        )
         if h.mode is None:
             h.mode = "obj"
         h.min_seq = max(h.min_seq, msg.min_seq)
@@ -338,6 +411,7 @@ class DocBatchEngine:
         h.ops_since_ckpt += 1
         if not h.dirty_since:
             h.dirty_since = time.monotonic()
+        self._lat_sample(doc_idx, msg.timestamp)
         if h.boot_counting:
             self.counters.bump("boot_replay_len")
         if doc_idx in self.quarantine:
@@ -461,11 +535,437 @@ class DocBatchEngine:
             h.prop_slot[prop] = slot
         return h.prop_slot[prop]
 
+    # -------------------------------------------------------- batched ingest
     def ingest_batch(self, doc_idxs, msgs) -> int:
-        raise NotImplementedError("the columnar ingest path is not ported yet")
+        """Flight-recorded entry over ``_ingest_batch`` (the ``ingest``
+        phase of a trace).  Holds ``ckpt_lock``, so a checkpoint sweep only
+        sees whole-batch boundaries."""
+        with self.ckpt_lock, span("ingest", msgs=len(doc_idxs)):
+            return self._ingest_batch(doc_idxs, msgs)
+
+    def _ingest_batch(self, doc_idxs, msgs) -> int:
+        """Columnar ingest: decode a whole wire batch into [N, OP_FIELDS] op
+        rows and payload rows with vectorized numpy and land them in the
+        per-doc RowQueues as block copies.  Python touches each message for
+        routing and bookkeeping only.
+
+        Byte-identical to ``ingest`` per message:
+
+        - JOINs, non-OP messages, quarantined / oracle / overflow docs and
+          native-mode docs take the per-message path (counted in
+          ``ingest_fallback_msgs``);
+        - a decode error quarantines only the offending doc: its earlier
+          batch rows are dropped from the scatter (they rode the retained
+          log into the quarantine replay) and its later messages route
+          through the validated oracle;
+        - an out-of-int32 scalar raises OverflowError after the earlier
+          messages' rows land; a non-string insert seg raises
+          NotImplementedError with the message unwound from the log.
+
+        Returns the op-row count landed through the batch path."""
+        L = self.max_insert_len
+        counters = self.counters
+        total = 0
+        doc_of: list[int] = []  # row id -> doc
+        # Per-kind columnar collectors; row ids are reserved in walk order
+        # so each doc's mixed-kind stream keeps its order.
+        i_start: list[int] = []
+        i_nch: list[int] = []
+        i_pos: list[int] = []
+        i_txt: list[str] = []
+        i_key: list[int] = []
+        i_cli: list[int] = []
+        i_ref: list[int] = []
+        s_id: list[int] = []  # single-row ops: global row ids
+        s_row: list[tuple[int, int, int, int, int, int, int, int]] = []
+        o_id: list[int] = []  # obliterates (vectorized encoder columns)
+        o_col: tuple[list[int], ...] = ([], [], [], [], [], [], [])
+        pending_raise: BaseException | None = None
+        for d, msg in zip(doc_idxs, msgs):
+            h = self.hosts[d]
+            if (
+                msg.type != MessageType.OP
+                or d in self.quarantine
+                or d in self.oracles
+                or d in self.overflow
+                or h.mode == "native"
+            ):
+                counters.bump("ingest_fallback_msgs")
+                self.ingest(d, msg)
+                continue
+            if h.mode is None:
+                h.mode = "obj"
+            h.min_seq = max(h.min_seq, msg.min_seq)
+            if h.base_seq and msg.seq <= h.base_seq:
+                counters.bump("checkpointed_ops_skipped")
+                continue
+            h.last_seq = max(h.last_seq, msg.seq)
+            h.ops_since_ckpt += 1
+            if not h.dirty_since:
+                h.dirty_since = time.monotonic()
+            self._lat_sample(d, msg.timestamp)
+            if h.boot_counting:
+                counters.bump("boot_replay_len")
+            if self.recovery != "off":
+                h.log.append(msg)
+            try:
+                c = msg.contents
+                kind = c["type"]
+                client = h.quorum[msg.client_id]
+                if kind == DeltaType.INSERT:
+                    seg = c["seg"]
+                    if not isinstance(seg, str):
+                        # Legal-but-unsupported wire form: loud, never
+                        # applied — the same unwinding as ``_ingest_one``.
+                        if h.log and h.log[-1] is msg:
+                            h.log.pop()
+                        h.ops_since_ckpt -= 1
+                        pending_raise = NotImplementedError(
+                            "engine supports plain-text insert segs only; "
+                            f"got {type(seg).__name__}"
+                        )
+                        break
+                    # Every _i32 coercion completes before any collector
+                    # append: a malformed scalar raises inside this try
+                    # (per-doc quarantine), an out-of-int32 one raises
+                    # OverflowError, and a partial append would misalign
+                    # the collectors for the whole-batch scatter.
+                    pos = _i32(c["pos1"])
+                    nch = -(-len(seg) // L)
+                    i_start.append(total)
+                    i_nch.append(nch)
+                    i_pos.append(pos)
+                    i_txt.append(seg)
+                    i_key.append(_i32(msg.seq))
+                    i_cli.append(client)
+                    i_ref.append(_i32(msg.ref_seq))
+                    doc_of.extend([d] * nch)
+                    total += nch
+                elif kind == DeltaType.REMOVE:
+                    row = (
+                        mk.OpKind.REMOVE, _i32(msg.seq), client,
+                        _i32(msg.ref_seq), _i32(c["pos1"]), _i32(c["pos2"]),
+                        0, 0,
+                    )
+                    s_id.append(total)
+                    s_row.append(row)
+                    doc_of.append(d)
+                    total += 1
+                elif kind == DeltaType.ANNOTATE:
+                    seq32, ref32 = _i32(msg.seq), _i32(msg.ref_seq)
+                    p1, p2 = _i32(c["pos1"]), _i32(c["pos2"])
+                    # Every prop coerces before any append: a failure in
+                    # the middle lands nothing for the message.
+                    prop_rows = [
+                        (self._prop_slot_for(h, int(prop)), _i32(value))
+                        for prop, value in c["props"].items()
+                    ]
+                    for slot, value in prop_rows:
+                        s_id.append(total)
+                        s_row.append((
+                            mk.OpKind.ANNOTATE, seq32, client,
+                            ref32, p1, p2, slot, value,
+                        ))
+                        doc_of.append(d)
+                        total += 1
+                elif kind in (DeltaType.OBLITERATE, DeltaType.OBLITERATE_SIDED):
+                    places = decode_obliterate_places(c)
+                    vals = tuple(
+                        _i32(v) for v in (*places, msg.seq, client, msg.ref_seq)
+                    )
+                    o_id.append(total)
+                    for col, v in zip(o_col, vals):
+                        col.append(v)
+                    doc_of.append(d)
+                    total += 1
+                else:
+                    raise ValueError(f"unsupported op type {kind}")
+            except OverflowError as e:
+                # Not a quarantine class on the per-message path either:
+                # land the earlier messages' rows, then surface it.
+                pending_raise = e
+                break
+            except (ValueError, KeyError, TypeError) as e:
+                if self.recovery == "off":
+                    pending_raise = e
+                    break
+                # Decode failure: poison for THIS doc only.
+                self._quarantine_doc(d, f"decode: {e}")
+        staged = self._scatter_batch_rows(
+            total, doc_of, i_start, i_nch, i_pos, i_txt, i_key, i_cli,
+            i_ref, s_id, s_row, o_id, o_col,
+        )
+        if pending_raise is not None:
+            raise pending_raise
+        return staged
+
+    def _scatter_batch_rows(
+        self, total, doc_of, i_start, i_nch, i_pos, i_txt, i_key, i_cli,
+        i_ref, s_id, s_row, o_id, o_col,
+    ) -> int:
+        """Materialize the collected batch rows (vectorized) and land them
+        per doc as block copies; rows of docs that left the device path in
+        the middle of the batch are dropped (their ops rode the log into
+        the lane replay)."""
+        if not total:
+            return 0
+        ops_all = np.zeros((total, mk.OP_FIELDS), np.int32)
+        pay_all = np.zeros((total, self.max_insert_len), np.int32)
+        if i_txt:
+            ops_i, pay_i, _owner = mk.encode_insert_batch(
+                np.asarray(i_pos, np.int64), i_txt,
+                np.asarray(i_key, np.int64), np.asarray(i_cli, np.int64),
+                np.asarray(i_ref, np.int64), self.max_insert_len,
+            )
+            nch = np.asarray(i_nch, np.int64)
+            m = int(nch.sum())
+            row0 = np.concatenate(([0], np.cumsum(nch)[:-1]))
+            ids = np.repeat(np.asarray(i_start, np.int64), nch) + (
+                np.arange(m) - np.repeat(row0, nch)
+            )
+            ops_all[ids] = ops_i
+            pay_all[ids] = pay_i
+        if s_row:
+            ops_all[np.asarray(s_id, np.int64)] = np.asarray(s_row, np.int32)
+        if o_id:
+            ops_all[np.asarray(o_id, np.int64)] = mk.encode_obliterate_batch(
+                *(np.asarray(col, np.int64) for col in o_col)
+            )
+        doc_arr = np.asarray(doc_of, np.int64)
+        live = np.ones((total,), bool)
+        for d in set(doc_of):
+            if d in self.quarantine or d in self.oracles or d in self.overflow:
+                live[doc_arr == d] = False
+        # Stable doc sort: one extend_block per doc, original order kept.
+        order = np.argsort(doc_arr, kind="stable")
+        order = order[live[order]]
+        staged = int(order.size)
+        if not staged:
+            return 0
+        sorted_docs = doc_arr[order]
+        cuts = np.flatnonzero(np.diff(sorted_docs)) + 1
+        for seg in np.split(order, cuts):
+            d = int(doc_arr[seg[0]])
+            self.hosts[d].queue.extend_block(ops_all[seg], pay_all[seg])
+            self._busy.add(d)
+        self.counters.bump("ops_staged", staged)
+        self.counters.bump("ingest_batch_rows", staged)
+        return staged
+
+    # --------------------------------------------------------- native ingest
+    def _in_lane(self, doc_idx: int) -> bool:
+        """True when the doc left the lockstep batch (or was restored from
+        a checkpoint): its ingest consumes parsed messages.  A live native
+        doc that merely checkpointed stays on the C++ path."""
+        return (
+            doc_idx in self.oracles
+            or doc_idx in self.overflow
+            or doc_idx in self.quarantine
+            or self.hosts[doc_idx].restored
+        )
 
     def ingest_lines(self, doc_idx: int, data: bytes) -> int:
-        raise NotImplementedError("the native ingest path is not ported yet")
+        """Stage newline-separated wire JSON through the native encoder
+        (``native/ingest.cpp``): the whole decode and encode runs in C++.
+        Returns the op rows staged (the op count, for oracle and quarantine
+        docs).  Falls back to the Python decode (through ``ingest_batch``)
+        when the library is not built, and for docs in a recovery lane or
+        restored from a checkpoint.  A healthy doc stays on the path that
+        fed it first (the two paths intern prop slots independently);
+        routing to a lane moves a native doc onto the object path."""
+        with self.ckpt_lock:
+            return self._ingest_lines(doc_idx, data)
+
+    def _ingest_lines(self, doc_idx: int, data: bytes) -> int:
+        # loaded(), never warm(): this runs under ckpt_lock.
+        h = self.hosts[doc_idx]
+        if self._in_lane(doc_idx) or not ingest_native.loaded():
+            self._normalize_native(h)
+            lane = self.overflow.get(doc_idx)
+            before = len(lane.queue) if lane else len(h.queue)
+            msgs = [
+                SequencedMessage.from_json(line.decode())
+                for line in data.split(b"\n")
+                if line.strip()
+            ]
+            n_msgs = sum(m.type == MessageType.OP for m in msgs)
+            self.ingest_batch([doc_idx] * len(msgs), msgs)
+            if doc_idx in self.oracles or doc_idx in self.quarantine:
+                return n_msgs
+            lane = self.overflow.get(doc_idx)
+            return (len(lane.queue) if lane else len(h.queue)) - before
+        assert h.mode != "obj", (
+            f"doc {doc_idx} already fed through the object path; "
+            "pick one ingest path per document"
+        )
+        if h.native is None:
+            h.native = ingest_native.NativeIngestEncoder(
+                self.max_insert_len, self.geometry["prop_slots"]
+            )
+            h.mode = "native"
+        with span("ingest", doc=doc_idx, bytes=len(data)):
+            ops, payloads = h.native.encode(data)
+            if self.recovery != "off":
+                h.raw_log.append(data)
+            h.queue.extend_block(ops, payloads)
+        if len(ops):
+            # One latency sample per chunk (the C++ decode exposes no wire
+            # timestamps): stamp 0.0 is receipt time.
+            self._lat_sample(doc_idx, 0.0, force=True)
+            self.counters.bump("ops_staged", len(ops))
+        if h.queue:
+            self._busy.add(doc_idx)
+        h.min_seq = max(h.min_seq, h.native.min_seq)
+        h.ops_since_ckpt += len(ops)
+        if len(ops) and not h.dirty_since:
+            h.dirty_since = time.monotonic()
+        if self.checkpoint_store is not None:
+            # Checkpoints need the seq floor: the chunk's last line carries
+            # the chunk's highest seq (lines are seq-ordered).
+            tail_line = data.rstrip(b"\n").rsplit(b"\n", 1)[-1]
+            if tail_line.strip():
+                try:
+                    h.last_seq = max(
+                        h.last_seq, int(json.loads(tail_line)["sequenceNumber"])
+                    )
+                except (ValueError, KeyError):
+                    pass
+        return len(ops)
+
+    def _normalize_native(self, h: _DocHost) -> None:
+        """Move a native-path doc onto the object path: parse the retained
+        raw lines into quorum + message log, PREPENDED (they precede
+        anything the object path appended later), so recovery replay,
+        oracle takeover and further ingest share one stream and one
+        prop-slot interning order."""
+        if not h.raw_log:
+            if h.mode == "native":
+                h.mode = "obj"
+                h.native = None
+            return
+        prefix: list[SequencedMessage] = []
+        for chunk in h.raw_log:
+            for line in chunk.split(b"\n"):
+                if line.strip():
+                    m = SequencedMessage.from_json(line.decode())
+                    if m.type == MessageType.JOIN:
+                        h.quorum[m.contents["clientId"]] = m.contents["short"]
+                    elif m.type == MessageType.OP and m.seq > h.base_seq:
+                        prefix.append(m)
+                        h.last_seq = max(h.last_seq, m.seq)
+        h.raw_log.clear()
+        h.log[:0] = prefix
+        h.mode = "obj"
+        h.native = None
+
+    def _sync_native_props(self, h: _DocHost) -> None:
+        """Fold the native encoder's prop-interning table into the host
+        table, so checkpoints and views of native-mode docs carry the real
+        property ids.  No-op for object-path docs; both tables intern in
+        first-seen stream order, so entries agree."""
+        if h.native is None:
+            return
+        for prop, slot in h.native.prop_table().items():
+            cur = h.prop_slot.setdefault(prop, slot)
+            if cur != slot:
+                raise RuntimeError(
+                    f"native/host prop table skew: id {prop} -> {slot} vs {cur}"
+                )
+
+    @staticmethod
+    def _truncate_raw_log(raw_log: list[bytes], base_seq: int) -> list[bytes]:
+        """Drop raw OP lines the checkpoint covers.  JOIN lines stay
+        whatever their seq: a later replay rebuilds the quorum from them
+        (``_normalize_native``), and a native doc's record carries no
+        parsed quorum to fall back on."""
+        kept: list[bytes] = []
+        for chunk in raw_log:
+            lines = []
+            for line in chunk.split(b"\n"):
+                if not line.strip():
+                    continue
+                try:
+                    rec = json.loads(line)
+                    if (
+                        rec.get("type") == MessageType.JOIN
+                        or int(rec.get("sequenceNumber", 0)) > base_seq
+                    ):
+                        lines.append(line)
+                except ValueError:
+                    lines.append(line)
+            if lines:
+                kept.append(b"\n".join(lines) + b"\n")
+        return kept
+
+    # ------------------------------------------------------------- op latency
+    def _lat_sample(self, doc_idx: int, stamp: float, force: bool = False) -> None:
+        """Maybe sample one staged op's latency: keep its sequencer stamp
+        (wall clock; 0.0 = unstamped, which falls back to receipt time) to
+        resolve at the end of the next ``step``.  Every
+        ``latency_sample_every``-th op, so the feed pays one increment."""
+        self._lat_tick += 1
+        if not force and self._lat_tick % self.latency_sample_every:
+            return
+        if len(self._lat_pending) < 4096:  # bound a step-starved feed
+            self._lat_pending.append((stamp if stamp > 0 else time.time(), doc_idx))
+
+    def _lat_flush(self) -> None:
+        """Resolve pending latency samples at the end of ``step`` (after
+        the error readback, which waits for the dispatches, unless recovery
+        is off) into the fleet and per-doc histograms."""
+        if not self._lat_pending:
+            return
+        now = time.time()
+        for stamp, d in self._lat_pending:
+            lat = max(0.0, now - stamp)
+            self.op_latency.record(lat)
+            if 0 <= d < self.n_docs:
+                h = self._doc_latency.get(d)
+                if h is None:
+                    h = self._doc_latency[d] = Histogram()
+                h.record(lat)
+        self._lat_pending.clear()
+
+    def latency_histograms(self) -> dict[str, Histogram]:
+        """Mergeable histograms for the metrics plane: op latency and the
+        per-incident recovery time (one device: no per-shard entries)."""
+        return {
+            "op_latency": self.op_latency,
+            "recovery_time": self.recovery_tracker.histogram,
+        }
+
+    def doc_latency(self, doc_idx: int) -> Histogram | None:
+        return self._doc_latency.get(doc_idx)
+
+    def flush_telemetry(self) -> None:
+        """Drain residual sampled-telemetry buckets (status snapshot or
+        shutdown): tail samples below ``sample_every`` reach the sink."""
+        if self.sampled is not None:
+            self.sampled.flush_all()
+
+    # --------------------------------------------------------- flow control
+    def pending_ops(self) -> int:
+        return sum(len(h.queue) for h in self.hosts) + sum(
+            len(ln.queue) for ln in self.overflow.values()
+        )
+
+    def update_overload(self) -> tuple[list[int], list[int]]:
+        """Advance the ingest watermark hysteresis: -> (docs newly over the
+        high watermark, docs drained under the low one).  Overflow-lane docs
+        queue on their lane, so the gate reads the combined depth."""
+        return self.overload_gate.update(
+            self._busy | set(self.overflow), self._queue_depth
+        )
+
+    def ingest_watermarks(self) -> dict:
+        """The flow-control numbers: one megastep retires
+        ``megastep_budget`` rows a doc; pause at ``high``, resume at
+        ``low``."""
+        return self.overload_gate.watermarks(self.megastep_k * self.ops_per_step)
+
+    @property
+    def overloaded(self) -> bool:
+        return bool(self.overload_gate.paused)
 
     # ------------------------------------------------------------------- step
     def _drain_into(self, docs: list[int], ops: np.ndarray,
@@ -520,7 +1020,8 @@ class DocBatchEngine:
         kinds = ops[..., 0].copy()  # host-side op kinds: branch selection
         dev_ops, dev_payloads = stage.upload(ops, payloads)
         syncs = mk.apply_megastep.ob_gate_syncs
-        self.state = self._megastep(self.state, dev_ops, dev_payloads, kinds=kinds)
+        with span("dispatch", kind="full", k=K, shards=1):
+            self.state = self._megastep(self.state, dev_ops, dev_payloads, kinds=kinds)
         self.counters.bump("ob_gate_syncs", mk.apply_megastep.ob_gate_syncs - syncs)
         self.counters.bump("megastep_dispatches")
         self.counters.bump("megastep_slices", K)
@@ -543,6 +1044,7 @@ class DocBatchEngine:
         return steps
 
     def _step_fleet(self) -> int:
+        t0 = time.perf_counter() if self.sampled is not None else 0.0
         steps = 0
         while self._busy:
             steps += self._full_step(sorted(self._busy))
@@ -559,6 +1061,12 @@ class DocBatchEngine:
                 self.watchdog()
             if self.readmit_after_steps:
                 self._maybe_readmit()
+        # Resolve the latency samples (after recover()'s readback waited for
+        # the dispatches, unless recovery is off) and feed the sampled step
+        # timing when a telemetry sink is attached.
+        self._lat_flush()
+        if self.sampled is not None:
+            self.sampled.record(time.perf_counter() - t0, "step")
         return steps
 
     def _lane_apply(self, state: mk.DocState, rows_ops: np.ndarray,
@@ -622,8 +1130,11 @@ class DocBatchEngine:
         overflow lanes' error scalars.  Capacity bits grow-and-replay (or
         oracle-route); poison bits (ERR_POS_RANGE alone) quarantine."""
         recovered: list[int] = []
-        if self.error_count():
-            err = self.state.error.cpu().numpy().copy()
+        with span("readback", kind="error_count"):
+            batch_dirty = self.error_count()
+        if batch_dirty:
+            with span("readback", kind="error_vector"):
+                err = self.state.error.cpu().numpy().copy()
             for d in np.flatnonzero(err).tolist():
                 if d in self.overflow or d in self.oracles or d in self.quarantine:
                     continue
@@ -656,6 +1167,9 @@ class DocBatchEngine:
         )
 
     def _recover_doc(self, d: int, bits: int, growths: int) -> None:
+        # Recovery works on the parsed-message log: fold a native doc's raw
+        # lines in first (they precede any object-path appends).
+        self._normalize_native(self.hosts[d])
         h = self.hosts[d]
         geom = dict(
             self.overflow[d].geometry if d in self.overflow else self.geometry
@@ -793,8 +1307,10 @@ class DocBatchEngine:
             return True
         except NotImplementedError:
             raise  # feature gap, not poison: stay loud
-        except Exception:  # noqa: BLE001 — the gate IS the handler
+        except Exception as e:  # noqa: BLE001 — the gate IS the handler
             self.counters.bump("poison_ops_dropped")
+            if self.counters.logger is not None:
+                self.counters.logger.error("poison_op_dropped", e, seq=msg.seq)
             return False
 
     def _quarantine_doc(self, d: int, reason: str) -> None:
@@ -802,6 +1318,7 @@ class DocBatchEngine:
         oracle lane: checkpoint base + validated replay of the retained
         tail (malformed ops drop).  The rest of the batch is untouched."""
         h = self.hosts[d]
+        self._normalize_native(h)
         tree = self._oracle_from_base(h)
         self.counters.gauge("quarantine_replay_len", len(h.log))
         for msg in h.log:
@@ -818,6 +1335,10 @@ class DocBatchEngine:
             self._readmit_interval.pop(d, None)
             self.oracles[d] = tree
             self.counters.bump("poison_routed_docs")
+            if self.counters.logger is not None:
+                self.counters.logger.error(
+                    "doc_poison_routed", reason, doc=self.doc_keys[d], flaps=flaps,
+                )
         else:
             self.quarantine[d] = tree
             self.quarantine_reason[d] = reason
@@ -830,6 +1351,8 @@ class DocBatchEngine:
         self._busy.discard(d)
         self.state.error[d] = 0
         self.counters.bump("quarantines")
+        if self.counters.logger is not None:
+            self.counters.logger.error("doc_quarantined", reason, doc=self.doc_keys[d])
 
     def _put_row(self, d: int, row: mk.DocState) -> None:
         """Write a one-document state (tensors or numpy) into batch row d."""
@@ -949,7 +1472,7 @@ class DocBatchEngine:
             return []
         if docs is None and not force and self.checkpoint_every <= 0:
             return []
-        with self.ckpt_lock:
+        with self.ckpt_lock, span("checkpoint_sweep", docs=self.n_docs):
             out, pending = self._checkpoint_sweep(force, docs)
         write_checkpoint_records(self, pending)
         return out
@@ -972,7 +1495,8 @@ class DocBatchEngine:
             )
             if not due:
                 return []
-            out, pending = self._checkpoint_sweep(force=False, docs=due)
+            with span("checkpoint_sweep", docs=len(due)):
+                out, pending = self._checkpoint_sweep(force=False, docs=due)
             if out:
                 self.counters.bump("stale_checkpoints_written", len(out))
         write_checkpoint_records(self, pending)
@@ -1034,6 +1558,8 @@ class DocBatchEngine:
                 row = mk.tree_map(lambda x, _d=d: x[_d], host_state)
                 if int(row.error):
                     continue  # never checkpoint a poisoned row
+                self._sync_native_props(h)
+                prop_names = {v: k for k, v in h.prop_slot.items()}
                 summary = kb.state_to_summary(row, prop_names)
             record = {
                 "engine": "doc_batch",
@@ -1051,6 +1577,8 @@ class DocBatchEngine:
             h.base_seq = h.last_seq
             h.base_summary = summary
             h.log = [m for m in h.log if m.seq > h.base_seq]
+            if h.raw_log:
+                h.raw_log = self._truncate_raw_log(h.raw_log, h.base_seq)
             h.ops_since_ckpt = 0
             h.dirty_since = 0.0
             h.boot_counting = False  # a new durable floor ends the boot phase
@@ -1089,9 +1617,10 @@ class DocBatchEngine:
 
     def _restore(self, store, parallel, max_workers, refresh) -> list[int]:
         t_start = time.monotonic()
-        candidates, cand_mtime = placement.restore_candidates(
-            self, store, refresh, self._queue_depth
-        )
+        with span("restore_scan", docs=self.n_docs):
+            candidates, cand_mtime = placement.restore_candidates(
+                self, store, refresh, self._queue_depth
+            )
         if not candidates:
             return []
         records = load_checkpoint_records(
@@ -1100,79 +1629,81 @@ class DocBatchEngine:
         )
         restored: list[int] = []
         batch_rows: list[tuple[int, mk.DocState]] = []
-        for i, d in enumerate(candidates):
-            rec = records.get(i)
-            if rec is not None and d in cand_mtime:
-                self._trail_mtime[d] = cand_mtime[d]
-            if rec is None or rec.get("engine") != "doc_batch":
-                continue
-            h = self.hosts[d]
-            if refresh and h.restored:
-                if int(rec["seq"]) <= h.last_seq:
-                    continue  # nothing newer to adopt
-                self.counters.bump("checkpoint_refreshes")
-            if refresh:
-                self._drop_restored_identity(d)
-            h.quorum = dict(rec.get("quorum", {}))
-            h.prop_slot = {int(k): v for k, v in rec.get("prop_slot", {}).items()}
-            h.min_seq = rec.get("min_seq", 0)
-            h.base_seq = h.last_seq = int(rec["seq"])
-            h.base_summary = rec["summary"]
-            h.mode = "obj"
-            h.restored = True
-            h.boot_counting = True
-            lane = rec.get("lane", "batch")
-            if lane in ("oracle", "quarantine"):
-                tree = RefMergeTree()
-                tree.import_summary(rec["summary"])
-                tree.update_min_seq(h.min_seq)
-                if lane == "oracle":
-                    self.oracles[d] = tree
-                else:
-                    self.quarantine[d] = tree
-                    self.quarantine_reason[d] = "restored"
-                    if self.readmit_after_steps:
-                        # Schedule readmission like a first flap.
-                        self._flaps.setdefault(d, 1)
-                        self._readmit_interval[d] = self.readmit_after_steps
-                        self._readmit_due[d] = (
-                            self._step_count + self.readmit_after_steps
-                        )
-            elif lane == "overflow":
-                geom = {k: int(v) for k, v in rec["geometry"].items()}
-                self.overflow[d] = self._make_lane(
-                    self._lane_state(rec["summary"], h, geom), geom,
-                    int(rec.get("growths", 1)),
-                )
-            else:
-                try:
-                    row = kb.summary_to_state_host(
-                        rec["summary"], self.geometry,
-                        lambda p, _h=h: self._prop_slot_for_geom(
-                            _h, p, self.geometry
-                        ),
-                    )
-                except (ValueError, IndexError):
-                    # The record outgrew the batch geometry (a restart with
-                    # smaller capacity): an overflow lane at a fitted one.
-                    geom = self._fit_geometry(
-                        self.geometry, rec["summary"], len(h.prop_slot)
-                    )
-                    self.overflow[d] = self._make_lane(
-                        self._lane_state(rec["summary"], h, geom), geom, 1
-                    )
-                else:
-                    if parallel:
-                        batch_rows.append((d, row))
+        with span("restore_build", records=len(records)):
+            for i, d in enumerate(candidates):
+                rec = records.get(i)
+                if rec is not None and d in cand_mtime:
+                    self._trail_mtime[d] = cand_mtime[d]
+                if rec is None or rec.get("engine") != "doc_batch":
+                    continue
+                h = self.hosts[d]
+                if refresh and h.restored:
+                    if int(rec["seq"]) <= h.last_seq:
+                        continue  # nothing newer to adopt
+                    self.counters.bump("checkpoint_refreshes")
+                if refresh:
+                    self._drop_restored_identity(d)
+                h.quorum = dict(rec.get("quorum", {}))
+                h.prop_slot = {int(k): v for k, v in rec.get("prop_slot", {}).items()}
+                h.min_seq = rec.get("min_seq", 0)
+                h.base_seq = h.last_seq = int(rec["seq"])
+                h.base_summary = rec["summary"]
+                h.mode = "obj"
+                h.restored = True
+                h.boot_counting = True
+                lane = rec.get("lane", "batch")
+                if lane in ("oracle", "quarantine"):
+                    tree = RefMergeTree()
+                    tree.import_summary(rec["summary"])
+                    tree.update_min_seq(h.min_seq)
+                    if lane == "oracle":
+                        self.oracles[d] = tree
                     else:
-                        self._put_row(d, row)
-            restored.append(d)
-            self.counters.bump("docs_restored")
+                        self.quarantine[d] = tree
+                        self.quarantine_reason[d] = "restored"
+                        if self.readmit_after_steps:
+                            # Schedule readmission like a first flap.
+                            self._flaps.setdefault(d, 1)
+                            self._readmit_interval[d] = self.readmit_after_steps
+                            self._readmit_due[d] = (
+                                self._step_count + self.readmit_after_steps
+                            )
+                elif lane == "overflow":
+                    geom = {k: int(v) for k, v in rec["geometry"].items()}
+                    self.overflow[d] = self._make_lane(
+                        self._lane_state(rec["summary"], h, geom), geom,
+                        int(rec.get("growths", 1)),
+                    )
+                else:
+                    try:
+                        row = kb.summary_to_state_host(
+                            rec["summary"], self.geometry,
+                            lambda p, _h=h: self._prop_slot_for_geom(
+                                _h, p, self.geometry
+                            ),
+                        )
+                    except (ValueError, IndexError):
+                        # The record outgrew the batch geometry (a restart with
+                        # smaller capacity): an overflow lane at a fitted one.
+                        geom = self._fit_geometry(
+                            self.geometry, rec["summary"], len(h.prop_slot)
+                        )
+                        self.overflow[d] = self._make_lane(
+                            self._lane_state(rec["summary"], h, geom), geom, 1
+                        )
+                    else:
+                        if parallel:
+                            batch_rows.append((d, row))
+                        else:
+                            self._put_row(d, row)
+                restored.append(d)
+                self.counters.bump("docs_restored")
         if batch_rows:
-            self._scatter_rows(
-                [d for d, _ in batch_rows],
-                mk.tree_map(lambda *xs: np.stack(xs), *[r for _, r in batch_rows]),
-            )
+            with span("restore_scatter", rows=len(batch_rows)):
+                self._scatter_rows(
+                    [d for d, _ in batch_rows],
+                    mk.tree_map(lambda *xs: np.stack(xs), *[r for _, r in batch_rows]),
+                )
         if restored and not refresh:
             # A real restore opens a recovery incident: the clock runs until
             # the first post-restore op applies.
@@ -1209,6 +1740,7 @@ class DocBatchEngine:
         self._verified_digest.pop(d, None)
         h = self.hosts[d]
         h.log.clear()
+        h.raw_log.clear()
         h.queue.clear()
         self._busy.discard(d)
 
@@ -1219,12 +1751,37 @@ class DocBatchEngine:
 
     def health(self) -> dict:
         """Degraded-mode health counters: the engine's counters and gauges,
-        the recovery clock, and the lane and checkpoint surfaces."""
+        the overload gate, the sampled op latency, the recovery clock, and
+        the lane and checkpoint surfaces.  The reference's ``recompiles``
+        and ``despecializations`` are left out: they count XLA executable
+        growth, and the port compiles nothing at run time."""
         self.counters.gauge("megastep_k", self.megastep_k)
         self.counters.gauge(
             "staging_overlap_packs",
             self._stage.overlapped_packs if self._stage is not None else 0,
         )
+        self.counters.ratio(
+            "steps_per_dispatch", "megastep_slices", "megastep_dispatches"
+        )
+        self.overload_gate.emit_gauges(
+            self.counters, self.megastep_k * self.ops_per_step,
+            max(
+                (self._queue_depth(d) for d in self._busy | set(self.overflow)),
+                default=0,
+            ),
+        )
+        self.counters.gauge("n_shards", 1)
+        # Sampled op latency (sequencer stamp -> end of the applying step),
+        # ms percentiles.  No ``recompiles`` / ``despecializations``: the
+        # port compiles nothing at run time, so there is nothing to count.
+        self.counters.gauge("latency_samples", self.op_latency.count)
+        if self.op_latency.count:
+            self.counters.gauge(
+                "latency_p50_ms", round(self.op_latency.percentile(0.5) * 1e3, 3)
+            )
+            self.counters.gauge(
+                "latency_p99_ms", round(self.op_latency.percentile(0.99) * 1e3, 3)
+            )
         self.recovery_tracker.emit_gauges(self.counters)
         now = time.monotonic()
         self.counters.gauge(
@@ -1275,6 +1832,9 @@ class DocBatchEngine:
         if doc_idx in self.oracles:
             return self.oracles[doc_idx].annotations()
         raw = mk.annotations(self.doc_state(doc_idx))
+        # Live native-path docs intern props in C++: fold the table in so
+        # the view names real prop ids.
+        self._sync_native_props(self.hosts[doc_idx])
         inv = {v: k for k, v in self.hosts[doc_idx].prop_slot.items()}
         return [{inv[p]: v for p, v in d.items()} for d in raw]
 

@@ -1,9 +1,10 @@
 """The engine-agnostic half of checkpoint and restore.
 
 ``load_checkpoint_records``, ``stale_due_docs``, ``write_checkpoint_records``
-and ``RecoveryTracker`` of ``fluidframework_tpu/models/recovery.py``,
-without the flight-recorder spans (the port has no flight recorder yet).
-``BackgroundCheckpointWriter`` is not ported.
+and ``RecoveryTracker`` of ``fluidframework_tpu/models/recovery.py``, with
+its flight-recorder spans (``restore_load``, ``checkpoint``) and the
+``recovery_complete`` instant.  ``BackgroundCheckpointWriter`` is not
+ported.
 
 Thread-safety contract: a checkpoint record is BUILT under the engine's
 re-entrant ``ckpt_lock`` (taken by ``step``/``ingest``/``maybe_checkpoint``/
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import time
 
+from ..observability.flight_recorder import instant, span
 from ..utils.telemetry import Histogram
 
 
@@ -37,10 +39,13 @@ def load_checkpoint_records(
     identical — load concurrency can never reorder restores.
     """
     load_many = getattr(store, "load_many", None) if parallel else None
-    if load_many is not None:
-        by_key = load_many(doc_keys, max_workers=max_workers)
-    else:
-        by_key = {k: store.load(k) for k in doc_keys}
+    with span(
+        "restore_load", docs=len(doc_keys), parallel=int(load_many is not None),
+    ):
+        if load_many is not None:
+            by_key = load_many(doc_keys, max_workers=max_workers)
+        else:
+            by_key = {k: store.load(k) for k in doc_keys}
     return {
         i: rec
         for i, k in enumerate(doc_keys)
@@ -95,7 +100,9 @@ def write_checkpoint_records(
             if seq < engine._ckpt_saved_seq.get(d, -1):
                 continue  # a concurrent sweep already wrote newer
             try:
-                engine.checkpoint_store.save(engine.doc_keys[d], seq, record)
+                with span("checkpoint", doc=engine.doc_keys[d],
+                          lane=record.get("lane")):
+                    engine.checkpoint_store.save(engine.doc_keys[d], seq, record)
             except OSError:
                 failed.append(d)
                 continue
@@ -117,7 +124,8 @@ class RecoveryTracker:
     ``begin`` is idempotent-earliest: a caller that knows the actual kill
     time stamps it first and a later restore-start begin cannot shrink the
     measured window.  ``complete`` (called from the engine's step once
-    real ops applied) closes the incident into the histogram."""
+    real ops applied) closes the incident into the histogram and emits a
+    ``recovery_complete`` flight-recorder instant."""
 
     def __init__(self) -> None:
         self.histogram = Histogram()
@@ -146,6 +154,7 @@ class RecoveryTracker:
         self.incidents += 1
         self.last_ms = round(dt * 1e3, 3)
         self.histogram.record(dt)
+        instant("recovery_complete", ms=self.last_ms)
         return dt
 
     def emit_gauges(self, counters) -> None:

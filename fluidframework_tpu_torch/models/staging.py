@@ -11,13 +11,17 @@ Counterpart of ``fluidframework_tpu/models/staging.py``:
   is a ``non_blocking`` copy on the current stream; a CUDA event recorded
   after the copy is the reuse barrier, so the host never refills memory an
   in-flight copy may still read.  On the CPU the upload clones, so a
-  staged buffer never aliases a dispatched tensor.
+  staged buffer never aliases a dispatched tensor.  Each upload is an
+  ``upload`` flight-recorder span (host issue of the copy: the copy itself
+  runs on the stream).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..observability.flight_recorder import span
 
 
 class RowQueue:
@@ -205,12 +209,13 @@ class StagingRing:
         k, rows = ops_view.shape[:2]
         ops_t = buf.ops_t[:k, :rows]
         pay_t = buf.payloads_t[:k, :rows]
-        if self.device.type != "cuda":
-            return ops_t.clone(), pay_t.clone()
-        dev = (
-            ops_t.to(self.device, non_blocking=True),
-            pay_t.to(self.device, non_blocking=True),
-        )
-        buf.done = torch.cuda.Event()
-        buf.done.record()
+        with span("upload", shards=1, bytes=ops_view.nbytes + payloads_view.nbytes):
+            if self.device.type != "cuda":
+                return ops_t.clone(), pay_t.clone()
+            dev = (
+                ops_t.to(self.device, non_blocking=True),
+                pay_t.to(self.device, non_blocking=True),
+            )
+            buf.done = torch.cuda.Event()
+            buf.done.record()
         return dev

@@ -29,15 +29,26 @@ reference engine's for the same message stream.  ``device_rebase=True``
 folds each EditManager window through K9 (``dds/tree/device_rebase.py``)
 on the engine's device, with one ``DeviceRebaser`` shared by the fleet;
 docs rebuilt by a restore fold on the host, as the reference's do.
+
+``ingest_lines`` takes newline-separated wire JSON: with ``native_wire``
+(default) and the mark pool, the envelope and the numeric mark plane decode
+in C++ (``native/ingest_native.tree_decode``) straight into pool columns;
+otherwise, or when the library is not built, each line takes the Python
+parse.  ``telemetry=`` attaches a ``utils.telemetry.Logger`` to the health
+counters.  The host fold is spanned for the flight recorder
+(``host_fold_mark_alloc`` / ``_rebase`` / ``_compose`` / ``_translate``),
+as are ``dispatch``, ``readback``, ``checkpoint_sweep`` and
+``restore_scan``.  No recompile watchdog: the port compiles nothing at run
+time.
+
 Not ported (``NotImplementedError``): a mesh, spare slots and migration
-(``migrate_doc``, ``rebalance_hot_shards``), boot-snapshot adoption,
-``plan_cache=False`` (the reference's per-row emit path) and the native
-wire path (``ingest_lines``).  The
-reference's flight-recorder spans and recompile watchdog are not carried.
+(``migrate_doc``, ``rebalance_hot_shards``), boot-snapshot adoption and
+``plan_cache=False`` (the reference's per-row emit path).
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from dataclasses import dataclass, field
@@ -62,7 +73,10 @@ from ..dds.tree.field_kinds import OptionalChange
 from ..dds.tree.forest import ROOT_FIELD, Forest, Node
 from ..dds.tree.mark_pool import MarkPool
 from ..dds.tree.mark_pool import pool_commit_from_json as _pool_commit_from_json
+from ..dds.tree.mark_pool import pool_commit_from_native
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..native import ingest_native
+from ..observability.flight_recorder import span
 from ..ops import tree_kernel as tk
 from ..protocol.messages import MessageType, SequencedMessage
 from ..utils.telemetry import HealthCounters
@@ -213,13 +227,9 @@ _POOLED_KINDS = _GROW_KINDS + (int(tk.NestedOpKind.SET),)
 _POOLED_VKINDS = tuple(int(p) for p in tk._POOLED)
 
 # Reference constructor options this port does not carry yet, with the
-# values that leave them off (``native_wire`` only picks the decoder of
-# ``ingest_lines``, which is not ported: either value leaves it off;
-# ``plan_cache=False`` is the reference's per-row emit path).
-_OPTIONS_OFF = {
-    "mesh": (None,), "spare_slots": (0,),
-    "native_wire": (True, False), "telemetry": (None,), "plan_cache": (True,),
-}
+# values that leave them off (``plan_cache=False`` is the reference's
+# per-row emit path).
+_OPTIONS_OFF = {"mesh": (None,), "spare_slots": (0,), "plan_cache": (True,)}
 
 
 class TreeBatchEngine:
@@ -243,6 +253,8 @@ class TreeBatchEngine:
         device_rebase: bool = False,
         overload_high_watermark: int = 0,
         overload_low_watermark: int = 0,
+        native_wire: bool = True,
+        telemetry=None,
         device=DEFAULT_DEVICE,
         **options,
     ) -> None:
@@ -273,6 +285,8 @@ class TreeBatchEngine:
         self.rebaser = None
         if device_rebase and self.markpool is not None:
             self.rebaser = DeviceRebaser(self.markpool, device=self.device)
+        # ingest_lines decodes in C++ when the library is built.
+        self.native_wire = native_wire
         self.hosts = [
             _TreeHost(
                 em=EditManager(mark_pool=self.markpool, device_rebase=self.rebaser),
@@ -297,7 +311,10 @@ class TreeBatchEngine:
         ]
         if len(self.doc_keys) != n_docs:
             raise ValueError(f"{len(self.doc_keys)} doc_keys for {n_docs} docs")
-        self.counters = HealthCounters()
+        # Build the native decoder with no lock held: ingest_lines only
+        # loads it under ckpt_lock.
+        ingest_native.warm()
+        self.counters = HealthCounters(telemetry)
         # Interning tables shared by the fleet; ROOT_FIELD must be id 0
         # (the virtual root's field in the materializer).
         self._fields: dict[str, int] = {ROOT_FIELD: 0}
@@ -370,9 +387,71 @@ class TreeBatchEngine:
             self.ingest(d, m)
 
     def ingest_lines(self, doc_idx: int, data: bytes) -> int:
-        raise NotImplementedError("the native wire ingest path is not ported yet")
+        """Stage newline-separated wire JSON for one tree document.  With
+        ``native_wire`` and the mark pool, the C++ tree decoder (built)
+        decodes the envelope and the numeric mark plane straight into pool
+        columns; otherwise every line takes the Python parse.  A malformed
+        line lands every earlier line, then raises through the Python
+        decode (which owns error semantics).  Returns the op rows staged
+        (the commits applied, for a fallback doc)."""
+        with self.ckpt_lock:
+            return self._ingest_lines(doc_idx, data)
 
-    def _ingest_edit(self, doc_idx: int, msg: SequencedMessage, c: dict) -> None:
+    def _ingest_lines(self, doc_idx: int, data: bytes) -> int:
+        h = self.hosts[doc_idx]
+        commits_before = h.total_commits
+        rows_before = len(h.queue)
+        tables = None
+        if self.markpool is not None and self.native_wire:
+            try:
+                tables = ingest_native.tree_decode(data)  # None: not built
+            except ValueError:
+                # Malformed line: re-decode in Python, so the error carries
+                # the Python path's semantics (earlier lines land).
+                self.counters.bump("tree_native_decode_errors")
+                tables = None
+        if tables is not None:
+            self.counters.bump("tree_native_batches")
+            self._ingest_native_tables(doc_idx, data, tables)
+        else:
+            for raw in data.split(b"\n"):
+                line = raw.strip()
+                if line:
+                    self.ingest(doc_idx, SequencedMessage.from_json(line.decode()))
+        if doc_idx in self.fallbacks:
+            return h.total_commits - commits_before
+        return len(h.queue) - rows_before
+
+    def _ingest_native_tables(self, doc_idx: int, data: bytes, tables) -> None:
+        msgs, chgs, flds, marks, spans = (t.tolist() for t in tables)
+        for m in msgs:
+            status = m[10]
+            if status not in (ingest_native.TREE_ST_EDITS, ingest_native.TREE_ST_OPAQUE):
+                continue  # non-op line: the op path ignores it too
+            msg = SequencedMessage(
+                client_id=data[m[4] : m[4] + m[5]].decode(),
+                client_seq=m[13], ref_seq=m[1], seq=m[0], min_seq=m[2],
+                type=MessageType.OP, contents=None,
+            )
+            if status == ingest_native.TREE_ST_OPAQUE:
+                # Grouped batches, address envelopes, dict-form commits,
+                # escaped ids: the Python walk, as without the library.
+                contents = json.loads(data[m[11] : m[11] + m[12]])
+                for edit in self._unwrap(contents):
+                    self._ingest_edit(doc_idx, msg, edit)
+                continue
+            with span("host_fold_mark_alloc", doc=doc_idx):
+                commit = pool_commit_from_native(
+                    self.markpool, data, m, chgs, flds, marks, spans
+                )
+            self._ingest_edit(
+                doc_idx, msg,
+                {"sid": data[m[6] : m[6] + m[7]].decode(), "rev": m[3]},
+                commit=commit,
+            )
+
+    def _ingest_edit(self, doc_idx: int, msg: SequencedMessage, c: dict,
+                     commit=None) -> None:
         h = self.hosts[doc_idx]
         if h.base_seq and msg.seq <= h.base_seq:
             # Covered by the durable checkpoint (restart replay): skip.
@@ -384,18 +463,24 @@ class TreeBatchEngine:
             h.dirty_since = time.monotonic()
         if h.boot_counting:
             self.counters.bump("boot_replay_len")
-        if self.markpool is not None:
-            commit = _pool_commit_from_json(self.markpool, c["changes"])
-        else:
-            commit = commit_from_json(c["changes"])
-        trunk = h.em.add_sequenced(
-            client_id=msg.client_id,
-            revision=(c["sid"], c["rev"]),
-            change=commit,
-            ref_seq=msg.ref_seq,
-            seq=msg.seq,
-        )
-        h.em.advance_min_seq(msg.min_seq)
+        # Host-fold phases (flight recorder): mark_alloc (wire -> commit),
+        # rebase (the EditManager window fold), compose (trunk suffix into
+        # the checkpoint forest) and translate (``_flatten``).
+        if commit is None:
+            with span("host_fold_mark_alloc", doc=doc_idx):
+                if self.markpool is not None:
+                    commit = _pool_commit_from_json(self.markpool, c["changes"])
+                else:
+                    commit = commit_from_json(c["changes"])
+        with span("host_fold_rebase", doc=doc_idx):
+            trunk = h.em.add_sequenced(
+                client_id=msg.client_id,
+                revision=(c["sid"], c["rev"]),
+                change=commit,
+                ref_seq=msg.ref_seq,
+                seq=msg.seq,
+            )
+            h.em.advance_min_seq(msg.min_seq)
         h.total_commits += 1
         if doc_idx in self.fallbacks:
             # Fallback docs apply directly; their trunk log is dead weight.
@@ -405,11 +490,13 @@ class TreeBatchEngine:
         if len(h.trunk_log) >= self.CHECKPOINT_EVERY:
             # Fold the suffix into the checkpoint forest: bounded host
             # memory, and fallback routing replays only the tail.
-            for t in h.trunk_log:
-                apply_commit(h.checkpoint.root, t)
-            h.trunk_log.clear()
+            with span("host_fold_compose", doc=doc_idx):
+                for t in h.trunk_log:
+                    apply_commit(h.checkpoint.root, t)
+                h.trunk_log.clear()
         try:
-            ops_blk, pay_blk = self._flatten(trunk, msg.seq)
+            with span("host_fold_translate", doc=doc_idx):
+                ops_blk, pay_blk = self._flatten(trunk, msg.seq)
         except UnsupportedShape:
             self._route_to_fallback(doc_idx)
             return
@@ -743,14 +830,16 @@ class TreeBatchEngine:
             # Kinds and path depths stay on the host: branch selection.
             host_ops = ops[..., :3].copy()
             dev_ops, dev_payloads = stage.upload(ops, payloads)
-            self.state = tk.apply_nested_megastep(
-                self.state, dev_ops, dev_payloads, host_ops=host_ops
-            )
+            with span("dispatch", kind="tree", k=K, shards=1):
+                self.state = tk.apply_nested_megastep(
+                    self.state, dev_ops, dev_payloads, host_ops=host_ops
+                )
             steps += K
             self.counters.bump("megastep_dispatches")
             self.counters.bump("megastep_slices", K)
         # One read of the error vector: latched docs replay on the host.
-        err = self.state.error.cpu().numpy()
+        with span("readback", kind="error_vector"):
+            err = self.state.error.cpu().numpy()
         routed = []
         for d in np.flatnonzero(err).tolist():
             if d not in self.fallbacks:
@@ -772,7 +861,7 @@ class TreeBatchEngine:
             return []
         if docs is None and not force and self.checkpoint_every <= 0:
             return []
-        with self.ckpt_lock:
+        with self.ckpt_lock, span("checkpoint_sweep", docs=self.n_docs):
             out, pending = self._checkpoint_sweep(force, docs)
         write_checkpoint_records(self, pending)
         return out
@@ -793,7 +882,8 @@ class TreeBatchEngine:
             )
             if not due:
                 return []
-            out, pending = self._checkpoint_sweep(force=False, docs=due)
+            with span("checkpoint_sweep", docs=len(due)):
+                out, pending = self._checkpoint_sweep(force=False, docs=due)
             if out:
                 self.counters.bump("stale_checkpoints_written", len(out))
         write_checkpoint_records(self, pending)
@@ -865,9 +955,10 @@ class TreeBatchEngine:
 
     def _restore(self, store, parallel, max_workers, refresh) -> list[int]:
         t_start = time.monotonic()
-        candidates, cand_mtime = placement.restore_candidates(
-            self, store, refresh, lambda d: len(self.hosts[d].queue)
-        )
+        with span("restore_scan", docs=self.n_docs):
+            candidates, cand_mtime = placement.restore_candidates(
+                self, store, refresh, lambda d: len(self.hosts[d].queue)
+            )
         if not candidates:
             return []
         records = load_checkpoint_records(
@@ -966,6 +1057,8 @@ class TreeBatchEngine:
 
     # ----------------------------------------------------------------- health
     def health(self) -> dict:
+        """The reference's health surface without ``recompiles`` and
+        ``despecializations`` (the port compiles nothing at run time)."""
         self.counters.gauge("megastep_k", self.megastep_k)
         self.counters.gauge(
             "staging_overlap_packs",

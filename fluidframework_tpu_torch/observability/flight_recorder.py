@@ -1,0 +1,234 @@
+"""Flight recorder: a low-overhead fixed-size ring of trace events.
+
+A copy of ``fluidframework_tpu/observability/flight_recorder.py``.  The
+serving path (ingest -> staging upload -> megastep dispatch -> error-latch
+readback, checkpoint sweeps and writes, restores, the tree host fold and
+the rebase window) brackets its phases with ``span(name, **labels)`` and
+drops point events with ``instant(name, **labels)``.  While no recorder is
+installed both are no-ops costing one module-global read, so the
+instrumentation stays in the hot path permanently; the ring's lock is taken
+only when a recorder is installed.
+
+Events live in a preallocated ring (old events overwrite, ``dropped``
+counts what fell off) and export to Chrome trace-event JSON ("X" complete
+events + "i" instants), which Perfetto and chrome://tracing load directly.
+Timestamps are ``time.perf_counter_ns()``.
+
+On the card a span times host work only: a CUDA launch returns before the
+kernel runs, so device time shows up in the span that waits for it (the
+``readback`` spans, whose ``.item()``/``.cpu()`` synchronize).
+
+The reference's ``RecompileWatchdog`` counts XLA executable-cache growth of
+jitted programs.  The port compiles nothing at run time (its device
+programs are eager PyTorch and prebuilt CUDA), so there is nothing for a
+watchdog to count and none is carried: the engines' ``health()`` leaves
+out ``recompiles`` and ``despecializations`` rather than report a 0 that
+was never measured.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Any, NamedTuple
+
+
+class TraceEvent(NamedTuple):
+    name: str
+    ph: str  # "X" complete span | "i" instant
+    ts_ns: int  # perf_counter_ns at span START (or instant time)
+    dur_ns: int  # 0 for instants
+    tid: int
+    args: dict[str, Any] | None
+
+
+class _Span:
+    """Context manager recording one complete ("X") event on exit."""
+
+    __slots__ = ("_rec", "_name", "_args", "_t0")
+
+    def __init__(self, rec: "FlightRecorder", name: str, args) -> None:
+        self._rec = rec
+        self._name = name
+        self._args = args
+
+    def __enter__(self) -> "_Span":
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *_exc) -> None:
+        t0 = self._t0
+        self._rec._push(TraceEvent(
+            self._name, "X", t0, time.perf_counter_ns() - t0,
+            threading.get_ident(), self._args,
+        ))
+
+
+class _NullSpan:
+    """Shared no-op span: what ``span()`` hands out with no recorder."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *_exc) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class FlightRecorder:
+    """Fixed-capacity trace-event ring with Chrome-trace export."""
+
+    def __init__(self, capacity: int = 65536) -> None:
+        if capacity <= 0:
+            raise ValueError("capacity must be positive")
+        self.capacity = capacity
+        self._buf: list[TraceEvent | None] = [None] * capacity
+        self._n = 0  # total events ever pushed (ring cursor = _n % capacity)
+        self._lock = threading.Lock()
+
+    # ------------------------------------------------------------- recording
+    def _push(self, ev: TraceEvent) -> None:
+        # One lock round per event: events are recorded per *phase* (a few
+        # per dispatch), never per op, so contention is negligible and the
+        # ring stays consistent under the consumer/server threads.
+        with self._lock:
+            self._buf[self._n % self.capacity] = ev
+            self._n += 1
+
+    def span(self, name: str, **labels: Any) -> _Span:
+        return _Span(self, name, labels or None)
+
+    def instant(self, name: str, **labels: Any) -> None:
+        t = time.perf_counter_ns()
+        self._push(TraceEvent(
+            name, "i", t, 0, threading.get_ident(), labels or None
+        ))
+
+    # --------------------------------------------------------------- reading
+    @property
+    def dropped(self) -> int:
+        """Events that fell off the ring (overwritten by wraparound)."""
+        return max(0, self._n - self.capacity)
+
+    def __len__(self) -> int:
+        return min(self._n, self.capacity)
+
+    def events(self) -> list[TraceEvent]:
+        """Retained events, oldest first (ring unrolled)."""
+        with self._lock:
+            n, cap = self._n, self.capacity
+            if n <= cap:
+                out = self._buf[:n]
+            else:
+                cut = n % cap
+                out = self._buf[cut:] + self._buf[:cut]
+        return list(out)  # type: ignore[arg-type]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf = [None] * self.capacity
+            self._n = 0
+
+    # --------------------------------------------------------------- export
+    def chrome_trace(self, pid: int = 1) -> dict:
+        """The Chrome trace-event JSON object (Perfetto-loadable).
+
+        Span starts are recorded in ``perf_counter_ns``; Chrome wants
+        microseconds.  Instants carry ``"s": "t"`` (thread scope)."""
+        trace_events = []
+        for ev in self.events():
+            rec: dict[str, Any] = {
+                "name": ev.name,
+                "ph": ev.ph,
+                "ts": ev.ts_ns / 1e3,
+                "pid": pid,
+                "tid": ev.tid,
+            }
+            if ev.ph == "X":
+                rec["dur"] = ev.dur_ns / 1e3
+            else:
+                rec["s"] = "t"
+            if ev.args:
+                rec["args"] = dict(ev.args)
+            trace_events.append(rec)
+        return {"traceEvents": trace_events, "displayTimeUnit": "ms"}
+
+    def export_chrome_trace(self, path: str, pid: int = 1) -> int:
+        """Write the Chrome trace JSON; returns the event count written."""
+        trace = self.chrome_trace(pid=pid)
+        with open(path, "w") as f:
+            json.dump(trace, f)
+            f.write("\n")
+        return len(trace["traceEvents"])
+
+
+# ---------------------------------------------------------------------------
+# Module-global recorder: the instrumentation seam the serving path calls
+# ---------------------------------------------------------------------------
+
+_RECORDER: FlightRecorder | None = None
+
+
+def install(rec: FlightRecorder | None = None) -> FlightRecorder:
+    """Install (and return) the process-global recorder.  Instrumented
+    code starts recording immediately; pass None to install a fresh
+    default-capacity ring."""
+    global _RECORDER
+    _RECORDER = rec if rec is not None else FlightRecorder()
+    return _RECORDER
+
+
+def uninstall() -> FlightRecorder | None:
+    """Remove the global recorder (returns it); spans become no-ops."""
+    global _RECORDER
+    rec, _RECORDER = _RECORDER, None
+    return rec
+
+
+def recorder() -> FlightRecorder | None:
+    return _RECORDER
+
+
+def span(name: str, **labels: Any):
+    """A span against the global recorder; free no-op when none installed."""
+    rec = _RECORDER
+    if rec is None:
+        return _NULL_SPAN
+    return rec.span(name, **labels)
+
+
+def instant(name: str, **labels: Any) -> None:
+    rec = _RECORDER
+    if rec is not None:
+        rec.instant(name, **labels)
+
+
+# ---------------------------------------------------------------------------
+# Trace analysis
+# ---------------------------------------------------------------------------
+
+def phase_totals(events: list[TraceEvent]) -> dict[str, float]:
+    """Total wall seconds per span name (nested spans each count their own
+    full duration — shares are per-phase attribution, not a partition)."""
+    totals: dict[str, float] = {}
+    for ev in events:
+        if ev.ph == "X":
+            totals[ev.name] = totals.get(ev.name, 0.0) + ev.dur_ns / 1e9
+    return totals
+
+
+def phase_shares(events: list[TraceEvent]) -> dict[str, float]:
+    """Per-phase share of the summed span time, rounded, largest first."""
+    totals = phase_totals(events)
+    grand = sum(totals.values())
+    if grand <= 0:
+        return {}
+    return {
+        name: round(t / grand, 4)
+        for name, t in sorted(totals.items(), key=lambda kv: -kv[1])
+    }

@@ -303,6 +303,29 @@ def encode_insert_batch(
     return ops, payloads, owner
 
 
+def encode_obliterate_batch(
+    pos1: np.ndarray,
+    side1: np.ndarray,
+    pos2: np.ndarray,
+    side2: np.ndarray,
+    op_keys: np.ndarray,
+    op_clients: np.ndarray,
+    ref_seqs: np.ndarray,
+) -> np.ndarray:
+    """Vectorized ``encode_obliterate``: N sided obliterates -> ops[N, 8]."""
+    n = len(op_keys)
+    ops = np.empty((n, OP_FIELDS), np.int32)
+    ops[:, 0] = OpKind.OBLITERATE
+    ops[:, 1] = op_keys
+    ops[:, 2] = op_clients
+    ops[:, 3] = ref_seqs
+    ops[:, 4] = pos1
+    ops[:, 5] = pos2
+    ops[:, 6] = side1
+    ops[:, 7] = side2
+    return ops
+
+
 # --------------------------------------------------------------- primitives
 
 def _iota(n: int, device) -> torch.Tensor:

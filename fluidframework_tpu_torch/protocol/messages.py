@@ -1,15 +1,18 @@
-"""Wire message contracts: the subset the fleet engine reads.
+"""Wire message contracts: the subset the fleet engines read.
 
 A copy of ``fluidframework_tpu/protocol/messages.py`` (``MessageType``,
-``DeltaType``, ``SequencedMessage``) plus the obliterate place decoder of
-``fluidframework_tpu/dds/shared_string.py``.  The engine reads messages by
+``DeltaType``, ``UnsequencedMessage``, ``SequencedMessage`` with its JSON
+wire codec) plus the obliterate place decoder of
+``fluidframework_tpu/dds/shared_string.py``.  The engines read messages by
 attribute only (``type``, ``seq``, ``min_seq``, ``ref_seq``, ``client_id``,
 ``contents``), so a message minted by the JAX package's sequencer ingests
-here unchanged.
+here unchanged, and ``to_json`` writes the same bytes as the reference's
+(camelCase wire names), so a JSON-lines feed decodes identically in both.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from enum import IntEnum
 from typing import Any
@@ -40,6 +43,43 @@ class DeltaType(IntEnum):
 
 
 @dataclass
+class UnsequencedMessage:
+    """A client op before ordering (reference IDocumentMessage)."""
+
+    client_id: str
+    client_seq: int  # clientSequenceNumber: per-client monotone counter
+    ref_seq: int  # referenceSequenceNumber: last seq the client had applied
+    type: str = MessageType.OP
+    contents: Any = None
+    metadata: Any = None
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "clientId": self.client_id,
+                "clientSequenceNumber": self.client_seq,
+                "referenceSequenceNumber": self.ref_seq,
+                "type": self.type,
+                "contents": self.contents,
+                "metadata": self.metadata,
+            },
+            separators=(",", ":"),
+        )
+
+    @staticmethod
+    def from_json(raw: str) -> "UnsequencedMessage":
+        d = json.loads(raw)
+        return UnsequencedMessage(
+            client_id=d["clientId"],
+            client_seq=d["clientSequenceNumber"],
+            ref_seq=d["referenceSequenceNumber"],
+            type=d.get("type", MessageType.OP),
+            contents=d.get("contents"),
+            metadata=d.get("metadata"),
+        )
+
+
+@dataclass
 class SequencedMessage:
     """An op after the sequencer stamped its total-order position
     (reference ISequencedDocumentMessage); ``min_seq`` is the collab-window
@@ -55,6 +95,48 @@ class SequencedMessage:
     metadata: Any = None
     timestamp: float = 0.0
     short_client: int = -1
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "clientId": self.client_id,
+                "clientSequenceNumber": self.client_seq,
+                "referenceSequenceNumber": self.ref_seq,
+                "sequenceNumber": self.seq,
+                "minimumSequenceNumber": self.min_seq,
+                "type": self.type,
+                "contents": self.contents,
+                "metadata": self.metadata,
+                "timestamp": self.timestamp,
+                "shortClient": self.short_client,
+            },
+            separators=(",", ":"),
+        )
+
+    def wire_line(self) -> bytes:
+        """``to_json() + "\\n"`` encoded once and cached on the message
+        (sequenced messages are immutable after minting)."""
+        b = self.__dict__.get("_wire_line")
+        if b is None:
+            b = (self.to_json() + "\n").encode()
+            self.__dict__["_wire_line"] = b
+        return b
+
+    @staticmethod
+    def from_json(raw: str) -> "SequencedMessage":
+        d = json.loads(raw)
+        return SequencedMessage(
+            client_id=d["clientId"],
+            client_seq=d["clientSequenceNumber"],
+            ref_seq=d["referenceSequenceNumber"],
+            seq=d["sequenceNumber"],
+            min_seq=d["minimumSequenceNumber"],
+            type=d.get("type", MessageType.OP),
+            contents=d.get("contents"),
+            metadata=d.get("metadata"),
+            timestamp=d.get("timestamp", 0.0),
+            short_client=d.get("shortClient", -1),
+        )
 
 
 def decode_obliterate_places(c: dict) -> tuple[int, int, int, int]:

@@ -1,16 +1,139 @@
-"""Health counters and latency histograms of the fleet engine.
+"""Structured telemetry of the fleet engines: child loggers, performance
+spans, sampled timing helpers, health counters and latency histograms.
 
-``HealthCounters`` and ``Histogram`` of
-``fluidframework_tpu/utils/telemetry.py``.  ``HealthCounters.emit`` sends
-to a logger with the reference's ``generic(event_name, **props)`` method
-when one is attached, and is a no-op otherwise (the engine attaches none).
-Host-side only: nothing here touches the device.
+A copy of ``fluidframework_tpu/utils/telemetry.py`` (reference parity:
+``createChildLogger``, ``PerformanceEvent``, ``SampledTelemetryHelper`` of
+the telemetry-utils package).  An engine built with ``telemetry=Logger()``
+hands the logger to its ``HealthCounters`` (health events, quarantine and
+poison errors) and to a ``SampledTelemetryHelper`` for its step timing.
+Host-side only: nothing here touches the device.  Events are plain dicts
+delivered to a sink callable, or retained on the logger when it has none.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+Sink = Callable[[dict[str, Any]], None]
+
+
+class Logger:
+    """A namespace-prefixed structured logger with inherited properties."""
+
+    def __init__(
+        self,
+        namespace: str = "",
+        sink: Sink | None = None,
+        properties: dict[str, Any] | None = None,
+    ) -> None:
+        self.namespace = namespace
+        self._sink = sink
+        self.properties = dict(properties or {})
+        self.events: list[dict[str, Any]] = []  # retained when no sink (mock mode)
+
+    def send(self, event: dict[str, Any]) -> None:
+        out = dict(self.properties)
+        out.update(event)
+        if self.namespace and "eventName" in out:
+            out["eventName"] = f"{self.namespace}:{out['eventName']}"
+        if self._sink is not None:
+            self._sink(out)
+        else:
+            self.events.append(out)
+
+    # Category helpers (ref ITelemetryLoggerExt send{Telemetry,Error,Perf}Event)
+    def generic(self, event_name: str, **props: Any) -> None:
+        self.send({"eventName": event_name, "category": "generic", **props})
+
+    def error(self, event_name: str, error: BaseException | str = "", **props: Any) -> None:
+        self.send(
+            {
+                "eventName": event_name,
+                "category": "error",
+                "error": str(error),
+                **props,
+            }
+        )
+
+    def performance(self, event_name: str, duration_s: float, **props: Any) -> None:
+        self.send(
+            {
+                "eventName": event_name,
+                "category": "performance",
+                "duration": duration_s,
+                **props,
+            }
+        )
+
+    def matching(self, **filters: Any) -> list[dict[str, Any]]:
+        """Mock-mode assertion helper (ref mockLogger matchEvents)."""
+        return [
+            e
+            for e in self.events
+            if all(e.get(k) == v for k, v in filters.items())
+        ]
+
+
+def create_child_logger(
+    parent: Logger, namespace: str = "", properties: dict[str, Any] | None = None
+) -> Logger:
+    """Child logger: prefixes the namespace, inherits + overrides properties,
+    shares the parent's sink/event buffer (ref logger.ts:161)."""
+    # Route through parent.send: the parent applies its own namespace prefix
+    # and properties, so the child carries only its own segment/overrides.
+    return Logger(namespace=namespace, sink=parent.send, properties=properties)
+
+
+class PerformanceEvent:
+    """A span: start/end/cancel with duration, used around phases like
+    container load and summarize (ref logger.ts:690). Context-manager form
+    reports success on clean exit, error on exception.
+
+    The end event carries ``startTime`` (wall-clock seconds at span start)
+    alongside the existing ``duration``, so spans can be PLACED on a
+    timeline, not just sized.  Additive only: every pre-existing field
+    keeps its name and meaning."""
+
+    def __init__(self, logger: Logger, event_name: str, **props: Any) -> None:
+        self.logger = logger
+        self.event_name = event_name
+        self.props = props
+        self._start = time.perf_counter()
+        self.start_time = time.time()  # wall clock: timeline placement
+        self._done = False
+
+    def end(self, **props: Any) -> None:
+        if self._done:
+            return
+        self._done = True
+        self.logger.performance(
+            f"{self.event_name}_end",
+            time.perf_counter() - self._start,
+            startTime=self.start_time,
+            **{**self.props, **props},
+        )
+
+    def cancel(self, error: BaseException | str = "", **props: Any) -> None:
+        if self._done:
+            return
+        self._done = True
+        self.logger.error(
+            f"{self.event_name}_cancel", error,
+            startTime=self.start_time,
+            **{**self.props, **props},
+        )
+
+    def __enter__(self) -> "PerformanceEvent":
+        return self
+
+    def __exit__(self, exc_type, exc, _tb) -> None:
+        if exc is None:
+            self.end()
+        else:
+            self.cancel(exc)
 
 
 class HealthCounters:
@@ -21,7 +144,7 @@ class HealthCounters:
     as one structured telemetry event so fleets report health through the
     ordinary logger pipeline."""
 
-    def __init__(self, logger=None, **initial: int) -> None:
+    def __init__(self, logger: Logger | None = None, **initial: int) -> None:
         self.logger = logger
         self._values: dict[str, Any] = dict(initial)
 
@@ -34,7 +157,9 @@ class HealthCounters:
 
     def ratio(self, name: str, numerator: str, denominator: str) -> None:
         """Derived gauge: ``numerator``/``denominator`` counter ratio at
-        snapshot time (0.0 while the denominator is empty)."""
+        snapshot time (0.0 while the denominator is empty).  Used for
+        amortization surfaces like ``steps_per_dispatch`` where the two
+        raw counters accumulate independently."""
         den = self._values.get(denominator, 0)
         self._values[name] = (
             round(self._values.get(numerator, 0) / den, 2) if den else 0.0
@@ -51,6 +176,66 @@ class HealthCounters:
             self.logger.generic(event_name, **self._values, **props)
 
 
+@dataclass
+class _SampleBucket:
+    count: int = 0
+    total_s: float = 0.0
+    min_s: float = float("inf")
+    max_s: float = 0.0
+
+
+class SampledTelemetryHelper:
+    """Aggregate hot-path timings, emit one event per ``sample_every`` calls
+    per bucket key (ref sampledTelemetryHelper.ts). Cheap enough to wrap every
+    op-apply: one perf_counter pair + dict update per call."""
+
+    def __init__(
+        self, logger: Logger, event_name: str, sample_every: int = 100
+    ) -> None:
+        self.logger = logger
+        self.event_name = event_name
+        self.sample_every = sample_every
+        self._buckets: dict[str, _SampleBucket] = {}
+
+    def measure(self, fn: Callable[[], Any], bucket: str = "") -> Any:
+        start = time.perf_counter()
+        out = fn()
+        self.record(time.perf_counter() - start, bucket)
+        return out
+
+    def record(self, duration_s: float, bucket: str = "") -> None:
+        b = self._buckets.setdefault(bucket, _SampleBucket())
+        b.count += 1
+        b.total_s += duration_s
+        b.min_s = min(b.min_s, duration_s)
+        b.max_s = max(b.max_s, duration_s)
+        if b.count >= self.sample_every:
+            self.flush(bucket)
+
+    def flush(self, bucket: str = "") -> None:
+        b = self._buckets.pop(bucket, None)
+        if b is None or b.count == 0:
+            return
+        self.logger.performance(
+            self.event_name,
+            b.total_s,
+            bucket=bucket,
+            count=b.count,
+            avg=b.total_s / b.count,
+            min=b.min_s,
+            max=b.max_s,
+        )
+
+    def flush_all(self) -> int:
+        """Flush every residual bucket (shutdown / status-snapshot hook):
+        tail samples below ``sample_every`` must never be silently dropped
+        when the process drains.  Returns the buckets flushed."""
+        pending = [k for k, b in self._buckets.items() if b.count > 0]
+        for key in pending:
+            self.flush(key)
+        return len(pending)
+
+
 class Histogram:
     """Log-bucketed, mergeable latency histogram with percentile queries.
 
@@ -59,8 +244,12 @@ class Histogram:
     ``count``/``sum``/``min``/``max`` ride alongside, and ``percentile``
     answers from the bucket cumulative clamped to the observed [min, max]
     — the result is within one bucket (a factor of ``growth``) of the
-    exact order statistic, single-sample case exact.  Recording costs
-    one ``math.log`` + one dict update.
+    exact order statistic, single-sample case exact.  Two histograms with
+    the same (base, growth) layout merge by bucket-count addition, so
+    per-doc / per-shard histograms roll up into fleet aggregates without
+    re-touching samples.  Recording costs one ``math.log`` + one dict
+    update: cheap enough for sampled per-op latency, kept OFF per-message
+    paths regardless.
     """
 
     __slots__ = ("base", "growth", "_lg", "count", "sum", "min", "max",
@@ -93,6 +282,18 @@ class Histogram:
         )
         self._buckets[i] = self._buckets.get(i, 0) + 1
 
+    def merge(self, other: "Histogram") -> "Histogram":
+        """Fold ``other`` into this histogram (same layout required)."""
+        if (self.base, self.growth) != (other.base, other.growth):
+            raise ValueError("histogram layouts differ; cannot merge")
+        self.count += other.count
+        self.sum += other.sum
+        self.min = min(self.min, other.min)
+        self.max = max(self.max, other.max)
+        for i, c in other._buckets.items():
+            self._buckets[i] = self._buckets.get(i, 0) + c
+        return self
+
     def percentile(self, q: float) -> float | None:
         """The q-quantile (q in [0, 1]); None while empty."""
         if self.count == 0:
@@ -107,3 +308,47 @@ class Histogram:
                 upper = self.base * self.growth ** i
                 return min(max(upper, self.min), self.max)
         return self.max  # unreachable; defensive
+
+    def percentiles(self, qs=(0.5, 0.9, 0.99)) -> dict[float, float | None]:
+        return {q: self.percentile(q) for q in qs}
+
+    def snapshot(self) -> dict[str, Any]:
+        """Plain-dict view (status lines, JSON artifacts)."""
+        if self.count == 0:
+            return {"count": 0}
+        return {
+            "count": self.count,
+            "sum": self.sum,
+            "min": self.min,
+            "max": self.max,
+            "p50": self.percentile(0.5),
+            "p90": self.percentile(0.9),
+            "p99": self.percentile(0.99),
+        }
+
+    def to_wire(self) -> dict[str, Any]:
+        """Lossless JSON-serializable form: full bucket counts ride along
+        (unlike ``snapshot``), so a histogram shipped across a process
+        boundary merges on the far side exactly as if the samples had been
+        recorded there.  Bucket keys stringify for JSON object keys."""
+        return {
+            "base": self.base,
+            "growth": self.growth,
+            "count": self.count,
+            "sum": self.sum,
+            "min": None if self.count == 0 else self.min,
+            "max": None if self.count == 0 else self.max,
+            "buckets": {str(i): c for i, c in self._buckets.items()},
+        }
+
+    @classmethod
+    def from_wire(cls, wire: dict) -> "Histogram":
+        """Rebuild a histogram from ``to_wire`` output (JSON round-trip)."""
+        h = cls(base=wire["base"], growth=wire["growth"])
+        h.count = int(wire["count"])
+        h.sum = float(wire["sum"])
+        if h.count > 0:
+            h.min = float(wire["min"])
+            h.max = float(wire["max"])
+        h._buckets = {int(i): int(c) for i, c in wire["buckets"].items()}
+        return h

@@ -103,15 +103,15 @@ def test_engine_latches_errors_like_reference():
 
 def test_unported_features_raise():
     """What is still unported raises: multi-shard segment lanes, spare
-    slots, migration, engine-promoted segment lanes, the columnar ingest
-    path and boot-snapshot adoption."""
-    for option in ({"seg_shards": 2}, {"spare_slots": 4}):
+    slots, migration, engine-promoted segment lanes and boot-snapshot
+    adoption."""
+    for option in ({"seg_shards": 2}, {"spare_slots": 4},
+                   {"seg_lane_segments": 64}, {"seg_rebalance_every": 8}):
         with pytest.raises(NotImplementedError):
             DocBatchEngine(2, device="cpu", **option)
     eng = DocBatchEngine(2, device="cpu", seg_shards=1)
     for method, args in (
         ("migrate_doc", (0, 0)), ("enable_segment_sharding", (0,)),
-        ("ingest_batch", ([0], [_join("w0", 0)])),
         ("adopt_boot_snapshot", (0, {})),
     ):
         with pytest.raises(NotImplementedError):

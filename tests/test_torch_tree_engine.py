@@ -387,8 +387,7 @@ def test_ingest_batch_and_watermarks_match_reference():
 
 
 def test_unported_options_raise():
-    for option in ({"mesh": object()}, {"spare_slots": 2},
-                   {"telemetry": object()}, {"plan_cache": False}):
+    for option in ({"mesh": object()}, {"spare_slots": 2}, {"plan_cache": False}):
         with pytest.raises(NotImplementedError):
             TreeBatchEngine(2, device="cpu", **option)
     with pytest.raises(TypeError):
@@ -397,7 +396,7 @@ def test_unported_options_raise():
                           native_wire=False, plan_cache=True)
     for method, args in (
         ("migrate_doc", (0, 0)), ("rebalance_hot_shards", ()),
-        ("adopt_boot_snapshot", (0, {})), ("ingest_lines", (0, b"")),
+        ("adopt_boot_snapshot", (0, {})),
     ):
         with pytest.raises(NotImplementedError):
             getattr(eng, method)(*args)
