@@ -109,17 +109,46 @@ runs these phases on the card, one JSON line each:
     columns, 16 steps of 64 SET_CELL ops from 64 writers with two of
     writer 0's row and column inserts and removes interleaved in each and
     FWW on some cells; the state and ``to_grid`` equal a CPU run exactly.
+14. ``serving``: the serving tier, through its entry points.
+    (a) A firehose stand-in (``FirehoseFeeder``: one thread answers the
+    consume handshake, one sends JSON lines) serves the fleet's traffic
+    for all 10,000 docs over local TCP to ``FleetConsumer`` over a
+    ``DocBatchEngine`` at config-3 geometry (``recovery="grow"``): joins
+    and round 0 warm it (``run_for``), rounds 1-15 are the timed drain
+    (drain ops/s and wire -> device ops/s as ``bench.py``
+    ``_wire_ingest_rate`` defines them), then a scribe summaryAck triggers
+    the compaction; no error bits, and 64 sampled docs identical to a CPU
+    ``ingest_lines`` replay of the same bytes.  RLIMIT_NOFILE's soft limit
+    is raised to two sockets a doc; a lower hard limit cuts the doc count,
+    written in the line as ``reduced``.  (b) tree_churn's stream to a
+    ``TreeBatchEngine`` over the same feeder, a step a round: every doc
+    identical to the tree_churn engine's.  (c) A ``ScribeLambda`` on the
+    card and one on the CPU summarize one topic of 64 string, 64 tree and
+    64 map docs (map_lww's op mix) and 4 matrices (the matrix phase's
+    stream, cut to 4 steps): the same commit SHAs, ``refs.json`` and git
+    objects; engines booted from ``SummaryRecordStore`` and fed the whole
+    stream equal engines fed it all.  (d) A primary of 512 docs with a
+    ``BackgroundCheckpointWriter``; a ``WarmStandby`` prepares (warmup,
+    timed), trails, and promotes when the primary releases its lease; the
+    promoted engine and a cold successor without warmup take the stream:
+    both equal the primary on 64 sampled docs; first-step times and the
+    promotion's ``recovery_p50_ms``.  (e) ``python -m
+    fluidframework_tpu_torch.server.fleet_main --device cuda`` over 256
+    docs, twice on one checkpoint directory: its ``done`` texts equal an
+    in-process engine's, and the second run prints ``restored`` with
+    ``checkpointed_ops_skipped > 0``.
 
 The fleet's traffic is made once, before phase 2, and shared by phases
-2, 3 and 6 (a ``traffic`` line gives its generation time); each tree
+2, 3, 6 and 14 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
-7-9b and 11-13 are the port's main path: the launch counters of K1, of the
+7-9b and 11-14 are the port's main path: the launch counters of K1, of the
 fleet programs, of K7 and K8, of K9 and of the map and matrix programs
 are set to 0 just before each of them and read just after, and a path
 that runs K1 (phases 4 and 5), K7 (phases 7-9b and 11), K8 (phases 7 and
 9), K9 (phase 11), the fleet program on wire_ingest (9b), the map
 program (12) or the matrix program (13) fails the run if it never
-launched.  Then it prints the ``kernels`` summary
+launched; so does the serving path (14) unless K2, K3, K7, K8 and the map
+and matrix programs all launched on it.  Then it prints the ``kernels`` summary
 line (K1, K7, K8, K9, map, matrix), the card's name and power limit,
 and, last, the ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
@@ -2342,6 +2371,723 @@ def phase_matrix(seed: int, card: str, device: str, steps: int = 16, B: int = 64
     return out
 
 
+# ------------------------------------------------------------------ serving
+
+class _FeederServer:
+    """The firehose stand-in's server (see ``FirehoseFeeder``): one thread
+    accepts subscriptions and answers the consume handshake
+    (``{"t":"consume","doc":...}``, then ``{"t":"consuming"}``), a second
+    sends each subscriber its doc's JSON lines, wave by wave."""
+
+    def __init__(self, waves: list[dict[str, bytes]]):
+        import queue
+        import socket
+        import threading
+
+        self.waves = waves
+        self.released = 0
+        self.subscriptions = 0
+        self._closed = False
+        self._subs: list = []
+        self._lock = threading.Lock()
+        self._jobs = queue.Queue()
+        self._sock = socket.create_server(("127.0.0.1", 0), backlog=1024)
+        self.port = self._sock.getsockname()[1]
+        self._threads = [threading.Thread(target=self._accept, daemon=True),
+                         threading.Thread(target=self._send, daemon=True)]
+        for t in self._threads:
+            t.start()
+
+    def _accept(self) -> None:
+        import socket
+
+        self._sock.settimeout(0.2)  # wakes to see close()
+        while not self._closed:
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            conn.settimeout(None)
+            buf = b""
+            while not buf.endswith(b"\n"):
+                chunk = conn.recv(4096)
+                if not chunk:
+                    break
+                buf += chunk
+            if not buf.endswith(b"\n"):
+                conn.close()
+                continue
+            doc = json.loads(buf)["doc"]
+            with self._lock:
+                # The ack goes out before any of the doc's data is queued.
+                self._subs.append((conn, doc))
+                self.subscriptions += 1
+                conn.sendall(b'{"t":"consuming"}\n')
+                for w in range(self.released):
+                    self._jobs.put((conn, self.waves[w].get(doc, b"")))
+
+    def _send(self) -> None:
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            conn, data = job
+            if data:
+                try:
+                    conn.sendall(data)
+                except OSError:
+                    pass  # the subscriber went away
+            self._jobs.task_done()
+
+    def release(self, wave: int) -> int:
+        with self._lock:
+            self.released += 1
+            for conn, doc in self._subs:
+                self._jobs.put((conn, self.waves[wave].get(doc, b"")))
+        return sum(map(len, self.waves[wave].values()))
+
+    def drop_subscribers(self) -> None:
+        with self._lock:
+            subs, self._subs = self._subs, []
+        for conn, _doc in subs:
+            conn.close()
+
+    def close(self) -> None:
+        self._closed = True
+        self._threads[0].join(timeout=10)
+        self._sock.close()
+        self._jobs.put(None)
+        self.drop_subscribers()
+        self._threads[1].join(timeout=10)
+
+
+def _feeder_main(conn, waves, fd_need: int) -> None:
+    """The feeder process: serve ``waves`` and answer the parent's
+    commands until ``close``."""
+    _raise_fd_limit(fd_need)
+    server = _FeederServer(waves)
+    conn.send(server.port)
+    while True:
+        cmd, arg = conn.recv()
+        if cmd == "release":
+            conn.send(server.release(arg))
+        elif cmd == "flush":
+            server._jobs.join()
+            conn.send(None)
+        elif cmd == "subscriptions":
+            conn.send(server.subscriptions)
+        elif cmd == "drop":
+            server.drop_subscribers()
+            conn.send(None)
+        else:
+            server.close()
+            conn.send(None)
+            return
+
+
+class FirehoseFeeder:
+    """A firehose stand-in over local TCP, in a process of its own (each
+    subscription holds a socket at both ends; two processes halve each
+    one's file descriptors).  ``waves[w][doc_id]`` is a doc's JSON-lines
+    bytes of wave ``w``: ``release(w)`` sends wave ``w`` to every
+    subscriber, and a later subscriber gets every released wave at once."""
+
+    def __init__(self, waves: list[dict[str, bytes]]):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self.released = 0
+        fd_need = len({d for w in waves for d in w}) + 512
+        self._proc = ctx.Process(target=_feeder_main, args=(child, waves, fd_need), daemon=True)
+        self._proc.start()
+        self.port = self._conn.recv()
+
+    def _call(self, cmd: str, arg=None):
+        self._conn.send((cmd, arg))
+        return self._conn.recv()
+
+    @property
+    def subscriptions(self) -> int:
+        return self._call("subscriptions")
+
+    def release(self, wave: int) -> int:
+        """Send wave ``wave`` to every subscriber; returns its bytes."""
+        check(wave == self.released, f"feeder: wave {wave} released out of order")
+        self.released += 1
+        return self._call("release", wave)
+
+    def flush(self) -> None:
+        """Wait until every queued send reached the kernel."""
+        self._call("flush")
+
+    def drop_subscribers(self) -> None:
+        self._call("drop")
+
+    def close(self) -> None:
+        if self._proc.is_alive():
+            self._call("close")
+        self._proc.join(timeout=30)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+
+
+def _raise_fd_limit(need: int) -> int:
+    """Raise RLIMIT_NOFILE's soft limit to ``need`` as far as the hard
+    limit allows; returns the soft limit in force."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = need if hard == resource.RLIM_INFINITY else min(need, hard)
+    if want > soft:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+    return resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+
+
+def _doc_waves(doc_ids, rounds_msgs, groups) -> list[dict[str, bytes]]:
+    """Per wave (a list of indices into ``rounds_msgs``), each doc's
+    messages of those rounds as one JSON-lines chunk, in stream order."""
+    out = []
+    for group in groups:
+        parts: dict[str, list[bytes]] = {}
+        for r in group:
+            for d, m in rounds_msgs[r]:
+                parts.setdefault(doc_ids[d], []).append(m.wire_line())
+        out.append({k: b"".join(v) for k, v in parts.items()})
+    return out
+
+
+def _rounds_for(traffic, n_docs: int, rounds: int) -> tuple:
+    """``fleet_traffic``'s joins and first ``rounds`` rounds for docs below
+    ``n_docs``."""
+    joins = [(d, m) for d, m in traffic[0] if d < n_docs]
+    return joins, [[(d, m) for d, m in r if d < n_docs] for r in traffic[1][:rounds]]
+
+
+def _serve_fleet(seed, device, traffic, n_docs, rounds, sample, geom, reduced) -> dict:
+    """Part (a): the string fleet over the wire."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.runtime.summary import make_scribe_ack
+    from fluidframework_tpu_torch.server.fleet_consumer import FleetConsumer
+
+    on_card = device == "cuda"
+    joins, rounds_msgs = _rounds_for(traffic, n_docs, rounds)
+    doc_ids = [f"d{d}" for d in range(n_docs)]
+    # Wave 0: the joins and round 0 (it warms the consumer and the step);
+    # wave 1: every later round (the timed drain); wave 2: the scribe's
+    # summaryAck for doc 0, the compaction trigger.
+    waves = _doc_waves(doc_ids, [joins + rounds_msgs[0]] + rounds_msgs[1:],
+                       [[0], list(range(1, rounds))])
+    last0 = max(m.seq for r in rounds_msgs for d, m in r if d == 0)
+    waves.append({doc_ids[0]: make_scribe_ack(doc_ids[0], last0, "0" * 64).wire_line()})
+    rows = [len(rounds_msgs[0]), sum(len(r) for r in rounds_msgs[1:])]
+    wire_bytes = sum(sum(map(len, w.values())) for w in waves)
+    out = {"docs": n_docs, "rounds": rounds, "ops": sum(rows), "wire_bytes": wire_bytes,
+           **reduced}
+    feeder = FirehoseFeeder(waves)
+    feeder.release(0)
+    eng = DocBatchEngine(n_docs, device=device, **geom)
+    t = time.perf_counter()
+    fc = FleetConsumer("127.0.0.1", feeder.port, eng, doc_ids)
+    try:
+        out["subscribe_s"] = time.perf_counter() - t
+        check(feeder.subscriptions == n_docs, f"serving: {feeder.subscriptions} subscriptions")
+        t = time.perf_counter()
+        fc.run_for(rows[0])
+        if on_card:
+            torch.cuda.synchronize()
+        out["warm_wave_s"] = time.perf_counter() - t
+        # The timed wave sits in the kernel's socket buffers before the
+        # clock starts (bench.py _wire_ingest_rate's two waves).
+        feeder.release(1)
+        feeder.flush()
+        time.sleep(0.25)
+        t0 = time.perf_counter()
+        idle = 0
+        while fc.rows_staged < sum(rows):
+            if fc.pump(0.005) == 0:
+                idle += 1
+                check(idle < 2000, f"serving: firehose idle at {fc.rows_staged}/{sum(rows)} rows")
+            else:
+                idle = 0
+        t_drain = time.perf_counter() - t0
+        fc.step()
+        if on_card:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        # The ack arrives after the drain: the pump that reads it compacts.
+        feeder.release(2)
+        for _ in range(2000):
+            if fc.bytes_consumed >= wire_bytes:
+                break
+            fc.pump(0.005)
+        check(fc.bytes_consumed == wire_bytes,
+              f"serving: consumed {fc.bytes_consumed} of {wire_bytes} bytes")
+        h = fc.health()
+        check(h["msn_compactions"] == 1, "serving: the summaryAck did not compact the fleet")
+        check(not fc.dead_socks, f"serving: dead sockets {sorted(fc.dead_socks)[:8]}")
+        check(eng.error_count() == 0, f"serving: {eng.error_count()} docs latched error bits")
+        modes = sorted({x.mode for x in eng.hosts})
+        check(modes == ["native"], f"serving: docs left the native path ({modes})")
+        out.update({"drain_s": t_drain, "step_s": dt - t_drain,
+                    "drain_ops_per_s": rows[1] / t_drain, "wire_ops_per_s": rows[1] / dt,
+                    "timed_ops": rows[1], "rows_staged": fc.rows_staged,
+                    "pump_pauses": h["pump_pauses"], "megasteps": h["megastep_dispatches"]})
+    finally:
+        fc.close()
+        feeder.close()
+    # The CPU replay of the same bytes, stepped and compacted at the same
+    # points, holds the sampled docs.
+    pick = sorted(int(d) for d in np.random.default_rng(seed + 1).choice(
+        n_docs, size=min(sample, n_docs), replace=False))
+    ref = DocBatchEngine(len(pick), device="cpu", **geom)
+    for w, wave in enumerate(waves):
+        for j, d in enumerate(pick):
+            if wave.get(doc_ids[d]):
+                ref.ingest_lines(j, wave[doc_ids[d]])
+        if w < 2:
+            ref.step()
+        else:
+            ref.compact()
+    same = sum(_state_rows_equal(eng.doc_state(d), ref.doc_state(j)) for j, d in enumerate(pick))
+    check(same == len(pick), f"serving: {len(pick) - same} of {len(pick)} sampled docs differ "
+                             "from the CPU ingest_lines replay")
+    out["sampled_docs_identical"] = same
+    return out
+
+
+def _serve_tree(device, churn) -> dict:
+    """Part (b): tree_churn's stream over the wire, one step a round."""
+    import torch
+
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.server.fleet_consumer import FleetConsumer
+
+    churn_eng, round_blobs = churn
+    n = churn_eng.n_docs
+    doc_ids = [f"t{d}" for d in range(n)]
+    waves = [{doc_ids[d]: blob for d, blob in enumerate(blobs) if blob} for blobs in round_blobs]
+    feeder = FirehoseFeeder(waves)
+    eng = TreeBatchEngine(n, device=device, **TREE_CHURN_GEOM)
+    fc = FleetConsumer("127.0.0.1", feeder.port, eng, doc_ids)
+    want = 0
+    t0 = time.perf_counter()
+    try:
+        for w in range(len(waves)):
+            want += feeder.release(w)
+            for _ in range(4000):
+                if fc.bytes_consumed >= want:
+                    break
+                fc.pump(0.005)
+            check(fc.bytes_consumed == want, f"serving tree: consumed {fc.bytes_consumed} of {want}")
+            fc.step()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h = fc.health()
+    finally:
+        fc.close()
+        feeder.close()
+    check(not eng.errors().any() and sorted(eng.fallbacks) == sorted(churn_eng.fallbacks),
+          "serving tree: error bits or fallbacks differ from tree_churn's")
+    same = sum(_tree_docs_identical(eng, d, churn_eng, d) for d in range(n))
+    check(same == n, f"serving tree: {n - same} of {n} docs differ from the tree_churn engine's")
+    edits = sum(blob.count(b"\n") for w in waves for blob in w.values())
+    return {"docs": n, "edits": edits, "wall_s": wall, "edits_per_s": edits / wall,
+            "rows_staged": h["rows_staged"], "native_batches": h.get("tree_native_batches", 0),
+            "identical_docs": same}
+
+
+def scribe_traffic(seed: int, n_strings: int, n_trees: int, n_maps: int, n_matrices: int,
+                   matrix_steps: int) -> list:
+    """The scribe's topic as (doc id, message) pairs in produce order:
+    config-3 string docs (``fleet_traffic``, 8 rounds), config-5 tree docs
+    (``tree_traffic``, 4 rounds), maps of map_lww's op mix (256 SET and
+    DELETE ops over 256 keys, a CLEAR halfway) and matrices of the matrix
+    phase's stream (``matrix_traffic``, ``matrix_steps`` steps), as wire
+    messages."""
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    from fluidframework_tpu_torch.protocol.messages import MessageType, SequencedMessage
+
+    def op(seq, ref, contents, client="w0"):
+        return SequencedMessage(client_id=client, client_seq=seq, ref_seq=ref, seq=seq,
+                                min_seq=0, contents=contents)
+
+    out = []
+    joins, rounds = fleet_traffic(n_strings, 8, FLEET_GEOM["ops_per_step"], 8, seed + 51)
+    out += [(f"s{d}", m) for d, m in joins + [x for r in rounds for x in r]]
+    out += [(f"t{d}", m) for r in tree_traffic(seed + 52, n_trees, 4) for d, m in r]
+    kinds, keys, vals = map_ops(np.random.default_rng(seed + 53), (n_maps, 256), 256)
+    for d in range(n_maps):
+        seq = 0
+        for b in range(256):
+            if b == 128:
+                seq += 1
+                out.append((f"m{d}", op(seq, seq - 1, {"type": "clear"})))
+            seq += 1
+            key = f"k{keys[d, b]}"
+            out.append((f"m{d}", op(seq, seq - 1, {"type": "set", "key": key,
+                                                   "value": int(vals[d, b])}
+                                    if kinds[d, b] == 1 else {"type": "delete", "key": key})))
+    K = mxk.MatrixOpKind
+    names = {K.INSERT_ROWS: "insertRows", K.INSERT_COLS: "insertCols",
+             K.REMOVE_ROWS: "removeRows", K.REMOVE_COLS: "removeCols"}
+    for x in range(n_matrices):
+        out += [(f"x{x}", SequencedMessage(
+            client_id=f"w{w}", client_seq=0, ref_seq=0, seq=0, min_seq=0,
+            type=MessageType.JOIN, contents={"clientId": f"w{w}", "short": w}))
+            for w in range(64)]
+        for ops in matrix_traffic(seed + 54 + x, matrix_steps):
+            for kind, seq, client, ref, a, b, v, fww in ops.tolist():
+                if kind == K.SET_CELL:
+                    c = {"type": "set", "row": a, "col": b, "value": v}
+                    if fww:
+                        c["fwwMode"] = True
+                else:
+                    c = {"type": names[kind], "pos": a, "count": b}
+                out.append((f"x{x}", op(seq, ref, c, client=f"w{client}")))
+    return out
+
+
+def _serve_scribe(seed, device, n_strings, n_trees, n_maps, n_matrices, matrix_steps,
+                  sample) -> dict:
+    """Part (c): the scribe on ``device`` against the same scribe on the
+    CPU, then engines booted from its summaries."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.runtime.summary import parse_scribe_ack
+    from fluidframework_tpu_torch.server.ordered_log import Topic
+    from fluidframework_tpu_torch.server.scribe import (
+        ScribeConfig,
+        ScribeLambda,
+        SummaryRecordStore,
+    )
+
+    t = time.perf_counter()
+    msgs = scribe_traffic(seed, n_strings, n_trees, n_maps, n_matrices, matrix_steps)
+    gen_s = time.perf_counter() - t
+    cfg = ScribeConfig(max_ops=64, map_max_keys=256,
+                       matrix_shape=(MATRIX_GEOM["max_rows"], MATRIX_GEOM["max_cols"]),
+                       matrix_segments=MATRIX_GEOM["max_segments"])
+    cut = (3 * len(msgs)) // 5
+    runs = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_scribe_")
+    try:
+        for dev in dict.fromkeys((device, "cpu")):
+            topic = Topic("deltas", 4)
+            sc = ScribeLambda(topic, os.path.join(root, dev), config=cfg, device=dev)
+            t = time.perf_counter()
+            for part in (msgs[:cut], msgs[cut:]):
+                for doc, m in part:
+                    topic.produce(doc, m)
+                sc.pump()
+            sc.summarize_all()
+            sc.pump()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            sc.close()
+            with open(os.path.join(root, dev, "objects", "objects.jsonl"), "rb") as f:
+                objects = f.read()
+            with open(os.path.join(root, dev, "refs.json"), "rb") as f:
+                refs = f.read()
+            acks = [parse_scribe_ack(r.payload) for p in range(topic.n_partitions)
+                    for r in topic.partition(p).read(0)]
+            runs[dev] = {"scribe": sc, "wall": wall, "objects": objects, "refs": refs,
+                         "acks": [a for a in acks if a is not None]}
+        main, cpu = runs[device], runs["cpu"]
+        check(main["refs"] == cpu["refs"], "scribe: refs.json differs from the CPU scribe's")
+        check(main["acks"] == cpu["acks"], "scribe: the commit SHAs differ from the CPU scribe's")
+        check(main["objects"] == cpu["objects"], "scribe: git objects differ from the CPU scribe's")
+        sc = main["scribe"]
+        h = sc.health()
+        n_docs = n_strings + n_trees + n_maps + n_matrices
+        check(h["failed_docs"] == 0 and h["acked_docs"] == n_docs,
+              f"scribe: {h['failed_docs']} failed, {h['acked_docs']} of {n_docs} acked")
+        store = SummaryRecordStore.from_scribe(sc)
+        fams: dict[str, int] = {}
+        for d in store.docs():
+            fams[store.family(d)] = fams.get(store.family(d), 0) + 1
+        check(fams == {"doc_batch": n_strings, "tree_batch": n_trees, "map_batch": n_maps,
+                       "matrix_batch": n_matrices}, f"scribe: families {fams}")
+        # Engines booted from the acked summaries, then fed the whole
+        # stream (the covered prefix skips by seq floor), equal engines fed
+        # it all.
+        rng = np.random.default_rng(seed + 4)
+        t = time.perf_counter()
+        s_idx = {f"s{d}": d for d in range(n_strings)}
+        s_msgs = [(s_idx[doc], m) for doc, m in msgs if doc in s_idx]
+        primary = DocBatchEngine(n_strings, device=device, **FLEET_GEOM)
+        boot = DocBatchEngine(n_strings, device=device, doc_keys=list(s_idx), **FLEET_GEOM)
+        check(boot.restore_from_checkpoints(store=store) == list(range(n_strings)),
+              "scribe: the string docs did not all boot from their summaries")
+        for eng in (primary, boot):
+            for d, m in s_msgs:
+                eng.ingest(d, m)
+            eng.step()
+            eng.compact()  # the scribe's replica compacts as it folds
+        pick = sorted(rng.choice(n_strings, size=min(sample, n_strings), replace=False).tolist())
+        same = sum(_docs_equivalent(primary, d, boot, d) for d in pick)
+        check(same == len(pick), f"scribe: {len(pick) - same} booted string docs differ")
+        skipped = boot.health()["checkpointed_ops_skipped"]
+        check(skipped > 0, "scribe: the boot replay skipped nothing")
+        t_idx = {f"t{d}": d for d in range(n_trees)}
+        t_msgs = [(t_idx[doc], m) for doc, m in msgs if doc in t_idx]
+        tprimary = TreeBatchEngine(n_trees, device=device, **TREE_FLEET_GEOM)
+        tboot = TreeBatchEngine(n_trees, device=device, doc_keys=list(t_idx), **TREE_FLEET_GEOM)
+        check(tboot.restore_from_checkpoints(store=store) == list(range(n_trees)),
+              "scribe: the tree docs did not all boot from their summaries")
+        tboot.step()
+        for eng in (tprimary, tboot):
+            for d, m in t_msgs:
+                eng.ingest(d, m)
+            eng.step()
+        tpick = sorted(rng.choice(n_trees, size=min(sample, n_trees), replace=False).tolist())
+        # The served views: a booted EditManager's trunk window holds the
+        # rebased commits in another (equivalent) form than a live one's,
+        # in the reference as well, so its summary is not compared.
+        tsame = sum(json.dumps(tprimary.tree_json(d)) == json.dumps(tboot.tree_json(d))
+                    and json.dumps(tprimary.values(d)) == json.dumps(tboot.values(d))
+                    for d in tpick)
+        check(tsame == len(tpick), f"scribe: {len(tpick) - tsame} booted tree docs differ")
+        boot_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"docs": n_docs, "messages": len(msgs), "matrix_steps": matrix_steps,
+            "traffic_gen_s": gen_s, "wall_s": main["wall"], "cpu_wall_s": cpu["wall"],
+            "summaries": h["summaries_written"],
+            "summaries_per_s": h["summaries_written"] / main["wall"],
+            "acks": len(main["acks"]), "object_bytes": len(main["objects"]),
+            "git_sharing_ratio": h["git_sharing_ratio"],
+            "handles_reused": h["summary_handles_reused"],
+            "booted_strings_equal": same, "booted_trees_equal": tsame,
+            "boot_ops_skipped": skipped, "boot_s": boot_s}
+
+
+def _serve_failover(seed, device, traffic, n_docs, rounds, sample, geom) -> dict:
+    """Part (d): a primary with a background checkpoint writer, and a warm
+    standby that prepares, trails and promotes on the lease's release."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.models.recovery import BackgroundCheckpointWriter
+    from fluidframework_tpu_torch.observability import uninstall
+    from fluidframework_tpu_torch.server.failover import LeaseFile, WarmStandby
+    from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def feed(eng, r):
+        eng.ingest_batch([d for d, _ in rounds_msgs[r]], [m for _, m in rounds_msgs[r]])
+
+    # One round past the kill: the promoted engine's first step then has
+    # work however far the writer and the trails got (a fully caught-up
+    # standby replays nothing, and its recovery clock waits for work).
+    joins, rounds_msgs = _rounds_for(traffic, n_docs, rounds + 1)
+    half = rounds // 2
+    root = tempfile.mkdtemp(prefix="chip_smoke_failover_")
+    store_dir = os.path.join(root, "ckpt")
+    lease_path = os.path.join(root, "lease.json")
+    out = {"docs": n_docs, "rounds": rounds, "rounds_after_kill": 1}
+    try:
+        primary = DocBatchEngine(n_docs, device=device,
+                                 checkpoint_store=CheckpointStore(store_dir), **geom)
+        lease = LeaseFile(lease_path, "primary", ttl_s=60.0)
+        check(lease.acquire(), "failover: the primary could not take the lease")
+        writer = BackgroundCheckpointWriter(primary, max_seconds_behind=0.05,
+                                            interval_s=0.02).start()
+        try:
+            for d, m in joins:
+                primary.ingest(d, m)
+            for r in range(half):
+                feed(primary, r)
+                primary.step()
+            sync()
+            time.sleep(0.2)
+            eng = DocBatchEngine(n_docs, device=device,
+                                 checkpoint_store=CheckpointStore(store_dir), **geom)
+            ws = WarmStandby(eng, CheckpointStore(store_dir),
+                             lease=LeaseFile(lease_path, "standby", ttl_s=60.0))
+            rec = install_recorder(1 << 12)
+            try:
+                t = time.perf_counter()
+                ws.prepare()
+                sync()
+                out["prepare_s"] = time.perf_counter() - t
+                out["warmup_s"] = recorder_line(rec, None, "")["phase_s"].get("warmup")
+            finally:
+                uninstall()
+            out["warmup_dispatches"] = eng.health()["warmup_dispatches"]
+            out["adopted_at_prepare"] = sum(h.restored for h in eng.hosts)
+            for r in range(half, rounds):
+                feed(primary, r)
+                primary.step()
+                sync()
+                ws.trail()
+            check(not ws.should_promote(), "failover: the standby would promote under a live lease")
+        finally:
+            writer.stop()
+        out["writer"] = writer.stats()
+        check(out["writer"]["ckpt_writer_records"] > 0 and out["writer"]["ckpt_writer_errors"] == 0,
+              f"failover: checkpoint writer {out['writer']}")
+        # A cold successor from the same store, without warmup, for the
+        # first-step comparison (built before the kill: the recovery clock
+        # times the standby alone).
+        cold = DocBatchEngine(n_docs, device=device,
+                              checkpoint_store=CheckpointStore(store_dir), **geom)
+        cold.restore_from_checkpoints()
+        # The primary shuts down cleanly: its lease release promotes.
+        lease.release()
+        check(ws.should_promote(), "failover: the released lease does not promote the standby")
+        t_kill = time.monotonic()
+        ws.promote(incident_started_at=t_kill)
+        out["trails"], out["adoptions"] = ws.trails, ws.adoptions
+        check(ws.lease.epoch >= 0, "failover: the promoted standby does not hold the lease")
+        steps = {}
+        for name, e in (("warm", eng), ("cold", cold)):
+            for d, m in joins:
+                e.ingest(d, m)
+            for r in range(rounds + 1):
+                feed(e, r)  # the checkpointed prefix skips by seq floor
+            t = time.perf_counter()
+            e.step()
+            sync()
+            steps[name] = time.perf_counter() - t
+        feed(primary, rounds)  # what the primary would hold had it lived
+        primary.step()
+        h = eng.health()
+        pick = sorted(int(d) for d in np.random.default_rng(seed + 5).choice(
+            n_docs, size=min(sample, n_docs), replace=False))
+        same = sum(_docs_equivalent(primary, d, eng, d) for d in pick)
+        check(same == len(pick), f"failover: {len(pick) - same} promoted docs differ from the primary")
+        same_cold = sum(_docs_equivalent(primary, d, cold, d) for d in pick)
+        check(same_cold == len(pick), f"failover: {len(pick) - same_cold} cold docs differ")
+        check(eng.error_count() == 0, "failover: error bits after the promotion")
+        check(h["recovery_incidents"] == 1 and h["standby_promotions"] == 1,
+              f"failover: incidents {h['recovery_incidents']}, promotions {h['standby_promotions']}")
+        out.update({"first_step_warm_s": steps["warm"], "first_step_cold_s": steps["cold"],
+                    "recovery_p50_ms": h["recovery_p50_ms"],
+                    "checkpointed_ops_skipped": h["checkpointed_ops_skipped"],
+                    "identical_docs": same})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _serve_entry(device, traffic, n_docs, rounds, geom) -> dict:
+    """Part (e): ``fleet_main`` as a subprocess, twice on one checkpoint
+    directory, against an in-process engine fed the same bytes."""
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+
+    joins, rounds_msgs = _rounds_for(traffic, n_docs, rounds)
+    doc_ids = [f"e{d}" for d in range(n_docs)]
+    half = rounds // 2
+    waves = _doc_waves(doc_ids, [joins + rounds_msgs[0]] + rounds_msgs[1:],
+                       [list(range(half)), list(range(half, rounds))])
+    wave_rows = [sum(len(r) for r in rounds_msgs[:half]), sum(len(r) for r in rounds_msgs[half:])]
+    feeder = FirehoseFeeder(waves)
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {"docs": n_docs, "rounds": rounds, "rows": wave_rows}
+    try:
+        cmd = [sys.executable, "-m", "fluidframework_tpu_torch.server.fleet_main",
+               "--port", str(feeder.port), "--docs", ",".join(doc_ids), "--device", device,
+               "--checkpoint-dir", os.path.join(root, "ckpt"),
+               "--capacity", str(geom["max_segments"]),
+               "--text-capacity", str(geom["text_capacity"]),
+               "--max-insert-len", str(geom["max_insert_len"]),
+               "--ops-per-step", str(geom["ops_per_step"]),
+               "--megastep-k", str(geom["megastep_k"]), "--status-every", "600"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        runs = []
+        for w in range(2):
+            feeder.release(w)
+            t = time.perf_counter()
+            proc = subprocess.run([*cmd, "--exit-after-rows", str(wave_rows[w])],
+                                  capture_output=True, text=True, timeout=300, env=env, cwd=repo)
+            wall = time.perf_counter() - t
+            check(proc.returncode == 0,
+                  f"entry: fleet_main run {w} exited {proc.returncode}: {proc.stderr[-1500:]}")
+            runs.append(([json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")],
+                         wall))
+            feeder.drop_subscribers()
+        eng = DocBatchEngine(n_docs, device=device, **geom)
+        texts = []
+        for wave in waves:
+            for d, doc in enumerate(doc_ids):
+                if wave.get(doc):
+                    eng.ingest_lines(d, wave[doc])
+            eng.step()
+            texts.append({doc: eng.text(d) for d, doc in enumerate(doc_ids)})
+        (first, wall0), (second, wall1) = runs
+        check(first[-1].get("done") and first[-1]["errors"] == 0, "entry: run 0 did not end clean")
+        check(first[-1]["texts"] == texts[0], "entry: run 0's texts differ from the in-process engine")
+        check(second[0].get("restored") == doc_ids, "entry: run 1 did not restore every doc")
+        check(second[-1].get("done") and second[-1]["errors"] == 0, "entry: run 1 did not end clean")
+        skipped = second[-1]["health"]["checkpointed_ops_skipped"]
+        check(skipped > 0, "entry: the restart replay skipped nothing")
+        check(second[-1]["texts"] == texts[1], "entry: run 1's texts differ from the in-process engine")
+        out.update({"run_s": [wall0, wall1], "checkpointed_ops_skipped": skipped,
+                    "checkpoints_written": first[-1]["health"]["checkpoints_written"]})
+    finally:
+        feeder.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_serving(seed: int, card: str, device: str, traffic, churn, n_docs: int = 10_000,
+                  rounds: int = 16, sample: int = 64, geom: dict = FLEET_GEOM,
+                  scribe_docs: tuple = (64, 64, 64, 4), matrix_steps: int = 4,
+                  failover_docs: int = 512, failover_rounds: int = 8,
+                  entry_docs: int = 256, entry_rounds: int = 8) -> dict:
+    """Phase 14, the serving tier on ``device``: (a) the string fleet over
+    the wire, (b) the tree fleet over the wire, (c) the scribe, (d)
+    failover, (e) the ``fleet_main`` entry point (see the module
+    docstring).  ``traffic`` is ``fleet_traffic``'s for ``n_docs`` docs;
+    ``churn`` is ``phase_tree_churn``'s engine and stream."""
+    geom = dict(geom, recovery="grow")
+    out = {"phase": "serving", "card": card}
+    t_all = time.perf_counter()
+    # Each subscription holds a socket here and one in the feeder process.
+    need = n_docs + 512
+    limit = _raise_fd_limit(need)
+    reduced = {}
+    if limit < need:
+        cut = max(64, limit - 512)
+        reduced = {"reduced": f"docs {n_docs} -> {cut}: RLIMIT_NOFILE hard limit {limit}"}
+        n_docs = cut
+    out["fd_limit"] = limit
+    parts = (
+        ("wire_fleet", lambda: _serve_fleet(seed, device, traffic, n_docs, rounds, sample, geom,
+                                            reduced)),
+        ("wire_tree", lambda: _serve_tree(device, churn)),
+        ("scribe", lambda: _serve_scribe(seed, device, *scribe_docs, matrix_steps, sample)),
+        ("failover", lambda: _serve_failover(seed, device, traffic, failover_docs,
+                                             failover_rounds, sample, geom)),
+        ("entry", lambda: _serve_entry(device, traffic, entry_docs, entry_rounds, geom)),
+    )
+    for name, part in parts:
+        t = time.perf_counter()
+        out[name] = part()
+        out[name]["part_s"] = time.perf_counter() - t
+        gc.collect()
+    out["wall_s"] = time.perf_counter() - t_all
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2424,13 +3170,11 @@ def main(argv=None) -> int:
     path("hot_doc", phase_hot_doc, args.seed, card, "cuda")
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
     phase_fleet_programs(args.seed, card, traffic)
-    del traffic
     _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda",
                        record=True, trace_dir=args.trace_dir)
     _line, deep = path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
     _line, churn = path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
     path("wire_ingest", phase_wire_ingest, args.seed, card, "cuda", churn)
-    del churn
     tree = time_tree_programs(card, ring)
     del ring
     path("tree_rebase", phase_tree_rebase, args.seed, card, "cuda", deep,
@@ -2438,6 +3182,8 @@ def main(argv=None) -> int:
     del deep
     mp_line = path("map_lww", phase_map_lww, args.seed, card, "cuda")
     mx_line = path("matrix", phase_matrix, args.seed, card, "cuda")
+    path("serving", phase_serving, args.seed, card, "cuda", traffic, churn)
+    del traffic, churn
     for name in ("hot_doc", "long_doc"):
         check(paths["resolve_positions"][name] > 0, f"K1 was never launched on the {name} path")
     for name in ("tree_fleet", "tree_deep", "tree_churn", "wire_ingest", "tree_rebase"):
@@ -2449,6 +3195,10 @@ def main(argv=None) -> int:
     check(paths["apply_ops_fleet"]["matrix"] > 0, "the matrix program never ran on the matrix path")
     for name in ("tree_fleet", "tree_churn"):
         check(paths["compact_nested"][name] > 0, f"K8 was never launched on the {name} path")
+    for prog, what in (("apply_megastep", "K2"), ("compact", "K3"), ("apply_nested_megastep", "K7"),
+                       ("compact_nested", "K8"), ("apply_batch_fleet", "the map program"),
+                       ("apply_ops_fleet", "the matrix program")):
+        check(paths[prog]["serving"] > 0, f"{what} was never launched on the serving path")
 
     emit({"phase": "fleet_programs_launches", **{prog: paths[prog] for prog in (
         "apply_megastep", "compact", "apply_megastep_seg", "compact_seg")}})

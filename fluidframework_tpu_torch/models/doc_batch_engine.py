@@ -60,10 +60,14 @@ waits for the device inside ``step``, so a latency sample there times the
 launch, not the apply.  ``health()`` carries no ``recompiles``: the port
 compiles nothing at run time.
 
+Serving: ``adopt_boot_snapshot`` re-seeds one doc from a historian
+snapshot record (``models/placement.py``); ``warmup`` makes the serving
+programs' first launches ahead of a standby's promotion; ``note_incident``
+back-dates the recovery clock.
+
 Not ported yet (``NotImplementedError``): multi-shard segment lanes
 (``seg_shards > 1``, ``seg_lane_segments``, ``seg_rebalance_every``), spare
-slots and migration, boot-snapshot adoption and cohort steps: every
-megastep runs fleet-wide.
+slots and migration, and cohort steps: every megastep runs fleet-wide.
 """
 
 from __future__ import annotations
@@ -97,7 +101,7 @@ from .recovery import (
     stale_due_docs,
     write_checkpoint_records,
 )
-from .staging import OverloadGate, RowQueue, StagingRing
+from .staging import OverloadGate, RowQueue, StagingRing, warmup_depths
 
 
 class _DocHost:
@@ -1398,8 +1402,64 @@ class DocBatchEngine:
                                 text_capacity: int = 0) -> bool:
         raise NotImplementedError("engine-promoted segment lanes are not ported yet")
 
-    def adopt_boot_snapshot(self, doc_idx: int, record: dict):
-        raise NotImplementedError("boot-snapshot adoption is not ported yet")
+    # ------------------------------------------------ boot adoption, warmup
+    def adopt_boot_snapshot(self, doc_idx: int, record: dict) -> placement.AdoptResult:
+        """Client half of the fan-out plane's ``{"t":"resync","boot":true}``
+        contract (``placement.adopt_boot_snapshot`` over this engine's
+        refresh re-seed path): a consumer that fell off the retained log
+        re-seeds the document from a historian snapshot record (the scribe
+        summary schema, ``engine: doc_batch``) and re-consumes from the
+        returned floor; lanes, quorum, prop tables and the replay floor all
+        reset consistently."""
+        return placement.adopt_boot_snapshot(self, doc_idx, record, self._clear_staged)
+
+    def _clear_staged(self, doc_idx: int) -> None:
+        """Drop a doc's staged pre-gap work ahead of a boot-snapshot
+        adoption: the refresh guard refuses docs with pending ops
+        (trailing must not race serving), but a boot resync REPLACES the
+        doc — pre-gap rows are covered by the snapshot."""
+        self.hosts[doc_idx].queue.clear()
+        lane = self.overflow.get(doc_idx)
+        if lane is not None:
+            lane.queue.clear()
+        self._busy.discard(doc_idx)
+
+    def warmup(self) -> int:
+        """Warm the fleet's serving programs (warm-standby boot): dispatch
+        all-NOOP megasteps at K=1, every power of two up to ``megastep_k``
+        and a non-power-of-two ``megastep_k`` itself (``_select_k`` clamps
+        to it), plus one compact, through the serving entry points.  On the
+        card this loads the CUDA kernel library and makes each program's
+        first launch, so lazy module loading and allocator growth happen
+        before promotion, not on the first real step.  NOOP slices are
+        identity by kernel contract and the compact's result is dropped, so
+        the state bytes are untouched.
+        Returns the number of warmup dispatches (the reference's count: the
+        port compiles nothing, so there is no recompile poll)."""
+        warmed = 0
+        with self.ckpt_lock, span("warmup", k_max=self.megastep_k):
+            if self.device.type == "cuda":
+                from ..ops import cuda_build
+
+                cuda_build.load()
+            stage = self._staging()
+            for k in warmup_depths(self.megastep_k):
+                ops, payloads = stage.acquire(k, self.capacity)
+                kinds = ops[..., 0].copy()
+                dev_ops, dev_payloads = stage.upload(ops, payloads)
+                self.state = self._megastep(self.state, dev_ops, dev_payloads, kinds=kinds)
+                warmed += 1
+            # The compact program's first launch runs on the live state and
+            # its result is dropped: a warmup never compacts a serving fleet
+            # (the reference's keeps it, which changes a fleet whose MSN
+            # moved since its last compact).
+            mins = np.array([h.min_seq for h in self.hosts], np.int32)
+            self._compact(self.state, self._pm.shard_docs(torch.from_numpy(mins), self.mesh))
+            warmed += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.counters.gauge("warmup_dispatches", warmed)
+        return warmed
 
     # --------------------------------------------------------------- watchdog
     def watchdog(self, sample: int | None = None) -> list[int]:
@@ -1590,6 +1650,13 @@ class DocBatchEngine:
         """Staged-but-unapplied rows of doc ``d`` (batch queue + lane)."""
         lane = self.overflow.get(d)
         return len(self.hosts[d].queue) + (len(lane.queue) if lane else 0)
+
+    def note_incident(self, started_at: float) -> None:
+        """Back-date the current recovery incident to the supervisor's
+        kill timestamp (``time.monotonic`` domain): the recovery histogram
+        then measures kill -> first post-restore op applied, not merely
+        restore -> applied."""
+        self.recovery_tracker.begin(started_at)
 
     def restore_from_checkpoints(
         self,

@@ -1,21 +1,28 @@
 """The engine-agnostic half of checkpoint and restore.
 
-``load_checkpoint_records``, ``stale_due_docs``, ``write_checkpoint_records``
-and ``RecoveryTracker`` of ``fluidframework_tpu/models/recovery.py``, with
-its flight-recorder spans (``restore_load``, ``checkpoint``) and the
-``recovery_complete`` instant.  ``BackgroundCheckpointWriter`` is not
-ported.
+``load_checkpoint_records``, ``stale_due_docs``, ``write_checkpoint_records``,
+``RecoveryTracker`` and ``BackgroundCheckpointWriter`` of
+``fluidframework_tpu/models/recovery.py``, with its flight-recorder spans
+(``restore_load``, ``checkpoint``) and the ``recovery_complete`` instant.
 
 Thread-safety contract: a checkpoint record is BUILT under the engine's
 re-entrant ``ckpt_lock`` (taken by ``step``/``ingest``/``maybe_checkpoint``/
 ``restore_from_checkpoints``, so a sweep only ever sees an op boundary) and
 WRITTEN after it is released, one record at a time under ``_ckpt_io_lock``
 with per-doc seq fencing: the durable fsyncs never stall the serving
-thread, and two sweeps never write an older record over a newer one.
+thread, and two sweeps never write an older record over a newer one.  The
+background writer's thread enters the engine only through
+``engine.checkpoint_stale``, so every record it builds (the tree engine's
+trunk fold and ``em.summarize()``, which touch the engine's MarkPool; the
+string engine's device reads of a row) is built under ``ckpt_lock``, never
+beside the serving thread's ingest or step.  On the card both threads issue
+on the process's default stream, so a record's ``.cpu()`` reads wait for
+every step the serving thread launched before it.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 from ..observability.flight_recorder import instant, span
@@ -144,6 +151,20 @@ class RecoveryTracker:
     def active(self) -> bool:
         return self._t0 is not None
 
+    @property
+    def started_at(self) -> float | None:
+        """The open incident's start (``time.monotonic`` domain), or None.
+        A supervisor replacing the engine mid-incident carries this onto
+        the successor (``note_incident``) so the unresolved window is
+        measured, not dropped."""
+        return self._t0
+
+    def cancel(self) -> None:
+        """Abandon the open incident without recording it (a standby's
+        boot-time restore is preparation, not recovery — only a real
+        promotion/restart should measure)."""
+        self._t0 = None
+
     def complete(self) -> float | None:
         """Close the open incident; returns the recovery seconds (None if
         no incident was open)."""
@@ -171,3 +192,81 @@ class RecoveryTracker:
                 round(self.histogram.percentile(0.99) * 1e3, 3),
             )
             counters.gauge("last_recovery_ms", self.last_ms)
+
+
+class BackgroundCheckpointWriter:
+    """Bounded-staleness delta-checkpoint writer (daemon thread).
+
+    Every ``interval_s`` the thread asks the engine to checkpoint any
+    dirty doc whose durable record has fallen ``max_ops_behind`` applied
+    ops or ``max_seconds_behind`` seconds behind (``engine.
+    checkpoint_stale`` — which takes the engine's checkpoint lock, so the
+    sweep serializes against the serving thread's step/ingest).  The
+    engine's own ``checkpoint_every`` cadence keeps hot docs bounded by
+    op count; this writer bounds the COLD tail — a doc that went quiet
+    one op after its last checkpoint stays one op (not one busy-period)
+    of replay away from restored.
+    """
+
+    def __init__(
+        self,
+        engine,
+        max_ops_behind: int = 0,
+        max_seconds_behind: float = 1.0,
+        interval_s: float = 0.25,
+    ) -> None:
+        self._engine = engine
+        self.max_ops_behind = int(max_ops_behind)
+        self.max_seconds_behind = float(max_seconds_behind)
+        self.interval_s = max(0.01, float(interval_s))
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        # Guards the sweep counters: the thread body writes them, stats()
+        # reads them from the supervising thread.
+        self._lock = threading.Lock()
+        self._sweeps = 0
+        self._written = 0
+        self._errors = 0
+
+    def start(self) -> "BackgroundCheckpointWriter":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name="ckpt-writer", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            # A sweep failure must not kill the writer: the engine already
+            # re-marks docs whose durable write failed, so the next tick
+            # retries; the error count is the health signal.
+            try:
+                wrote = self._engine.checkpoint_stale(
+                    max_ops_behind=self.max_ops_behind,
+                    max_seconds_behind=self.max_seconds_behind,
+                )
+            except Exception:  # noqa: BLE001 — surfaced via stats()
+                with self._lock:
+                    self._sweeps += 1
+                    self._errors += 1
+                continue
+            with self._lock:
+                self._sweeps += 1
+                self._written += len(wrote)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "ckpt_writer_sweeps": self._sweeps,
+                "ckpt_writer_records": self._written,
+                "ckpt_writer_errors": self._errors,
+                "max_ops_behind": self.max_ops_behind,
+                "max_seconds_behind": self.max_seconds_behind,
+            }

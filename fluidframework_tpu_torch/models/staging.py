@@ -5,6 +5,7 @@ Counterpart of ``fluidframework_tpu/models/staging.py``:
 - ``RowQueue``: the columnar per-document pending-op queue (numpy, a copy
   of the reference's).
 - ``OverloadGate``: per-doc ingest watermark hysteresis (a copy).
+- ``warmup_depths``: the megastep depths an engine's ``warmup`` dispatches.
 - ``StagingRing``: a ring of preallocated [K, D, B] op/payload staging
   buffers.  Where the reference calls ``jax.device_put``, the buffers are
   pinned host memory (when the ring targets a CUDA device) and the upload
@@ -142,6 +143,20 @@ class OverloadGate:
         counters.gauge("overloaded_docs", len(self.paused))
         counters.gauge("overload_events", self.events)
         counters.gauge("queue_depth_max", queue_depth_max)
+
+
+def warmup_depths(megastep_k: int) -> list[int]:
+    """Every megastep depth a serving step can dispatch: 1, each power of
+    two up to ``megastep_k``, and a non-power-of-two ``megastep_k`` itself
+    (``_select_k`` clamps to it)."""
+    depths = []
+    k = 1
+    while k <= megastep_k:
+        depths.append(k)
+        k *= 2
+    if megastep_k > 1 and megastep_k not in depths:
+        depths.append(megastep_k)
+    return depths
 
 
 class _StageBuf:

@@ -41,9 +41,13 @@ as are ``dispatch``, ``readback``, ``checkpoint_sweep`` and
 ``restore_scan``.  No recompile watchdog: the port compiles nothing at run
 time.
 
+Serving: ``adopt_boot_snapshot`` re-seeds one doc from a historian
+snapshot record; ``warmup`` makes the serving programs' first launches
+ahead of a standby's promotion.
+
 Not ported (``NotImplementedError``): a mesh, spare slots and migration
-(``migrate_doc``, ``rebalance_hot_shards``), boot-snapshot adoption and
-``plan_cache=False`` (the reference's per-row emit path).
+(``migrate_doc``, ``rebalance_hot_shards``) and ``plan_cache=False`` (the
+reference's per-row emit path).
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ from .recovery import (
     stale_due_docs,
     write_checkpoint_records,
 )
-from .staging import OverloadGate, RowQueue, StagingRing
+from .staging import OverloadGate, RowQueue, StagingRing, warmup_depths
 
 
 @dataclass
@@ -1052,8 +1056,58 @@ class TreeBatchEngine:
     def rebalance_hot_shards(self, factor: float = 2.0, max_moves: int = 1):
         raise NotImplementedError("hot-shard rebalancing is not ported yet")
 
-    def adopt_boot_snapshot(self, doc_idx: int, record: dict):
-        raise NotImplementedError("boot-snapshot adoption is not ported yet")
+    # ---------------------------------------------------------- boot adoption
+    def adopt_boot_snapshot(self, doc_idx: int, record: dict) -> placement.AdoptResult:
+        """Client half of the fan-out plane's ``{"t":"resync","boot":true}``
+        contract (``placement.adopt_boot_snapshot`` over this engine's
+        refresh re-seed path): a consumer that fell off the retained log
+        re-seeds the document from a historian snapshot record (the scribe
+        summary schema, ``engine: tree_batch``) and re-consumes from the
+        returned floor; the host EditManager window, checkpoint forest and
+        materialized device columns all reset consistently."""
+        return placement.adopt_boot_snapshot(self, doc_idx, record, self._clear_staged)
+
+    def _clear_staged(self, doc_idx: int) -> None:
+        """Drop a doc's staged pre-gap work ahead of a boot-snapshot
+        adoption (the refresh guard refuses docs with pending ops; a boot
+        resync REPLACES the doc, so pre-gap rows are covered)."""
+        self.hosts[doc_idx].queue.clear()
+        self._busy.discard(doc_idx)
+
+    # ----------------------------------------------------------------- warmup
+    def warmup(self) -> int:
+        """Warm the fleet's serving programs (warm-standby boot): dispatch
+        all-NOOP megasteps at K=1, every power of two up to ``megastep_k``
+        and a non-power-of-two ``megastep_k`` itself, plus one compact,
+        through the serving entry points.  On the card this loads the CUDA
+        kernel library and makes each program's first launch before
+        promotion.  Zeroed staging rows are NOOP by kernel contract
+        (``NestedOpKind.NOOP == 0``) and the compact's result is dropped, so
+        the state bytes are untouched.
+        Returns the number of warmup dispatches (the reference's count)."""
+        warmed = 0
+        with self.ckpt_lock, span("warmup", k_max=self.megastep_k):
+            if self.device.type == "cuda":
+                from ..ops import cuda_build
+
+                cuda_build.load()
+            stage = self._staging()
+            for k in warmup_depths(self.megastep_k):
+                ops, payloads = stage.acquire(k, self.n_docs)
+                host_ops = ops[..., :3].copy()
+                dev_ops, dev_payloads = stage.upload(ops, payloads)
+                self.state = tk.apply_nested_megastep(
+                    self.state, dev_ops, dev_payloads, host_ops=host_ops
+                )
+                warmed += 1
+            # The compact's first launch, its result dropped: a warmup never
+            # compacts a serving fleet's dead rows (the reference's does).
+            tk.compact_nested(self.state)
+            warmed += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.counters.gauge("warmup_dispatches", warmed)
+        return warmed
 
     # ----------------------------------------------------------------- health
     def health(self) -> dict:

@@ -29,6 +29,7 @@ class MessageType:
     NOOP = "noop"
     JOIN = "join"
     LEAVE = "leave"
+    SUMMARY_ACK = "summaryAck"
 
 
 class DeltaType(IntEnum):

@@ -1,1 +1,2 @@
-"""Server-side durability: the per-document checkpoint store."""
+"""Serving tier: ordered log and checkpoint store, git summary store, scribe,
+fleet consumer and its entry point, failover."""

@@ -103,19 +103,19 @@ def test_engine_latches_errors_like_reference():
 
 def test_unported_features_raise():
     """What is still unported raises: multi-shard segment lanes, spare
-    slots, migration, engine-promoted segment lanes and boot-snapshot
-    adoption."""
+    slots, migration and engine-promoted segment lanes.  Boot-snapshot
+    adoption is ported (tests/test_torch_failover.py): a record without a
+    seq is refused as the reference refuses it."""
     for option in ({"seg_shards": 2}, {"spare_slots": 4},
                    {"seg_lane_segments": 64}, {"seg_rebalance_every": 8}):
         with pytest.raises(NotImplementedError):
             DocBatchEngine(2, device="cpu", **option)
     eng = DocBatchEngine(2, device="cpu", seg_shards=1)
-    for method, args in (
-        ("migrate_doc", (0, 0)), ("enable_segment_sharding", (0,)),
-        ("adopt_boot_snapshot", (0, {})),
-    ):
+    for method, args in (("migrate_doc", (0, 0)), ("enable_segment_sharding", (0,))):
         with pytest.raises(NotImplementedError):
             getattr(eng, method)(*args)
+    with pytest.raises(KeyError):
+        eng.adopt_boot_snapshot(0, {})
 
 
 def test_engine_default_device_is_the_card():

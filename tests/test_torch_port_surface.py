@@ -42,8 +42,14 @@ _BLOCKER = textwrap.dedent(
 )
 
 # Modules the blocker must reach by name (the walk finds every module; these
-# pin that the wire-ingest and observability layers are among them).
+# pin that the wire-ingest, observability and serving layers are among them).
 _REQUIRED = {
+    "fluidframework_tpu_torch.server.scribe",
+    "fluidframework_tpu_torch.server.failover",
+    "fluidframework_tpu_torch.server.fleet_consumer",
+    "fluidframework_tpu_torch.server.fleet_main",
+    "fluidframework_tpu_torch.server.gitstore",
+    "fluidframework_tpu_torch.runtime.summary",
     "fluidframework_tpu_torch.native.ingest_native",
     "fluidframework_tpu_torch.observability.flight_recorder",
     "fluidframework_tpu_torch.observability.metrics_plane",
@@ -95,6 +101,22 @@ def test_entry_points_refuse_a_silent_cpu():
     for call in (lambda: mesh.doc_mesh(), lambda: mesh.docs_segs_mesh(),
                  lambda: DeviceRebaser(MarkPool()), lambda: map_kernel.init_state(),
                  lambda: matrix_kernel.init_state()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_serving_entry_points_refuse_a_silent_cpu(tmp_path):
+    """The scribe, its kernel-backed replicas and ``fleet_main`` default to
+    the card as well, and say how to ask for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+    from fluidframework_tpu_torch.server import scribe
+    from fluidframework_tpu_torch.server.fleet_main import main
+    from fluidframework_tpu_torch.server.ordered_log import Topic
+
+    for call in (lambda: scribe.ScribeLambda(Topic("t"), str(tmp_path)),
+                 lambda: scribe._MapDocScribe(), lambda: scribe._MatrixDocScribe(),
+                 lambda: main(["--port", "1", "--docs", "a"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
