@@ -18,7 +18,8 @@ runs these phases on the card, one JSON line each:
    equality; then, at the long-document shape and the segment lane's
    (Q=1, S=16,384), its call time (CUDA events) and device time
    (torch.profiler) beside its bound and the same function in PyTorch
-   calls (``torch.cumsum`` then ``torch.searchsorted``).
+   calls (``torch.cumsum`` then ``torch.searchsorted``); also at the
+   4-shard lane's shape ([4, 16,384] lengths, one query a shard).
 1b. ``rebase_kernel``: K9 (``rebase_window``) against its plain PyTorch
    version on the same card tensors and on the CPU, exact on every output
    of every step, at ``bench.py``'s microbench windows (W=256 and W=4,096
@@ -137,20 +138,53 @@ runs these phases on the card, one JSON line each:
     docs, twice on one checkpoint directory: its ``done`` texts equal an
     in-process engine's, and the second run prints ``restored`` with
     ``checkpointed_ops_skipped > 0``.
+15. ``sharded``: the sharded fleet, one line a part, every check exact.
+    (a) The fleet's shared traffic (8 of its rounds) for all 10,000 docs on
+    a 4-shard ``doc_mesh(["cuda"] * 4)`` with 64 spare slots: after round 3
+    16 docs migrate with their rows staged; at round 4 shard 0's docs take
+    two rounds ahead of the rest and ``rebalance_hot_shards()`` (factor
+    2.0) is called until it migrates a doc.  Every doc's raw row and latch
+    equal a control engine with no mesh fed the same stream (which
+    re-packs the moved docs through the checkpoint codec at the same
+    points), and 64 sampled unmoved docs a CPU replay; ops/s of each, ms
+    per ``migrate_doc``.  (b) The control runs with ``use_mesh=False``
+    (cohort steps for the Zipf stragglers) and a third engine with the
+    default full-fleet step: identical state, ``cohort_steps > 0``; the
+    runs go in turns mesh, cohort, full, full, cohort, mesh; the cohort
+    gather and scatter timed alone.  (c) A hot doc at config-1 geometry
+    (S=16,384, T=131,072) among 64 cold docs on
+    ``docs_segs_mesh(["cuda"] * 8, seg_shards=4)``, promoted mid-stream by
+    ``enable_segment_sharding`` and later by ``rebalance_hot_shards``' own
+    promotion (a move to -1), re-blocked every 128 lane rows, demoted at
+    the end: every doc equals an oracle engine that serves the hot doc in
+    its batch row; ``seg_occupancy`` sums to the live count; the lane's
+    rows/s and one n=4 ``apply_megastep_seg`` timed alone beside its bytes
+    bound.  (d) tree_churn's stream on a 4-shard mesh with 16 spare slots,
+    8 docs migrated mid-stream: every doc equals the tree_churn engine's.
+    (e) ``python -m fluidframework_tpu_torch.server.fleet_main --device
+    cuda --mesh 4 --spare-slots 16 --rebalance-every 0.5 --seg-shards 2``
+    over 256 docs: a ``migrations`` line appears and its ``done`` texts
+    equal an in-process engine's.
 
 The fleet's traffic is made once, before phase 2, and shared by phases
-2, 3, 6 and 14 (a ``traffic`` line gives its generation time); each tree
+2, 3, 6, 14 and 15 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
-7-9b and 11-14 are the port's main path: the launch counters of K1, of the
-fleet programs, of K7 and K8, of K9 and of the map and matrix programs
-are set to 0 just before each of them and read just after, and a path
+7-9b and 11-15 are the port's main path: the launch counters of K1, of the
+fleet programs, of K7 and K8, of K9, of the map and matrix programs and of
+the cohort gather and scatter are set to 0 just before each of them and
+read just after, and a path
 that runs K1 (phases 4 and 5), K7 (phases 7-9b and 11), K8 (phases 7 and
 9), K9 (phase 11), the fleet program on wire_ingest (9b), the map
 program (12) or the matrix program (13) fails the run if it never
 launched; so does the serving path (14) unless K2, K3, K7, K8 and the map
-and matrix programs all launched on it.  Then it prints the ``kernels`` summary
-line (K1, K7, K8, K9, map, matrix), the card's name and power limit,
-and, last, the ``{"ok": true, ...}`` line.
+and matrix programs all launched on it.  Phase 15's parts are paths of
+their own: ``sharded_fleet`` fails unless K2, K3 and the cohort gather and
+scatter launched, ``sharded_hot`` unless K1 and K6 (``apply_megastep_seg``,
+``compact_seg``) did, ``sharded_tree`` unless K7 did.  Then it prints the
+``kernels`` summary line (K1 with its launches by path, the segment lane's
+among them; K7, K8, K9, map, matrix; K6 at 4 shards; the cohort gather and
+scatter), the card's name and power limit, and, last, the
+``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
 CUDA card, or a directory without the port.
 """
@@ -490,6 +524,11 @@ def phase_kernels(seed: int, card: str) -> dict:
     lens_e[1, :rk.TILE] = 0
     lens_e[2, rk.TILE:] = 0
     batched.append((lens_e, np.stack([_edge_queries(rng, row, rk.TILE) for row in lens_e])))
+    # The 4-shard segment lane's shape: [4, 16,384] lengths, one query a
+    # shard (each shard's local coordinate, some before or past it).
+    lens_4 = np.stack([_random_lens(rng, 16_384) for _ in range(4)])
+    q_4 = np.asarray([[int(lens_4[0].sum()) // 2], [-3], [int(lens_4[2].sum())], [0]], np.int32)
+    batched.append((lens_4, q_4))
     max_err = 0
     hits = 0
     for lens, qs in cases + batched:
@@ -516,11 +555,14 @@ def phase_kernels(seed: int, card: str) -> dict:
     ls = torch.from_numpy(_random_lens(rng, 16_384)).to(dev)[None]
     qs1 = torch.zeros((1, 1), dtype=torch.int32, device=dev) + int(ls.sum()) // 2
     seg_lane = time_k1(rk, ls, qs1, 500, 200)
+    ls4 = torch.from_numpy(lens_4).to(dev)
+    seg_lane4 = time_k1(rk, ls4, torch.from_numpy(q_4).to(dev), 500, 200)
     out = {
         "phase": "kernels", "card": card, "cases": len(cases) + len(batched),
         "hits_checked": hits, "max_abs_err": max_err, "tile": rk.TILE,
         "S": S, "Q": Q, **long_doc,
         **{f"seg_lane_{k}": v for k, v in seg_lane.items()},
+        **{f"seg_lane4_{k}": v for k, v in seg_lane4.items()},
     }
     emit(out)
     return out
@@ -1040,17 +1082,28 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
         # same bytes, so the state does not change.
         scatter = {}
         if on_card:
-            rows = [d for d in restored if _lane_of(eng2, d) == "batch"]
+            rows = [int(eng2._slot[d]) for d in restored if _lane_of(eng2, d) == "batch"]
             stacked = mk.tree_map(lambda x: x[rows], mk.to_numpy(eng2.state))
             nbytes = 2 * sum(x.nbytes for x in mk.leaves(stacked))
+            # The library part alone: one ``index_copy_`` per leaf from rows
+            # already on the card (the host-to-device copy left out).
+            idx = torch.tensor(rows, device="cuda")
+            on_dev = [torch.from_numpy(y).cuda() for y in mk.leaves(stacked)]
+
+            def index_copy():
+                for x, y in zip(mk.leaves(eng2.state), on_dev):
+                    x.index_copy_(0, idx, y)
+
             scatter = {
                 "scatter_rows": len(rows), "scatter_bytes": nbytes,
                 "scatter_bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
                 "scatter_ms": cuda_ms(lambda: eng2._scatter_rows(rows, stacked), 3, warmup=1),
                 "scatter_device_ms": _device_sum(device_ms_by_name(
                     lambda: eng2._scatter_rows(rows, stacked), 3)),
+                "scatter_library_ms": cuda_ms(index_copy, 3, warmup=1),
+                "scatter_library_device_ms": _device_sum(device_ms_by_name(index_copy, 3)),
             }
-            del stacked
+            del stacked, on_dev
 
         # Two more rounds to both engines, then one checkpointed round again.
         live = set(restored)
@@ -1275,7 +1328,8 @@ def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
     stage = eng._staging()
     ops, pays = stage.acquire(K, eng.capacity)
     for k in range(K):
-        stage.mark(k, eng._drain_into(busy, ops[k], pays[k]))
+        rows = [int(r) for r in eng._slot[busy]]  # the docs' state rows
+        stage.mark(k, eng._drain_into(busy, ops[k], pays[k], rows=rows))
         busy = [d for d in busy if d in eng._busy]
     kinds = ops[..., 0].copy()
     dev_ops, dev_pays = stage.upload(ops, pays)
@@ -1479,8 +1533,9 @@ def _tree_docs_identical(a, da: int, b, db: int) -> bool:
     """``_tree_views_equal`` and every raw column of the two device rows."""
     import torch
 
+    sa, sb = int(a._slot[da]), int(b._slot[db])  # the docs' state rows
     return _tree_views_equal(a, da, b, db) and all(
-        torch.equal(x[da].cpu(), y[db].cpu()) for x, y in zip(a.state, b.state)
+        torch.equal(x[sa].cpu(), y[sb].cpu()) for x, y in zip(a.state, b.state)
     )
 
 
@@ -1630,7 +1685,7 @@ def tree_fleet_ring(eng, msgs) -> tuple:
     busy = sorted(eng._busy)
     K = eng._select_k(busy)
     stage = eng._staging()
-    ops, pays = stage.acquire(K, eng.n_docs)
+    ops, pays = stage.acquire(K, eng.fleet_capacity)
     for k in range(K):
         stage.mark(k, eng._drain_into(busy, ops[k], pays[k]))
         busy = [d for d in busy if d in eng._busy]
@@ -3088,6 +3143,667 @@ def phase_serving(seed: int, card: str, device: str, traffic, churn, n_docs: int
     return out
 
 
+# ------------------------------------------------ phase 15: the sharded fleet
+
+SHARDED_ROUNDS = 8      # of the fleet's shared traffic, for parts (a), (b)
+SHARDED_MIGRATE_AT = 3  # parts (a), (b): 16 docs move after this round is ingested
+SHARDED_BURST_AT = 4    # rounds 4 and 5: shard 0's docs run a round ahead
+
+
+def _repack(eng, d: int) -> None:
+    """What a migration (or a demotion) does to doc ``d``'s row, on an
+    engine that keeps the doc in place: the row through the checkpoint
+    codec, re-packed at the batch geometry into its own slot.  A control
+    engine re-packs the docs the sharded engine moved at the same point of
+    the stream, so every raw row of the two compares exactly."""
+    from fluidframework_tpu_torch.dds import kernel_backend as kb
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    h = eng.hosts[d]
+    summary = kb.state_to_summary(mk.to_numpy(eng.doc_state(d)),
+                                  {v: k for k, v in h.prop_slot.items()})
+    eng._put_row(int(eng._slot[d]), kb.summary_to_state_host(
+        summary, eng.geometry, lambda p: eng._prop_slot_for_geom(h, p, eng.geometry)))
+
+
+def _fleets_differ(a, b) -> tuple[int, int]:
+    """(docs whose raw rows differ, docs whose error latch differs) between
+    two string engines, each doc read at its own slot, compared on the
+    device."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    n = a.n_docs
+    ia = torch.as_tensor(a._slot, device=a.device)
+    ib = torch.as_tensor(b._slot, device=b.device)
+    diff = torch.zeros(n, dtype=torch.bool, device=a.device)
+    for x, y in zip(mk.leaves(a.state), mk.leaves(b.state)):
+        diff |= (x.index_select(0, ia) != y.index_select(0, ib).to(a.device)).reshape(n, -1).any(-1)
+    latch = int((np.asarray(a.errors()[:n]) != np.asarray(b.errors()[:n])).sum())
+    return int(diff.sum()), latch
+
+
+def _sharded_fleet_run(eng, joins, rounds_msgs, role: str, plan: dict, shard0: set,
+                       on_card: bool) -> dict:
+    """One run of parts (a)/(b) over ``rounds_msgs``: a round an
+    ``ingest_batch``, a step and a compact every two rounds; after round
+    ``SHARDED_MIGRATE_AT`` is ingested the docs of ``plan["migrate"]`` move
+    to the next shard with their rows still staged; at
+    ``SHARDED_BURST_AT`` shard 0's docs take two rounds before the others.
+    The ``"mesh"`` role migrates, calls ``rebalance_hot_shards()`` after
+    every step (a serving loop's window) and at the burst until it makes a
+    move, recording its moves in ``plan``; the ``"control"`` role re-packs
+    the same docs at the same points (``_repack``)."""
+    import torch
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def ingest(msgs):
+        if msgs:
+            eng.ingest_batch([d for d, _ in msgs], [m for _, m in msgs])
+
+    def step():
+        eng.step()
+        eng.compact()
+
+    def moved(point, moves):
+        if role == "mesh":
+            plan.setdefault(point, []).extend(moves)
+        else:
+            for d in plan.get(point, []):
+                _repack(eng, d)
+
+    out = {"migrate_ms": []}
+    for d, m in joins:
+        eng.ingest(d, m)
+    sync()
+    t0 = time.perf_counter()
+    r = 0
+    while r < len(rounds_msgs):
+        if r == SHARDED_BURST_AT:
+            both = [x for rr in (r, r + 1) for x in rounds_msgs[rr]]
+            ingest([x for x in both if x[0] in shard0])
+            if role == "mesh":
+                moves = []
+                for _ in range(4):
+                    moves = eng.rebalance_hot_shards(2.0)
+                    if moves:
+                        break
+                check(moves and all(t >= 0 for _d, _s, t in moves),
+                      f"sharded: the burst on shard 0 made no migration ({moves})")
+                out["burst_moves"] = moves
+                moved("burst", [d for d, _s, _t in moves])
+            else:
+                moved("burst", None)
+            ingest([x for x in both if x[0] not in shard0])
+            step()
+            r += 2
+            continue
+        ingest(rounds_msgs[r])
+        if r == SHARDED_MIGRATE_AT:
+            if role == "mesh":
+                for d in plan["migrate"]:
+                    check(len(eng.hosts[d].queue) > 0, f"sharded: doc {d} has no staged rows")
+                    t = time.perf_counter()
+                    ok = eng.migrate_doc(d, (eng.shard_of(d) + 1) % eng.n_shards)
+                    sync()
+                    out["migrate_ms"].append((time.perf_counter() - t) * 1e3)
+                    check(ok, f"sharded: migrate_doc({d}) refused")
+            else:
+                for d in plan["migrate"]:
+                    _repack(eng, d)
+        if r % 2 == 1:
+            step()
+            if role == "mesh":
+                moves = eng.rebalance_hot_shards(2.0)
+                moved(f"step{r}", [d for d, _s, _t in moves])
+            else:
+                moved(f"step{r}", None)
+        r += 1
+    sync()
+    out["wall_s"] = time.perf_counter() - t0
+    out["ops"] = eng.counters.get("ops_staged")
+    out["ops_per_s"] = out["ops"] / out["wall_s"]
+    return out
+
+
+def _sharded_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000,
+                   rounds: int = SHARDED_ROUNDS, spare: int = 64, sample: int = 64,
+                   geom: dict = FLEET_GEOM) -> dict:
+    """Parts (a) and (b): the config-3 fleet on a 4-shard mesh with
+    ``spare`` spare slots (migrations, a hot-shard rebalance) against a
+    control with no mesh (``use_mesh=False``: cohort steps) and the default
+    full-fleet engine; every doc's raw row and latch equal across the
+    three, 64 sampled unmoved docs equal a CPU replay; ops/s of each in
+    turns."""
+    import gc
+
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.parallel.mesh import doc_mesh
+
+    on_card = device == "cuda"
+    geom = dict(geom, recovery="grow")
+    joins, rounds_msgs = _rounds_for(traffic, n_docs, rounds)
+    mesh = doc_mesh([device] * 4)
+    rng = np.random.default_rng(seed + 15)
+    # Docs 1.. of every shard: doc 0, the Zipf head, is the burst's move.
+    plan = {"migrate": sorted(int(d) for d in rng.choice(np.arange(1, n_docs), 16, replace=False))}
+    makers = {
+        "mesh": lambda: DocBatchEngine(n_docs, mesh=mesh, spare_slots=spare, **geom),
+        "cohort": lambda: DocBatchEngine(n_docs, device=device, use_mesh=False, **geom),
+        "full": lambda: DocBatchEngine(n_docs, device=device, **geom),
+    }
+    shard0 = None
+    runs: dict[str, list] = {k: [] for k in makers}
+    engines = {}
+    # Checked turns first (mesh, then the two controls), then timing turns
+    # in reverse: mesh, cohort, full, full, cohort, mesh.
+    for turn, name in enumerate(("mesh", "cohort", "full", "full", "cohort", "mesh")):
+        eng = makers[name]()
+        if shard0 is None:
+            shard0 = {d for d in range(n_docs) if eng.shard_of(d) == 0}
+        role = "mesh" if name == "mesh" else "control"
+        # The timing turn of the mesh records its moves apart; the
+        # controls re-pack the checked mesh run's.
+        run_plan = plan if role == "control" or turn == 0 else {"migrate": plan["migrate"]}
+        run = _sharded_fleet_run(eng, joins, rounds_msgs, role, run_plan, shard0, on_card)
+        runs[name].append(run)
+        if turn < 3:
+            engines[name] = eng
+        if turn == 2:
+            m, c, f = engines["mesh"], engines["cohort"], engines["full"]
+            for other_name, other in (("cohort", c), ("full", f)):
+                rows, latch = _fleets_differ(m, other)
+                check(rows == 0 and latch == 0,
+                      f"sharded: {rows} rows / {latch} latches differ from the {other_name} engine")
+            check(m.error_count() == 0 and not m.overflow and not m.quarantine,
+                  "sharded: the mesh engine latched or recovered docs")
+            check(c.cohort_steps > 0 and f.cohort_steps == 0 and m.cohort_steps == 0,
+                  f"sharded: cohort steps {c.cohort_steps} / {f.cohort_steps} / {m.cohort_steps}")
+            h = m.health()
+            moved_docs = set(plan["migrate"]) | {d for k, v in plan.items() if k != "migrate"
+                                                 for d in v}
+            check(h["doc_migrations"] == len(moved_docs),
+                  f"sharded: {h['doc_migrations']} migrations for {len(moved_docs)} moves")
+            pick = sorted(int(d) for d in rng.choice(
+                [d for d in range(n_docs) if d not in moved_docs], sample, replace=False))
+            local = {d: j for j, d in enumerate(pick)}
+            ref = DocBatchEngine(len(pick), device="cpu", **geom)
+            t = time.perf_counter()
+            _sharded_fleet_run(ref, [(local[d], x) for d, x in joins if d in local],
+                               [[(local[d], x) for d, x in rr if d in local] for rr in rounds_msgs],
+                               "control", {"migrate": []}, {local[d] for d in pick if d in shard0},
+                               False)
+            replay_s = time.perf_counter() - t
+            same = sum(_state_rows_equal(m.doc_state(d), ref.doc_state(j)) for d, j in local.items())
+            check(same == len(pick), f"sharded: {len(pick) - same} sampled docs differ from the CPU")
+            shard_line = {
+                "n_shards": m.n_shards, "capacity": m.capacity, "docs_per_shard": m.docs_per_shard,
+                "free_slots": [m.free_slots(s) for s in range(m.n_shards)],
+                "shard_ops": h["shard_ops"], "migrations": h["doc_migrations"],
+                "hot_shard_rebalances": h["hot_shard_rebalances"],
+                "burst_moves": runs["mesh"][0]["burst_moves"],
+                "cohort": {"full_steps": c.full_steps, "cohort_steps": c.cohort_steps,
+                           "cohort_lanes": c.cohort_lanes},
+                "full": {"full_steps": f.full_steps},
+                "identical_docs": n_docs, "sampled_docs_identical": same, "cpu_replay_s": replay_s,
+            }
+            if on_card:
+                shard_line["cohort_programs"] = _time_cohort_pair(c)
+            engines.clear()
+            del m, c, f, ref
+        del eng
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    migrate_ms = [x for run in runs["mesh"] for x in run["migrate_ms"]]
+    return {
+        "docs": n_docs, "rounds": rounds, "spare_slots": spare,
+        "reduced": f"rounds 16 -> {rounds} (the fleet phase's 16 rounds of the shared traffic)",
+        "ops": runs["mesh"][0]["ops"],
+        "ops_per_s": {k: [r["ops_per_s"] for r in v] for k, v in runs.items()},
+        "wall_s": {k: [r["wall_s"] for r in v] for k, v in runs.items()},
+        "migrate_ms_mean": float(np.mean(migrate_ms)), "migrate_ms_max": float(np.max(migrate_ms)),
+        "migrate_calls": len(migrate_ms), **shard_line,
+    }
+
+
+def _time_cohort_pair(eng, Kc: int = 16) -> dict:
+    """``gather_cohort`` and ``scatter_cohort`` timed alone at the fleet's
+    geometry on a 16-lane cohort (12 busy slots, 4 pad lanes) of ``eng``'s
+    state, beside their bytes bounds (the cohort's rows read and written
+    once).  The scatter writes the rows it gathered: the state's bytes do
+    not change."""
+    from fluidframework_tpu_torch.models import doc_batch_engine as dbe
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    busy = np.arange(12, dtype=np.int64) * 97
+    idx = np.full((Kc,), busy[-1], np.int64)
+    idx[:12] = eng._slot[busy]
+    valid = np.zeros((Kc,), bool)
+    valid[:12] = True
+    state = eng.state
+    sub = dbe.gather_cohort(state, idx)
+    row_bytes = nbytes_of(mk.leaves(sub)) // Kc
+    counts = dbe.gather_cohort.launches, dbe.scatter_cohort.launches
+    out = {}
+    for name, fn, nbytes in (
+        ("gather", lambda: dbe.gather_cohort(state, idx), 2 * Kc * row_bytes),
+        ("scatter", lambda: dbe.scatter_cohort(state, sub, idx, valid), 2 * 12 * row_bytes),
+    ):
+        out[name] = {"lanes": Kc, **time_program(fn, 20), "bound_bytes": nbytes,
+                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    dbe.gather_cohort.launches, dbe.scatter_cohort.launches = counts
+    return out
+
+
+def hot_doc_messages(seed: int, rounds: int, writers: int = 4) -> tuple:
+    """``four_writer_trace``'s op soup as sequenced wire messages for one
+    document: per round every writer makes two edits at the round's
+    ref_seq (inserts of 1-19 chars, removes, annotates and sided
+    obliterates of its own insert), MSN at the round start.  Returns the
+    joins and per-round message lists."""
+    from fluidframework_tpu_torch.protocol.messages import MessageType, SequencedMessage
+
+    rng = np.random.default_rng(seed)
+    joins = [SequencedMessage(client_id=f"w{w}", client_seq=0, ref_seq=0, seq=0, min_seq=0,
+                              type=MessageType.JOIN, contents={"clientId": f"w{w}", "short": w})
+             for w in range(writers)]
+    out = []
+    length = seq = 0
+    for _r in range(rounds):
+        ref, base = seq, length
+        own = [0] * writers
+        last_ins = [(0, 0)] * writers
+        msgs = []
+        for w in range(writers):
+            for _ in range(2):
+                own_len = base + own[w]
+                kind = int(rng.integers(0, 5))
+                p, ln = last_ins[w]
+                if kind in (0, 1) or own_len < 4 or (kind == 4 and ln < 2):
+                    tlen = int(rng.integers(1, 20))
+                    pos = int(rng.integers(0, own_len + 1))
+                    text = "".join(chr(97 + int(c)) for c in rng.integers(0, 26, tlen))
+                    c = {"type": 0, "pos1": pos, "seg": text}
+                    last_ins[w] = (pos, tlen)
+                    own[w] += tlen
+                elif kind == 2:
+                    p2 = min(p + max(1, ln // 2), own_len)
+                    c = {"type": 1, "pos1": p, "pos2": p2}
+                    own[w] -= p2 - p
+                    last_ins[w] = (p, 0)
+                elif kind == 3:
+                    a = int(rng.integers(0, own_len - 1))
+                    b = int(rng.integers(a + 1, own_len + 1))
+                    c = {"type": 2, "pos1": a, "pos2": b,
+                         "props": {int(rng.integers(0, 2)): int(rng.integers(1, 100))}}
+                else:
+                    c = {"type": 5, "pos1": {"pos": p, "before": True},
+                         "pos2": {"pos": p + ln - 1, "before": False}}
+                    own[w] -= ln
+                    last_ins[w] = (p, 0)
+                seq += 1
+                msgs.append(SequencedMessage(client_id=f"w{w}", client_seq=seq, ref_seq=ref,
+                                             seq=seq, min_seq=ref, contents=c))
+        length = base + sum(own)
+        out.append(msgs)
+    return joins, out
+
+
+# Config-1 geometry for phase 15's hot doc; 16 obliterate slots, as the
+# reference's segment-lane tests give the four-writer op soup.
+HOT_GEOM = dict(max_segments=16_384, text_capacity=131_072, remove_slots=4, prop_slots=2,
+                ob_slots=16, max_insert_len=8, ops_per_step=16, megastep_k=8)
+
+
+def _sharded_hot(seed: int, card: str, device: str, traffic, n_cold: int = 64,
+                 hot_rounds: int = 80, spare: int = 64, geom: dict = HOT_GEOM) -> dict:
+    """Part (c): a hot doc at config-1 geometry among ``n_cold`` cold docs
+    (the fleet traffic's first docs) on an 8-device docs x segs mesh with 4
+    segment shards, against an oracle engine that serves the hot doc in its
+    batch row (no mesh, no lanes) and re-packs the docs the sharded engine
+    moves or demotes at the same points (``_repack``).  The hot doc's
+    rounds in five parts, stepped two rounds at a time with a rebalance
+    window after each step: batch; promoted by ``enable_segment_sharding``
+    (with rows staged) and re-blocked every 128 lane rows
+    (``seg_rebalance_every``), demoted; batch; eight rounds staged at once,
+    a deep queue that ``rebalance_hot_shards`` answers (the cold docs of
+    its shard migrate off, then the hot doc promotes: a move to -1); the
+    lane, demoted at the end.  Every doc's raw row and latch equal the oracle's at the end;
+    on the lanes the hot doc's gathered document equals the oracle row's
+    live content and ``seg_occupancy`` sums to its live count."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.ops.resolve_kernel import resolve_positions
+    from fluidframework_tpu_torch.parallel.mesh import docs_segs_mesh
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    hjoins, hrounds = hot_doc_messages(seed + 3, hot_rounds)
+    cjoins, crounds = _rounds_for(traffic, n_cold, 3)
+    mesh = docs_segs_mesh([device] * 8, seg_shards=4)
+    hot = DocBatchEngine(1 + n_cold, mesh=mesh, spare_slots=spare, seg_rebalance_every=128,
+                         **geom)
+    oracle = DocBatchEngine(1 + n_cold, device=device, **geom)
+    engines = (hot, oracle)
+    for eng in engines:
+        for m in hjoins:
+            eng.ingest(0, m)
+        for d, m in cjoins:
+            eng.ingest(d + 1, m)
+    # The hot doc's rounds in five parts (80 rounds: 16, 24, 10, 8, 22).
+    bounds = [0, hot_rounds // 5, hot_rounds // 2, 5 * hot_rounds // 8,
+              29 * hot_rounds // 40, hot_rounds]
+    parts = [hrounds[bounds[i]:bounds[i + 1]] for i in range(5)]
+    out = {"S": geom["max_segments"], "T": geom["text_capacity"], "cold_docs": n_cold,
+           "hot_msgs": sum(len(r) for r in hrounds), "seg_shards": hot.seg_shards,
+           "n_shards": hot.n_shards}
+    lane_rows = 0
+    lane_s = 0.0
+    captured = {}
+    seg_prog = hot._seg_megastep
+
+    def capture(state, ops, pays, kinds=None):
+        # The deepest ring the lane dispatches, for K6's timing alone.
+        if ops.shape[0] > captured.get("ring", (None, np.zeros((0,))))[1].shape[0]:
+            captured["ring"] = (state, ops, pays, kinds)
+        return seg_prog(state, ops, pays, kinds=kinds)
+
+    hot._seg_megastep = capture
+
+    def feed(msgs, cold_round=None):
+        for eng in engines:
+            for m in msgs:
+                eng.ingest(0, m)
+            if cold_round is not None:
+                for d, m in crounds[cold_round]:
+                    eng.ingest(d + 1, m)
+
+    def step_both():
+        nonlocal lane_rows, lane_s
+        lane = hot.seg_lanes.get(0)
+        rows = len(lane.queue) if lane is not None else 0
+        t = time.perf_counter()
+        hot.step()
+        sync()
+        if lane is not None:
+            lane_rows += rows
+            lane_s += time.perf_counter() - t
+        oracle.step()
+        for eng in engines:
+            eng.compact()
+
+    def check_lane(tag):
+        a = mk.canonical_doc(mk.to_numpy(oracle.doc_state(0)))
+        b = mk.canonical_doc(hot.doc_state(0))
+        bad = [k for k in a if not np.array_equal(a[k], b[k])]
+        check(not bad, f"sharded hot ({tag}): the lane differs from the oracle in {bad}")
+        check(mk.seg_replica_mismatch(hot.seg_lanes[0].state) == [],
+              f"sharded hot ({tag}): the lane's replicas disagree")
+        occ = hot.health()["seg_occupancy"]
+        check(sum(occ) == b["nseg"], f"sharded hot ({tag}): occupancy {occ} vs {b['nseg']} live")
+        return occ
+
+    moves = []
+
+    def rebalance():
+        """One rebalance window; the oracle re-packs every doc it moved."""
+        got = hot.rebalance_hot_shards(2.0)
+        for d, _s, t in got:
+            if t >= 0:
+                _repack(oracle, d)
+        moves.extend(got)
+        return got
+
+    def serve(rounds, cold_round=None, first=None):
+        """Two rounds a step, as a serving loop steps; a rebalance window
+        after each step.  ``first`` runs after the first two rounds are
+        staged, before their step."""
+        for i in range(0, len(rounds), 2):
+            feed([m for r in rounds[i:i + 2] for m in r], cold_round if i == 0 else None)
+            if i == 0 and first is not None:
+                first()
+            step_both()
+            rebalance()
+
+    def promote():
+        check(hot.enable_segment_sharding(0), "sharded hot: enable_segment_sharding refused")
+
+    # Part 1 in the batch, with a cold round.
+    serve(parts[0], 0)
+    # Part 2 on the lane: promoted with its first rows staged.
+    serve(parts[1], first=promote)
+    out["occupancy_first_lane"] = check_lane("first lane")
+    check(hot.health()["seg_rebalances"] >= 1, "sharded hot: the lane never re-blocked")
+    check(hot.disable_segment_sharding(0), "sharded hot: the demotion refused")
+    _repack(oracle, 0)
+    # Part 3 in the batch, with a cold round.
+    serve(parts[2], 1)
+    # Part 4: the hot doc's rounds staged at once, a deep queue: the
+    # rebalance moves the cold docs of its shard off, then promotes it.
+    feed([m for r in parts[3] for m in r])
+    for _ in range(2 * hot.docs_per_shard):
+        if any(t == -1 for _d, _s, t in rebalance()):
+            break
+    check(moves and moves[-1][0] == 0 and moves[-1][2] == -1 and 0 in hot.seg_lanes,
+          f"sharded hot: no promotion by rebalance ({moves})")
+    step_both()
+    # Part 5 on the lane.
+    serve(parts[4], 2)
+    out["occupancy_second_lane"] = check_lane("second lane")
+    hot._seg_megastep = seg_prog
+    # K6 at n=4 alone on a captured ring (its launches, and K1's inside,
+    # stay off the path's counts).
+    timing = {}
+    if on_card and "ring" in captured:
+        st, o, p, kinds = captured["ring"]
+        counts = mk.apply_megastep_seg.launches, resolve_positions.launches
+        timing = time_program(lambda: seg_prog(st, o, p, kinds=kinds), 2, 1)
+        mk.apply_megastep_seg.launches, resolve_positions.launches = counts
+        nbytes, bound = state_bound(mk.leaves(st), (o, p))
+        timing.update({"shape": [int(o.shape[0]), int(o.shape[1])], "seg_shards": 4,
+                       "bound_bytes": nbytes, "bound_ms": bound, "bound_by": "bytes"})
+    check(hot.disable_segment_sharding(0), "sharded hot: the final demotion refused")
+    _repack(oracle, 0)
+    rows, latch = _fleets_differ(hot, oracle)
+    check(rows == 0 and latch == 0, f"sharded hot: {rows} rows / {latch} latches differ")
+    check(hot.error_count() == 0 and not hot.overflow, "sharded hot: latched or overflowed")
+    h = hot.health()
+    out.update({
+        "moves": moves, "seg_promotions": h["seg_promotions"],
+        "seg_demotions": h["seg_demotions"], "seg_rebalances": h["seg_rebalances"],
+        "doc_migrations": h["doc_migrations"], "lane_rows": lane_rows, "lane_s": lane_s,
+        "lane_rows_per_s": lane_rows / lane_s if lane_s else None,
+        "k6_n4": timing, "identical_docs": 1 + n_cold,
+    })
+    return out
+
+
+def _sharded_tree(seed: int, card: str, device: str, churn, spare: int = 16,
+                  n_migrate: int = 8) -> dict:
+    """Part (d): tree_churn's stream through ``ingest_lines`` into a
+    ``TreeBatchEngine`` on a 4-shard mesh with ``spare`` spare slots; 8 docs
+    migrate mid-stream (rows staged); every doc equals the tree_churn
+    engine's (the moved docs' views and EditManager windows, every other
+    doc's raw rows too)."""
+    import torch
+
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+    from fluidframework_tpu_torch.parallel.mesh import doc_mesh
+
+    churn_eng, round_blobs = churn
+    n = churn_eng.n_docs
+    eng = TreeBatchEngine(n, mesh=doc_mesh([device] * 4), spare_slots=spare, **TREE_CHURN_GEOM)
+    moved = sorted(int(d) for d in np.random.default_rng(seed + 16).choice(n, n_migrate,
+                                                                            replace=False))
+    mid = len(round_blobs) // 2
+    migrate_ms = []
+    t0 = time.perf_counter()
+    for r, blobs in enumerate(round_blobs):
+        for d, blob in enumerate(blobs):
+            if blob:
+                eng.ingest_lines(d, blob)
+        if r == mid:
+            for d in moved:
+                t = time.perf_counter()
+                check(eng.migrate_doc(d, (eng.shard_of(d) + 1) % eng.n_shards),
+                      f"sharded tree: migrate_doc({d}) refused")
+                migrate_ms.append((time.perf_counter() - t) * 1e3)
+        eng.step()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not eng.errors().any() and sorted(eng.fallbacks) == sorted(churn_eng.fallbacks),
+          "sharded tree: error bits or fallbacks differ from tree_churn's")
+    # A moved doc's trunk fold records the removed content in its
+    # EditManager window's Remove marks (as a checkpoint sweep's fold does,
+    # in both packages), so its summary is compared in its trees only.
+    views = sum(
+        json.dumps(eng.tree_json(d)) == json.dumps(churn_eng.tree_json(d))
+        and json.dumps(eng.values(d)) == json.dumps(churn_eng.values(d)) for d in moved
+    )
+    rows = sum(_tree_docs_identical(eng, d, churn_eng, d) for d in range(n) if d not in moved)
+    check(views == len(moved) and rows == n - len(moved),
+          f"sharded tree: {len(moved) - views} moved, {n - len(moved) - rows} other docs differ")
+    return {"docs": n, "n_shards": eng.n_shards, "spare_slots": spare, "migrated": moved,
+            "migrate_ms": migrate_ms, "wall_s": wall,
+            "doc_migrations": eng.counters.get("doc_migrations"), "identical_docs": n}
+
+
+def _sharded_entry(device: str, traffic, n_docs: int = 256, rounds: int = 8,
+                   geom: dict = FLEET_GEOM) -> dict:
+    """Part (e): ``fleet_main --mesh 4 --spare-slots 16 --rebalance-every
+    0.5 --seg-shards 2`` over ``n_docs`` docs.  Shard 0's docs' rounds
+    arrive first (wave 0); once the process prints a ``migrations`` line
+    the rest follows (wave 1).  Its ``done`` texts equal an in-process
+    engine's fed the same bytes."""
+    import queue
+    import threading
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+
+    joins, rounds_msgs = _rounds_for(traffic, n_docs, rounds)
+    doc_ids = [f"m{d}" for d in range(n_docs)]
+    per = -(-n_docs // 4)
+    first = [[(d, m) for d, m in r if d < per] for r in rounds_msgs]
+    rest = [[(d, m) for d, m in r if d >= per] for r in rounds_msgs]
+    waves = _doc_waves(doc_ids, [joins] + first + rest,
+                       [list(range(rounds + 1)), list(range(rounds + 1, 2 * rounds + 1))])
+    n_rows = sum(len(r) for r in rounds_msgs)
+    feeder = FirehoseFeeder(waves)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "fluidframework_tpu_torch.server.fleet_main",
+           "--port", str(feeder.port), "--docs", ",".join(doc_ids), "--device", device,
+           "--mesh", "4", "--spare-slots", "16", "--rebalance-every", "0.5",
+           "--seg-shards", "2", "--capacity", str(geom["max_segments"]),
+           "--text-capacity", str(geom["text_capacity"]),
+           "--max-insert-len", str(geom["max_insert_len"]),
+           "--ops-per-step", str(geom["ops_per_step"]),
+           "--megastep-k", str(geom["megastep_k"]), "--status-every", "600",
+           "--exit-after-rows", str(n_rows)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    lines: queue.Queue = queue.Queue()
+    err = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    feeder.release(0)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+                            cwd=repo)
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True)
+    reader.start()
+    got: list[dict] = []
+
+    def stderr_tail() -> str:
+        err.seek(0)
+        return err.read()[-1500:]
+
+    try:
+        deadline = time.monotonic() + 240
+        while not any("migrations" in x for x in got):
+            if time.monotonic() > deadline or proc.poll() is not None:
+                check(False, f"entry: no migrations line (last {got[-1:]}): {stderr_tail()}")
+            try:
+                x = lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if x.startswith("{"):
+                got.append(json.loads(x))
+        feeder.release(1)
+        rc = proc.wait(timeout=240)
+        reader.join(timeout=10)
+        while not lines.empty():
+            x = lines.get()
+            if x.startswith("{"):
+                got.append(json.loads(x))
+        check(rc == 0, f"entry: fleet_main exited {rc}: {stderr_tail()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        feeder.close()
+        err.close()
+    wall = time.perf_counter() - t0
+    eng = DocBatchEngine(n_docs, device=device, **geom)
+    for wave in waves:
+        for d, doc in enumerate(doc_ids):
+            if wave.get(doc):
+                eng.ingest_lines(d, wave[doc])
+        eng.step()
+    done = got[-1]
+    check(done.get("done") and done["errors"] == 0, "entry: fleet_main did not end clean")
+    check(done["texts"] == {doc: eng.text(d) for d, doc in enumerate(doc_ids)},
+          "entry: fleet_main's texts differ from the in-process engine's")
+    migrations = [m for x in got if "migrations" in x for m in x["migrations"]]
+    h = done["health"]
+    check(h["n_shards"] == 4 and h["segment_shards"] == 2, "entry: not served on the 4-shard mesh")
+    return {"docs": n_docs, "rounds": rounds, "rows": n_rows, "run_s": wall,
+            "migrations": migrations, "doc_migrations": h["doc_migrations"],
+            "n_shards": h["n_shards"], "segment_shards": h["segment_shards"]}
+
+
+def phase_sharded(seed: int, card: str, device: str, traffic, churn, path=None, **sizes) -> dict:
+    """Phase 15, the sharded fleet on ``device``: (a)+(b) ``_sharded_fleet``,
+    (c) ``_sharded_hot``, (d) ``_sharded_tree``, (e) ``_sharded_entry``, one
+    JSON line each (see the module docstring).  ``path(name, fn, ...)``
+    runs each part as a main-path path of its own (launch counts);
+    ``sizes`` cut each part for a rehearsal (``fleet=dict(...)``,
+    ``hot=dict(...)``, ``entry=dict(...)``)."""
+    path = path or (lambda _name, fn, *a, **k: fn(*a, **k))
+    t_all = time.perf_counter()
+    parts = (
+        ("fleet", "sharded_fleet", lambda: _sharded_fleet(seed, card, device, traffic,
+                                                          **sizes.get("fleet", {}))),
+        ("hot", "sharded_hot", lambda: _sharded_hot(seed, card, device, traffic,
+                                                    **sizes.get("hot", {}))),
+        ("tree", "sharded_tree", lambda: _sharded_tree(seed, card, device, churn)),
+        ("entry", "sharded_entry", lambda: _sharded_entry(device, traffic,
+                                                          **sizes.get("entry", {}))),
+    )
+    out = {}
+    for name, path_name, part in parts:
+        t = time.perf_counter()
+        line = path(path_name, part)
+        line["part_s"] = time.perf_counter() - t
+        emit({"phase": "sharded", "part": name, "card": card, **line})
+        out[name] = line
+        gc.collect()
+    out["wall_s"] = time.perf_counter() - t_all
+    emit({"phase": "sharded", "part": "total", "card": card, "wall_s": out["wall_s"]})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3131,6 +3847,7 @@ def main(argv=None) -> int:
     # ingests a round through one ingest_batch call except the first grow
     # of the turns (per-message ingest), and the second grow of the turns
     # runs with a flight recorder installed.
+    from fluidframework_tpu_torch.models import doc_batch_engine as dbe
     from fluidframework_tpu_torch.ops import map_kernel as mpk
     from fluidframework_tpu_torch.ops import matrix_kernel as mxk
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
@@ -3143,7 +3860,8 @@ def main(argv=None) -> int:
                 "apply_nested_megastep": tk.apply_nested_megastep,
                 "compact_nested": tk.compact_nested, "rebase_window": rk9.rebase_window,
                 "apply_batch_fleet": mpk.apply_batch_fleet,
-                "apply_ops_fleet": mxk.apply_ops_fleet}
+                "apply_ops_fleet": mxk.apply_ops_fleet,
+                "gather_cohort": dbe.gather_cohort, "scatter_cohort": dbe.scatter_cohort}
     paths = {name: {} for name in counters}
 
     def path(name, fn, *args, **kw):
@@ -3183,9 +3901,18 @@ def main(argv=None) -> int:
     mp_line = path("map_lww", phase_map_lww, args.seed, card, "cuda")
     mx_line = path("matrix", phase_matrix, args.seed, card, "cuda")
     path("serving", phase_serving, args.seed, card, "cuda", traffic, churn)
+    sharded = phase_sharded(args.seed, card, "cuda", traffic, churn, path=path)
     del traffic, churn
-    for name in ("hot_doc", "long_doc"):
+    for name in ("hot_doc", "long_doc", "sharded_hot"):
         check(paths["resolve_positions"][name] > 0, f"K1 was never launched on the {name} path")
+    for prog, what in (("apply_megastep_seg", "K6"), ("compact_seg", "K6's compaction")):
+        check(paths[prog]["sharded_hot"] > 0, f"{what} was never launched on the sharded_hot path")
+    for prog, what in (("apply_megastep", "K2"), ("compact", "K3"),
+                       ("gather_cohort", "the cohort gather"),
+                       ("scatter_cohort", "the cohort scatter")):
+        check(paths[prog]["sharded_fleet"] > 0, f"{what} was never launched on the sharded_fleet path")
+    check(paths["apply_nested_megastep"]["sharded_tree"] > 0,
+          "K7 was never launched on the sharded_tree path")
     for name in ("tree_fleet", "tree_deep", "tree_churn", "wire_ingest", "tree_rebase"):
         check(paths["apply_nested_megastep"][name] > 0, f"K7 was never launched on the {name} path")
     check(paths["apply_megastep"]["wire_ingest"] > 0,
@@ -3201,7 +3928,10 @@ def main(argv=None) -> int:
         check(paths[prog]["serving"] > 0, f"{what} was never launched on the serving path")
 
     emit({"phase": "fleet_programs_launches", **{prog: paths[prog] for prog in (
-        "apply_megastep", "compact", "apply_megastep_seg", "compact_seg")}})
+        "apply_megastep", "compact", "apply_megastep_seg", "compact_seg", "gather_cohort",
+        "scatter_cohort")}})
+    k6n4 = sharded["hot"]["k6_n4"]
+    cohort = sharded["fleet"]["cohort_programs"]
     k7, k8 = tree["k7"], tree["k8"]
     k9m = k9["microbench_256"]
     mp_prog, mx_prog = mp_line["fleet_program"], mx_line["step_program"]
@@ -3263,7 +3993,25 @@ def main(argv=None) -> int:
         "max_abs_err": mx_prog["max_abs_err"], "shape": mx_prog["shape"],
         "ms": mx_prog["ms"], "device_ms": mx_prog["device_ms"], "plain_ms": None,
         "bound_ms": mx_prog["bound_ms"], "bound_by": mx_prog["bound_by"], "library_ms": None,
-    }]})
+    }, {
+        "name": "apply_megastep_seg", "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/mergetree_kernel.py",
+        "replaces": "fluidframework_tpu/ops/mergetree_kernel.py:1291",
+        "launches": sum(paths["apply_megastep_seg"].values()),
+        "launches_by_path": paths["apply_megastep_seg"],
+        "max_abs_err": 0, "seg_shards": k6n4["seg_shards"], "shape": k6n4["shape"],
+        "ms": k6n4["ms"], "device_ms": k6n4["device_ms"], "plain_ms": None,
+        "bound_ms": k6n4["bound_ms"], "bound_by": k6n4["bound_by"], "library_ms": None,
+    }] + [{
+        "name": f"{name}_cohort", "route": "torch",
+        "source": "fluidframework_tpu_torch/models/doc_batch_engine.py",
+        "replaces": f"fluidframework_tpu/models/doc_batch_engine.py:{line}",
+        "launches": sum(paths[f"{name}_cohort"].values()),
+        "launches_by_path": paths[f"{name}_cohort"],
+        "max_abs_err": 0, "lanes": cohort[name]["lanes"],
+        "ms": cohort[name]["ms"], "device_ms": cohort[name]["device_ms"], "plain_ms": None,
+        "bound_ms": cohort[name]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    } for name, line in (("gather", 222), ("scatter", 249))]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

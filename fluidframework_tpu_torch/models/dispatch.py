@@ -7,7 +7,7 @@ plane registers itself here when its module loads.
 
 The active plane is whatever called :func:`register_dispatch_plane`
 last; when nothing has registered, the default provider,
-``fluidframework_tpu_torch.parallel.mesh`` (the one-device plane), is
+``fluidframework_tpu_torch.parallel.mesh`` (a mesh of shards on one device), is
 imported and registers itself.
 
 The plane's surface is duck-typed; the engine uses ``doc_mesh`` /

@@ -65,9 +65,25 @@ snapshot record (``models/placement.py``); ``warmup`` makes the serving
 programs' first launches ahead of a standby's promotion; ``note_incident``
 back-dates the recovery clock.
 
-Not ported yet (``NotImplementedError``): multi-shard segment lanes
-(``seg_shards > 1``, ``seg_lane_segments``, ``seg_rebalance_every``), spare
-slots and migration, and cohort steps: every megastep runs fleet-wide.
+Placement (``mesh``, ``spare_slots``): the engine owns a
+``placement.PlacementPlane``; a doc's state row is its slot (``_slot``),
+the fleet state has ``capacity`` rows (the fleet rounded up to a shard
+multiple plus the spare slots), a shard is a contiguous block of
+``docs_per_shard`` rows, and the fleet programs are one launch over every
+row.  ``migrate_doc`` moves a doc's row to another shard's free slot
+through the checkpoint codec; ``rebalance_hot_shards`` migrates off shards
+loaded past ``factor`` x the mean, or promotes a doc that is itself the
+hotspot to a segment lane.
+
+Segment lanes (``seg_shards > 1``): ``enable_segment_sharding`` re-blocks a
+hot doc's row over the mesh's ``segs`` axis and serves it with
+``apply_megastep_seg`` (K6 over n shards, K1 inside); its batch slot stays
+reserved.  ``rebalance_segments`` re-blocks, ``disable_segment_sharding``
+demotes.
+
+Cohort steps (``use_mesh=False``): with no mesh, a busy set at or below a
+quarter of the fleet steps as a gathered power-of-two cohort
+(``_cohort_step``) instead of a fleet-wide megastep.
 """
 
 from __future__ import annotations
@@ -82,10 +98,10 @@ import torch
 from ..dds import kernel_backend as kb
 from ..dds.mergetree_ref import RefMergeTree
 from ..dds.shared_string import validate_obliterate_places
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, count_launch, resolve_device
 from ..ops import mergetree_kernel as mk
 from ..native import ingest_native
-from ..observability.flight_recorder import span
+from ..observability.flight_recorder import instant, span
 from ..protocol.messages import (
     DeltaType,
     MessageType,
@@ -155,6 +171,32 @@ class _OverflowLane:
         self.queue = queue
 
 
+class _SegmentLane:
+    """A hot document promoted to the segment-parallel serving path: its
+    merge-tree segment columns block-shard over the mesh's ``segs`` axis
+    (the stacked state of ``mk.seg_stack``: per-segment work splits across
+    shards; text, scalars and obliterate table replicate), served by
+    ``mk.apply_megastep_seg`` with the single lane as the byte-identity
+    oracle.  Inserts land shard-local; the layout re-blocks at rebalance
+    points (``rebalance_segments``)."""
+
+    __slots__ = ("state", "n_shards", "s_local", "queue", "rebalances",
+                 "ops_since_rebalance", "version")
+
+    def __init__(self, state: mk.DocState, n_shards: int, s_local: int,
+                 queue: RowQueue) -> None:
+        self.state = state
+        self.n_shards = n_shards
+        self.s_local = s_local
+        self.queue = queue
+        self.rebalances = 0
+        self.ops_since_rebalance = 0
+        # Bumped at every state reassignment (dispatch, rebalance, compact):
+        # the watchdog's change mark for a lane doc, whose slot digest is
+        # the pristine reserved row.
+        self.version = 0
+
+
 def _i32(v) -> int:
     """Coerce one wire scalar for the batch walk with the per-message
     path's failure shape: ``np.array([...], np.int32)`` raises
@@ -170,6 +212,35 @@ def _fleet_compact_body(state: mk.DocState, min_seqs) -> mk.DocState:
     """Cadence compaction: every doc's MSN advance, then zamboni (the
     reference's ``_fleet_compact_body``; also the overflow lanes')."""
     return mk.compact(mk.set_min_seq(state, min_seqs))
+
+
+def gather_cohort(state: mk.DocState, idx: np.ndarray) -> mk.DocState:
+    """A cohort's state rows (``idx[Kc]`` slots, pad lanes repeating a busy
+    slot) as a [Kc, ...] sub-fleet: the reference's ``_gather_cohort_jit``,
+    one ``index_select`` per leaf."""
+    count_launch(state.nseg, gather_cohort)
+    idx_t = torch.as_tensor(idx, dtype=torch.int64).to(state.nseg.device)
+    return mk.tree_map(lambda x: x.index_select(0, idx_t), state)
+
+
+def scatter_cohort(state: mk.DocState, sub: mk.DocState, idx: np.ndarray,
+                   valid: np.ndarray) -> mk.DocState:
+    """Write a stepped cohort back into its slots, in place: the reference's
+    ``_scatter_cohort_jit``, a masked ``index_copy_`` per leaf.  Pad lanes
+    (``valid`` false, host-side) are dropped, never written, so no slot is
+    written twice."""
+    count_launch(state.nseg, scatter_cohort)
+    rows = np.flatnonzero(valid)
+    dev = state.nseg.device
+    rows_t = torch.as_tensor(rows, dtype=torch.int64).to(dev)
+    slots_t = torch.as_tensor(np.asarray(idx)[rows], dtype=torch.int64).to(dev)
+    for x, y in zip(mk.leaves(state), mk.leaves(sub)):
+        x.index_copy_(0, slots_t, y.index_select(0, rows_t))
+    return state
+
+
+gather_cohort.launches = 0
+scatter_cohort.launches = 0
 
 
 # ----------------------------------------------------------------- K4 digest
@@ -236,14 +307,6 @@ def fleet_digest(state: mk.DocState) -> torch.Tensor:
     return out
 
 
-# Reference constructor options this port does not carry yet, with the
-# values that leave them off (``seg_shards=1`` is a one-shard fleet: off).
-_OPTIONS_OFF = {
-    "spare_slots": (0,), "seg_shards": (0, 1), "seg_lane_segments": (0,),
-    "seg_rebalance_every": (0,),
-}
-
-
 class DocBatchEngine:
     """A fleet of merge-tree replicas stepped as one batched device program."""
 
@@ -271,19 +334,27 @@ class DocBatchEngine:
         latency_sample_every: int = 16,
         overload_high_watermark: int = 0,
         overload_low_watermark: int = 0,
+        mesh=None,
+        use_mesh: bool = True,
+        spare_slots: int = 0,
+        seg_shards: int = 0,
+        seg_lane_segments: int = 0,
+        seg_lane_text_capacity: int = 0,
+        seg_rebalance_every: int = 0,
+        max_seg_lanes: int = 4,
         device=DEFAULT_DEVICE,
-        **options,
     ) -> None:
         if recovery not in ("grow", "oracle", "off"):
             raise ValueError(f"recovery={recovery!r}: expected grow, oracle or off")
-        for name, value in options.items():
-            if name not in _OPTIONS_OFF:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value not in _OPTIONS_OFF[name]:
-                raise NotImplementedError(f"{name}={value!r} is not ported yet")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            # The mesh's device serves the engine; ``device`` may only
+            # repeat it.
+            if device != DEFAULT_DEVICE and resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.n_docs = n_docs
-        self.capacity = n_docs  # one device: no mesh rounding, no spare slots
         self.max_insert_len = max_insert_len
         self.ops_per_step = ops_per_step
         self.megastep_k = max(1, megastep_k)
@@ -372,17 +443,67 @@ class DocBatchEngine:
         self._lat_tick = 0
         self._lat_pending: list[tuple[float, int]] = []
         pm = self._pm = dispatch_plane()
-        self.mesh = pm.doc_mesh(self.device)
+        if use_mesh:
+            if mesh is not None:
+                self.mesh = mesh
+            elif seg_shards > 1:
+                # The 2-D docs x segs serving mesh, one shard per segment
+                # shard on the engine's device: cold docs shard over both
+                # axes flattened, hot docs carve the segs axis.
+                self.mesh = pm.docs_segs_mesh([self.device] * seg_shards, seg_shards)
+            else:
+                self.mesh = pm.doc_mesh(self.device)
+            n_shards = self.mesh.n_shards
+            self.seg_shards = self.mesh.seg_shards
+        else:
+            self.mesh = None
+            n_shards = 1
+            self.seg_shards = 1
+        # Segment-lane knobs (hot-doc opt-in; see _SegmentLane).
+        self.seg_lanes: dict[int, _SegmentLane] = {}
+        self.seg_lane_segments = seg_lane_segments
+        self.seg_lane_text_capacity = seg_lane_text_capacity
+        self.seg_rebalance_every = seg_rebalance_every
+        self.max_seg_lanes = max_seg_lanes
+        self.n_shards = n_shards
+        self._shard_latency = [Histogram() for _ in range(n_shards)]
+        # Row placement rides the shared plane (models/placement.py): doc ->
+        # slot indirection with per-shard spare-slot free pools.  ``_slot``
+        # aliases the plane's live array for the staging packs.
+        self.placement_plane = placement.PlacementPlane(n_docs, n_shards, spare_slots)
+        self.capacity = self.placement_plane.capacity
+        self.docs_per_shard = self.placement_plane.docs_per_shard
+        self._slot = self.placement_plane.slots
+        # Per-shard applied-op counters (host-side), accumulated at drain
+        # time: the hot-shard detection signal.
+        self._shard_ops = np.zeros((n_shards,), np.int64)
         proto = mk.init_state(
             max_segments, remove_slots, prop_slots, text_capacity, ob_slots,
             device=self.device,
         )
-        self.state = pm.shard_fleet_state(mk.batch_state(proto, n_docs), self.mesh)
-        self._megastep = pm.mesh_fleet_program(mk.apply_megastep, self.mesh)
-        self._compact = pm.mesh_fleet_program(_fleet_compact_body, self.mesh)
+        self._proto = proto  # pristine row: retires vacated and reserved slots
+        # Where the fleet state lives: the mesh, or one shard on the device.
+        self._fleet_mesh = self.mesh if self.mesh is not None else pm.doc_mesh(self.device)
+        self.state = pm.shard_fleet_state(mk.batch_state(proto, self.capacity), self._fleet_mesh)
+        # The fleet programs: one launch over every slot of every shard.
+        self._megastep = pm.mesh_fleet_program(mk.apply_megastep, self._fleet_mesh)
+        self._compact = pm.mesh_fleet_program(_fleet_compact_body, self._fleet_mesh)
+        self._seg_megastep = self._seg_compact = None
+        if self.seg_shards > 1:
+            seg_specs = pm.seg_state_specs(proto)
+            self._seg_megastep = pm.mesh_seg_program(mk.apply_megastep_seg, self.mesh, seg_specs)
+            self._seg_compact = pm.mesh_seg_program(mk.compact_seg, self.mesh, seg_specs)
         # Docs with a nonempty host queue, maintained by ingest and drain.
         self._busy: set[int] = set()
         self._stage: StagingRing | None = None
+        # Zipf straggler bucketing: with no mesh, a busy set of at most a
+        # quarter of the fleet gathers its rows into a power-of-two cohort,
+        # steps it, and scatters the rows back (pad lanes dropped).  Under
+        # a mesh every megastep runs fleet-wide, as the reference's does.
+        self.bucketing = self.mesh is None
+        self.full_steps = 0     # fleet-wide slices applied
+        self.cohort_steps = 0   # bucketed slices applied
+        self.cohort_lanes = 0   # sum of cohort sizes (work proxy)
 
     # ------------------------------------------------------------------ ingest
     def ingest(self, doc_idx: int, msg: SequencedMessage) -> None:
@@ -449,6 +570,9 @@ class DocBatchEngine:
         self.counters.bump("ops_staged", len(rows))
         if doc_idx in self.overflow:
             self.overflow[doc_idx].queue.extend_rows(rows)
+            return
+        if doc_idx in self.seg_lanes:
+            self.seg_lanes[doc_idx].queue.extend_rows(rows)
             return
         h.queue.extend_rows(rows)
         if h.queue:
@@ -555,9 +679,9 @@ class DocBatchEngine:
 
         Byte-identical to ``ingest`` per message:
 
-        - JOINs, non-OP messages, quarantined / oracle / overflow docs and
-          native-mode docs take the per-message path (counted in
-          ``ingest_fallback_msgs``);
+        - JOINs, non-OP messages, quarantined / oracle / overflow /
+          segment-lane docs and native-mode docs take the per-message path
+          (counted in ``ingest_fallback_msgs``);
         - a decode error quarantines only the offending doc: its earlier
           batch rows are dropped from the scatter (they rode the retained
           log into the quarantine replay) and its later messages route
@@ -592,6 +716,7 @@ class DocBatchEngine:
                 or d in self.quarantine
                 or d in self.oracles
                 or d in self.overflow
+                or d in self.seg_lanes
                 or h.mode == "native"
             ):
                 counters.bump("ingest_fallback_msgs")
@@ -738,7 +863,10 @@ class DocBatchEngine:
         doc_arr = np.asarray(doc_of, np.int64)
         live = np.ones((total,), bool)
         for d in set(doc_of):
-            if d in self.quarantine or d in self.oracles or d in self.overflow:
+            if (
+                d in self.quarantine or d in self.oracles
+                or d in self.overflow or d in self.seg_lanes
+            ):
                 live[doc_arr == d] = False
         # Stable doc sort: one extend_block per doc, original order kept.
         order = np.argsort(doc_arr, kind="stable")
@@ -765,6 +893,7 @@ class DocBatchEngine:
             doc_idx in self.oracles
             or doc_idx in self.overflow
             or doc_idx in self.quarantine
+            or doc_idx in self.seg_lanes
             or self.hosts[doc_idx].restored
         )
 
@@ -785,7 +914,7 @@ class DocBatchEngine:
         h = self.hosts[doc_idx]
         if self._in_lane(doc_idx) or not ingest_native.loaded():
             self._normalize_native(h)
-            lane = self.overflow.get(doc_idx)
+            lane = self.overflow.get(doc_idx) or self.seg_lanes.get(doc_idx)
             before = len(lane.queue) if lane else len(h.queue)
             msgs = [
                 SequencedMessage.from_json(line.decode())
@@ -796,7 +925,7 @@ class DocBatchEngine:
             self.ingest_batch([doc_idx] * len(msgs), msgs)
             if doc_idx in self.oracles or doc_idx in self.quarantine:
                 return n_msgs
-            lane = self.overflow.get(doc_idx)
+            lane = self.overflow.get(doc_idx) or self.seg_lanes.get(doc_idx)
             return (len(lane.queue) if lane else len(h.queue)) - before
         assert h.mode != "obj", (
             f"doc {doc_idx} already fed through the object path; "
@@ -924,6 +1053,7 @@ class DocBatchEngine:
             lat = max(0.0, now - stamp)
             self.op_latency.record(lat)
             if 0 <= d < self.n_docs:
+                self._shard_latency[self.shard_of(d)].record(lat)
                 h = self._doc_latency.get(d)
                 if h is None:
                     h = self._doc_latency[d] = Histogram()
@@ -931,12 +1061,16 @@ class DocBatchEngine:
         self._lat_pending.clear()
 
     def latency_histograms(self) -> dict[str, Histogram]:
-        """Mergeable histograms for the metrics plane: op latency and the
-        per-incident recovery time (one device: no per-shard entries)."""
-        return {
+        """Mergeable histograms for the metrics plane: op latency, one per
+        shard on a multi-shard mesh, and the per-incident recovery time."""
+        out = {
             "op_latency": self.op_latency,
             "recovery_time": self.recovery_tracker.histogram,
         }
+        if self.n_shards > 1:
+            for s, h in enumerate(self._shard_latency):
+                out[f"op_latency_shard{s}"] = h
+        return out
 
     def doc_latency(self, doc_idx: int) -> Histogram | None:
         return self._doc_latency.get(doc_idx)
@@ -949,16 +1083,19 @@ class DocBatchEngine:
 
     # --------------------------------------------------------- flow control
     def pending_ops(self) -> int:
-        return sum(len(h.queue) for h in self.hosts) + sum(
-            len(ln.queue) for ln in self.overflow.values()
+        return (
+            sum(len(h.queue) for h in self.hosts)
+            + sum(len(ln.queue) for ln in self.overflow.values())
+            + sum(len(ln.queue) for ln in self.seg_lanes.values())
         )
 
     def update_overload(self) -> tuple[list[int], list[int]]:
         """Advance the ingest watermark hysteresis: -> (docs newly over the
-        high watermark, docs drained under the low one).  Overflow-lane docs
-        queue on their lane, so the gate reads the combined depth."""
+        high watermark, docs drained under the low one).  Lane docs
+        (overflow or segment) queue on their lane, so the gate reads the
+        combined depth."""
         return self.overload_gate.update(
-            self._busy | set(self.overflow), self._queue_depth
+            self._busy | set(self.seg_lanes) | set(self.overflow), self._queue_depth
         )
 
     def ingest_watermarks(self) -> dict:
@@ -972,24 +1109,29 @@ class DocBatchEngine:
         return bool(self.overload_gate.paused)
 
     # ------------------------------------------------------------------- step
-    def _drain_into(self, docs: list[int], ops: np.ndarray,
-                    payloads: np.ndarray) -> list[int]:
-        """Dequeue up to ops_per_step rows per listed doc into its row of
-        the zeroed staging slice (two slice copies per doc); returns the
-        rows written."""
+    def _drain_into(self, docs: list[int], ops: np.ndarray, payloads: np.ndarray,
+                    rows: list[int] | None = None, slots: bool = False) -> list[int]:
+        """Dequeue up to ops_per_step rows per listed doc into the zeroed
+        staging slice (``docs[j]`` fills row ``rows[j]``, default ``j``; two
+        slice copies per doc) — the one drain of full-fleet and cohort
+        packing.  ``slots``: the rows are device slots, so the ops count
+        toward their shard's load.  Returns the rows written."""
         B = self.ops_per_step
         written: list[int] = []
-        for d in docs:
+        for j, d in enumerate(docs):
             h = self.hosts[d]
             take = min(B, len(h.queue))
             if not take:
                 continue
+            r = j if rows is None else rows[j]
             src_ops, src_payloads = h.queue.take(take)
-            ops[d, :take] = src_ops
-            payloads[d, :take] = src_payloads
+            ops[r, :take] = src_ops
+            payloads[r, :take] = src_payloads
+            if slots:
+                self._shard_ops[r // self.docs_per_shard] += take
             if not h.queue:
                 self._busy.discard(d)
-            written.append(d)
+            written.append(r)
         return written
 
     def _staging(self) -> StagingRing:
@@ -1004,42 +1146,98 @@ class DocBatchEngine:
     def _pow2_floor(n: int) -> int:
         return 1 << (max(n, 1).bit_length() - 1)
 
-    def _select_k(self, busy: list[int]) -> int:
-        """Megastep depth from queue depths: the deepest queue's slice
-        count, capped at ``megastep_k`` and quantized to a power of two."""
+    def _select_k(self, busy: list[int], cohort: bool = False) -> int:
+        """Megastep depth from queue depths: how many B-row slices fuse into
+        the next dispatch, capped at ``megastep_k`` and quantized to a power
+        of two.  Cohort-aware: a full-fleet megastep fuses only as many
+        slices as the busy set stays above the cohort threshold (the
+        (thresh+1)-th deepest queue), so a Zipf tail still collapses into
+        gathered cohorts exactly when it would have."""
         if self.megastep_k <= 1:
             return 1
         B = self.ops_per_step
-        need = max(-(-len(self.hosts[d].queue) // B) for d in busy)
+        depths = np.array([-(-len(self.hosts[d].queue) // B) for d in busy], np.int64)
+        thresh = self.capacity // 4
+        if cohort or not self.bucketing or len(depths) <= thresh:
+            need = int(depths.max())
+        else:
+            # Slices until the busy set shrinks to cohort size: the
+            # (thresh+1)-th deepest queue still has rows at slice k iff its
+            # depth > k.
+            need = int(np.partition(depths, -thresh - 1)[-thresh - 1])
         return min(self.megastep_k, self._pow2_floor(need))
 
     def _full_step(self, busy: list[int]) -> int:
-        """One fleet-wide megastep of up to K slices; returns K."""
+        """One fleet-wide megastep of up to K slices, packed by placement
+        (doc d's rows land in row ``slot(d)``); returns K."""
         K = self._select_k(busy)
         stage = self._staging()
         ops, payloads = stage.acquire(K, self.capacity)
+        rows = [int(r) for r in self._slot[busy]]
         for k in range(K):
-            stage.mark(k, self._drain_into(busy, ops[k], payloads[k]))
-            busy = [d for d in busy if d in self._busy]
+            stage.mark(k, self._drain_into(busy, ops[k], payloads[k], rows=rows, slots=True))
+            if k + 1 < K:
+                pairs = [(d, r) for d, r in zip(busy, rows) if d in self._busy]
+                busy = [d for d, _ in pairs]
+                rows = [r for _, r in pairs]
         kinds = ops[..., 0].copy()  # host-side op kinds: branch selection
         dev_ops, dev_payloads = stage.upload(ops, payloads)
         syncs = mk.apply_megastep.ob_gate_syncs
-        with span("dispatch", kind="full", k=K, shards=1):
+        with span("dispatch", kind="full", k=K, shards=self.n_shards):
             self.state = self._megastep(self.state, dev_ops, dev_payloads, kinds=kinds)
         self.counters.bump("ob_gate_syncs", mk.apply_megastep.ob_gate_syncs - syncs)
+        self.full_steps += K
+        self.counters.bump("megastep_dispatches")
+        self.counters.bump("megastep_slices", K)
+        return K
+
+    def _cohort_step(self, busy: list[int]) -> int:
+        """One bucketed megastep over just the busy docs: gather the
+        cohort's state rows once (a power-of-two ladder; pad lanes repeat
+        the last busy slot), apply up to K fused [Kc, B] slices, and
+        scatter the rows back with the pad lanes dropped.  Returns K."""
+        K = self._select_k(busy, cohort=True)
+        Kc = max(1, 1 << (len(busy) - 1).bit_length())
+        slots = self._slot[busy]
+        idx = np.full((Kc,), slots[-1], np.int64)
+        idx[: len(busy)] = slots
+        valid = np.zeros((Kc,), bool)
+        valid[: len(busy)] = True
+        stage = self._staging()
+        ops, payloads = stage.acquire(K, Kc)
+        row_of = {d: j for j, d in enumerate(busy)}
+        cur = busy
+        for k in range(K):
+            stage.mark(k, self._drain_into(cur, ops[k], payloads[k],
+                                           rows=[row_of[d] for d in cur]))
+            if k + 1 < K:
+                cur = [d for d in cur if d in self._busy]
+        kinds = ops[..., 0].copy()
+        sub = gather_cohort(self.state, idx)
+        dev_ops, dev_payloads = stage.upload(ops, payloads)
+        syncs = mk.apply_megastep.ob_gate_syncs
+        with span("dispatch", kind="cohort", k=K, lanes=Kc):
+            sub = self._megastep(sub, dev_ops, dev_payloads, kinds=kinds)
+        self.counters.bump("ob_gate_syncs", mk.apply_megastep.ob_gate_syncs - syncs)
+        self.state = scatter_cohort(self.state, sub, idx, valid)
+        self.cohort_steps += K
+        self.cohort_lanes += K * Kc
         self.counters.bump("megastep_dispatches")
         self.counters.bump("megastep_slices", K)
         return K
 
     def step(self) -> int:
-        """Run megasteps until all staged ops are applied (batch and
-        overflow lanes); returns the number of [D, B] slices applied.  Then,
-        unless recovery is off, recover every latched doc (``errors()`` is
-        all zero on return), run the watchdog and readmissions when due,
-        and write the cadence checkpoints (after ``ckpt_lock`` releases)."""
+        """Run megasteps until all staged ops are applied (batch, cohort,
+        overflow and segment lanes); returns the number of slices applied
+        (a K-slice megastep counts K).  Then, unless recovery is off,
+        recover every latched doc (``errors()`` is all zero on return), run
+        the watchdog and readmissions when due, and write the cadence
+        checkpoints (after ``ckpt_lock`` releases)."""
         with self.ckpt_lock:
             had_work = bool(
-                self._busy or any(ln.queue for ln in self.overflow.values())
+                self._busy
+                or any(ln.queue for ln in self.overflow.values())
+                or any(ln.queue for ln in self.seg_lanes.values())
             )
             steps = self._step_fleet()
             if had_work and self.recovery_tracker.active:
@@ -1051,8 +1249,13 @@ class DocBatchEngine:
         t0 = time.perf_counter() if self.sampled is not None else 0.0
         steps = 0
         while self._busy:
-            steps += self._full_step(sorted(self._busy))
+            busy = sorted(self._busy)
+            if self.bucketing and len(busy) <= self.capacity // 4:
+                steps += self._cohort_step(busy)
+            else:
+                steps += self._full_step(busy)
         self._step_lanes()
+        self._step_seg_lanes()
         self._step_count += 1
         if self.recovery != "off":
             self.recover()
@@ -1110,13 +1313,187 @@ class DocBatchEngine:
                 self._readmit_interval[d] = interval
                 self._readmit_due[d] = self._step_count + interval
 
+    # -------------------------------------------------------- segment lanes
+    def _step_seg_lanes(self) -> None:
+        """Drain every segment lane with [K, B] seg megasteps, re-blocking
+        any lane past its rebalance budget."""
+        for d, lane in list(self.seg_lanes.items()):
+            self._drain_seg_lane(d, lane)
+            if (
+                self.seg_rebalance_every
+                and lane.ops_since_rebalance >= self.seg_rebalance_every
+            ):
+                self.rebalance_segments(d)
+
+    def _drain_seg_lane(self, d: int, lane: _SegmentLane) -> None:
+        """Apply one lane's staged rows as [K, B] seg megasteps: the ring
+        uploads whole (``upload_replicated``: every shard applies every op
+        to its own segment block).  The [K, B] buffers are fresh per
+        dispatch (tiny next to the dispatch itself)."""
+        B = self.ops_per_step
+        while lane.queue:
+            need = -(-len(lane.queue) // B)
+            K = min(self.megastep_k, self._pow2_floor(max(need, 1)))
+            ops = np.zeros((K, B, mk.OP_FIELDS), np.int32)
+            payloads = np.zeros((K, B, self.max_insert_len), np.int32)
+            taken = 0
+            for k in range(K):
+                take = min(B, len(lane.queue))
+                if not take:
+                    break
+                src_ops, src_payloads = lane.queue.take(take)
+                ops[k, :take] = src_ops
+                payloads[k, :take] = src_payloads
+                taken += take
+            kinds = ops[..., 0].copy()
+            dev_ops, dev_payloads = self._pm.upload_replicated(ops, payloads, self.mesh)
+            with span("dispatch", kind="seg", k=K, doc=self.doc_keys[d],
+                      seg_shards=lane.n_shards):
+                lane.state = self._seg_megastep(lane.state, dev_ops, dev_payloads,
+                                                kinds=kinds)
+            lane.version += 1
+            lane.ops_since_rebalance += taken
+            self.counters.bump("megastep_dispatches")
+            self.counters.bump("megastep_slices", K)
+
+    def segment_sharded(self) -> dict[str, int]:
+        """doc key -> segment shard count for every promoted hot doc."""
+        return {self.doc_keys[d]: lane.n_shards for d, lane in self.seg_lanes.items()}
+
+    def enable_segment_sharding(self, d: int, s_local: int = 0,
+                                text_capacity: int = 0) -> bool:
+        """Promote a hot doc onto the segment-parallel path (under
+        ``ckpt_lock``: the checkpoint sweep reads the lanes)."""
+        with self.ckpt_lock:
+            return self._enable_segment_sharding_locked(d, s_local, text_capacity)
+
+    def _enable_segment_sharding_locked(self, d: int, s_local: int = 0,
+                                        text_capacity: int = 0) -> bool:
+        """The doc's row re-blocks into the seg-sharded layout
+        (``mk.seg_shard_state``: live segments in contiguous runs over the
+        segs axis, text, scalars and obliterate table replicated) and future
+        ops apply segment-parallel.  The batch slot stays reserved (the
+        pristine row), so placement is untouched and demotion lands back in
+        place.  Staged rows move to the lane queue: promotion is legal
+        mid-stream.  Returns False when seg serving is off, the doc is off
+        the batch path, the lane budget is spent, or the state does not
+        block."""
+        if self.seg_shards <= 1 or self._seg_megastep is None:
+            return False
+        if not (0 <= d < self.n_docs):
+            raise ValueError(f"no doc {d}")
+        if (
+            d in self.seg_lanes or d in self.overflow
+            or d in self.oracles or d in self.quarantine
+        ):
+            return False
+        if len(self.seg_lanes) >= self.max_seg_lanes:
+            self.counters.bump("seg_promotions_skipped")
+            return False
+        slot = int(self._slot[d])
+        row = mk.to_numpy(mk.doc_row(self.state, slot))
+        if int(row.error):
+            return False  # recover first; never promote a latched row
+        s_local = s_local or self.seg_lane_segments or self.geometry["max_segments"]
+        tc = (
+            text_capacity or self.seg_lane_text_capacity
+            or self.geometry["text_capacity"]
+        )
+        try:
+            blocked = mk.seg_shard_state(row, self.seg_shards, s_local, tc)
+        except (ValueError, NotImplementedError):
+            return False
+        lane = _SegmentLane(
+            self._pm.shard_seg_state(blocked, self.mesh), self.seg_shards, s_local,
+            RowQueue(mk.OP_FIELDS, self.max_insert_len),
+        )
+        h = self.hosts[d]
+        if h.queue:
+            ops_p, payloads_p = h.queue.pending()
+            lane.queue.extend_block(ops_p.copy(), payloads_p.copy())
+            h.queue.clear()
+        self._busy.discard(d)
+        self.seg_lanes[d] = lane
+        self._put_row(slot, self._proto)  # retire the row (slot reserved)
+        self._verified_digest.pop(d, None)
+        self.counters.bump("seg_promotions")
+        instant("seg_promote", doc=self.doc_keys[d], shards=self.seg_shards,
+                s_local=s_local)
+        return True
+
+    def disable_segment_sharding(self, d: int) -> bool:
+        """Demote a segment-sharded doc back into its reserved batch row
+        (gather, summary export, re-pack at batch geometry).  Staged lane
+        rows apply first.  Returns False when the gathered state no longer
+        fits the batch geometry (the doc stays on its lane)."""
+        with self.ckpt_lock:
+            return self._disable_segment_sharding_locked(d)
+
+    def _disable_segment_sharding_locked(self, d: int) -> bool:
+        lane = self.seg_lanes.get(d)
+        if lane is None:
+            return False
+        if lane.queue:
+            self._drain_seg_lane(d, lane)
+        host = mk.seg_unstack(mk.to_numpy(lane.state))
+        if int(host.error):
+            return False  # recover() handles latched lanes
+        gathered = mk.seg_gather_state(host)
+        h = self.hosts[d]
+        self._sync_native_props(h)
+        summary = kb.state_to_summary(gathered, {v: k for k, v in h.prop_slot.items()})
+        try:
+            row = kb.summary_to_state_host(
+                summary, self.geometry,
+                lambda p: self._prop_slot_for_geom(h, p, self.geometry),
+            )
+        except (ValueError, IndexError):
+            return False
+        self._put_row(int(self._slot[d]), row)
+        del self.seg_lanes[d]
+        self._verified_digest.pop(d, None)
+        self.counters.bump("seg_demotions")
+        instant("seg_demote", doc=self.doc_keys[d])
+        return True
+
+    def rebalance_segments(self, d: int) -> bool:
+        """Re-block a segment lane so every shard holds an even share of
+        the live segments again (inserts land shard-local, so runs skew
+        toward one shard over time): gather and re-shard, byte- and
+        order-preserving (``mk.seg_rebalance_state``)."""
+        with self.ckpt_lock:
+            return self._rebalance_segments_locked(d)
+
+    def _rebalance_segments_locked(self, d: int) -> bool:
+        lane = self.seg_lanes.get(d)
+        if lane is None:
+            return False
+        if int(lane.state.error[0]):
+            # One scalar read: a latched lane waits for recover().
+            return False
+        with span("seg_rebalance", doc=self.doc_keys[d], shards=lane.n_shards):
+            blocked = mk.seg_rebalance_state(mk.to_numpy(lane.state), s_local=lane.s_local)
+            lane.state = self._pm.shard_seg_state(blocked, self.mesh)
+        lane.version += 1
+        lane.rebalances += 1
+        lane.ops_since_rebalance = 0
+        self.counters.bump("seg_rebalances")
+        instant("seg_rebalance", doc=self.doc_keys[d])
+        return True
+
+    def _min_seqs(self) -> torch.Tensor:
+        """Every slot's MSN floor (docs' at their slots, 0 elsewhere)."""
+        mins = np.zeros((self.capacity,), np.int32)
+        mins[self._slot] = [h.min_seq for h in self.hosts]
+        return self._pm.shard_docs(torch.from_numpy(mins), self._fleet_mesh)
+
     def compact(self) -> None:
         """Advance MSNs and run zamboni eviction across the fleet, its
-        overflow lanes and its host oracles."""
-        mins = np.array([h.min_seq for h in self.hosts], np.int32)
-        self.state = self._compact(
-            self.state, self._pm.shard_docs(torch.from_numpy(mins), self.mesh)
-        )
+        segment and overflow lanes and its host oracles."""
+        self.state = self._compact(self.state, self._min_seqs())
+        for d, lane in self.seg_lanes.items():
+            lane.state = self._seg_compact(lane.state, self.hosts[d].min_seq)
+            lane.version += 1
         for d, lane in self.overflow.items():
             lane.state = _fleet_compact_body(
                 lane.state, np.asarray([self.hosts[d].min_seq], np.int32)
@@ -1130,15 +1507,15 @@ class DocBatchEngine:
     def recover(self) -> list[int]:
         """Recover every flagged doc; returns the doc indices recovered.
         One scalar read of the batch's error count per call (the error
-        vector is read only when it is nonzero) and one read of the
-        overflow lanes' error scalars.  Capacity bits grow-and-replay (or
+        vector is read only when it is nonzero) and one read each of the
+        overflow and segment lanes' error scalars.  Capacity bits grow-and-replay (or
         oracle-route); poison bits (ERR_POS_RANGE alone) quarantine."""
         recovered: list[int] = []
         with span("readback", kind="error_count"):
             batch_dirty = self.error_count()
         if batch_dirty:
             with span("readback", kind="error_vector"):
-                err = self.state.error.cpu().numpy().copy()
+                err = self.state.error.cpu().numpy()[self._slot]  # by doc
             for d in np.flatnonzero(err).tolist():
                 if d in self.overflow or d in self.oracles or d in self.quarantine:
                     continue
@@ -1148,7 +1525,7 @@ class DocBatchEngine:
                 else:  # poison: ERR_POS_RANGE with no capacity bit
                     self._quarantine_doc(d, f"error bits {bits:#x}")
                 # Retire the batch row's latch: future ops route to the lane.
-                self.state.error[d] = 0
+                self.state.error[int(self._slot[d])] = 0
                 recovered.append(d)
         if self.overflow:
             lanes = list(self.overflow.items())
@@ -1159,6 +1536,20 @@ class DocBatchEngine:
                         self._recover_doc(d, bits, growths=lane.growths)
                     else:
                         self._quarantine_doc(d, f"error bits {bits:#x}")
+                    recovered.append(d)
+        if self.seg_lanes:
+            lanes = list(self.seg_lanes.items())
+            lane_bits = torch.stack([ln.state.error[0] for _, ln in lanes]).tolist()
+            for (d, _lane), bits in zip(lanes, lane_bits):
+                if bits:
+                    # A latched segment lane leaves the seg path: the
+                    # retained log replays into an overflow lane (grow) or
+                    # quarantine; staged lane rows ride the log.
+                    self.seg_lanes.pop(d)
+                    if mk.is_capacity_error(bits):
+                        self._recover_doc(d, bits, growths=0)
+                    else:
+                        self._quarantine_doc(d, f"error bits {bits:#x} (seg lane)")
                     recovered.append(d)
         if recovered:
             self.counters.emit(recovered_docs=len(recovered))
@@ -1329,6 +1720,7 @@ class DocBatchEngine:
             self._oracle_apply_validated(tree, h, msg)
         tree.update_min_seq(h.min_seq)
         self.overflow.pop(d, None)
+        self.seg_lanes.pop(d, None)
         flaps = self._flaps[d] = self._flaps.get(d, 0) + 1
         if self.poison_budget and flaps > self.poison_budget:
             # Flapping: route to the oracle lane permanently (serviceable,
@@ -1353,15 +1745,16 @@ class DocBatchEngine:
                 self._readmit_due[d] = self._step_count + interval
         h.queue.clear()
         self._busy.discard(d)
-        self.state.error[d] = 0
+        self.state.error[int(self._slot[d])] = 0
         self.counters.bump("quarantines")
         if self.counters.logger is not None:
             self.counters.logger.error("doc_quarantined", reason, doc=self.doc_keys[d])
 
-    def _put_row(self, d: int, row: mk.DocState) -> None:
-        """Write a one-document state (tensors or numpy) into batch row d."""
+    def _put_row(self, slot: int, row: mk.DocState) -> None:
+        """Write a one-document state (tensors or numpy) into state row
+        ``slot``."""
         for x, y in zip(mk.leaves(self.state), mk.leaves(row)):
-            x[d] = torch.as_tensor(y).to(x.device)
+            x[slot] = torch.as_tensor(y).to(x.device)
 
     def readmit(self, d: int) -> bool:
         """Re-admit a quarantined doc to the lockstep batch: pack the
@@ -1380,7 +1773,7 @@ class DocBatchEngine:
             )
         except (ValueError, IndexError):
             return False
-        self._put_row(d, row)
+        self._put_row(int(self._slot[d]), row)
         del self.quarantine[d]
         self.quarantine_reason.pop(d, None)
         self._readmit_due.pop(d, None)
@@ -1395,12 +1788,103 @@ class DocBatchEngine:
         self.counters.bump("readmissions")
         return True
 
-    def migrate_doc(self, d: int, dst_shard: int) -> bool:
-        raise NotImplementedError("doc migration is not ported yet")
+    # ---------------------------------------------------- placement/migration
+    def shard_of(self, doc_idx: int) -> int:
+        """The shard hosting this doc's state row."""
+        return self.placement_plane.shard_of(doc_idx)
 
-    def enable_segment_sharding(self, d: int, s_local: int = 0,
-                                text_capacity: int = 0) -> bool:
-        raise NotImplementedError("engine-promoted segment lanes are not ported yet")
+    def placement(self) -> dict[str, int]:
+        """doc key -> shard: the summary-ownership alignment surface."""
+        return self.placement_plane.placement(self.doc_keys)
+
+    def shard_load(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-shard (applied ops since the last ``hot_shards`` reset,
+        queued ops) — ``placement.shard_load``."""
+        return placement.shard_load(self)
+
+    def hot_shards(self, factor: float = 2.0, reset: bool = False, load=None) -> list[int]:
+        """Shards whose load exceeds ``factor`` x the fleet mean —
+        ``placement.hot_shards``."""
+        return placement.hot_shards(self, factor, reset, load)
+
+    def free_slots(self, shard: int) -> int:
+        return self.placement_plane.free_slots(shard)
+
+    def migrate_doc(self, d: int, dst_shard: int) -> bool:
+        # ckpt_lock: migration mutates the state and the slot map, which the
+        # checkpoint sweep reads.
+        with self.ckpt_lock:
+            return self._migrate_doc_locked(d, dst_shard)
+
+    def _migrate_doc_locked(self, d: int, dst_shard: int) -> bool:
+        """Live doc migration between shards (hot-shard rebalancing).
+
+        The handoff is the checkpoint codec: the doc's row exports through
+        ``kb.state_to_summary``, re-packs at the batch geometry with
+        ``kb.summary_to_state_host`` and lands in a free slot of the
+        destination shard; the vacated slot retires to the pristine row.
+        Text, annotations, obliterate table and summary are identical
+        before and after.  Host queues, retained logs and checkpoint floors
+        travel with the doc untouched, so a doc may migrate with staged ops
+        pending; they apply at the new slot on the next step.  Raises
+        ``placement.PlacementError`` for a doc on a segment or overflow
+        lane; returns False (the doc stays) when it is oracle- or
+        quarantine-routed, already on ``dst_shard``, latched, or the
+        destination has no free slot."""
+        plane = self.placement_plane
+        plane.validate(d, dst_shard)
+        plane.require_migratable(
+            d,
+            "segment" if d in self.seg_lanes
+            else "overflow" if d in self.overflow else None,
+        )
+        if d in self.oracles or d in self.quarantine:
+            return False
+        reservation = plane.reserve(d, dst_shard)
+        if reservation is None:
+            return False
+        src_slot, dst_slot = reservation
+        src_shard = src_slot // self.docs_per_shard
+        h = self.hosts[d]
+        row = mk.to_numpy(mk.doc_row(self.state, src_slot))
+        if int(row.error):
+            plane.release(dst_slot)
+            return False  # recover first; never migrate a latched row
+        self._sync_native_props(h)
+        summary = kb.state_to_summary(row, {v: k for k, v in h.prop_slot.items()})
+        try:
+            new_row = kb.summary_to_state_host(
+                summary, self.geometry,
+                lambda p: self._prop_slot_for_geom(h, p, self.geometry),
+            )
+        except (ValueError, IndexError):
+            plane.release(dst_slot)
+            return False  # does not re-pack at batch geometry: stay put
+        self._put_row(dst_slot, new_row)
+        self._put_row(src_slot, self._proto)
+        plane.commit(d, src_slot, dst_slot)
+        # Fresh row content (the text pool re-packed): the watchdog must
+        # re-verify before the pre-filter may skip this doc again.
+        self._verified_digest.pop(d, None)
+        self.counters.bump("doc_migrations")
+        instant("migrate_doc", doc=self.doc_keys[d], src=src_shard, dst=dst_shard)
+        return True
+
+    def rebalance_hot_shards(self, factor: float = 2.0,
+                             max_moves: int = 1) -> list[tuple[int, int, int]]:
+        """Detect hot shards and live-migrate their deepest-queued docs to
+        the coldest shards with free slots (``migrate_doc`` per move).
+        Returns the ``(doc, src_shard, dst_shard)`` moves made.  A shard hot
+        because of one doc whose own queue exceeds the fleet mean cannot be
+        rebalanced by placement; with a segs axis that doc is promoted to a
+        segment lane instead and appears with ``dst_shard == -1``."""
+        return placement.rebalance_hot_shards(
+            self, self.placement_plane, factor, max_moves,
+            in_lane=self._in_lane,
+            promote_hot_doc=(
+                self.enable_segment_sharding if self.seg_shards > 1 else None
+            ),
+        )
 
     # ------------------------------------------------ boot adoption, warmup
     def adopt_boot_snapshot(self, doc_idx: int, record: dict) -> placement.AdoptResult:
@@ -1419,9 +1903,9 @@ class DocBatchEngine:
         (trailing must not race serving), but a boot resync REPLACES the
         doc — pre-gap rows are covered by the snapshot."""
         self.hosts[doc_idx].queue.clear()
-        lane = self.overflow.get(doc_idx)
-        if lane is not None:
-            lane.queue.clear()
+        for lane in (self.overflow.get(doc_idx), self.seg_lanes.get(doc_idx)):
+            if lane is not None:
+                lane.queue.clear()
         self._busy.discard(doc_idx)
 
     def warmup(self) -> int:
@@ -1453,8 +1937,7 @@ class DocBatchEngine:
             # its result is dropped: a warmup never compacts a serving fleet
             # (the reference's keeps it, which changes a fleet whose MSN
             # moved since its last compact).
-            mins = np.array([h.min_seq for h in self.hosts], np.int32)
-            self._compact(self.state, self._pm.shard_docs(torch.from_numpy(mins), self.mesh))
+            self._compact(self.state, self._min_seqs())
             warmed += 1
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -1473,18 +1956,21 @@ class DocBatchEngine:
             if not (
                 d in self.overflow or d in self.oracles or d in self.quarantine
             )
+            and not (d in self.seg_lanes and self.seg_lanes[d].queue)
             and self.hosts[d].mode == "obj"
             and not self.hosts[d].queue
         ]
         if not eligible:
             return []
         # Device-digest pre-filter: one digest of the fleet per sweep (one
-        # device-to-host read).  A doc whose digest AND ingested seq both
-        # match its last passed check is skipped (counted).
+        # device-to-host read).  A doc whose digest (of its slot) AND
+        # ingested seq both match its last passed check is skipped
+        # (counted).  A segment lane's slot holds the pristine reserved
+        # row, so its host-side version stamp vouches instead.
         digests = fleet_digest(self.state).cpu().tolist()
         drifted = []
         for d in eligible:
-            if self._verified_digest.get(d) == (digests[d], self.hosts[d].last_seq):
+            if self._verified_digest.get(d) == self._watch_mark(d, digests):
                 self.counters.bump("watchdog_prefiltered")
             else:
                 drifted.append(d)
@@ -1516,9 +2002,16 @@ class DocBatchEngine:
                 self._quarantine_doc(d, "watchdog: device/oracle divergence")
                 failed.append(d)
             else:
-                # Passed: pin (digest, seq) until the row or stream moves.
-                self._verified_digest[d] = (digests[d], self.hosts[d].last_seq)
+                # Passed: pin the mark until the row or stream moves.
+                self._verified_digest[d] = self._watch_mark(d, digests)
         return failed
+
+    def _watch_mark(self, d: int, digests: list[int]) -> tuple:
+        """The watchdog's change mark of a doc: (slot digest, seq), or the
+        segment lane's (``"seg"``, version, seq)."""
+        if d in self.seg_lanes:
+            return ("seg", self.seg_lanes[d].version, self.hosts[d].last_seq)
+        return (digests[int(self._slot[d])], self.hosts[d].last_seq)
 
     # ------------------------------------------------------------- checkpoint
     def maybe_checkpoint(self, force: bool = False, docs=None) -> list[int]:
@@ -1588,18 +2081,35 @@ class DocBatchEngine:
                 d not in self.quarantine
                 and d not in self.oracles
                 and d not in self.overflow
+                and d not in self.seg_lanes
                 for d in due
             )
             else None
         )
         for d in due:
             h = self.hosts[d]
-            if h.queue or (d in self.overflow and self.overflow[d].queue):
+            if (
+                h.queue
+                or (d in self.overflow and self.overflow[d].queue)
+                or (d in self.seg_lanes and self.seg_lanes[d].queue)
+            ):
                 continue  # staged-but-unapplied ops: state is mid-step
             lane = "batch"
             geometry = None
             prop_names = {v: k for k, v in h.prop_slot.items()}
-            if d in self.quarantine:
+            if d in self.seg_lanes:
+                # A segment lane checkpoints through the same codec (its
+                # live prefixes gathered first) and restores as a batch row
+                # (or a fitted overflow lane); the supervisor re-promotes.
+                seg_host = mk.seg_unstack(mk.to_numpy(self.seg_lanes[d].state))
+                if int(seg_host.error):
+                    continue  # never checkpoint a latched lane
+                self._sync_native_props(h)
+                summary = kb.state_to_summary(
+                    mk.seg_gather_state(seg_host),
+                    {v: k for k, v in h.prop_slot.items()},
+                )
+            elif d in self.quarantine:
                 lane = "quarantine"
                 summary = self.quarantine[d].export_summary()
             elif d in self.oracles:
@@ -1615,7 +2125,7 @@ class DocBatchEngine:
                 growths = ln.growths
                 summary = kb.state_to_summary(row, prop_names)
             else:
-                row = mk.tree_map(lambda x, _d=d: x[_d], host_state)
+                row = mk.tree_map(lambda x, _s=int(self._slot[d]): x[_s], host_state)
                 if int(row.error):
                     continue  # never checkpoint a poisoned row
                 self._sync_native_props(h)
@@ -1648,7 +2158,7 @@ class DocBatchEngine:
 
     def _queue_depth(self, d: int) -> int:
         """Staged-but-unapplied rows of doc ``d`` (batch queue + lane)."""
-        lane = self.overflow.get(d)
+        lane = self.seg_lanes.get(d) or self.overflow.get(d)
         return len(self.hosts[d].queue) + (len(lane.queue) if lane else 0)
 
     def note_incident(self, started_at: float) -> None:
@@ -1759,16 +2269,17 @@ class DocBatchEngine:
                             self._lane_state(rec["summary"], h, geom), geom, 1
                         )
                     else:
+                        slot = int(self._slot[d])
                         if parallel:
-                            batch_rows.append((d, row))
+                            batch_rows.append((slot, row))
                         else:
-                            self._put_row(d, row)
+                            self._put_row(slot, row)
                 restored.append(d)
                 self.counters.bump("docs_restored")
         if batch_rows:
             with span("restore_scatter", rows=len(batch_rows)):
                 self._scatter_rows(
-                    [d for d, _ in batch_rows],
+                    [slot for slot, _ in batch_rows],
                     mk.tree_map(lambda *xs: np.stack(xs), *[r for _, r in batch_rows]),
                 )
         if restored and not refresh:
@@ -1777,11 +2288,11 @@ class DocBatchEngine:
             self.recovery_tracker.begin(t_start)
         return restored
 
-    def _scatter_rows(self, docs: list[int], stacked: mk.DocState) -> None:
+    def _scatter_rows(self, slots: list[int], stacked: mk.DocState) -> None:
         """The parallel restore's scatter: host rows stacked [n, ...] (numpy)
-        into the batch rows ``docs`` — one host-to-device copy and one
+        into the state rows ``slots`` — one host-to-device copy and one
         ``index_copy_`` per state leaf."""
-        idx = torch.tensor(docs, device=self.device)
+        idx = torch.tensor(slots, device=self.device)
         for x, y in zip(mk.leaves(self.state), mk.leaves(stacked)):
             x.index_copy_(0, idx, torch.from_numpy(y).to(x.device))
 
@@ -1799,6 +2310,7 @@ class DocBatchEngine:
         """Forget a doc's prior adoption before a refresh re-seed (the doc
         has no staged work by contract)."""
         self.overflow.pop(d, None)
+        self.seg_lanes.pop(d, None)
         self.oracles.pop(d, None)
         self.quarantine.pop(d, None)
         self.quarantine_reason.pop(d, None)
@@ -1833,11 +2345,37 @@ class DocBatchEngine:
         self.overload_gate.emit_gauges(
             self.counters, self.megastep_k * self.ops_per_step,
             max(
-                (self._queue_depth(d) for d in self._busy | set(self.overflow)),
+                (
+                    self._queue_depth(d)
+                    for d in self._busy | set(self.seg_lanes) | set(self.overflow)
+                ),
                 default=0,
             ),
         )
-        self.counters.gauge("n_shards", 1)
+        # Placement surface: shard count, the 2-D docs x segs surface (segs
+        # width, promoted docs, per-shard live segments across all lanes),
+        # and per-shard load for hot-shard detection.
+        self.counters.gauge("n_shards", self.n_shards)
+        self.counters.gauge("segment_shards", self.seg_shards)
+        self.counters.gauge("segment_sharded_docs", len(self.seg_lanes))
+        if self.seg_lanes:
+            occ = np.zeros((self.seg_shards,), np.int64)
+            for lane in self.seg_lanes.values():
+                occ += mk.seg_occupancy(lane.state)
+            self.counters.gauge("seg_occupancy", [int(v) for v in occ])
+            self.counters.gauge(
+                "seg_lane_rebalances",
+                sum(lane.rebalances for lane in self.seg_lanes.values()),
+            )
+        elif self.seg_shards > 1:
+            # Zero the persisted gauges once the last lane demotes.
+            self.counters.gauge("seg_occupancy", [0] * self.seg_shards)
+            self.counters.gauge("seg_lane_rebalances", 0)
+        if self.n_shards > 1:
+            ops, depth = self.shard_load()
+            self.counters.gauge("shard_ops", [int(v) for v in ops])
+            self.counters.gauge("shard_queue_depth", [int(v) for v in depth])
+            self.counters.gauge("hot_shards", self.hot_shards(load=ops + depth))
         # Sampled op latency (sequencer stamp -> end of the applying step),
         # ms percentiles.  No ``recompiles`` / ``despecializations``: the
         # port compiles nothing at run time, so there is nothing to count.
@@ -1848,6 +2386,14 @@ class DocBatchEngine:
             )
             self.counters.gauge(
                 "latency_p99_ms", round(self.op_latency.percentile(0.99) * 1e3, 3)
+            )
+        if self.n_shards > 1:
+            self.counters.gauge(
+                "shard_latency_p99_ms",
+                [
+                    round(h.percentile(0.99) * 1e3, 3) if h.count else 0.0
+                    for h in self._shard_latency
+                ],
             )
         self.recovery_tracker.emit_gauges(self.counters)
         now = time.monotonic()
@@ -1880,11 +2426,14 @@ class DocBatchEngine:
         return snap
 
     def doc_state(self, doc_idx: int) -> mk.DocState:
-        """A doc's one-document state: its overflow lane's, else its batch
+        """A doc's one-document state: its segment lane's (gathered into the
+        single-lane layout, numpy), its overflow lane's, else its slot's
         row (views)."""
+        if doc_idx in self.seg_lanes:
+            return mk.seg_gather_state(self.seg_lanes[doc_idx].state)
         if doc_idx in self.overflow:
             return mk.doc_row(self.overflow[doc_idx].state, 0)
-        return mk.doc_row(self.state, doc_idx)
+        return mk.doc_row(self.state, int(self._slot[doc_idx]))
 
     def text(self, doc_idx: int) -> str:
         if doc_idx in self.quarantine:
@@ -1906,11 +2455,16 @@ class DocBatchEngine:
         return [{inv[p]: v for p, v in d.items()} for d in raw]
 
     def errors(self) -> np.ndarray:
-        """Per-doc error vector across batch and overflow lanes.  Oracle
-        and quarantined docs read 0: they are isolated and serviceable —
-        their degraded state surfaces through ``health()``."""
-        err = self.state.error.cpu().numpy().copy()
+        """Per-doc error vector (``capacity`` entries, the first ``n_docs``
+        doc-indexed) across batch, overflow and segment lanes.  Oracle and
+        quarantined docs read 0: they are isolated and serviceable — their
+        degraded state surfaces through ``health()``."""
+        by_slot = self.state.error.cpu().numpy()
+        err = np.zeros((self.capacity,), by_slot.dtype)
+        err[: self.n_docs] = by_slot[self._slot]
         for d, lane in self.overflow.items():
+            err[d] = int(lane.state.error[0])
+        for d, lane in self.seg_lanes.items():
             err[d] = int(lane.state.error[0])
         for d in self.oracles:
             err[d] = 0

@@ -45,9 +45,16 @@ Serving: ``adopt_boot_snapshot`` re-seeds one doc from a historian
 snapshot record; ``warmup`` makes the serving programs' first launches
 ahead of a standby's promotion.
 
-Not ported (``NotImplementedError``): a mesh, spare slots and migration
-(``migrate_doc``, ``rebalance_hot_shards``) and ``plan_cache=False`` (the
-reference's per-row emit path).
+Placement (``mesh``, ``spare_slots``): a ``placement.PlacementPlane`` maps
+each doc to a slot (its state row) of a ``fleet_capacity``-row state, a
+shard is a contiguous block of ``docs_per_shard`` rows, and the programs
+are one launch over every row.  ``migrate_doc`` folds the trunk suffix,
+retires the source slot and re-materializes the forest at a free slot of
+the destination shard; ``rebalance_hot_shards`` migrates off shards loaded
+past ``factor`` x the mean.
+
+Not ported (``NotImplementedError``): ``plan_cache=False`` (the reference's
+per-row emit path).
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ from ..dds.tree.mark_pool import pool_commit_from_json as _pool_commit_from_json
 from ..dds.tree.mark_pool import pool_commit_from_native
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..native import ingest_native
-from ..observability.flight_recorder import span
+from ..observability.flight_recorder import instant, span
 from ..ops import tree_kernel as tk
 from ..protocol.messages import MessageType, SequencedMessage
 from ..utils.telemetry import HealthCounters
@@ -230,12 +237,6 @@ _GROW_KINDS = (int(tk.NestedOpKind.INSERT), int(tk.NestedOpKind.REPLACE_FIELD))
 _POOLED_KINDS = _GROW_KINDS + (int(tk.NestedOpKind.SET),)
 _POOLED_VKINDS = tuple(int(p) for p in tk._POOLED)
 
-# Reference constructor options this port does not carry yet, with the
-# values that leave them off (``plan_cache=False`` is the reference's
-# per-row emit path).
-_OPTIONS_OFF = {"mesh": (None,), "spare_slots": (0,), "plan_cache": (True,)}
-
-
 class TreeBatchEngine:
     """A fleet of tree replicas: host EditManagers + nested device columns."""
 
@@ -259,15 +260,24 @@ class TreeBatchEngine:
         overload_low_watermark: int = 0,
         native_wire: bool = True,
         telemetry=None,
+        mesh=None,
+        spare_slots: int = 0,
+        plan_cache: bool = True,
         device=DEFAULT_DEVICE,
-        **options,
     ) -> None:
-        for name, value in options.items():
-            if name not in _OPTIONS_OFF:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value not in _OPTIONS_OFF[name]:
-                raise NotImplementedError(f"{name}={value!r} is not ported yet")
-        self.device = resolve_device(device)
+        if not plan_cache:
+            # The reference's per-row emit path (its byte-identity oracle
+            # for the plan cache) is not carried.
+            raise NotImplementedError("plan_cache=False is not ported")
+        if mesh is not None:
+            # The mesh's device serves the engine; ``device`` may only
+            # repeat it.
+            if device != DEFAULT_DEVICE and resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
         self.n_docs = n_docs
         self.capacity = capacity
         self.pool_capacity = pool_capacity
@@ -327,8 +337,20 @@ class TreeBatchEngine:
         self._plans: dict[tuple, _TranslationPlan] = {}
         self._collector = _FlattenCollector()
         self._PLAN_CACHE_MAX = 4096
+        # Placement rides the shared plane (models/placement.py): doc -> slot
+        # indirection with per-shard spare-slot free pools; free and padding
+        # rows are inert pristine rows.  ``_slot`` aliases the plane's array.
+        self.n_shards = mesh.n_shards if mesh is not None else 1
+        self.placement_plane = placement.PlacementPlane(n_docs, self.n_shards, spare_slots)
+        self.fleet_capacity = self.placement_plane.capacity
+        self.docs_per_shard = self.placement_plane.docs_per_shard
+        self._slot = self.placement_plane.slots
+        # Per-shard applied-op counters (host-side), accumulated at drain
+        # time: the hot-shard detection signal.
+        self._shard_ops = np.zeros((self.n_shards,), np.int64)
+        # Pristine row: retires vacated and re-seeded slots.
         self._proto = tk.init_nested_forest(capacity, pool_capacity, device=self.device)
-        self.state = tk.batch_nested(self._proto, n_docs)
+        self.state = tk.batch_nested(self._proto, self.fleet_capacity)
         self._busy: set[int] = set()
         self._stage: StagingRing | None = None
         # Host-side upper bounds on each doc's row and pool watermarks (rows
@@ -753,7 +775,7 @@ class TreeBatchEngine:
     def _staging(self) -> StagingRing:
         if self._stage is None:
             self._stage = StagingRing(
-                self.megastep_k, self.n_docs, self.ops_per_step,
+                self.megastep_k, self.fleet_capacity, self.ops_per_step,
                 tk.NESTED_OP_FIELDS, self.max_insert_len, self.device,
             )
         return self._stage
@@ -769,8 +791,9 @@ class TreeBatchEngine:
 
     def _drain_into(self, busy: list[int], ops: np.ndarray,
                     payloads: np.ndarray) -> list[int]:
-        """Dequeue up to ops_per_step op rows per busy doc into its row of
-        the zeroed staging slice; returns the rows written."""
+        """Dequeue up to ops_per_step op rows per busy doc into its slot's
+        row of the zeroed staging slice, charging the rows to the slot's
+        shard; returns the rows written."""
         B = self.ops_per_step
         written: list[int] = []
         for d in busy:
@@ -778,12 +801,14 @@ class TreeBatchEngine:
             take = min(B, len(h.queue))
             if not take:
                 continue
+            r = int(self._slot[d])
             src_ops, src_payloads = h.queue.take(take)
-            ops[d, :take] = src_ops
-            payloads[d, :take] = src_payloads
+            ops[r, :take] = src_ops
+            payloads[r, :take] = src_payloads
+            self._shard_ops[r // self.docs_per_shard] += take
             if not h.queue:
                 self._busy.discard(d)
-            written.append(d)
+            written.append(r)
         return written
 
     def step(self) -> int:
@@ -808,8 +833,8 @@ class TreeBatchEngine:
         queued = np.array([q for q, _w in queued_pairs], np.int64)
         queued_words = np.array([w for _q, w in queued_pairs], np.int64)
         active = np.array([d not in self.fallbacks for d in range(self.n_docs)])
-        nrow = self.state.nrow.cpu().numpy().astype(np.int64)
-        pool_end = self.state.pool_end.cpu().numpy().astype(np.int64)
+        nrow = self.state.nrow.cpu().numpy()[self._slot].astype(np.int64)
+        pool_end = self.state.pool_end.cpu().numpy()[self._slot].astype(np.int64)
         self._rows_upper = np.where(active, nrow + queued, 0)
         self._pool_upper = np.where(active, pool_end + queued_words, 0)
 
@@ -826,7 +851,7 @@ class TreeBatchEngine:
             busy = sorted(self._busy)
             K = self._select_k(busy)
             stage = self._staging()
-            ops, payloads = stage.acquire(K, self.n_docs)
+            ops, payloads = stage.acquire(K, self.fleet_capacity)
             for k in range(K):
                 stage.mark(k, self._drain_into(busy, ops[k], payloads[k]))
                 if k + 1 < K:
@@ -834,7 +859,7 @@ class TreeBatchEngine:
             # Kinds and path depths stay on the host: branch selection.
             host_ops = ops[..., :3].copy()
             dev_ops, dev_payloads = stage.upload(ops, payloads)
-            with span("dispatch", kind="tree", k=K, shards=1):
+            with span("dispatch", kind="tree", k=K, shards=self.n_shards):
                 self.state = tk.apply_nested_megastep(
                     self.state, dev_ops, dev_payloads, host_ops=host_ops
                 )
@@ -843,13 +868,13 @@ class TreeBatchEngine:
             self.counters.bump("megastep_slices", K)
         # One read of the error vector: latched docs replay on the host.
         with span("readback", kind="error_vector"):
-            err = self.state.error.cpu().numpy()
+            err = self.state.error.cpu().numpy()[self._slot]  # by doc
         routed = []
         for d in np.flatnonzero(err).tolist():
             if d not in self.fallbacks:
                 self._route_to_fallback(d)
                 self.counters.bump("fallback_routes")
-                routed.append(d)
+                routed.append(int(self._slot[d]))
         if routed:
             self.state.error[torch.as_tensor(routed, device=self.device)] = 0
         return steps
@@ -1046,15 +1071,111 @@ class TreeBatchEngine:
         self._rows_upper[d] = 0
         self._pool_upper[d] = 0
         if h.total_commits or h.restored or had_fallback:
-            for x, p in zip(self.state, self._proto):
-                x[d] = p
+            self._reset_row(int(self._slot[d]))
 
-    # ------------------------------------------------------------ unported
+    def _reset_row(self, slot: int) -> None:
+        """Retire state row ``slot`` to the pristine row."""
+        for x, p in zip(self.state, self._proto):
+            x[slot] = p
+
+    # ---------------------------------------------------- placement/migration
+    def shard_of(self, doc_idx: int) -> int:
+        """The shard hosting this doc's state row."""
+        return self.placement_plane.shard_of(doc_idx)
+
+    def placement(self) -> dict[str, int]:
+        """doc key -> shard: the summary-ownership alignment surface."""
+        return self.placement_plane.placement(self.doc_keys)
+
+    def shard_load(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-shard (applied ops since the last ``hot_shards`` reset,
+        queued ops) — ``placement.shard_load``."""
+        return placement.shard_load(self)
+
+    def hot_shards(self, factor: float = 2.0, reset: bool = False, load=None) -> list[int]:
+        """Shards whose load exceeds ``factor`` x the fleet mean —
+        ``placement.hot_shards``."""
+        return placement.hot_shards(self, factor, reset, load)
+
+    def free_slots(self, shard: int) -> int:
+        return self.placement_plane.free_slots(shard)
+
     def migrate_doc(self, d: int, dst_shard: int) -> bool:
-        raise NotImplementedError("doc migration is not ported yet")
+        # ckpt_lock: migration mutates the state and the slot map, which the
+        # checkpoint sweep and ingest read.
+        with self.ckpt_lock:
+            return self._migrate_doc_locked(d, dst_shard)
 
-    def rebalance_hot_shards(self, factor: float = 2.0, max_moves: int = 1):
-        raise NotImplementedError("hot-shard rebalancing is not ported yet")
+    def _migrate_doc_locked(self, d: int, dst_shard: int) -> bool:
+        """Live tree-doc migration between shards.
+
+        The handoff is the restore path's trunk fold and re-materialization:
+        the trunk suffix folds into the checkpoint forest (then the doc's
+        whole ingested trunk state, rows still queued included, so the
+        queue drops), the vacated slot retires to the pristine row, and the
+        forest re-materializes at the destination slot as one whole-content
+        insert staged through the normal step.  ``tree_json`` is identical
+        once the staged rows apply; EditManager windows and checkpoint
+        floors travel untouched, so a doc may migrate mid-stream.  Raises
+        ``placement.PlacementError`` for a fallback-routed doc; returns
+        False (the doc stays) when it is already on ``dst_shard``, its row
+        latched, the forest cannot re-flatten, or the destination has no
+        free slot."""
+        plane = self.placement_plane
+        plane.validate(d, dst_shard)
+        plane.require_migratable(d, "fallback" if d in self.fallbacks else None)
+        reservation = plane.reserve(d, dst_shard)
+        if reservation is None:
+            return False
+        src_slot, dst_slot = reservation
+        src_shard = src_slot // self.docs_per_shard
+        h = self.hosts[d]
+        if int(self.state.error[src_slot]):
+            plane.release(dst_slot)
+            return False  # recover first; never migrate a latched row
+        for t in h.trunk_log:
+            apply_commit(h.checkpoint.root, t)
+        h.trunk_log.clear()
+        ops_blk = pay_blk = None
+        if h.checkpoint.root_field:
+            ch = NodeChange()
+            ch.fields[ROOT_FIELD] = [Insert([n.clone() for n in h.checkpoint.root_field])]
+            try:
+                ops_blk, pay_blk = self._flatten([ch], seq=h.last_seq)
+            except UnsupportedShape:
+                plane.release(dst_slot)
+                return False  # cannot re-pack: the doc keeps serving in place
+        # Queued rows are covered by the folded forest; re-staging them on
+        # top of the re-materialization would apply them twice.
+        h.queue.clear()
+        self._busy.discard(d)
+        self._reset_row(src_slot)
+        plane.commit(d, src_slot, dst_slot)
+        # The destination slot is pristine (spare slots start as pristine
+        # rows; retired slots reset above): the watermarks restart at the
+        # re-materialization bound.
+        self._rows_upper[d] = 0
+        self._pool_upper[d] = 0
+        if ops_blk is not None and len(ops_blk):
+            rows_up, words_up = self._block_upper(ops_blk)
+            self._rows_upper[d] += rows_up
+            self._pool_upper[d] += words_up
+            h.queue.extend_block(ops_blk, pay_blk)
+            self._busy.add(d)
+        self.counters.bump("doc_migrations")
+        instant("migrate_doc", doc=self.doc_keys[d], src=src_shard, dst=dst_shard)
+        return True
+
+    def rebalance_hot_shards(self, factor: float = 2.0,
+                             max_moves: int = 1) -> list[tuple[int, int, int]]:
+        """Detect hot shards and live-migrate their deepest-queued docs to
+        the coldest shards with free slots (``placement.rebalance_hot_shards``,
+        one trunk fold and re-materialization per move).  Returns the
+        ``(doc, src_shard, dst_shard)`` moves made."""
+        return placement.rebalance_hot_shards(
+            self, self.placement_plane, factor, max_moves,
+            in_lane=lambda d: d in self.fallbacks,
+        )
 
     # ---------------------------------------------------------- boot adoption
     def adopt_boot_snapshot(self, doc_idx: int, record: dict) -> placement.AdoptResult:
@@ -1093,7 +1214,7 @@ class TreeBatchEngine:
                 cuda_build.load()
             stage = self._staging()
             for k in warmup_depths(self.megastep_k):
-                ops, payloads = stage.acquire(k, self.n_docs)
+                ops, payloads = stage.acquire(k, self.fleet_capacity)
                 host_ops = ops[..., :3].copy()
                 dev_ops, dev_payloads = stage.upload(ops, payloads)
                 self.state = tk.apply_nested_megastep(
@@ -1148,7 +1269,14 @@ class TreeBatchEngine:
             self.counters, self.megastep_k * self.ops_per_step,
             max((len(self.hosts[d].queue) for d in self._busy), default=0),
         )
-        self.counters.gauge("n_shards", 1)
+        self.counters.gauge("n_shards", self.n_shards)
+        if self.n_shards > 1:
+            depth = [0] * self.n_shards
+            for d in range(self.n_docs):
+                q = len(self.hosts[d].queue)
+                if q:
+                    depth[self.shard_of(d)] += q
+            self.counters.gauge("shard_queue_depth", depth)
         self.recovery_tracker.emit_gauges(self.counters)
         now = time.monotonic()
         self.counters.gauge(
@@ -1183,8 +1311,9 @@ class TreeBatchEngine:
         )
 
     def doc_state(self, doc_idx: int) -> tk.NestedForestState:
-        """A doc's device row (views of the fleet state)."""
-        return tk.tree_map(lambda x: x[doc_idx], self.state)
+        """A doc's device row, at its slot (views of the fleet state)."""
+        slot = int(self._slot[doc_idx])
+        return tk.tree_map(lambda x: x[slot], self.state)
 
     def tree_json(self, doc_idx: int) -> list[dict]:
         """The document's root field as forest JSON (Node.to_json shape)."""
@@ -1198,4 +1327,5 @@ class TreeBatchEngine:
         return [n.get("v") for n in self.tree_json(doc_idx)]
 
     def errors(self) -> np.ndarray:
-        return self.state.error.cpu().numpy().copy()
+        """Per-doc error latches (doc-indexed, through the slot map)."""
+        return self.state.error.cpu().numpy()[self._slot]

@@ -26,8 +26,8 @@ changes is the idiom:
 
 The segment-parallel lane (``apply_megastep_seg``) routes its containment
 searches through the K1 kernel (``ops.resolve_kernel``) and its named-axis
-collectives through a shard-group object; this slice implements the group
-for one shard.
+collectives through ``StackedShardGroup``: the lane's shards are the
+leading axis of one stacked state on one device.
 """
 
 from __future__ import annotations
@@ -1025,54 +1025,73 @@ def _compact(s: DocState, ob_flag=None) -> DocState:
 # table are replicated.  Per op: an all_gather of per-shard visible totals
 # turns local prefixes into global coordinates, a shard-local containment
 # search (the K1 kernel) finds candidates, and pmin/psum combine them.
-# Mutations are owner-local.  The collectives go through a shard group;
-# this slice implements the group for one shard, where each is the identity.
+# Mutations are owner-local.
+#
+# The lane's n shards are the leading (batch) axis of one STACKED state:
+# per-segment columns [n, S_local] (row i is shard i's block), ``nseg``
+# [n], and every replicated leaf held as n copies ([n, T] text, [n]
+# scalars, [n, OB] obliterate table), as each of the reference's shards
+# holds one.  The collectives reduce over that axis (``StackedShardGroup``)
+# — what ``jax.vmap(..., axis_name=)`` does to the reference's shard_map
+# body — so one op step is one pass over all n shards, and one K1 call
+# searches all of them.  ``seg_stack``/``seg_unstack`` convert to and from
+# the reference's blocked global layout (per-segment [n * S_local]).
 
 SEG_AXIS = "segs"
 
 
-class SingleShardGroup:
-    """The named-axis collectives of a one-shard segment axis: every
-    collective is the identity (``all_gather`` adds the shard axis)."""
+class StackedShardGroup:
+    """The named-axis collectives of a segment axis of ``size`` shards held
+    as the leading axis of a stacked state: ``all_gather(x[n, ...])`` gives
+    every shard the [n, ...] stack (``out[j, i] = x[j]``), ``psum`` and
+    ``pmin`` reduce over the shards and broadcast back, and
+    ``axis_index`` is ``arange(n)``."""
 
-    size = 1
+    def __init__(self, size: int = 1) -> None:
+        if size < 1:
+            raise ValueError(f"a segment axis needs at least one shard, got {size}")
+        self.size = size
 
-    def axis_index(self) -> int:
-        return 0
+    def axis_index(self, device) -> torch.Tensor:
+        return _iota(self.size, device)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        return x.unsqueeze(0)
+        return x.unsqueeze(1).expand(x.shape[0], *x.shape)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        return x.sum(0, keepdim=True, dtype=x.dtype).expand_as(x)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        return x.amin(0, keepdim=True).expand_as(x)
+
+    def before(self, gathered: torch.Tensor) -> torch.Tensor:
+        """Per shard, the sum of the EARLIER shards' entries of an
+        ``all_gather`` result (the reference's ``where(arange < my, x, 0)``
+        sum)."""
+        n = gathered.shape[0]
+        dev = gathered.device
+        earlier = _iota(n, dev)[:, None] < self.axis_index(dev)[None, :]
+        return torch.where(earlier, gathered, 0).sum(0, dtype=I32)
 
 
-def shard_group(n_shards: int = 1) -> SingleShardGroup:
-    if n_shards != 1:
-        raise NotImplementedError(
-            f"segment lanes over {n_shards} shards need torch.distributed "
-            "collectives; this port implements one shard"
-        )
-    return SingleShardGroup()
+def shard_group(n_shards: int = 1) -> StackedShardGroup:
+    """The collectives of an ``n_shards``-wide segment axis."""
+    return StackedShardGroup(n_shards)
 
 
 def _seg_prefix(s: DocState, vis, g):
     """Hop 1: (vlen, excl_global, total, char_off)."""
     vlen = torch.where(vis, s.seg_len, 0)
-    totals = g.all_gather(vlen.sum(-1, dtype=I32))  # [n_shards, D]
-    char_off = totals[: g.axis_index()].sum(0, dtype=I32)
+    totals = g.all_gather(vlen.sum(-1, dtype=I32))  # [n_shards, n]
+    char_off = g.before(totals)
     excl = torch.cumsum(vlen, -1, dtype=I32) - vlen + char_off[:, None]
     return vlen, excl, totals.sum(0, dtype=I32), char_off
 
 
 def _seg_index_base(s: DocState, g):
-    """Hop 1b: (idx_off, nseg_total, counts) of this shard."""
-    counts = g.all_gather(s.nseg)  # [n_shards, D]
-    idx_off = counts[: g.axis_index()].sum(0, dtype=I32)
-    return idx_off, counts.sum(0, dtype=I32), counts
+    """Hop 1b: (idx_off, nseg_total) of each shard."""
+    counts = g.all_gather(s.nseg)  # [n_shards, n]
+    return g.before(counts), counts.sum(0, dtype=I32)
 
 
 def _seg_first_true(mask, idx_off, default, g):
@@ -1085,10 +1104,10 @@ def _seg_first_true(mask, idx_off, default, g):
 
 
 def _seg_contains(vlen, q_local, strict: bool):
-    """Shard-local containment search through the K1 kernel: (local index,
-    hit), each [D, Q], of the visible segment containing each
-    local-coordinate query of ``q_local[D, Q]``; ``strict`` excludes
-    boundary hits (the split predicate)."""
+    """Shard-local containment search through the K1 kernel, one call over
+    every shard: (local index, hit), each [n, Q], of the visible segment
+    containing each local-coordinate query of ``q_local[n, Q]``; ``strict``
+    excludes boundary hits (the split predicate)."""
     idx, off, hit = resolve_positions(vlen, q_local)
     hit = hit != 0
     if strict:
@@ -1138,12 +1157,12 @@ def _do_insert_seg(s: DocState, op, payload, ob_flag: bool, g) -> DocState:
     s = _ensure_boundary_seg(s, pos, ref_seq, client, g)
     vis = _visible(s, ref_seq, client)
     vlen, excl, total, _off = _seg_prefix(s, vis, g)
-    idx_off, nseg_total, counts = _seg_index_base(s, g)
+    idx_off, nseg_total = _seg_index_base(s, g)
     stop = _alive(s) & (excl >= pos[:, None]) & ((vlen > 0) | _tiebreak(s, key))
     k_g = _seg_first_true(stop, idx_off, nseg_total, g)
     append = k_g >= nseg_total
     # Appends land on the LAST shard (global order is the concatenation).
-    last = torch.full_like(append, g.axis_index() == counts.shape[0] - 1)
+    last = g.axis_index(append.device) == g.size - 1
     is_owner = torch.where(
         append, last, (idx_off <= k_g) & (k_g < idx_off + s.nseg)
     )
@@ -1215,7 +1234,7 @@ def _do_obliterate_seg(s: DocState, op, payload, g) -> DocState:
     s = _ensure_boundary_seg(s, torch.where(valid, end_pos, 0), ref_seq, client, g)
     vis = _visible(s, ref_seq, client)
     vlen, _excl2, _t2, char_off = _seg_prefix(s, vis, g)
-    idx_off, nseg_total, _counts = _seg_index_base(s, g)
+    idx_off, nseg_total = _seg_index_base(s, g)
     q = torch.stack([pos1, pos2], -1) - char_off[:, None]
     k, h = _seg_contains(vlen, q, strict=False)
     (ks, ke), (hs, he) = k.unbind(-1), h.unbind(-1)
@@ -1264,53 +1283,63 @@ def _apply_op_seg(s: DocState, op, payload, kind: int, ob_flag: bool, g) -> DocS
     return s
 
 
-def _seg_to_batch(s: DocState) -> DocState:
-    """A shard's local view (per-segment [S_local], ``nseg`` boxed [1],
-    scalars 0-d) as a one-document batch: the boxed ``nseg`` already is."""
-    return tree_map(lambda x: x.unsqueeze(0), s)._replace(nseg=s.nseg)
-
-
-def _batch_to_seg(s: DocState) -> DocState:
-    return tree_map(lambda x: x[0], s)._replace(nseg=s.nseg)
+def _seg_group(s: DocState, group):
+    n = s.nseg.shape[0]
+    g = group if group is not None else StackedShardGroup(n)
+    if g.size != n:
+        raise ValueError(f"a {g.size}-shard group over a {n}-shard state")
+    return g
 
 
 def apply_megastep_seg(s: DocState, ops, payloads, group=None, kinds=None) -> DocState:
     """Segment-parallel megastep: apply a [K, B] op ring to ONE seg-sharded
     document (a loop over the K slices with the reference's per-slice
-    obliterate gate).  ``s`` is the shard's local view — per-segment columns
-    [S_local], ``nseg`` int32[1] (this shard's live count), the text pool,
-    scalars and obliterate table replicated; ops/payloads are replicated."""
+    obliterate gate), every shard at once.  ``s`` is the stacked lane state
+    (``seg_stack``): per-segment columns [n, S_local], ``nseg`` [n], the
+    replicated leaves as n copies; ops/payloads are one replicated [K, B]
+    ring, broadcast to every shard."""
     count_launch(s.nseg, apply_megastep_seg)
-    g = group if group is not None else SingleShardGroup()
+    g = _seg_group(s, group)
     dev = s.nseg.device
     if kinds is None:
         kinds = _host_kinds(ops)
     ops = _as_tensor(ops, dev)
     payloads = _as_tensor(payloads, dev)
-    st = _seg_to_batch(_own(s))
+    n = g.size
+    st = _own(s)
     for k in range(ops.shape[0]):
         flag = bool((kinds[k] == OpKind.OBLITERATE).any()) or _ob_table_nonempty(st)
         for b in range(ops.shape[1]):
             st = _apply_op_seg(
-                st, ops[k, b][None], payloads[k, b][None], int(kinds[k, b]), flag, g
+                st, ops[k, b].expand(n, -1), payloads[k, b].expand(n, -1),
+                int(kinds[k, b]), flag, g,
             )
-    return _batch_to_seg(st)
+    return st
 
 
 apply_megastep_seg.launches = 0
 
 
 def compact_seg(s: DocState, min_seq, group=None) -> DocState:
-    """Zamboni on the seg-sharded layout: replicated ``set_min_seq``, then
+    """Zamboni on the stacked seg layout: replicated ``set_min_seq``, then
     a shard-local stable compaction (order is preserved within each shard,
     so the global concatenation order is preserved)."""
     count_launch(s.nseg, compact_seg)
-    st = _seg_to_batch(s)
-    m = _as_tensor(min_seq, s.nseg.device).reshape(1)
-    return _batch_to_seg(_compact(set_min_seq(st, m)))
+    g = _seg_group(s, group)
+    m = _as_tensor(min_seq, s.nseg.device).reshape(1).expand(g.size)
+    return _compact(set_min_seq(s, m))
 
 
 compact_seg.launches = 0
+
+
+def seg_occupancy(state: DocState) -> np.ndarray:
+    """Per-shard live segment counts (the occupancy gauge), of a blocked or
+    stacked seg state."""
+    nseg = state.nseg
+    if isinstance(nseg, torch.Tensor):
+        nseg = nseg.cpu().numpy()
+    return np.asarray(nseg).astype(np.int64)
 
 
 # ----------------------------------------------------- host-side seg packing
@@ -1324,6 +1353,59 @@ _SEG_FILL = {
     "rem_keys": NO_REMOVE, "rem_clients": -1,
     "prop_keys": -1, "prop_vals": 0,
 }
+
+
+# The per-segment columns.
+SEG_COLUMNS = frozenset(_SEG_FILL)
+
+
+def _seg_map(state: DocState, column, replicated) -> DocState:
+    """``column`` on the per-segment columns, ``replicated`` on the
+    replicated leaves; ``nseg`` (one live count a shard) as it is."""
+    out = {}
+    for f in DocState._fields:
+        v = getattr(state, f)
+        fn = (lambda x: x) if f == "nseg" else column if f in SEG_COLUMNS else replicated
+        out[f] = tuple(fn(a) for a in v) if isinstance(v, tuple) else fn(v)
+    return DocState(**out)
+
+
+def seg_stack(state: DocState) -> DocState:
+    """The reference's blocked seg layout (per-segment [n * S_local],
+    ``nseg`` [n], replicated leaves once) as the lane's stacked state:
+    per-segment [n, S_local] by a reshape, every replicated leaf copied to
+    n rows, on the input tensors' device."""
+    n = int(state.nseg.shape[0])
+    return _seg_map(
+        state, lambda x: x.reshape(n, -1),
+        lambda x: x.unsqueeze(0).repeat((n,) + (1,) * x.dim()),
+    )
+
+
+def seg_replica_mismatch(state: DocState) -> list[str]:
+    """The replicated leaves whose n copies in a stacked state disagree
+    (empty when the replication invariant holds)."""
+    bad = []
+    for f in DocState._fields:
+        v = getattr(state, f)
+        if f == "nseg" or f in SEG_COLUMNS:
+            continue
+        for i, a in enumerate(v if isinstance(v, tuple) else (v,)):
+            a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            if not (a == a[:1]).all():
+                bad.append(f if not isinstance(v, tuple) else f"{f}{i}")
+    return bad
+
+
+def seg_unstack(state: DocState) -> DocState:
+    """Inverse of ``seg_stack``: the blocked global layout, with row 0 of
+    every replicated leaf as its logical value."""
+    return _seg_map(state, lambda x: x.reshape(-1), lambda x: x[0])
+
+
+def _blocked(state: DocState) -> DocState:
+    """A seg state in the blocked layout, unstacking a stacked one."""
+    return seg_unstack(state) if np.ndim(state.text) == 2 else state
 
 
 def _seg_repack(state: DocState, pack) -> dict:
@@ -1386,8 +1468,9 @@ def seg_shard_state(
 
 def seg_gather_state(state: DocState, max_segments: int | None = None) -> DocState:
     """Inverse of ``seg_shard_state``: the per-shard live prefixes
-    concatenated back into one document in global segment order."""
-    state = to_numpy(state)
+    concatenated back into one document in global segment order (a stacked
+    lane state gathers through ``seg_unstack``)."""
+    state = to_numpy(_blocked(state))
     counts = state.nseg.astype(np.int64)
     n_shards = int(counts.shape[0])
     s_local = state.seg_len.shape[0] // n_shards
@@ -1415,7 +1498,8 @@ def seg_rebalance_state(
     state: DocState, s_local: int | None = None, text_capacity: int | None = None
 ) -> DocState:
     """Re-block a seg-sharded state evenly (gather + re-shard; order- and
-    byte-preserving)."""
+    byte-preserving); a stacked lane state is unstacked first."""
+    state = _blocked(state)
     n_shards = int(state.nseg.shape[0])
     if s_local is None:
         s_local = state.seg_len.shape[0] // n_shards

@@ -1,12 +1,26 @@
-"""The one-device dispatch plane.
+"""The dispatch plane: a mesh of shards on one device.
 
 Counterpart of ``fluidframework_tpu/parallel/mesh.py`` with the same
-duck-typed surface (``models/dispatch.py``), for one card: the doc axis is
-not split, so "sharding" a fleet state is placing it on the device, and a
-fleet program is the step function called on the device's current stream.
-A segment lane runs over a one-shard group (``docs_segs_mesh`` with more
-than one shard raises ``NotImplementedError``: multi-shard lanes need
-``torch.distributed`` collectives).
+duck-typed surface (``models/dispatch.py``).  A ``DeviceMesh`` holds one
+device per shard and names its axes as the reference mesh does:
+``doc_mesh(devices)`` is ``{"docs": n}``, ``docs_segs_mesh(devices,
+seg_shards=s)`` is ``{"docs": n // s, "segs": s}``, and cold docs shard over
+both axes flattened, so a fleet has ``len(devices)`` shards either way.
+
+Every entry of a mesh names the same device (``["cuda:0"] * 4`` on the
+card, ``["cpu"] * 4`` in the tests), the port's counterpart of the
+reference's virtual devices:
+
+- a fleet shard is a contiguous block of ``docs_per_shard`` rows of the
+  engine's one state tensor (``models/placement.py``), and a fleet program
+  is one launch over the whole doc axis;
+- a segment lane's shards are the leading axis of one stacked state, its
+  collectives reductions over that axis (``mergetree_kernel``'s
+  ``StackedShardGroup``).
+
+A mesh over distinct devices raises ``NotImplementedError`` (ROADMAP.md
+queue 1 item 14: per-shard state on each card, NCCL collectives for the
+segment lanes).
 """
 
 from __future__ import annotations
@@ -14,44 +28,106 @@ from __future__ import annotations
 import sys
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..ops.mergetree_kernel import SEG_AXIS, DocState, shard_group, tree_map
+from ..observability.flight_recorder import span
+from ..ops.mergetree_kernel import (
+    SEG_AXIS,
+    DocState,
+    StackedShardGroup,
+    seg_stack,
+    tree_map,
+)
+
+CROSS_CARD_ITEM = (
+    "ROADMAP.md queue 1 item 14 (cross-card meshes: per-shard state on its "
+    "own card, NCCL collectives for the segment lanes)"
+)
 
 
 @dataclass(frozen=True)
 class DeviceMesh:
-    """One device; ``shape`` names its axes as the reference mesh does."""
+    """One device per shard; ``shape`` names the axes (their product is
+    the shard count)."""
 
-    device: torch.device
-    shape: dict = field(default_factory=lambda: {"docs": 1}, hash=False)
+    devices: tuple
+    shape: dict = field(hash=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.devices)
 
     @property
     def seg_shards(self) -> int:
         return int(self.shape.get(SEG_AXIS, 1))
 
 
-def doc_mesh(device=DEFAULT_DEVICE) -> DeviceMesh:
-    """The doc-axis plane over one device."""
-    return DeviceMesh(resolve_device(device))
+def _same_device(dev: torch.device) -> torch.device:
+    """``cuda`` and ``cuda:<current>`` name one card: compare by index."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
-def docs_segs_mesh(device=DEFAULT_DEVICE, seg_shards: int = 1) -> DeviceMesh:
-    """The docs x segs plane; this slice supports one segment shard."""
-    shard_group(seg_shards)  # raises for more than one shard
-    return DeviceMesh(resolve_device(device), {"docs": 1, SEG_AXIS: 1})
+def _mesh_devices(devices) -> tuple:
+    """The shards' devices: one device (a name or ``torch.device``) is a
+    one-shard mesh, a sequence one shard per entry.  Every entry must name
+    the same device."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devs = tuple(_same_device(resolve_device(d)) for d in devices)
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    if any(d != devs[0] for d in devs):
+        raise NotImplementedError(
+            f"a mesh over distinct devices {sorted({str(d) for d in devs})} is "
+            f"not ported: {CROSS_CARD_ITEM}"
+        )
+    return devs
 
 
-def _place(state: DocState, mesh: DeviceMesh) -> DocState:
+def doc_mesh(devices=DEFAULT_DEVICE) -> DeviceMesh:
+    """The 1-D docs mesh: one fleet shard per entry of ``devices``."""
+    devs = _mesh_devices(devices)
+    return DeviceMesh(devs, {"docs": len(devs)})
+
+
+def docs_segs_mesh(devices=DEFAULT_DEVICE, seg_shards: int = 1) -> DeviceMesh:
+    """The 2-D docs x segs mesh: a hot document's segments block-shard over
+    the ``segs`` columns; cold docs use every shard (both axes flattened).
+    ``len(devices)`` must be a multiple of ``seg_shards``."""
+    devs = _mesh_devices(devices)
+    n = len(devs)
+    if seg_shards < 1 or n % seg_shards:
+        raise ValueError(
+            f"seg_shards={seg_shards} does not divide a {n}-device mesh"
+        )
+    return DeviceMesh(devs, {"docs": n // seg_shards, SEG_AXIS: seg_shards})
+
+
+def fleet_doc_axes(mesh: DeviceMesh):
+    """The axes a fleet state's doc dimension shards over: ``docs``, or
+    both axes flattened on a docs x segs mesh."""
+    return ("docs", SEG_AXIS) if SEG_AXIS in mesh.shape else "docs"
+
+
+def _place(state: DocState, device: torch.device) -> DocState:
     return tree_map(
-        lambda x: x.to(device=mesh.device, dtype=torch.int32).contiguous(), state
+        lambda x: torch.as_tensor(x).to(device=device, dtype=torch.int32).contiguous(),
+        state,
     )
 
 
 def shard_fleet_state(state: DocState, mesh: DeviceMesh) -> DocState:
-    """Place a [D, ...] fleet state on the device."""
-    return _place(state, mesh)
+    """Place a [capacity, ...] fleet state: shard k's rows are the k-th
+    block of ``capacity // n_shards``, all on the mesh's device."""
+    return _place(state, mesh.device)
 
 
 def shard_docs(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
@@ -59,11 +135,22 @@ def shard_docs(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     return x.to(mesh.device)
 
 
+def upload_replicated(ops: np.ndarray, payloads: np.ndarray, mesh: DeviceMesh) -> tuple:
+    """Upload a segment lane's [K, B] op ring whole: every shard applies
+    every op to its own segment block (the program broadcasts the ring to
+    the shards)."""
+    nbytes = ops.nbytes + payloads.nbytes
+    with span("upload", kind="seg", shards=mesh.seg_shards, bytes=nbytes):
+        return (
+            torch.from_numpy(ops).to(mesh.device, non_blocking=False),
+            torch.from_numpy(payloads).to(mesh.device, non_blocking=False),
+        )
+
+
 def seg_state_specs(state: DocState) -> DocState:
     """Which leaves of a seg-sharded one-document state split over the
     segment axis ("segs") and which replicate ("rep") — the reference's
-    partition specs, kept as the placement contract for a later
-    multi-shard plane."""
+    partition specs; the stacked layout (``seg_stack``) follows them."""
     s, r = SEG_AXIS, "rep"
     return DocState(
         text=r, text_end=r, nseg=s,
@@ -80,22 +167,26 @@ def seg_state_specs(state: DocState) -> DocState:
 
 
 def shard_seg_state(state: DocState, mesh: DeviceMesh) -> DocState:
-    """Place a seg-sharded one-document state (one shard: the whole
-    layout) on the device."""
-    return _place(state, mesh)
+    """Place a seg-sharded one-document state in the reference's blocked
+    layout (``seg_shard_state``) as the lane's stacked state on the mesh's
+    device: one row per ``segs`` shard."""
+    n = int(np.shape(state.nseg)[0])
+    if n != mesh.seg_shards:
+        raise ValueError(f"a {n}-shard seg state on a {mesh.seg_shards}-shard segs axis")
+    return seg_stack(_place(state, mesh.device))
 
 
 def mesh_fleet_program(step_fn, mesh: DeviceMesh):
-    """The fleet program for one device: ``step_fn`` itself, called with a
-    state and arguments that already live on the device (the staging ring
-    uploads them), launching on the current stream."""
+    """The fleet program: ``step_fn`` itself, one launch over the whole doc
+    axis (every shard's rows), called with a state and arguments that
+    already live on the device, on the current stream."""
     return step_fn
 
 
 def mesh_seg_program(step_fn, mesh: DeviceMesh, state_specs=None):
     """A segment-lane program: ``step_fn(state, *args, group=...)`` over
-    the plane's segment group (one shard)."""
-    group = shard_group(mesh.seg_shards)
+    the mesh's ``segs`` axis, its collectives those of the stacked group."""
+    group = StackedShardGroup(mesh.seg_shards)
 
     def program(state, *args, **kw):
         return step_fn(state, *args, group=group, **kw)

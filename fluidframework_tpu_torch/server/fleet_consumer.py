@@ -21,6 +21,12 @@ on the engine's device in its batched ``step``.
   adopts it (``engine.adopt_boot_snapshot``) and re-subscribes from its seq;
 - ``run_for`` pumps to a row count and steps; ``health`` is the engine's
   health plus the transport counters.
+
+With a mesh-served engine (``fleet_main --mesh N``) staging packs by doc
+placement and ``health()`` carries the per-shard load surface
+(``shard_ops``/``shard_queue_depth``/``hot_shards``, and with
+``--seg-shards`` the segment-lane gauges) that drives live doc migration
+(``engine.rebalance_hot_shards``).
 """
 
 from __future__ import annotations

@@ -16,9 +16,17 @@ applied, bytes consumed, per-doc error flags) for process supervisors;
 ``--exit-after-rows`` bounds the run (tests / draining restarts).  Standby,
 lease, bounded-staleness checkpoints, boot-from-summary, the historian
 resync, the metrics port, traces and coordinated drains behave as the
-reference's.  ``--mesh``, ``--seg-shards``, ``--spare-slots``,
-``--rebalance-every`` and ``--seg-rebalance-every`` are refused: the port
-serves one device without spare slots or segment lanes yet.
+reference's.
+
+Placement: ``--mesh N`` serves the fleet over an N-shard docs mesh on
+``--device`` (``--seg-shards S`` makes it docs x segs, so hot docs can
+promote to S-shard segment lanes); ``--spare-slots`` reserves free rows for
+live migration and ``--rebalance-every`` checks for hot shards every so
+many seconds, printing a ``migrations`` line with the new ``placement``
+after each move.  The reference caps N at its device count; the port's
+shards share one device, so N is taken as given.  Without ``--mesh`` the
+engine serves with cohort steps (``use_mesh=False``), as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -149,13 +157,27 @@ def main(argv: list[str] | None = None) -> int:
                    help="max op slices fused into one device dispatch "
                         "(adaptive by queue depth; 1 = exact per-slice "
                         "dispatch, the pre-megastep behavior)")
-    # The reference's mesh, placement and segment-lane options: accepted by
-    # the parser so that a deployment's command line fails loudly below.
-    for flag, kind in (("--mesh", int), ("--spare-slots", int),
-                       ("--rebalance-every", float), ("--seg-shards", int),
-                       ("--seg-rebalance-every", int)):
-        p.add_argument(flag, type=kind, default=0,
-                       help="not ported: refused unless 0")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="serve the fleet over an N-shard docs mesh on "
+                        "--device (one launch steps every shard; 0 = no "
+                        "mesh: cohort steps for Zipf stragglers)")
+    p.add_argument("--spare-slots", type=int, default=0,
+                   help="extra free device rows beyond the fleet (landing "
+                        "room for live hot-shard doc migration; rounds up "
+                        "per shard)")
+    p.add_argument("--rebalance-every", type=float, default=0.0,
+                   help="seconds between hot-shard checks: migrate the "
+                        "deepest-queued doc off any shard loaded over 2x "
+                        "the fleet mean (0 = no auto-rebalance)")
+    p.add_argument("--seg-shards", type=int, default=0,
+                   help="with --mesh: carve a segs axis of this width out "
+                        "of the mesh (docs x segs) so hot docs can promote "
+                        "to segment-parallel serving; composes with "
+                        "--rebalance-every (a shard hot from one doc "
+                        "promotes that doc instead of migrating it)")
+    p.add_argument("--seg-rebalance-every", type=int, default=0,
+                   help="ops applied on a segment lane between segment "
+                        "re-blocks (0 = manual)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="the engine's device: the card (default) or the "
                         "CPU's plain PyTorch path; no fallback between them")
@@ -173,20 +195,6 @@ def main(argv: list[str] | None = None) -> int:
                    help="flight-recorder ring capacity in events (old "
                         "events overwrite; the dump reports drops)")
     args = p.parse_args(argv)
-    # Options of the reference whose machinery the port does not have yet:
-    # refused, never silently ignored (ROADMAP queue 1 names the item that
-    # ports each).
-    for flag, value, item in (
-        ("--mesh", args.mesh, "item 8 (cohort steps, with the mesh options)"),
-        ("--seg-shards", args.seg_shards, "item 7 (engine-promoted segment lanes)"),
-        ("--seg-rebalance-every", args.seg_rebalance_every,
-         "item 7 (engine-promoted segment lanes)"),
-        ("--spare-slots", args.spare_slots, "item 5 (placement: spare slots, migration)"),
-        ("--rebalance-every", args.rebalance_every,
-         "item 5 (placement: spare slots, migration)"),
-    ):
-        if value:
-            p.error(f"{flag} is not ported yet: ROADMAP.md queue 1 {item}")
 
     import os as _os
 
@@ -199,6 +207,16 @@ def main(argv: list[str] | None = None) -> int:
         if args.checkpoint_dir is not None
         else None
     )
+    mesh = None
+    if args.mesh:
+        from ..parallel.mesh import doc_mesh, docs_segs_mesh
+
+        # Every shard on --device (-1, all visible devices, is one here).
+        devices = [args.device] * max(args.mesh, 1)
+        if args.seg_shards > 1:
+            mesh = docs_segs_mesh(devices, args.seg_shards)
+        else:
+            mesh = doc_mesh(devices)
     if args.family == "tree":
         from ..models.tree_batch_engine import TreeBatchEngine
 
@@ -208,6 +226,8 @@ def main(argv: list[str] | None = None) -> int:
             pool_capacity=args.pool_capacity,
             max_insert_len=args.max_insert_len,
             ops_per_step=args.ops_per_step,
+            mesh=mesh,
+            spare_slots=args.spare_slots,
             checkpoint_store=store,
             checkpoint_every=args.checkpoint_every if store is not None else 0,
             doc_keys=doc_ids,
@@ -223,6 +243,9 @@ def main(argv: list[str] | None = None) -> int:
             text_capacity=args.text_capacity,
             max_insert_len=args.max_insert_len,
             ops_per_step=args.ops_per_step,
+            use_mesh=mesh is not None,
+            mesh=mesh,
+            spare_slots=args.spare_slots,
             recovery=args.recovery,
             checkpoint_store=store,
             checkpoint_every=args.checkpoint_every if store is not None else 0,
@@ -231,6 +254,7 @@ def main(argv: list[str] | None = None) -> int:
             readmit_after_steps=args.readmit_after_steps,
             poison_budget=args.poison_budget,
             megastep_k=args.megastep_k,
+            seg_rebalance_every=args.seg_rebalance_every,
             device=args.device,
         )
     if store is not None and not args.standby:
@@ -381,9 +405,27 @@ def main(argv: list[str] | None = None) -> int:
     drain_want: dict | None = None
     last_drain_poll = 0.0
     last_status = time.monotonic()
+    last_rebalance = time.monotonic()
     try:
         while True:
             staged = fc.pump()
+            if (
+                args.rebalance_every
+                and mesh is not None
+                and time.monotonic() - last_rebalance >= args.rebalance_every
+            ):
+                last_rebalance = time.monotonic()
+                moves = eng.rebalance_hot_shards()
+                if moves:
+                    # Summary ownership follows the docs: the supervisor
+                    # re-aligns from this line.
+                    print(json.dumps({
+                        "migrations": [
+                            {"doc": doc_ids[d], "from": s, "to": t}
+                            for d, s, t in moves
+                        ],
+                        "placement": eng.placement(),
+                    }), flush=True)
             if heartbeat is not None and heartbeat.lost:
                 # Fenced out: another holder took the lease (we stalled
                 # past the ttl and a standby promoted).  Stand down WITHOUT

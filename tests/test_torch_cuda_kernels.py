@@ -149,8 +149,8 @@ def test_batched_kernel_matches_plain_at_tile_edges(cuda_device):
 
 
 def test_seg_lane_on_card_matches_cpu(cuda_device):
-    """The one-shard segment lane (K1 inside) on the card equals the same
-    lane on the CPU, leaf for leaf."""
+    """The segment lane (K1 inside), at one and at four stacked shards, on
+    the card equals the same lane on the CPU, leaf for leaf."""
     rng = np.random.default_rng(0)
     K, B, L = 2, 8, 8
     ops = np.zeros((K, B, tk.OP_FIELDS), np.int32)
@@ -166,16 +166,17 @@ def test_seg_lane_on_card_matches_cpu(cuda_device):
             ops[k, b] = [tk.OpKind.INSERT, i + 1, i % 4, i, int(rng.integers(0, length + 1)), 0, n, 0]
             pays[k, b, :n] = rng.integers(97, 123, n)
             length += n
-    out = {}
-    for dev in ("cpu", "cuda"):
-        st = tk.seg_shard_state(tk.init_state(256, 4, 2, 1024, 4, device=dev), 1)
-        st = tk.tree_map(lambda x: x.to(dev), st)
-        before = rk.resolve_positions.launches
-        out[dev] = tk.apply_megastep_seg(st, ops, pays)
-        if dev == "cuda":
-            assert rk.resolve_positions.launches > before
-    for a, b in zip(tk.leaves(out["cpu"]), tk.leaves(out["cuda"])):
-        assert torch.equal(a, b.cpu())
+    for n in (1, 4):  # the lane's shards stacked on one device
+        out = {}
+        for dev in ("cpu", "cuda"):
+            st = tk.seg_shard_state(tk.init_state(256, 4, 2, 1024, 4, device=dev), n)
+            st = tk.seg_stack(tk.tree_map(lambda x: x.to(dev), st))
+            before = rk.resolve_positions.launches
+            out[dev] = tk.apply_megastep_seg(st, ops, pays)
+            if dev == "cuda":
+                assert rk.resolve_positions.launches > before
+        for a, b in zip(tk.leaves(out["cpu"]), tk.leaves(out["cuda"])):
+            assert torch.equal(a, b.cpu())
 
 
 def test_tree_megastep_and_compact_on_card_match_cpu(cuda_device):

@@ -102,18 +102,25 @@ def test_engine_latches_errors_like_reference():
 
 
 def test_unported_features_raise():
-    """What is still unported raises: multi-shard segment lanes, spare
-    slots, migration and engine-promoted segment lanes.  Boot-snapshot
-    adoption is ported (tests/test_torch_failover.py): a record without a
-    seq is refused as the reference refuses it."""
-    for option in ({"seg_shards": 2}, {"spare_slots": 4},
-                   {"seg_lane_segments": 64}, {"seg_rebalance_every": 8}):
-        with pytest.raises(NotImplementedError):
-            DocBatchEngine(2, device="cpu", **option)
+    """The options and methods this test once pinned as refused are ported:
+    multi-shard segment lanes, spare slots, lane re-blocking, migration and
+    engine-promoted segment lanes each take effect as the reference's do
+    (their parity tests: tests/test_torch_placement.py,
+    tests/test_torch_sharded_engine.py).  Boot-snapshot adoption is ported
+    (tests/test_torch_failover.py): a record without a seq is refused as
+    the reference refuses it."""
+    for option, check in (
+        ({"seg_shards": 2}, lambda e: (e.n_shards, e.seg_shards) == (2, 2)),
+        ({"spare_slots": 4}, lambda e: (e.capacity, e.free_slots(0)) == (6, 4)),
+        ({"seg_lane_segments": 64}, lambda e: e.seg_lane_segments == 64),
+        ({"seg_rebalance_every": 8}, lambda e: e.seg_rebalance_every == 8),
+    ):
+        assert check(DocBatchEngine(2, device="cpu", **option)), option
     eng = DocBatchEngine(2, device="cpu", seg_shards=1)
+    # One shard: a move to the doc's own shard is a quiet no-op, and an
+    # engine without a segs axis promotes nothing.
     for method, args in (("migrate_doc", (0, 0)), ("enable_segment_sharding", (0,))):
-        with pytest.raises(NotImplementedError):
-            getattr(eng, method)(*args)
+        assert getattr(eng, method)(*args) is False
     with pytest.raises(KeyError):
         eng.adopt_boot_snapshot(0, {})
 

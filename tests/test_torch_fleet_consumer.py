@@ -542,16 +542,59 @@ def test_fleet_main_coordinated_drain_in_process(family, tmp_path, capsys):
     assert done["health"]["checkpoints_written"] == 2
 
 
+# Each flag's run: 8 docs, doc 0 holding most of the traffic (48 appends
+# against 2 for each other doc).
+_FLAG_RUNS = {
+    "--mesh": ["--mesh", "4"],
+    "--seg-shards": ["--mesh", "4", "--seg-shards", "2"],
+    # One doc a shard: the hot shard's only doc is the hotspot, so the
+    # rebalance promotes it to a 2-shard lane, re-blocked every 8 ops.
+    "--seg-rebalance-every": ["--mesh", "8", "--seg-shards", "2",
+                              "--seg-rebalance-every", "8", "--rebalance-every", "1e-6"],
+    "--spare-slots": ["--mesh", "4", "--spare-slots", "4"],
+    # Doc 1 shares doc 0's hot shard: it migrates to a spare slot.
+    "--rebalance-every": ["--mesh", "4", "--spare-slots", "4", "--rebalance-every", "1e-6"],
+}
+
+
 @pytest.mark.parametrize("flag,item", [
     ("--mesh", "item 8"), ("--seg-shards", "item 7"), ("--seg-rebalance-every", "item 7"),
     ("--spare-slots", "item 5"), ("--rebalance-every", "item 5"),
 ])
 def test_fleet_main_refuses_unported_options(flag, item, capsys):
-    """Each option the port does not serve yet stops the parser with the
-    ROADMAP item that ports it; none is silently ignored."""
+    """Each option once refused with its ROADMAP queue 1 item (``item``,
+    now done) serves: a skewed 8-doc stream through ``main`` with the flag
+    ends with texts equal to an in-process engine's, on the mesh the flag
+    builds; the rebalance flags print their ``migrations`` line (a
+    migration to a spare slot; a promotion, ``to == -1``, that re-blocks)."""
     from fluidframework_tpu_torch.server.fleet_main import main
 
-    with pytest.raises(SystemExit) as exc:
-        main(["--port", "1", "--docs", "a", "--device", "cpu", flag, "2"])
-    assert exc.value.code == 2
-    assert f"{flag} is not ported yet: ROADMAP.md queue 1 {item}" in capsys.readouterr().err
+    docs = {f"f{d}": _insert_lines(range(1, 49 if d == 0 else 3)) for d in range(8)}
+    eng = DocBatchEngine(8, device="cpu", **GEOM)
+    for d, lines in enumerate(docs.values()):
+        eng.ingest_lines(d, b"".join(lines))
+    eng.step()
+    shard = _StubShard(lambda doc, _f: b"".join(docs[doc]))
+    argv = ["--port", str(shard.port), "--docs", ",".join(docs), "--device", "cpu",
+            "--max-insert-len", "8", "--capacity", "64", "--text-capacity", "512",
+            "--ops-per-step", "8", "--exit-after-rows", str(48 + 7 * 2), *_FLAG_RUNS[flag]]
+    try:
+        assert main(argv) == 0, item
+    finally:
+        shard.close()
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    done = lines[-1]
+    assert done["done"] and done["errors"] == 0
+    assert done["texts"] == {doc: eng.text(d) for d, doc in enumerate(docs)}
+    health = done["health"]
+    assert health["n_shards"] == int(_FLAG_RUNS[flag][1])
+    assert health["segment_shards"] == (2 if "--seg-shards" in _FLAG_RUNS[flag] else 1)
+    moves = [m for x in lines if "migrations" in x for m in x["migrations"]]
+    if flag == "--rebalance-every":
+        assert moves == [{"doc": "f1", "from": 0, "to": moves[0]["to"]}] and moves[0]["to"] > 0
+        assert health["doc_migrations"] == 1
+    elif flag == "--seg-rebalance-every":
+        assert moves == [{"doc": "f0", "from": 0, "to": -1}]
+        assert health["seg_promotions"] == 1 and health["seg_rebalances"] >= 1
+    else:
+        assert moves == []

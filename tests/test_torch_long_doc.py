@@ -61,3 +61,31 @@ def test_mark_range_matches_reference(mesh):
     ref_out = jax.device_get(ref_ops[2](ref_state, 40, 200, 500, 3, ALL_ACKED, -2))
     port_out = port_ops[2](port_state, 40, 200, 500, 3, ALL_ACKED, -2)
     assert_states_equal(ref_out, port_out, "mark_range")
+
+
+@pytest.mark.parametrize("view", [(ALL_ACKED, -2), (70, 0)])
+def test_four_shard_plane_matches_reference(view):
+    """``make_sharded_ops`` over 4 shards of the stacked group (one K1 call
+    over the [4, 64] blocks) against the reference's 4-device segs mesh:
+    visible length, resolve and mark_range, exact."""
+    ref_seq, client = view
+    rmesh = Mesh(np.asarray(jax.devices()[:4]), ("segs",))
+    state = build_doc(n_segs=150, seg_len=3, removed_every=5)
+    ref_ops = make_sharded_ops(rmesh, state)
+    ref_state = shard_doc_state(state, rmesh)
+    tmesh = tpm.docs_segs_mesh(["cpu"] * 4, seg_shards=4)
+    port_state = tld.shard_doc_state(tk.from_numpy(jax.tree.map(np.asarray, state), "cpu"), tmesh)
+    port_ops = tld.make_sharded_ops(tmesh, port_state)
+    ref_len = int(ref_ops[0](ref_state, ref_seq, client))
+    assert int(port_ops[0](port_state, ref_seq, client)) == ref_len
+    rng = np.random.default_rng(ref_seq)
+    queries = np.concatenate([
+        rng.integers(0, max(ref_len, 1), 61), [-1, 0, ref_len - 1, ref_len]
+    ]).astype(np.int32)
+    gi, off = ref_ops[1](ref_state, jnp.asarray(queries), ref_seq, client)
+    pgi, poff = port_ops[1](port_state, queries, ref_seq, client)
+    np.testing.assert_array_equal(np.asarray(gi), pgi.numpy())
+    np.testing.assert_array_equal(np.asarray(off), poff.numpy())
+    ref_out = jax.device_get(ref_ops[2](ref_state, 40, 300, 500, 3, ref_seq, client))
+    port_out = port_ops[2](port_state, 40, 300, 500, 3, ref_seq, client)
+    assert_states_equal(ref_out, port_out, "mark_range over 4 shards")

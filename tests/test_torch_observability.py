@@ -418,7 +418,7 @@ def test_long_doc_plane_spans():
     from fluidframework_tpu_torch.parallel.long_doc import make_sharded_ops, shard_doc_state
     from fluidframework_tpu_torch.parallel.mesh import docs_segs_mesh
 
-    mesh = docs_segs_mesh(device="cpu")
+    mesh = docs_segs_mesh("cpu")
     state = shard_doc_state(mk.init_state(16, 2, 2, 64, 2, device="cpu"), mesh)
     vis, resolve, mark = make_sharded_ops(mesh, state)
     rec = install(FlightRecorder())

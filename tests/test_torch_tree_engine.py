@@ -387,16 +387,23 @@ def test_ingest_batch_and_watermarks_match_reference():
 
 
 def test_unported_options_raise():
-    for option in ({"mesh": object()}, {"spare_slots": 2}, {"plan_cache": False}):
-        with pytest.raises(NotImplementedError):
-            TreeBatchEngine(2, device="cpu", **option)
+    """``plan_cache=False`` stays refused; the mesh, spare slots, migration
+    and hot-shard rebalancing this test once pinned as refused take effect
+    (their parity tests: tests/test_torch_placement.py)."""
+    from fluidframework_tpu_torch.parallel.mesh import doc_mesh
+
+    with pytest.raises(NotImplementedError):
+        TreeBatchEngine(2, device="cpu", plan_cache=False)
+    assert TreeBatchEngine(2, mesh=doc_mesh(["cpu"] * 2)).n_shards == 2
+    assert TreeBatchEngine(2, device="cpu", spare_slots=2).fleet_capacity == 4
     with pytest.raises(TypeError):
         TreeBatchEngine(2, device="cpu", no_such_option=1)
     eng = TreeBatchEngine(2, device="cpu", mesh=None, spare_slots=0, device_rebase=False,
                           native_wire=False, plan_cache=True)
-    for method, args in (("migrate_doc", (0, 0)), ("rebalance_hot_shards", ())):
-        with pytest.raises(NotImplementedError):
-            getattr(eng, method)(*args)
+    # One shard: a move to the doc's own shard is a quiet no-op, and no
+    # shard can be hot.
+    assert eng.migrate_doc(0, 0) is False
+    assert eng.rebalance_hot_shards() == []
     # Boot adoption is ported (tests/test_torch_failover.py): a record
     # without a seq is refused as the reference refuses it.
     with pytest.raises(KeyError):
