@@ -165,6 +165,30 @@ runs these phases on the card, one JSON line each:
     cuda --mesh 4 --spare-slots 16 --rebalance-every 0.5 --seg-shards 2``
     over 256 docs: a ``migrations`` line appears and its ``done`` texts
     equal an in-process engine's.
+16. ``string_client``: the SharedString client path through its entry
+    points: one ``LocalService`` document with four ``ContainerRuntime``
+    clients (config 1's four writers), each holding a ``sharedString``;
+    clients 0 and 2 on ``KernelMergeTree(device="cuda")`` at config 1's
+    single-document geometry (S=16,384, T=131,072, the reference's default
+    slot counts), 1 and 3 on ``RefMergeTree``.  A seeded script of 4,000
+    edits (inserts, removes, annotates, plain and sided obliterates,
+    interval adds), each client flushing after its edits and a sync a
+    round; every sixth round a kernel client drops, edits offline and
+    rejoins (its pending ops regenerate through K5), and once it stashes
+    and rehydrates through ``apply_stashed``.  Every sync checks that the
+    four clients' texts, resolved annotations and intervals are equal.
+    The same script then runs with the kernel clients on the CPU: every
+    kernel replica's raw state, error latch and summary, the sequenced
+    stream and the text identical.  Then the squash regeneration (pending
+    inserts and removes that cancel, a pending obliterate whose range a
+    remote remove took) on a replica restored from the summary, card
+    against CPU.  Outside the path, the one-doc programs (``apply_op``,
+    K3, K5's ``restamp``, ``drop_squashed``, ``strip_stamp``) are timed
+    alone on the final state beside their bytes bounds and held against
+    the CPU.  Phase 16 runs first, right after the build, before any
+    torch.profiler session (one leaves every later launch dearer on the
+    host: ``apply_op`` 3.0 -> 4.2 ms a call on an H100); its programs are
+    timed after phase 1b, as every other program is.
 
 The fleet's traffic is made once, before phase 2, and shared by phases
 2, 3, 6, 14 and 15 (a ``traffic`` line gives its generation time); each tree
@@ -180,10 +204,12 @@ launched; so does the serving path (14) unless K2, K3, K7, K8 and the map
 and matrix programs all launched on it.  Phase 15's parts are paths of
 their own: ``sharded_fleet`` fails unless K2, K3 and the cohort gather and
 scatter launched, ``sharded_hot`` unless K1 and K6 (``apply_megastep_seg``,
-``compact_seg``) did, ``sharded_tree`` unless K7 did.  Then it prints the
-``kernels`` summary line (K1 with its launches by path, the segment lane's
-among them; K7, K8, K9, map, matrix; K6 at 4 shards; the cohort gather and
-scatter), the card's name and power limit, and, last, the
+``compact_seg``) did, ``sharded_tree`` unless K7 did; ``string_client``
+(16) fails unless the one-doc ``apply_op``, K3's ``compact`` and the three
+K5 programs launched on it.  Then it prints the ``kernels`` summary line
+(K1 with its launches by path, the segment lane's among them; K7, K8, K9,
+map, matrix; K6 at 4 shards; the cohort gather and scatter; the one-doc
+``apply_op`` and K5), the card's name and power limit, and, last, the
 ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
 CUDA card, or a directory without the port.
@@ -3804,6 +3830,388 @@ def phase_sharded(seed: int, card: str, device: str, traffic, churn, path=None, 
     return out
 
 
+# ------------------------------------------------------ string client path
+
+# Config 1's single document (``bench.py`` ``bench_config1``, four writers)
+# as the client path holds it: one KernelMergeTree replica a client at the
+# hot document's geometry; remove, prop and obliterate slots and the insert
+# chunk stay the reference's defaults (4, 4, 8, 64).
+STRING_CLIENT_GEOM = dict(max_segments=16_384, text_capacity=131_072)
+STRING_CLIENT_KINDS = "koko"   # clients 0 and 2 on KernelMergeTree, 1 and 3 on RefMergeTree
+
+
+class _StringClients:
+    """Phase 16's document: four ``ContainerRuntime`` clients over one
+    ``LocalService`` document, each holding a ``sharedString`` "s"."""
+
+    def __init__(self, device: str, geom: dict):
+        from fluidframework_tpu_torch.dds.kernel_backend import KernelMergeTree
+        from fluidframework_tpu_torch.server.local_service import LocalService
+
+        self.make_kernel = lambda: KernelMergeTree(**geom, device=device)
+        self.doc = LocalService().document("phase16")
+        self.clients = [self.container(f"C{i}", k) for i, k in enumerate(STRING_CLIENT_KINDS)]
+        self.epoch = [0] * len(self.clients)
+        self.doc.process_all()
+
+    def container(self, name: str, kind: str, stash: str | None = None):
+        from fluidframework_tpu_torch.dds import channels
+        from fluidframework_tpu_torch.runtime import ContainerRuntime
+
+        channels.set_string_backend_factory(self.make_kernel if kind == "k" else None)
+        try:
+            rt = ContainerRuntime(channels.default_registry(), container_id=name)
+            rt.create_datastore("root").create_channel("sharedString", "s")
+            rt.connect(self.doc, name, stash=stash)
+        finally:
+            channels.set_string_backend_factory(None)
+        return rt
+
+    def s(self, i: int):
+        return self.clients[i].datastore("root").get_channel("s")
+
+    def kernels(self) -> list:
+        return [self.s(i).backend for i, k in enumerate(STRING_CLIENT_KINDS) if k == "k"]
+
+    def act(self, action: tuple) -> None:
+        kind, i, *rest = action
+        rt = self.clients[i]
+        if kind == "edit":
+            _string_edit(self.s(i), rest[0])
+        elif kind == "flush":
+            rt.flush()
+        elif kind == "sync":
+            for c in self.clients:
+                c.flush()
+            self.doc.process_all()
+        elif kind == "drop":
+            rt.disconnect()
+        elif kind == "rejoin":
+            self.epoch[i] += 1
+            rt.connect(self.doc, f"C{i}.r{self.epoch[i]}")
+            self.doc.process_all()
+        elif kind == "rehydrate":
+            stash = rt.get_pending_local_state()
+            rt.close()
+            self.epoch[i] += 1
+            self.clients[i] = self.container(f"C{i}.s{self.epoch[i]}", STRING_CLIENT_KINDS[i],
+                                             stash=stash)
+            self.doc.process_all()
+        else:
+            raise ValueError(kind)
+
+    def views(self, i: int) -> tuple:
+        s = self.s(i)
+        return (s.text, json.dumps(s.annotations(), sort_keys=True),
+                sorted(json.dumps(iv.to_json(), sort_keys=True)
+                       for iv in s.get_interval_collection("f")))
+
+
+def _gen_string_edit(rng, s) -> tuple:
+    n = len(s.position_text())
+    kind = rng.choices(["ins", "rem", "ann", "ob", "obs", "iv"], [42, 20, 12, 7, 4, 15])[0]
+    if kind == "ins" or n == 0:
+        return ("ins", rng.randint(0, n), rng.choice("abcdefgh") * rng.randint(1, 8))
+    p1 = rng.randrange(n)
+    p2 = rng.randint(p1 + 1, min(n, p1 + 8))
+    if kind == "rem":
+        return ("rem", p1, p2)
+    if kind == "ann":
+        return ("ann", p1, p2, rng.choice(["bold", "color"]), rng.choice([True, "red", 7]))
+    if kind == "ob":
+        return ("ob", p1, p2)
+    if kind == "obs":
+        c2 = rng.randint(p1, min(n - 1, p1 + 8))
+        s1, s2 = rng.random() < 0.5, rng.random() < 0.5
+        if p1 == c2 and not s1 and s2:
+            s1 = True
+        return ("obs", (p1, s1), (c2, s2))
+    return ("iv", p1, rng.randint(p1, min(n - 1, p1 + 16)))
+
+
+def _string_edit(s, op: tuple) -> None:
+    kind, *a = op
+    if kind == "ins":
+        s.insert_text(*a)
+    elif kind == "rem":
+        s.remove_range(*a)
+    elif kind == "ann":
+        s.annotate_range(*a)
+    elif kind == "ob":
+        s.obliterate_range(*a)
+    elif kind == "obs":
+        s.obliterate_range_sided(*a)
+    else:
+        s.get_interval_collection("f").add(*a)
+
+
+def _string_client_run(device: str, geom: dict, seed: int, n_edits: int,
+                       reconnect_every: int, script=None, sink=None) -> dict:
+    """One run of phase 16's script.  With ``script`` None the seeded
+    script is made as it runs (from the acting client's view), each action
+    passed to ``sink`` as it is taken (and None at the end); otherwise the
+    actions of ``script`` (any iterable) are replayed one by one.  Every
+    sync checks that the four clients' texts, resolved annotations and
+    intervals are equal."""
+    import random
+
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    fleet = _StringClients(device, geom)
+    rng = random.Random(seed)
+    record = script is None
+    taken: list = []
+    edits = syncs = peak_nseg = 0
+    t0 = time.perf_counter()
+
+    def run(action):
+        nonlocal edits, syncs, peak_nseg
+        taken.append(action)
+        if record and sink is not None:
+            sink(action)
+        fleet.act(action)
+        if action[0] == "edit":
+            edits += 1
+        if action[0] == "sync":
+            syncs += 1
+            views = [fleet.views(i) for i in range(len(fleet.clients))]
+            check(all(v == views[0] for v in views[1:]),
+                  f"string_client ({device}): the clients diverged at sync {syncs}")
+            peak_nseg = max([peak_nseg] + [int(k.state.nseg) for k in fleet.kernels()])
+
+    if record:
+        stash_round = (n_edits // 12) // 2
+        r = 0
+        while edits < n_edits:
+            for i in rng.sample(range(4), 4):
+                for _ in range(rng.randint(1, 3)):
+                    run(("edit", i, _gen_string_edit(rng, fleet.s(i))))
+                run(("flush", i))
+            if r % reconnect_every == reconnect_every - 1 or r == stash_round:
+                # A kernel client drops with its pending ops, edits offline
+                # and comes back (or rehydrates its stash): its pending ops
+                # regenerate through K5 against everything sequenced since.
+                j = 2 * ((r // reconnect_every) % 2)
+                run(("drop", j))
+                for _ in range(rng.randint(1, 3)):
+                    run(("edit", j, _gen_string_edit(rng, fleet.s(j))))
+                run(("rehydrate" if r == stash_round else "rejoin", j))
+            run(("sync", 0))
+            r += 1
+        if sink is not None:
+            sink(None)
+    else:
+        for action in script:
+            run(action)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    kernels = fleet.kernels()
+    return {
+        "edits": edits, "syncs": syncs, "seconds": seconds,
+        "edits_per_s": edits / seconds, "peak_nseg": peak_nseg,
+        "regenerated": sum(k.regenerated for k in kernels),
+        "rehydrated": sum(1 for a in taken if a[0] == "rehydrate"),
+        "reconnects": sum(1 for a in taken if a[0] == "rejoin"),
+        "states": [[x.cpu().numpy() for x in mk.leaves(k.state)] for k in kernels],
+        "errors": [k.check_errors() for k in kernels],
+        "summaries": [json.dumps(k.export_summary(), sort_keys=True) for k in kernels],
+        "stream": [dict(json.loads(m.to_json()), timestamp=0) for m in fleet.doc.sequencer.log],
+        "text": fleet.s(0).text, "kernels": kernels,
+    }
+
+
+def _string_client_replay_main(conn, geom: dict, seed: int, n_edits: int,
+                               reconnect_every: int) -> None:
+    """Phase 16's CPU run in its own process: replays the actions the card
+    run sends as it takes them, then sends back its result.  Four intra-op
+    threads, to leave the host's other cores to the card run."""
+    import torch
+
+    torch.set_num_threads(4)
+    try:
+        out = _string_client_run("cpu", geom, seed, n_edits, reconnect_every,
+                                 script=iter(conn.recv, None))
+        out.pop("kernels")
+        conn.send(out)
+    except Exception:  # the parent reports it and fails the phase
+        import traceback
+
+        conn.send({"error": traceback.format_exc()})
+    finally:
+        conn.close()
+
+
+def _squash_regeneration(device: str, geom: dict, summary: dict, last_seq: int,
+                         seed: int) -> tuple:
+    """Reconnect regeneration with squash on one replica restored from the
+    document's summary (the runtime never asks for squash, as the
+    reference's does not; ``KernelMergeTree.regenerate_pending`` is the
+    entry the channel's squash resubmit calls): pending inserts, pending
+    removes over half of them (squashed pairs: ``drop_squashed``), pending
+    annotates, and a pending obliterate whose range a concurrent remote
+    remove takes (retired: ``strip_stamp``).  Returns the re-minted ops and
+    the replica."""
+    import random
+
+    from fluidframework_tpu_torch.dds.kernel_backend import KernelMergeTree
+    from fluidframework_tpu_torch.protocol.stamps import ALL_ACKED, LOCAL_BASE
+
+    rng = random.Random(seed)
+    kmt = KernelMergeTree(**geom, device=device)
+    kmt.import_summary(summary)
+    me = kmt.local_client
+    ls = 0
+
+    def local(name, *args):
+        nonlocal ls
+        ls += 1
+        getattr(kmt, name)(*args, LOCAL_BASE + ls, me, ALL_ACKED)
+
+    # The obliterate goes first, while the local view is the acked one, so
+    # the remote remove (which sees no pending op) lands on its range.
+    p = rng.randint(8, kmt.visible_length() - 8)
+    local("apply_obliterate", p, 0, p + 3, 1)
+    kmt.apply_remove(p - 2, p + 6, last_seq + 1, 0, last_seq)
+    for _ in range(16):
+        p = rng.randint(0, kmt.visible_length())
+        local("apply_insert", p, "sq" * rng.randint(1, 4))
+        if rng.random() < 0.5:
+            local("apply_remove", p, p + 2)
+        if rng.random() < 0.3:
+            local("apply_annotate", max(p - 3, 0), p + 1, 0, 5)
+    fresh = iter(range(ls + 1, ls + 10_000)).__next__
+    plans = [kmt.regenerate_pending(i, fresh, squash=True) for i in range(1, ls + 1)]
+    return plans, kmt
+
+
+def _time_one_doc_programs(card: str, kmt) -> dict:
+    """The one-doc programs of the client path timed alone on a kernel
+    replica's final state (S=16,384): ``apply_op`` (one insert), K3
+    (``set_min_seq`` + ``compact``), and K5 (``restamp`` of every class,
+    ``drop_squashed``, ``strip_stamp``); each result held against the
+    same call on the CPU; bytes bounds at 3.35 TB/s.  Called outside the
+    path: its launches are not the path's."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    s = kmt.state
+    S = s.seg_len.shape[0]
+    host = mk.from_numpy(mk.to_numpy(s), device="cpu")
+    n = kmt.visible_length()
+    op, payload = mk.encode_insert(n // 2, "timing", 1 << 29, 1, 1 << 28, kmt.max_insert_len)[0]
+    mask = (torch.arange(S) % 3 == 0).numpy()
+    key = int(mk.to_numpy(s).ins_key[0])
+    ob_flag = bool((s.ob_key >= 0).any())  # the gate as the path decides it: on the host
+    per_seg = [s.seg_start, s.seg_len, s.ins_key, s.ins_client, s.seg_uid, s.seg_obpre,
+               *s.rem_keys, *s.rem_clients, *s.prop_keys, *s.prop_vals]
+    restamp_cols = [s.ins_key, s.ins_client, *s.rem_keys, *s.rem_clients, *s.prop_keys,
+                    s.seg_obpre, s.ob_key, s.ob_client]
+    ob_cols = [s.ob_key, s.ob_start_uid, s.ob_end_uid]
+    progs = {
+        "apply_op": (lambda st: mk.apply_op(st, op, payload, ob_flag=ob_flag),
+                     2 * nbytes_of(mk.leaves(s)) + op.nbytes + payload.nbytes),
+        "compact": (lambda st: mk.doc_row(mk.compact(
+            mk.set_min_seq(mk.one_doc_batch(st), [int(st.min_seq) + 1])), 0),
+            2 * nbytes_of(per_seg) + nbytes_of(ob_cols)),
+        "restamp": (lambda st: mk.restamp(st, mask, key, key + 1, 3, True, True, True, True),
+                    2 * nbytes_of(restamp_cols) + mask.nbytes),
+        "drop_squashed": (mk.drop_squashed, 2 * nbytes_of(per_seg) + nbytes_of(ob_cols)),
+        "strip_stamp": (lambda st: mk.strip_stamp(st, key),
+                        2 * nbytes_of([*s.rem_keys, *s.rem_clients, s.ob_key])),
+    }
+    out = {}
+    for name, (fn, nbytes) in progs.items():
+        want = [x.numpy() for x in mk.leaves(fn(host))]
+        got = [x.cpu().numpy() for x in mk.leaves(fn(s))]
+        err = max(int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max(initial=0))
+                  for a, b in zip(got, want))
+        check(err == 0, f"{name} on the card disagrees with the CPU")
+        out[name] = {"S": S, "ms": cuda_ms(lambda: fn(s), 20, warmup=1), "max_abs_err": err,
+                     "bound_bytes": nbytes, "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes"}
+    # Device times after every call time: the profiler's session leaves
+    # later launches dearer on the host.
+    for name, (fn, _nbytes) in progs.items():
+        out[name]["device_ms"] = _device_sum(device_ms_by_name(lambda: fn(s), 10))
+    emit({"phase": "string_client_programs", "card": card, **out})
+    return out
+
+
+def phase_string_client(seed: int, card: str, device: str = "cuda", geom: dict | None = None,
+                        n_edits: int = 4000, reconnect_every: int = 6) -> dict:
+    """Phase 16: the SharedString client path (``ContainerRuntime`` +
+    ``LocalService`` + ``SharedStringChannel``), two ``KernelMergeTree``
+    replicas on ``device`` and two ``RefMergeTree`` ones, a seeded script
+    of ``n_edits`` edits with reconnects and one stash; then the same
+    script with the kernel replicas on the CPU: every kernel replica's raw
+    state, error latch and summary identical between the runs; then the
+    squash regeneration on one replica restored from the summary, held
+    against the CPU.  The CPU run replays the card run's actions in a
+    process of its own, alongside.  Returns the line and a kernel replica on ``device``
+    (``_time_one_doc_programs`` times the one-doc programs on its state)."""
+    import multiprocessing
+
+    geom = dict(STRING_CLIENT_GEOM if geom is None else geom)
+    t0 = time.perf_counter()
+    # The CPU run replays the card run's actions in its own process as they
+    # are taken, so the two runs share the wall clock.
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=_string_client_replay_main,
+                       args=(child, geom, seed, n_edits, reconnect_every), daemon=True)
+    proc.start()
+    child.close()
+    try:
+        card_run = _string_client_run(device, geom, seed, n_edits, reconnect_every,
+                                      sink=parent.send)
+        cpu_run = parent.recv()
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+    check("error" not in cpu_run, f"string_client: the CPU run failed: {cpu_run.get('error')}")
+    check(card_run["errors"] == cpu_run["errors"] == [0, 0],
+          f"string_client: error latches {card_run['errors']} / {cpu_run['errors']}")
+    for k, (a, b) in enumerate(zip(card_run["states"], cpu_run["states"])):
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"string_client: kernel replica {k}'s state differs between {device} and the CPU")
+    check(card_run["summaries"] == cpu_run["summaries"],
+          "string_client: kernel summaries differ between the card and the CPU")
+    check(card_run["stream"] == cpu_run["stream"] and card_run["text"] == cpu_run["text"],
+          "string_client: the sequenced streams differ between the card and the CPU")
+    check(card_run["regenerated"] > 0 and card_run["rehydrated"] == 1,
+          "string_client: no op was regenerated, or the stash never rehydrated")
+    summary = json.loads(card_run["summaries"][0])
+    last_seq = card_run["stream"][-1]["sequenceNumber"]
+    plans, sq = _squash_regeneration(device, geom, summary, last_seq, seed)
+    cpu_plans, sq_cpu = _squash_regeneration("cpu", geom, summary, last_seq, seed)
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    check(plans == cpu_plans and all(
+        np.array_equal(x.cpu().numpy(), y.numpy())
+        for x, y in zip(mk.leaves(sq.state), mk.leaves(sq_cpu.state))),
+        "string_client: squash regeneration differs between the card and the CPU")
+    check(not plans[0], "string_client: the pending obliterate was not retired")
+    line = {
+        "phase": "string_client", "card": card, "clients": STRING_CLIENT_KINDS,
+        "geometry": geom, "edits": card_run["edits"], "syncs": card_run["syncs"],
+        "reconnects": card_run["reconnects"], "stash_rehydrations": card_run["rehydrated"],
+        "regenerated_ops": card_run["regenerated"], "peak_nseg": card_run["peak_nseg"],
+        "text_len": len(card_run["text"]), "sequenced": len(card_run["stream"]),
+        "edits_per_s": card_run["edits_per_s"], "cpu_edits_per_s": cpu_run["edits_per_s"],
+        "run_s": card_run["seconds"], "cpu_run_s": cpu_run["seconds"],
+        "squash_plans": len(plans), "identical_to_cpu": True,
+    }
+    line["phase_s"] = time.perf_counter() - t0
+    emit(line)
+    return line, card_run["kernels"][0]
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3831,8 +4239,6 @@ def main(argv=None) -> int:
     emit({"phase": "build", "card": card, "build_s": time.perf_counter() - t0,
           "library": str(cuda_build.library_path().name),
           "sources": [src.name for src in cuda_build.sources()]})
-    k = phase_kernels(args.seed, card)
-    k9 = phase_rebase_kernel(args.seed, card)
 
     # The main path, phase by phase: the launch counts of K1, of the fleet
     # programs (K2, K3, K6), of the tree programs (K7, K8), of K9 and of the
@@ -3861,7 +4267,9 @@ def main(argv=None) -> int:
                 "compact_nested": tk.compact_nested, "rebase_window": rk9.rebase_window,
                 "apply_batch_fleet": mpk.apply_batch_fleet,
                 "apply_ops_fleet": mxk.apply_ops_fleet,
-                "gather_cohort": dbe.gather_cohort, "scatter_cohort": dbe.scatter_cohort}
+                "gather_cohort": dbe.gather_cohort, "scatter_cohort": dbe.scatter_cohort,
+                "apply_op": mk.apply_op, "restamp": mk.restamp,
+                "drop_squashed": mk.drop_squashed, "strip_stamp": mk.strip_stamp}
     paths = {name: {} for name in counters}
 
     def path(name, fn, *args, **kw):
@@ -3871,6 +4279,20 @@ def main(argv=None) -> int:
         for prog, c in counters.items():
             paths[prog][name] = c.launches
         return out
+
+    # Phase 16 (the SharedString client path) runs first, before any
+    # torch.profiler session: its rate is host issue, one op at a time, and
+    # a profiler session leaves every later launch dearer on the host.
+    _line, string_kmt = path("string_client", phase_string_client, args.seed, card, "cuda")
+    for prog, what in (("apply_op", "the one-doc apply_op"), ("compact", "K3"),
+                       ("restamp", "K5's restamp"), ("drop_squashed", "K5's drop_squashed"),
+                       ("strip_stamp", "K5's strip_stamp")):
+        check(paths[prog]["string_client"] > 0,
+              f"{what} was never launched on the string_client path")
+    k = phase_kernels(args.seed, card)
+    k9 = phase_rebase_kernel(args.seed, card)
+    one_doc = _time_one_doc_programs(card, string_kmt)
+    del string_kmt
 
     # One traffic for every fleet turn, the recovery phase (which takes two
     # rounds past the fleet's 16) and the fleet programs' timing, made
@@ -4011,7 +4433,16 @@ def main(argv=None) -> int:
         "max_abs_err": 0, "lanes": cohort[name]["lanes"],
         "ms": cohort[name]["ms"], "device_ms": cohort[name]["device_ms"], "plain_ms": None,
         "bound_ms": cohort[name]["bound_ms"], "bound_by": "bytes", "library_ms": None,
-    } for name, line in (("gather", 222), ("scatter", 249))]})
+    } for name, line in (("gather", 222), ("scatter", 249))] + [{
+        "name": name, "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/mergetree_kernel.py",
+        "replaces": f"fluidframework_tpu/ops/mergetree_kernel.py:{line}",
+        "launches": sum(paths[name].values()), "launches_by_path": paths[name],
+        "max_abs_err": one_doc[name]["max_abs_err"], "S": one_doc[name]["S"],
+        "ms": one_doc[name]["ms"], "device_ms": one_doc[name]["device_ms"], "plain_ms": None,
+        "bound_ms": one_doc[name]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    } for name, line in (("apply_op", 775), ("drop_squashed", 1556), ("strip_stamp", 1571),
+                         ("restamp", 1590))]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,59 @@
+"""The port's own copy of ``fluidframework_tpu/driver/service_registry.py`` (no JAX in it).
+
+Local-service provider seam: the driver/framework -> server inversion.
+
+The in-process local driver and the local service client are, by design,
+bindings TO the local server (tinylicious shape) — which left the driver
+and framework layers importing ``server.local_service`` upward, edges the
+fftpu-check baseline carried with rationales since the layer gate landed.
+This module inverts them the same way ``models.dispatch`` inverted the
+engines' mesh edge: the lower layers depend on an abstract provider slot,
+and the concrete service registers itself here when its module loads.
+
+Resolution order:
+
+1. whatever called :func:`register_local_service` first (in-process
+   composition: importing ``fluidframework_tpu_torch.server.local_service``
+   anywhere — which every caller constructing a service already does —
+   registers it);
+2. otherwise the provider named by ``FFTPU_TORCH_LOCAL_SERVICE`` (a dotted
+   module path) is loaded and must self-register — an alternative
+   in-process service (a fake for tests, a future sharded local server)
+   binds here without drivers or clients changing;
+3. the default provider is ``fluidframework_tpu_torch.server.local_service``.
+
+The provider surface is the service CLASS: calling it with no arguments
+yields a service whose ``document(doc_id)`` returns the per-document
+backend the local driver wraps.
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+
+_SERVICE_CLS = None
+
+DEFAULT_PROVIDER = "fluidframework_tpu_torch.server.local_service"
+
+
+def register_local_service(service_cls):
+    """Install the concrete local-service class (called by the provider
+    module at import time).  Last registration wins — tests swap fakes."""
+    global _SERVICE_CLS
+    _SERVICE_CLS = service_cls
+    return service_cls
+
+
+def local_service_class():
+    """The active local-service class, loading the configured provider on
+    first use (the composition-root binding; see module docstring)."""
+    if _SERVICE_CLS is None:
+        provider = os.environ.get("FFTPU_TORCH_LOCAL_SERVICE", DEFAULT_PROVIDER)
+        importlib.import_module(provider)
+        if _SERVICE_CLS is None:
+            raise RuntimeError(
+                f"local-service provider {provider!r} imported but did not "
+                "call register_local_service()"
+            )
+    return _SERVICE_CLS

@@ -21,8 +21,12 @@ changes is the idiom:
   ``argmax`` first-hit rules become explicit index minima, and every
   cumsum/sum is taken back to int32 so int32 wrap matches.
 - The text pool, and the rows of a branch run on a gathered subset of
-  docs, are updated in place.  Every public apply entry copies the state
-  once on entry, so the caller's state is never mutated.
+  docs, are updated in place.  Every public apply entry copies what it
+  updates in place once on entry, so the caller's state is never mutated.
+- One document's programs (``apply_op``, reconnect's K5: ``restamp``,
+  ``drop_squashed``, ``strip_stamp``) take unbatched leaves, as the
+  reference's do; ``apply_op`` and ``drop_squashed`` run the batched code
+  over a D = 1 batch (``one_doc_batch``).
 
 The segment-parallel lane (``apply_megastep_seg``) routes its containment
 searches through the K1 kernel (``ops.resolve_kernel``) and its named-axis
@@ -73,10 +77,9 @@ def is_poison_error(bits: int) -> bool:
     """True iff the bits indicate a malformed op stream (quarantine lane)."""
     return bits != 0 and (bits & ERR_CAPACITY_MASK) == 0
 
-# Marker codepoints (the reserved plane of dds/markers.py): positions but no
-# text in the host text view.
-MARKER_CP_BASE = 0xE000
-MARKER_CP_END = 0xF900  # exclusive
+# Marker codepoints (the reserved plane of dds/markers.py, a protocol
+# contract): positions but no text in the host text view.
+from ..protocol.marker_plane import MARKER_CP_BASE, MARKER_CP_END  # noqa: E402
 
 
 class OpKind:
@@ -403,11 +406,12 @@ def _vis_lengths(s: DocState, vis) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _shift_right(arr, k, newval, do):
     """Rows with ``do``: a slot opened at k ([..k-1] keep, [k]=newval,
-    [k+1..] shifted right); other rows unchanged."""
+    [k+1..] shifted right); other rows unchanged.  ``arr`` is [D, S], or
+    [C, D, S] for C columns at once (``newval`` then [C, D])."""
     idx = _iota(arr.shape[-1], arr.device)
     kk = k[:, None]
-    prev = torch.cat([arr[:, :1], arr[:, :-1]], dim=1)
-    moved = torch.where(idx == kk, newval[:, None], prev)
+    prev = torch.cat([arr[..., :1], arr[..., :-1]], dim=-1)
+    moved = torch.where(idx == kk, newval[..., None], prev)
     return torch.where(do[:, None] & (idx >= kk), moved, arr)
 
 
@@ -424,21 +428,25 @@ class _NewSeg(NamedTuple):
     prop_vals: tuple
 
 
-def _shift_fields(s: DocState, k, do, new: _NewSeg) -> DocState:
-    def sh(arr, v):
-        return _shift_right(arr, k, v, do)
+def _seg_columns(s) -> list:
+    """The per-segment columns of a state (or the fields of a ``_NewSeg``),
+    in field order."""
+    return [s.seg_start, s.seg_len, s.ins_key, s.ins_client, s.seg_uid, s.seg_obpre,
+            *s.rem_keys, *s.rem_clients, *s.prop_keys, *s.prop_vals]
 
+
+def _shift_fields(s: DocState, k, do, new: _NewSeg) -> DocState:
+    """``_shift_right`` of every per-segment column, stacked to one
+    [C, D, S] tensor: a slot opens in a handful of launches whatever the
+    slot counts."""
+    R, P = len(s.rem_keys), len(s.prop_keys)
+    vals = torch.stack(_seg_columns(new)).to(I32)
+    out = _shift_right(torch.stack(_seg_columns(s)), k, vals, do).unbind(0)
     return s._replace(
-        seg_start=sh(s.seg_start, new.seg_start),
-        seg_len=sh(s.seg_len, new.seg_len),
-        ins_key=sh(s.ins_key, new.ins_key),
-        ins_client=sh(s.ins_client, new.ins_client),
-        seg_uid=sh(s.seg_uid, new.seg_uid),
-        seg_obpre=sh(s.seg_obpre, new.seg_obpre),
-        rem_keys=tuple(sh(a, v) for a, v in zip(s.rem_keys, new.rem_keys)),
-        rem_clients=tuple(sh(a, v) for a, v in zip(s.rem_clients, new.rem_clients)),
-        prop_keys=tuple(sh(a, v) for a, v in zip(s.prop_keys, new.prop_keys)),
-        prop_vals=tuple(sh(a, v) for a, v in zip(s.prop_vals, new.prop_vals)),
+        seg_start=out[0], seg_len=out[1], ins_key=out[2], ins_client=out[3],
+        seg_uid=out[4], seg_obpre=out[5],
+        rem_keys=out[6 : 6 + R], rem_clients=out[6 + R : 6 + 2 * R],
+        prop_keys=out[6 + 2 * R : 6 + 2 * R + P], prop_vals=out[6 + 2 * R + P :],
         nseg=s.nseg + _i32(do),
     )
 
@@ -453,18 +461,23 @@ def _open_slot(s: DocState, k, do, new: _NewSeg) -> DocState:
 
 
 def _split_seg(s: DocState, k, off, right_uid) -> _NewSeg:
-    """The right half of segment ``k`` split at offset ``off``."""
+    """The right half of segment ``k`` split at offset ``off`` (every
+    column read in one gather of the stacked columns)."""
+    R, P = len(s.rem_keys), len(s.prop_keys)
+    cols = torch.stack(_seg_columns(s))
+    idx = k.clamp(0, cols.shape[-1] - 1).long()[None, :, None].expand(cols.shape[0], -1, 1)
+    row = cols.gather(-1, idx).squeeze(-1).unbind(0)
     return _NewSeg(
-        seg_start=_take(s.seg_start, k) + off,
-        seg_len=_take(s.seg_len, k) - off,
-        ins_key=_take(s.ins_key, k),
-        ins_client=_take(s.ins_client, k),
+        seg_start=row[0] + off,
+        seg_len=row[1] - off,
+        ins_key=row[2],
+        ins_client=row[3],
         seg_uid=right_uid,
-        seg_obpre=_take(s.seg_obpre, k),
-        rem_keys=tuple(_take(a, k) for a in s.rem_keys),
-        rem_clients=tuple(_take(a, k) for a in s.rem_clients),
-        prop_keys=tuple(_take(a, k) for a in s.prop_keys),
-        prop_vals=tuple(_take(a, k) for a in s.prop_vals),
+        seg_obpre=row[5],
+        rem_keys=row[6 : 6 + R],
+        rem_clients=row[6 + R : 6 + 2 * R],
+        prop_keys=row[6 + 2 * R : 6 + 2 * R + P],
+        prop_vals=row[6 + 2 * R + P :],
     )
 
 
@@ -950,6 +963,41 @@ apply_megastep.ob_gate_syncs = 0
 apply_megastep.launches = 0
 
 
+def one_doc_batch(s: DocState) -> DocState:
+    """One document's state as a D = 1 batch (views, no copy)."""
+    return tree_map(lambda x: x.unsqueeze(0), s)
+
+
+def apply_op(s: DocState, op, payload, ob_flag=None) -> DocState:
+    """Apply one op row (int32[8]) and its payload row (int32[L]) to ONE
+    document (unbatched leaves), as a D = 1 batch of the batched branches.
+    ``ob_flag`` gates the obliterate machinery as the reference's does: it
+    must be True whenever the obliterate table may be nonempty or the op
+    is an OBLITERATE (a caller that tracks its obliterates on the host
+    passes it).  Left None it is the reference's per-doc gate, decided on
+    the host: only an insert reads the table (one device read), an
+    obliterate sets it, and the other kinds never look at it."""
+    count_launch(s.nseg, apply_op)
+    dev = s.nseg.device
+    kind = int(op[0])
+    if not OpKind.INSERT <= kind <= OpKind.OBLITERATE:
+        return s
+    s1 = one_doc_batch(s)
+    if kind == OpKind.INSERT:  # the one branch that writes in place (text)
+        s1 = s1._replace(text=s1.text.clone())
+    if ob_flag is None:
+        ob_flag = kind == OpKind.OBLITERATE or (
+            kind == OpKind.INSERT and _ob_table_nonempty(s1)
+        )
+    op1 = _as_tensor(op, dev).reshape(1, -1)
+    p1 = _as_tensor(payload, dev).reshape(1, -1)
+    act = torch.ones((1,), dtype=torch.bool, device=dev)
+    return doc_row(_branch(s1, op1, p1, kind, bool(ob_flag), act), 0)
+
+
+apply_op.launches = 0
+
+
 # -------------------------------------------------------------- compaction
 
 def set_min_seq(s: DocState, min_seq) -> DocState:
@@ -1015,6 +1063,85 @@ def _compact(s: DocState, ob_flag=None) -> DocState:
     dead = alive & (rem0 < LOCAL_BASE) & (rem0 <= s.min_seq[:, None])
     anchored = _anchored_mask(s) if ob_flag else torch.zeros_like(alive)
     return _gather_keep(s, alive & ~(dead & ~anchored))
+
+
+# ------------------------------------------------------------- K5 (reconnect)
+#
+# The device half of reconnect regeneration (dds/kernel_backend.py
+# ``KernelMergeTree.regenerate_pending``): the host plans the re-minted
+# wire ops from a snapshot, these re-stamp exactly the affected segments.
+# Each takes and returns ONE document's state (unbatched leaves).
+
+
+def drop_squashed(s: DocState) -> DocState:
+    """Drop squashed segments: a pending insert later covered by a pending
+    remove (under squash resubmission the pair cancels and the segment
+    never materializes remotely).  Obliterate anchors stay."""
+    count_launch(s.nseg, drop_squashed)
+    s1 = one_doc_batch(s)
+    alive = _alive(s1)
+    pend_ins = s1.ins_key >= LOCAL_BASE
+    pend_rem = _any_tree([(k >= LOCAL_BASE) & (k < NO_REMOVE) for k in s1.rem_keys])
+    squashed = alive & pend_ins & pend_rem
+    return doc_row(_gather_keep(s1, alive & ~(squashed & ~_anchored_mask(s1))), 0)
+
+
+drop_squashed.launches = 0
+
+
+def strip_stamp(s: DocState, key: int) -> DocState:
+    """Erase every trace of the stamp ``key``: remove slots stamped with it
+    revert to NO_REMOVE / client -1 and its obliterate record is freed (a
+    pending op retired without resubmission)."""
+    count_launch(s.nseg, strip_stamp)
+    hits = [k == key for k in s.rem_keys]
+    return s._replace(
+        rem_keys=tuple(torch.where(h, NO_REMOVE, k) for h, k in zip(hits, s.rem_keys)),
+        rem_clients=tuple(torch.where(h, -1, c) for h, c in zip(hits, s.rem_clients)),
+        ob_key=torch.where(s.ob_key == key, -1, s.ob_key),
+    )
+
+
+strip_stamp.launches = 0
+
+
+def restamp(s: DocState, mask, old_key: int, new_key: int, new_client: int,
+            do_ins: bool, do_rem: bool, do_prop: bool, do_ob: bool) -> DocState:
+    """Rewrite stamp ``old_key`` -> ``new_key`` on the segments selected by
+    ``mask`` (bool[S]), per stamp class (insert / remove / prop /
+    obliterate record; a class whose flag is off keeps its columns).
+    ``new_client`` < 0 keeps clients.  ``seg_obpre`` follows an obliterate
+    record's rewrite on every segment, masked or not."""
+    count_launch(s.nseg, restamp)
+    mask = torch.as_tensor(mask, device=s.nseg.device).bool()
+    rw_c = new_client >= 0
+    out = {}
+    if do_ins:
+        hit = mask & (s.ins_key == old_key)
+        out["ins_key"] = torch.where(hit, new_key, s.ins_key)
+        if rw_c:
+            out["ins_client"] = torch.where(hit, new_client, s.ins_client)
+    if do_rem:
+        hits = [mask & (k == old_key) for k in s.rem_keys]
+        out["rem_keys"] = tuple(torch.where(h, new_key, k) for h, k in zip(hits, s.rem_keys))
+        if rw_c:
+            out["rem_clients"] = tuple(
+                torch.where(h, new_client, c) for h, c in zip(hits, s.rem_clients)
+            )
+    if do_prop:
+        out["prop_keys"] = tuple(
+            torch.where(mask & (k == old_key), new_key, k) for k in s.prop_keys
+        )
+    if do_ob:
+        hit = s.ob_key == old_key
+        out["ob_key"] = torch.where(hit, new_key, s.ob_key)
+        if rw_c:
+            out["ob_client"] = torch.where(hit, new_client, s.ob_client)
+        out["seg_obpre"] = torch.where(s.seg_obpre == old_key, new_key, s.seg_obpre)
+    return s._replace(**out)
+
+
+restamp.launches = 0
 
 
 # ------------------------------------------------- segment-parallel lane

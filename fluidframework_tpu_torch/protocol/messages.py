@@ -1,19 +1,23 @@
-"""Wire message contracts: the subset the fleet engines read.
+"""Wire message contracts.
 
-A copy of ``fluidframework_tpu/protocol/messages.py`` (``MessageType``,
-``DeltaType``, ``UnsequencedMessage``, ``SequencedMessage`` with its JSON
-wire codec) plus the obliterate place decoder of
-``fluidframework_tpu/dds/shared_string.py``.  The engines read messages by
-attribute only (``type``, ``seq``, ``min_seq``, ``ref_seq``, ``client_id``,
-``contents``), so a message minted by the JAX package's sequencer ingests
-here unchanged, and ``to_json`` writes the same bytes as the reference's
-(camelCase wire names), so a JSON-lines feed decodes identically in both.
+The port's own copy of ``fluidframework_tpu/protocol/messages.py``, plus
+the obliterate place decoder of ``fluidframework_tpu/dds/shared_string.py``
+(``decode_obliterate_places``) that the fleet engines and the scribe read.
+
+Reference parity: common/lib/protocol-definitions ``IDocumentMessage`` /
+``ISequencedDocumentMessage`` (op envelope stamped by the ordering service),
+``MessageType`` (op/join/leave/noop/summarize), and merge-tree
+``MergeTreeDeltaType`` (merge-tree/src/ops.ts:61).
+
+Field names keep the reference's JSON wire names (camelCase) in
+``to_json``/``from_json`` so op traces are interchangeable; in-memory we use
+snake_case dataclasses.
 """
 
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import IntEnum
 from typing import Any
 
@@ -22,14 +26,32 @@ SIDE_BEFORE = 0
 SIDE_AFTER = 1
 
 
+# Count of actual wire encodes (``json.dumps`` in ``wire_line``): bumped
+# once per message EVER, however many subscribers fan the bytes out.  The
+# read-fanout plane's tests and bench assert the encode-once contract on
+# deltas of this counter (a plain int under the GIL: a stats counter, not
+# a synchronization primitive).
+_wire_encodes = 0
+
+
+def wire_encode_count() -> int:
+    """Total ``SequencedMessage`` wire encodes performed by this process."""
+    return _wire_encodes
+
+
 class MessageType:
-    """Protocol-level message types (subset the engine reads)."""
+    """Protocol-level message types (subset the framework uses)."""
 
     OP = "op"
     NOOP = "noop"
     JOIN = "join"
     LEAVE = "leave"
+    PROPOSE = "propose"
+    REJECT = "reject"
+    SUMMARIZE = "summarize"
     SUMMARY_ACK = "summaryAck"
+    SUMMARY_NACK = "summaryNack"
+    SIGNAL = "signal"  # unsequenced broadcast (presence)
 
 
 class DeltaType(IntEnum):
@@ -49,9 +71,11 @@ class UnsequencedMessage:
 
     client_id: str
     client_seq: int  # clientSequenceNumber: per-client monotone counter
-    ref_seq: int  # referenceSequenceNumber: last seq the client had applied
+    ref_seq: int  # referenceSequenceNumber: last seq client had applied
     type: str = MessageType.OP
     contents: Any = None
+    # Op metadata (reference IDocumentMessage.metadata): batch markers /
+    # batch ids ride here, opaque to the sequencer.
     metadata: Any = None
 
     def to_json(self) -> str:
@@ -82,9 +106,13 @@ class UnsequencedMessage:
 
 @dataclass
 class SequencedMessage:
-    """An op after the sequencer stamped its total-order position
-    (reference ISequencedDocumentMessage); ``min_seq`` is the collab-window
-    floor below which state may be compacted."""
+    """An op after the sequencer stamped a total order position.
+
+    Reference ISequencedDocumentMessage: sequenceNumber is the total-order
+    position; minimumSequenceNumber (MSN) is the collab-window floor — every
+    connected client has applied at least this seq, so state below it may be
+    compacted (zamboni / trunk eviction).
+    """
 
     client_id: str
     client_seq: int
@@ -95,6 +123,8 @@ class SequencedMessage:
     contents: Any = None
     metadata: Any = None
     timestamp: float = 0.0
+    # Short numeric client id assigned by quorum join order (the id used in
+    # stamps; reference attributes ops via the quorum's client table).
     short_client: int = -1
 
     def to_json(self) -> str:
@@ -115,12 +145,30 @@ class SequencedMessage:
         )
 
     def wire_line(self) -> bytes:
-        """``to_json() + "\\n"`` encoded once and cached on the message
-        (sequenced messages are immutable after minting)."""
+        """``to_json() + "\\n"`` encoded ONCE and cached on the message.
+
+        Sequenced messages are immutable after minting, so the deli->
+        firehose hot path encodes each message a single time at sequencing
+        and every subscriber fans out the same buffer — no per-op
+        ``json.dumps`` per consumer under the service lock (ref deli
+        produce, server/routerlicious/packages/lambdas/src/deli/
+        lambda.ts:851, which stringifies once into the Kafka produce)."""
         b = self.__dict__.get("_wire_line")
         if b is None:
+            global _wire_encodes
+            _wire_encodes += 1
             b = (self.to_json() + "\n").encode()
             self.__dict__["_wire_line"] = b
+        return b
+
+    def op_envelope(self) -> bytes:
+        """The nexus broadcast frame ``{"t":"op","msg":<this>}`` as cached
+        bytes: composed textually around ``wire_line`` so a thousand
+        connected sockets share one encode (ref nexus emit fan-out)."""
+        b = self.__dict__.get("_op_env")
+        if b is None:
+            b = b'{"t":"op","msg":' + self.wire_line()[:-1] + b"}\n"
+            self.__dict__["_op_env"] = b
         return b
 
     @staticmethod
@@ -138,6 +186,24 @@ class SequencedMessage:
             timestamp=d.get("timestamp", 0.0),
             short_client=d.get("shortClient", -1),
         )
+
+
+@dataclass
+class Nack:
+    """Rejection of a client op (reference INack): bad refSeq / not joined."""
+
+    client_id: str
+    client_seq: int
+    reason: str
+    retry_after: float = 0.0
+
+
+@dataclass
+class SignalMessage:
+    """Unsequenced broadcast (presence path; reference ISignalMessage)."""
+
+    client_id: str
+    contents: Any = None
 
 
 def decode_obliterate_places(c: dict) -> tuple[int, int, int, int]:

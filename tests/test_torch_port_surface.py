@@ -42,7 +42,8 @@ _BLOCKER = textwrap.dedent(
 )
 
 # Modules the blocker must reach by name (the walk finds every module; these
-# pin that the wire-ingest, observability and serving layers are among them).
+# pin that the wire-ingest, observability and serving layers and the
+# SharedString client path are among them).
 _REQUIRED = {
     "fluidframework_tpu_torch.server.scribe",
     "fluidframework_tpu_torch.server.failover",
@@ -57,6 +58,29 @@ _REQUIRED = {
     "fluidframework_tpu_torch.protocol.messages",
     "fluidframework_tpu_torch.models.doc_batch_engine",
     "fluidframework_tpu_torch.models.tree_batch_engine",
+    "fluidframework_tpu_torch.dds.kernel_backend",
+    "fluidframework_tpu_torch.dds.channels",
+    "fluidframework_tpu_torch.dds.shared_string",
+    "fluidframework_tpu_torch.dds.markers",
+    "fluidframework_tpu_torch.dds.sequence_intervals",
+    "fluidframework_tpu_torch.protocol.channel",
+    "fluidframework_tpu_torch.protocol.marker_plane",
+    "fluidframework_tpu_torch.protocol.snapshot_formats",
+    "fluidframework_tpu_torch.protocol.driver_contracts",
+    "fluidframework_tpu_torch.server.sequencer",
+    "fluidframework_tpu_torch.server.local_service",
+    "fluidframework_tpu_torch.driver.service_registry",
+    "fluidframework_tpu_torch.runtime.container_runtime",
+    "fluidframework_tpu_torch.runtime.datastore",
+    "fluidframework_tpu_torch.runtime.op_lifecycle",
+    "fluidframework_tpu_torch.runtime.pending_state",
+    "fluidframework_tpu_torch.runtime.gc",
+    "fluidframework_tpu_torch.runtime.blob_manager",
+    "fluidframework_tpu_torch.runtime.handles",
+    "fluidframework_tpu_torch.runtime.errors",
+    "fluidframework_tpu_torch.runtime.channel",
+    "fluidframework_tpu_torch.runtime.snapshot_formats",
+    "fluidframework_tpu_torch.framework.attributor",
 }
 
 
@@ -68,7 +92,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 45  # every module of the port was imported
+    assert len(names) >= 70  # every module of the port was imported
     assert _REQUIRED <= names, sorted(_REQUIRED - names)
 
 
@@ -94,13 +118,14 @@ def test_entry_points_refuse_a_silent_cpu():
         pytest.skip("this machine has a card: the default device is usable")
     from fluidframework_tpu_torch.parallel import mesh
 
+    from fluidframework_tpu_torch.dds.kernel_backend import KernelMergeTree
     from fluidframework_tpu_torch.dds.tree.device_rebase import DeviceRebaser
     from fluidframework_tpu_torch.dds.tree.mark_pool import MarkPool
     from fluidframework_tpu_torch.ops import map_kernel, matrix_kernel
 
     for call in (lambda: mesh.doc_mesh(), lambda: mesh.docs_segs_mesh(),
                  lambda: DeviceRebaser(MarkPool()), lambda: map_kernel.init_state(),
-                 lambda: matrix_kernel.init_state()):
+                 lambda: matrix_kernel.init_state(), lambda: KernelMergeTree()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
