@@ -189,6 +189,38 @@ runs these phases on the card, one JSON line each:
     torch.profiler session (one leaves every later launch dearer on the
     host: ``apply_op`` 3.0 -> 4.2 ms a call on an H100); its programs are
     timed after phase 1b, as every other program is.
+17. ``dds_clients``: the port's own DDS clients drive the card's
+    programs, right after phase 16 (whose CPU run goes on meanwhile in
+    its own process).  (a) 16 SharedTree docs of config 5's
+    per-doc shape (4 writers with their own sub-arrays and a shared one,
+    under one root array node; 8 edits a writer a round at the round's
+    ref_seq, 40% string leaves; 4 rounds: the configuration's 64 docs of
+    8 rounds, cut as the phase's ``reduced`` lists), each writer a
+    ``ContainerRuntime`` with a ``sharedTree`` over one ``LocalService``,
+    session ids from a generator seeded with ``--seed``; per doc a schema
+    op (a typed view's ``initialize``), a transaction and a typed-view
+    edit a round, one fork merged back, one edit undone and redone through
+    ``UndoRedoStackManager``, and writer 3 offline and back every fourth
+    round (resubmits); then a late client per doc loads from another's
+    ``summary_tree``.  Each doc's log feeds ``TreeBatchEngine`` round by
+    round at tree_fleet's geometry, once with the host fold and once with
+    ``device_rebase=True``: every doc's ``tree_json`` equals every
+    client's forest (JSON text), the fallback docs are listed, and 8
+    sampled docs' raw columns equal a CPU engine's.  (b) 64 SharedMatrix
+    clients on one ``LocalDocument`` (config 4: 128 seeded rows and
+    columns, 16 steps of 64 ops, two of them row or column inserts or
+    removes) into the scribe's matrix family on the card (K10 in batches
+    of 16): every cell equals every client's.  (c) 4 SharedMap clients
+    (config 2: 256 keys, 64 batches of 256 SET and DELETE ops, a CLEAR
+    halfway) into the scribe's map family: every key equal.  (d) K11
+    alone: each program on the card equals the CPU at its user's shape,
+    the rebase arithmetic equals the host changeset rebase on 200 seeded
+    changes, the reference's dry-run case gives [99, 30, 10] over 8
+    docs; call times beside the bytes bounds (device times at the end of
+    the script).  The path fails unless K7, K9, the map and matrix
+    programs and every K11 program launched on it.  Its line carries the
+    clients' and engines' edits/s, each part's seconds, ``over_cap``
+    against a 150 s budget and ``reduced`` (the tree leg's cut).
 
 The fleet's traffic is made once, before phase 2, and shared by phases
 2, 3, 6, 14 and 15 (a ``traffic`` line gives its generation time); each tree
@@ -209,15 +241,22 @@ scatter launched, ``sharded_hot`` unless K1 and K6 (``apply_megastep_seg``,
 K5 programs launched on it.  Then it prints the ``kernels`` summary line
 (K1 with its launches by path, the segment lane's among them; K7, K8, K9,
 map, matrix; K6 at 4 shards; the cohort gather and scatter; the one-doc
-``apply_op`` and K5), the card's name and power limit, and, last, the
+``apply_op`` and K5; K11's seven programs), the card's name and power
+limit, and, last, the
 ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
-CUDA card, or a directory without the port.
+CUDA card, or a directory without the port.  ``main`` runs two phases
+below the sizes above (``CUTS``: tree_fleet at 512 docs, so
+``time_tree_programs`` holds K7 and K8 on a 512-doc ring, and
+tree_rebase at 128 fleet docs) to stay inside the script's 1,200 s
+limit; its ``cuts`` line, printed first, lists them, and every phase
+line carries ``script_s``, the script's seconds so far.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import gzip
 import json
@@ -241,7 +280,14 @@ def card_label() -> str:
     return out[0].strip()
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (``script_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2947,7 +2993,7 @@ def _serve_scribe(seed, device, n_strings, n_trees, n_maps, n_matrices, matrix_s
             "summaries_per_s": h["summaries_written"] / main["wall"],
             "acks": len(main["acks"]), "object_bytes": len(main["objects"]),
             "git_sharing_ratio": h["git_sharing_ratio"],
-            "handles_reused": h["summary_handles_reused"],
+            "handles_reused": h.get("summary_handles_reused", 0),  # a counter, absent at 0
             "booted_strings_equal": same, "booted_trees_equal": tsame,
             "boot_ops_skipped": skipped, "boot_s": boot_s}
 
@@ -4142,18 +4188,23 @@ def _time_one_doc_programs(card: str, kmt) -> dict:
 
 
 def phase_string_client(seed: int, card: str, device: str = "cuda", geom: dict | None = None,
-                        n_edits: int = 4000, reconnect_every: int = 6) -> dict:
+                        n_edits: int = 4000, reconnect_every: int = 6) -> tuple:
     """Phase 16: the SharedString client path (``ContainerRuntime`` +
     ``LocalService`` + ``SharedStringChannel``), two ``KernelMergeTree``
     replicas on ``device`` and two ``RefMergeTree`` ones, a seeded script
     of ``n_edits`` edits with reconnects and one stash; then the same
     script with the kernel replicas on the CPU: every kernel replica's raw
-    state, error latch and summary identical between the runs; then the
+    state, error latch and summary identical between the runs; and the
     squash regeneration on one replica restored from the summary, held
     against the CPU.  The CPU run replays the card run's actions in a
-    process of its own, alongside.  Returns the line and a kernel replica on ``device``
-    (``_time_one_doc_programs`` times the one-doc programs on its state)."""
+    process of its own, alongside, and runs on past the card run while
+    later phases use the card.  Returns ``finish`` (waits for the CPU run,
+    holds the two runs against each other and prints the line) and a
+    kernel replica on ``device`` (``_time_one_doc_programs`` times the
+    one-doc programs on its state)."""
     import multiprocessing
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
 
     geom = dict(STRING_CLIENT_GEOM if geom is None else geom)
     t0 = time.perf_counter()
@@ -4165,51 +4216,683 @@ def phase_string_client(seed: int, card: str, device: str = "cuda", geom: dict |
                        args=(child, geom, seed, n_edits, reconnect_every), daemon=True)
     proc.start()
     child.close()
-    try:
-        card_run = _string_client_run(device, geom, seed, n_edits, reconnect_every,
-                                      sink=parent.send)
-        cpu_run = parent.recv()
-    finally:
+
+    def stop():
         proc.join(timeout=60)
         if proc.is_alive():
             proc.kill()
-    check("error" not in cpu_run, f"string_client: the CPU run failed: {cpu_run.get('error')}")
-    check(card_run["errors"] == cpu_run["errors"] == [0, 0],
-          f"string_client: error latches {card_run['errors']} / {cpu_run['errors']}")
-    for k, (a, b) in enumerate(zip(card_run["states"], cpu_run["states"])):
-        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
-              f"string_client: kernel replica {k}'s state differs between {device} and the CPU")
-    check(card_run["summaries"] == cpu_run["summaries"],
-          "string_client: kernel summaries differ between the card and the CPU")
-    check(card_run["stream"] == cpu_run["stream"] and card_run["text"] == cpu_run["text"],
-          "string_client: the sequenced streams differ between the card and the CPU")
-    check(card_run["regenerated"] > 0 and card_run["rehydrated"] == 1,
-          "string_client: no op was regenerated, or the stash never rehydrated")
-    summary = json.loads(card_run["summaries"][0])
-    last_seq = card_run["stream"][-1]["sequenceNumber"]
-    plans, sq = _squash_regeneration(device, geom, summary, last_seq, seed)
-    cpu_plans, sq_cpu = _squash_regeneration("cpu", geom, summary, last_seq, seed)
-    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
 
-    check(plans == cpu_plans and all(
-        np.array_equal(x.cpu().numpy(), y.numpy())
-        for x, y in zip(mk.leaves(sq.state), mk.leaves(sq_cpu.state))),
-        "string_client: squash regeneration differs between the card and the CPU")
-    check(not plans[0], "string_client: the pending obliterate was not retired")
-    line = {
-        "phase": "string_client", "card": card, "clients": STRING_CLIENT_KINDS,
-        "geometry": geom, "edits": card_run["edits"], "syncs": card_run["syncs"],
-        "reconnects": card_run["reconnects"], "stash_rehydrations": card_run["rehydrated"],
-        "regenerated_ops": card_run["regenerated"], "peak_nseg": card_run["peak_nseg"],
-        "text_len": len(card_run["text"]), "sequenced": len(card_run["stream"]),
-        "edits_per_s": card_run["edits_per_s"], "cpu_edits_per_s": cpu_run["edits_per_s"],
-        "run_s": card_run["seconds"], "cpu_run_s": cpu_run["seconds"],
-        "squash_plans": len(plans), "identical_to_cpu": True,
+    try:
+        card_run = _string_client_run(device, geom, seed, n_edits, reconnect_every,
+                                      sink=parent.send)
+        check(card_run["regenerated"] > 0 and card_run["rehydrated"] == 1,
+              "string_client: no op was regenerated, or the stash never rehydrated")
+        summary = json.loads(card_run["summaries"][0])
+        last_seq = card_run["stream"][-1]["sequenceNumber"]
+        plans, sq = _squash_regeneration(device, geom, summary, last_seq, seed)
+        cpu_plans, sq_cpu = _squash_regeneration("cpu", geom, summary, last_seq, seed)
+        check(plans == cpu_plans and all(
+            np.array_equal(x.cpu().numpy(), y.numpy())
+            for x, y in zip(mk.leaves(sq.state), mk.leaves(sq_cpu.state))),
+            "string_client: squash regeneration differs between the card and the CPU")
+        check(not plans[0], "string_client: the pending obliterate was not retired")
+    except BaseException:
+        proc.kill()
+        raise
+    card_s = time.perf_counter() - t0
+
+    def finish() -> dict:
+        t1 = time.perf_counter()
+        try:
+            cpu_run = parent.recv()
+        finally:
+            stop()
+        wait_s = time.perf_counter() - t1
+        check("error" not in cpu_run, f"string_client: the CPU run failed: {cpu_run.get('error')}")
+        check(card_run["errors"] == cpu_run["errors"] == [0, 0],
+              f"string_client: error latches {card_run['errors']} / {cpu_run['errors']}")
+        for k, (a, b) in enumerate(zip(card_run["states"], cpu_run["states"])):
+            check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+                  f"string_client: kernel replica {k}'s state differs between {device} and the CPU")
+        check(card_run["summaries"] == cpu_run["summaries"],
+              "string_client: kernel summaries differ between the card and the CPU")
+        check(card_run["stream"] == cpu_run["stream"] and card_run["text"] == cpu_run["text"],
+              "string_client: the sequenced streams differ between the card and the CPU")
+        line = {
+            "phase": "string_client", "card": card, "clients": STRING_CLIENT_KINDS,
+            "geometry": geom, "edits": card_run["edits"], "syncs": card_run["syncs"],
+            "reconnects": card_run["reconnects"], "stash_rehydrations": card_run["rehydrated"],
+            "regenerated_ops": card_run["regenerated"], "peak_nseg": card_run["peak_nseg"],
+            "text_len": len(card_run["text"]), "sequenced": len(card_run["stream"]),
+            "edits_per_s": card_run["edits_per_s"], "cpu_edits_per_s": cpu_run["edits_per_s"],
+            "run_s": card_run["seconds"], "cpu_run_s": cpu_run["seconds"],
+            "squash_plans": len(plans), "identical_to_cpu": True,
+            # The card leg (run and squash legs), and the wait for the CPU
+            # run after the phases that ran meanwhile.
+            "phase_s": card_s, "cpu_wait_s": wait_s,
+        }
+        emit(line)
+        return line
+
+    return finish, card_run["kernels"][0]
+
+
+# ------------------------------------------------ phase 17: dds clients
+
+# Phase 17's sizes, as main() runs them: (a) config 5's per-doc shape over
+# 16 docs of 4 rounds, (b) config 4's matrix, (c) config 2's map, (d) K11 at
+# the shapes of its users.  The tree leg's own size is 64 docs of 8 rounds
+# (160.2 s alone on an H100 80GB HBM3 at 700 W, over the phase's 150 s cap;
+# its clients took 117.5 s of it): its rounds are cut to 4, the least that
+# holds writer 3's offline round and rejoin (rounds 1 and 3), then its docs
+# to 16, so the whole script keeps inside its 1,200 s limit.
+DDS_TREE = dict(n_docs=16, rounds=4, writers=4, edits=8, sample=8)
+DDS_REDUCED = {"tree": {"n_docs": "16 (of 64)", "rounds": "4 (of 8)"}}
+DDS_MATRIX = dict(writers=64, steps=16, ops=64, seeded=128)
+DDS_MAP = dict(writers=4, keys=256, batches=64, ops=256)
+DDS_K11 = dict(rebase_b=4096, rebase_m=64, sets_docs=1024, sets_n=2048, sets_b=32,
+               forest_n=2048, forest_b=32, forest_docs=1024)
+DDS_CAP_S = 150.0
+
+# The earlier phases main() runs below their sizes to keep the whole script
+# inside its 1,200 s limit (uncut, with phase 17 at 6 rounds of 64 docs:
+# 1,286.4 s on an H100 80GB HBM3 at 700 W).  Only these two cuts bought time
+# that the phase lines show: tree_fleet's timed parts took 103.0 s at 1,024
+# docs and 51.1 s at 512; tree_rebase took 72.0 s at 128 fleet docs and
+# 41.1 s at 64 (on a faster host), so some 60 s more at 256.  Printed in the
+# ``cuts`` line.
+CUTS = {
+    "tree_fleet": {"n_docs": 512},         # of 1,024 (time_tree_programs' ring too)
+    "tree_rebase": {"fleet_docs": 128},    # of 256
+}
+# K11's public programs and the reference lines they replace.
+K11_PROGRAMS = {"rebase_insert_positions": 86, "rebase_node_positions": 111,
+                "apply_value_sets": 150, "apply_value_sets_fleet": 177,
+                "apply_forest_op": 238, "apply_forest_ops": 317, "apply_forest_ops_fleet": 317}
+
+
+@contextlib.contextmanager
+def _seeded_sessions(seed: int):
+    """Every ``IdCompressor`` made inside draws its session id from one
+    generator seeded with ``seed`` (``create_session_id`` patched in the
+    port's module), so a run's wire bytes repeat."""
+    import random
+    import uuid
+
+    from fluidframework_tpu_torch.utils import id_compressor
+
+    rng = random.Random(seed)
+    saved = id_compressor.create_session_id
+    id_compressor.create_session_id = lambda: str(uuid.UUID(int=rng.getrandbits(128), version=4))
+    try:
+        yield
+    finally:
+        id_compressor.create_session_id = saved
+
+
+def _dds_tree_clients(seed: int, n_docs: int, rounds: int, writers: int, edits: int) -> dict:
+    """Part (a)'s clients: per doc ``writers`` ``ContainerRuntime``s with a
+    ``sharedTree`` channel over one ``LocalService``.  Config 5's shape
+    under one root array node (so the typed view can hold it): one
+    sub-array a writer plus one shared, each starting with one leaf.  A
+    round: each writer makes ``edits`` edits with its ref_seq at the round
+    start (even ones insert at 0 of the shared array, odd ones set or
+    insert in its own; 40% of the leaves strings of 3-10 chars) and
+    flushes; then the round is sequenced.  Writer 0 initializes the doc
+    through a typed view (the schema op) and forks once, edits the branch
+    and merges it; writer 1 makes one typed-view edit a round, and once
+    captures an edit in an ``UndoRedoStackManager``, undone the next round
+    and redone the round after; writer 2 wraps two edits a round in a
+    transaction; writer 3 goes offline every fourth round, edits, and
+    rejoins two rounds later (its parked ops resubmit).  After the last
+    round a late client per doc loads from writer 1's ``summary_tree``.
+    Returns the clients, each doc's log and its round boundaries."""
+    from fluidframework_tpu_torch.dds.channels import default_registry
+    from fluidframework_tpu_torch.dds.tree.changeset import make_insert, make_set_value
+    from fluidframework_tpu_torch.dds.tree.schema import leaf
+    from fluidframework_tpu_torch.dds.tree.simple_tree import SchemaFactory, TreeViewConfiguration
+    from fluidframework_tpu_torch.framework import UndoRedoStackManager
+    from fluidframework_tpu_torch.runtime import ContainerRuntime
+    from fluidframework_tpu_torch.runtime.summary import materialize
+    from fluidframework_tpu_torch.server.local_service import LocalService
+
+    rng = np.random.default_rng(seed + 61)
+    sf = SchemaFactory("")
+    Sub = sf.array("sub", sf.number, sf.string)
+    Doc = sf.array("doc", Sub)
+    config = TreeViewConfiguration(Doc)
+    W = writers
+    svc = LocalService()
+    tree = lambda rt: rt.datastore("root").get_channel("t")
+
+    def value():
+        if rng.random() < 0.4:
+            return "".join(chr(97 + int(c)) for c in rng.integers(0, 26, int(rng.integers(3, 11))))
+        return int(rng.integers(1000))
+
+    def size(t, w):  # the writer's local view of sub-array w
+        return len(t.forest.root_field[0].fields[""][w].fields.get("", []))
+
+    def own_edit(t, w, k):
+        sub = [("", 0), ("", w)]
+        if k % 2 == 0:
+            return make_insert([("", 0), ("", W)], "", 0, [leaf(value())])
+        n = size(t, w)
+        if n and rng.random() < 0.5:
+            return make_set_value(sub + [("", int(rng.integers(n)))], value())
+        return make_insert(sub, "", int(rng.integers(n + 1)), [leaf(value())])
+
+    docs, t0 = [], time.perf_counter()
+    counts = {"edits": 0, "typed": 0, "transactions": 0, "forks": 0, "undo": 0, "redo": 0,
+              "offline_rounds": 0, "rejoins": 0}
+    for d in range(n_docs):
+        doc = svc.document(f"t{d}")
+        rts = []
+        for w in range(W):
+            rt = ContainerRuntime(default_registry(), container_id=f"t{d}w{w}")
+            rt.create_datastore("root").create_channel("sharedTree", "t")
+            rt.connect(doc, f"t{d}w{w}")
+            rts.append(rt)
+        doc.process_all()
+        views = [tree(rt).typed_view(config) for rt in rts]
+        views[0].initialize(Doc([Sub([0]) for _ in range(W + 1)]))
+        rts[0].flush()
+        doc.process_all()
+        docs.append({"doc": doc, "rts": rts, "views": views, "ur": UndoRedoStackManager(),
+                     "bounds": [len(doc.sequencer.log)], "epoch": 0, "offline": False})
+    capture_round = lambda d: d % max(1, rounds - 2)
+    for r in range(rounds):
+        for d, x in enumerate(docs):
+            rts, doc = x["rts"], x["doc"]
+            if x["offline"] and r % 4 == 3:
+                x["epoch"] += 1
+                rts[3].connect(doc, f"t{d}w3.{x['epoch']}")
+                x["offline"] = False
+                counts["rejoins"] += 1
+            for w, rt in enumerate(rts):
+                t = tree(rt)
+                for k in range(edits):
+                    if w == 2 and k == 1:
+                        continue  # made inside the transaction at k == 0
+                    change = own_edit(t, w, k)
+                    if w == 1 and k == 1 and r == capture_round(d):
+                        x["ur"].capture_tree_change(t, change)
+                        x["ur"].close_current_operation()
+                    elif w == 2 and k == 0:
+                        with t.transaction():
+                            t.submit_change(change)
+                            t.submit_change(own_edit(t, w, 1))
+                        counts["transactions"] += 1
+                        counts["edits"] += 1
+                    else:
+                        t.submit_change(change)
+                    counts["edits"] += 1
+                if w == 0 and r == d % rounds:
+                    br = t.fork()
+                    br.submit_change(own_edit(br, 0, 1))
+                    br.submit_change(own_edit(br, 0, 2))
+                    br.merge_into_parent()
+                    counts["forks"] += 1
+                    counts["edits"] += 2
+                if w == 1:
+                    x["views"][1].root[1].insert_at_end(value())
+                    counts["typed"] += 1
+                    counts["edits"] += 1
+                    if r == capture_round(d) + 1:
+                        counts["undo"] += x["ur"].undo()
+                    elif r == capture_round(d) + 2:
+                        counts["redo"] += x["ur"].redo()
+                rt.flush()
+            if r % 4 == 1 and not x["offline"]:
+                rts[3].disconnect()
+                x["offline"] = True
+                counts["offline_rounds"] += 1
+            doc.process_all()
+            x["bounds"].append(len(doc.sequencer.log))
+    for d, x in enumerate(docs):
+        rts, doc = x["rts"], x["doc"]
+        if x["offline"]:
+            x["epoch"] += 1
+            rts[3].connect(doc, f"t{d}w3.{x['epoch']}")
+            counts["rejoins"] += 1
+        for rt in rts:
+            rt.flush()
+        doc.process_all()
+        x["bounds"][-1] = len(doc.sequencer.log)
+    run_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    for d, x in enumerate(docs):
+        late = ContainerRuntime(default_registry(), container_id=f"t{d}late")
+        late.load_snapshot(materialize(x["rts"][1].build_summary_tree(), None))
+        late.connect(x["doc"], f"t{d}late")
+        x["doc"].process_all()
+        x["late"] = late
+    late_s = time.perf_counter() - t
+    for x in docs:
+        jsons = {json.dumps([n.to_json() for n in tree(rt).forest.root_field], sort_keys=True)
+                 for rt in x["rts"] + [x["late"]]}
+        check(len(jsons) == 1, "dds_clients: the tree clients of a doc diverged")
+        x["json"] = jsons.pop()
+    return {"docs": docs, "counts": counts, "run_s": run_s, "late_s": late_s}
+
+
+def _dds_tree(seed: int, card: str, device: str, n_docs: int, rounds: int, writers: int,
+              edits: int, sample: int) -> dict:
+    """Part (a): the clients' logs through ``TreeBatchEngine`` on ``device``
+    round by round (a step after each), once with the host fold and once
+    with ``device_rebase=True``; every doc's ``tree_json`` equals the
+    clients' forest JSON (type-strict, as JSON text); ``sample`` docs'
+    raw columns, views and EditManager summaries equal a CPU engine's."""
+    import torch
+
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+
+    on_card = device == "cuda"
+    with _seeded_sessions(seed):
+        c = _dds_tree_clients(seed, n_docs, rounds, writers, edits)
+    docs = c["docs"]
+    rounds_msgs = [[(d, m) for d, x in enumerate(docs)
+                    for m in x["doc"].sequencer.log[x["bounds"][r]:x["bounds"][r + 1]]]
+                   for r in range(len(docs[0]["bounds"]) - 1)]
+    rounds_msgs.insert(0, [(d, m) for d, x in enumerate(docs)
+                           for m in x["doc"].sequencer.log[:x["bounds"][0]]])
+    pick = np.random.default_rng(seed + 62).choice(n_docs, size=min(sample, n_docs),
+                                                   replace=False)
+    local_docs = sorted(int(d) for d in pick)
+    runs = {}
+    for rebase in (False, True):
+        eng = TreeBatchEngine(n_docs, device=device, device_rebase=rebase, **TREE_FLEET_GEOM)
+        run = _drive_tree(eng, rounds_msgs, on_card=on_card)
+        check(not eng.errors().any(), f"dds_clients: tree error bits (device_rebase={rebase})")
+        same = sum(json.dumps(eng.tree_json(d), sort_keys=True) == docs[d]["json"]
+                   for d in range(n_docs))
+        check(same == n_docs, f"dds_clients: {n_docs - same} tree docs differ from their "
+                              f"clients (device_rebase={rebase})")
+        runs[rebase] = (eng, run)
+    ref, local, replay_s = _tree_replay(TREE_FLEET_GEOM, rounds_msgs, local_docs)
+    for rebase, (eng, _run) in runs.items():
+        same = sum(_tree_docs_identical(eng, d, ref, local[d]) for d in local_docs)
+        check(same == len(local_docs), f"dds_clients: {len(local_docs) - same} sampled tree "
+                                       f"docs differ from the CPU replay (device_rebase={rebase})")
+    eng, run = runs[False]
+    reng, rrun = runs[True]
+    edits_n = c["counts"]["edits"]
+    return {
+        "docs": n_docs, "rounds": rounds, "writers": writers, "edits_per_writer": edits,
+        **c["counts"], "messages": run["edits"],
+        "clients_s": c["run_s"], "clients_edits_per_s": edits_n / c["run_s"],
+        "late_join_s": c["late_s"],
+        "engine_s": run["ingest_s"] + run["step_s"],
+        "engine_edits_per_s": edits_n / (run["ingest_s"] + run["step_s"]),
+        "engine_ingest_s": run["ingest_s"], "engine_step_s": run["step_s"],
+        "rebase_engine_s": rrun["ingest_s"] + rrun["step_s"],
+        "rebase_engine_edits_per_s": edits_n / (rrun["ingest_s"] + rrun["step_s"]),
+        "fallback_docs": sorted(eng.fallbacks), "rebase_fallback_docs": sorted(reng.fallbacks),
+        "device_fraction": eng.device_fraction(),
+        "rebase_device_fraction": reng.device_fraction(),
+        "device_rebase_fraction": reng.health().get("device_rebase_fraction"),
+        "replayed_docs": len(local_docs), "cpu_replay_s": replay_s,
+        "clients_equal_engines": n_docs,
     }
-    line["phase_s"] = time.perf_counter() - t0
-    emit(line)
-    return line, card_run["kernels"][0]
 
+
+def _pump(doc, clients) -> None:
+    moved = True
+    while moved:
+        moved = False
+        for c in clients:
+            for m in c.take_outbox():
+                doc.submit(m)
+                moved = True
+        if doc.pending_count:
+            doc.process_all()
+            moved = True
+
+
+def _dds_matrix(seed: int, device: str, writers: int, steps: int, ops: int,
+                seeded: int) -> dict:
+    """Part (b): ``writers`` ``SharedMatrix`` clients on one
+    ``LocalDocument`` (config 4): writer 0 seeds ``seeded`` rows and
+    columns, then ``steps`` steps of ``ops`` ops at the step's ref_seq —
+    cell sets from every writer and two of writer 0's row or column
+    inserts and removes — sequenced at the step's end.  The log feeds the
+    scribe's matrix family on ``device`` (K10 in batches of 16), a flush a
+    step; every cell equals every client's."""
+    from fluidframework_tpu_torch.dds.shared_matrix import SharedMatrix
+    from fluidframework_tpu_torch.server.local_service import LocalDocument
+    from fluidframework_tpu_torch.server.scribe import ScribeConfig, _make_doc
+
+    rng = np.random.default_rng(seed + 63)
+    doc = LocalDocument("matrix")
+    ms = [SharedMatrix(client_id=f"w{i}") for i in range(writers)]
+    for m in ms:
+        doc.connect(m.client_id, m.process)
+    doc.process_all()
+    t0 = time.perf_counter()
+    ms[0].insert_rows(0, seeded)
+    ms[0].insert_cols(0, seeded)
+    _pump(doc, ms)
+    bounds = [0, len(doc.sequencer.log)]
+    structural = 0
+    for s in range(steps):
+        for b in range(ops):
+            if b in (0, ops // 2):
+                m, rows_axis = ms[0], (s + b) % 2 == 0
+                n = m.row_count if rows_axis else m.col_count
+                if (s // 2 + b) % 2 == 0:
+                    (m.insert_rows if rows_axis else m.insert_cols)(int(rng.integers(0, n + 1)), 1)
+                else:
+                    (m.remove_rows if rows_axis else m.remove_cols)(int(rng.integers(0, n)), 1)
+                structural += 1
+            else:
+                m = ms[b % writers]
+                m.set_cell(int(rng.integers(0, m.row_count)), int(rng.integers(0, m.col_count)),
+                           int(rng.integers(0, 1 << 20)))
+        _pump(doc, ms)
+        bounds.append(len(doc.sequencer.log))
+    clients_s = time.perf_counter() - t0
+    grids = [m.to_grid() for m in ms]
+    check(all(g == grids[0] for g in grids), "dds_clients: the matrix clients diverged")
+    cfg = ScribeConfig(matrix_shape=(MATRIX_GEOM["max_rows"], MATRIX_GEOM["max_cols"]),
+                       matrix_segments=MATRIX_GEOM["max_segments"])
+    sc = _make_doc("matrix_batch", cfg, device)
+    log = doc.sequencer.log
+    t = time.perf_counter()
+    for a, b in zip(bounds, bounds[1:]):
+        for msg in log[a:b]:
+            sc.apply(msg)
+        sc.flush()
+    scribe_s = time.perf_counter() - t
+    check(sc.failed is None, f"dds_clients: the matrix scribe failed: {sc.failed}")
+    check(sc.grid() == grids[0], "dds_clients: the matrix scribe's cells differ from the clients'")
+    n_ops = steps * ops
+    return {"writers": writers, "steps": steps, "ops": n_ops, "structural": structural,
+            "rows": ms[0].row_count, "cols": ms[0].col_count,
+            "clients_s": clients_s, "clients_ops_per_s": n_ops / clients_s,
+            "scribe_s": scribe_s, "scribe_ops_per_s": n_ops / scribe_s,
+            "cells_equal": True}
+
+
+def _dds_map(seed: int, device: str, writers: int, keys: int, batches: int, ops: int) -> dict:
+    """Part (c): ``writers`` ``SharedMap`` clients on one ``LocalDocument``
+    (config 2): ``batches`` batches of ``ops`` SET and DELETE ops over
+    ``keys`` keys, from the writers in turn, a CLEAR from writer 0
+    halfway; each batch sequenced at its end.  The log feeds the scribe's
+    map family on ``device`` (K10 in batches of 16), a flush a batch; every
+    key equals every client's."""
+    from fluidframework_tpu_torch.dds.shared_map import SharedMap
+    from fluidframework_tpu_torch.server.local_service import LocalDocument
+    from fluidframework_tpu_torch.server.scribe import ScribeConfig, _make_doc
+
+    rng = np.random.default_rng(seed + 64)
+    doc = LocalDocument("map")
+    maps = [SharedMap(client_id=f"m{i}") for i in range(writers)]
+    for m in maps:
+        doc.connect(m.client_id, m.process)
+    doc.process_all()
+    bounds = [len(doc.sequencer.log)]
+    t0 = time.perf_counter()
+    for i in range(batches):
+        if i == batches // 2:
+            maps[0].clear()
+        kinds = rng.integers(1, 3, ops)
+        ks = rng.integers(0, keys, ops)
+        vals = rng.integers(0, 1 << 20, ops)
+        for b in range(ops):
+            m = maps[b % writers]
+            if kinds[b] == 1:
+                m.set(f"k{ks[b]}", int(vals[b]))
+            else:
+                m.delete(f"k{ks[b]}")
+        _pump(doc, maps)
+        bounds.append(len(doc.sequencer.log))
+    clients_s = time.perf_counter() - t0
+    items = [m.items() for m in maps]
+    check(all(x == items[0] for x in items), "dds_clients: the map clients diverged")
+    sc = _make_doc("map_batch", ScribeConfig(map_max_keys=keys), device)
+    log = doc.sequencer.log
+    for msg in log[:bounds[0]]:
+        sc.apply(msg)
+    t = time.perf_counter()
+    for a, b in zip(bounds, bounds[1:]):
+        for msg in log[a:b]:
+            sc.apply(msg)
+        sc.flush()
+    scribe_s = time.perf_counter() - t
+    check(sc.items() == items[0], "dds_clients: the map scribe's keys differ from the clients'")
+    n_ops = batches * ops + 1
+    return {"writers": writers, "keys": keys, "ops": n_ops, "live_keys": len(items[0]),
+            "clients_s": clients_s, "clients_ops_per_s": n_ops / clients_s,
+            "scribe_s": scribe_s, "scribe_ops_per_s": n_ops / scribe_s, "keys_equal": True}
+
+
+def _k11_marks(rng, n: int, max_marks: int) -> list:
+    """A random change over an n-node field as host marks (the kernel
+    tests' generator), at most ``max_marks`` long."""
+    from fluidframework_tpu_torch.dds.tree.changeset import Insert, Modify, NodeChange, Remove, Skip
+    from fluidframework_tpu_torch.dds.tree.schema import leaf
+
+    marks, pos = [], 0
+    while pos < n and len(marks) < max_marks - 1:
+        r = rng.random()
+        if r < 0.35:
+            k = int(rng.integers(1, n - pos + 1))
+            marks.append(Skip(k)); pos += k
+        elif r < 0.6:
+            k = int(rng.integers(1, n - pos + 1))
+            marks.append(Remove(k)); pos += k
+        elif r < 0.8:
+            marks.append(Insert([leaf(int(rng.integers(99))) for _ in range(int(rng.integers(1, 4)))]))
+        else:
+            marks.append(Modify(NodeChange(value=(1,)))); pos += 1
+    if rng.random() < 0.5:
+        marks.append(Insert([leaf(7)]))
+    return marks
+
+
+def _k11_host_positions(b, n: int) -> tuple:
+    """Insert landings (both sides) and node landings with survival, by
+    the host rebase (``changeset.rebase_marks``)."""
+    from fluidframework_tpu_torch.dds.tree.changeset import (
+        Insert, Modify, NodeChange, Skip, rebase_marks,
+    )
+    from fluidframework_tpu_torch.dds.tree.schema import leaf
+
+    def land(a, after, want):
+        at = 0
+        for m in rebase_marks(a, b, a_after=after):
+            if isinstance(m, want):
+                return at
+            at += m.count
+        return None
+
+    ins = {after: [land(([Skip(p)] if p else []) + [Insert([leaf(-1)])], after, Insert)
+                   for p in range(n + 1)] for after in (True, False)}
+    node = [land(([Skip(p)] if p else []) + [Modify(NodeChange(value=(42,)))], True, Modify)
+            for p in range(n)]
+    return ins, node
+
+
+def _dds_k11(seed: int, card: str, device: str, rebase_b: int, rebase_m: int, sets_docs: int,
+             sets_n: int, sets_b: int, forest_n: int, forest_b: int, forest_docs: int) -> dict:
+    """Part (d): K11 alone.  Each function on ``device`` equals the same
+    call on the CPU at its user's shape (exact, every column and latch);
+    the rebase arithmetic equals the host changeset rebase on 200 seeded
+    changes; the reference's dry-run case over 8 docs gives [99, 30, 10];
+    then call times (CUDA events) beside the bytes bounds at 3.35 TB/s.
+    Returns the line and the timed programs (``time_k11_device`` reads
+    their device times later, after every call time of the script)."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    on_card = device == "cuda"
+    rng = np.random.default_rng(seed + 65)
+    checked = 0
+    for i in range(200):
+        n = int(rng.integers(1, 9))
+        b = _k11_marks(rng, n, 16)
+        kinds, counts = tk.encode_marks(b, 16)
+        ins, node = _k11_host_positions(b, n)
+        for after in (True, False):
+            got = tk.rebase_insert_positions(np.arange(n + 1), kinds, counts, after, device=device)
+            check(got.cpu().tolist() == ins[after], f"dds_clients: K11 insert rebase, change {i}")
+        pos, live = tk.rebase_node_positions(np.arange(n), kinds, counts, device=device)
+        for p in range(n):
+            ok = bool(live[p]) == (node[p] is not None) and (node[p] is None or int(pos[p]) == node[p])
+            check(ok, f"dds_clients: K11 node rebase, change {i} node {p}")
+        checked += 1
+    # The reference's multichip dry run, over 8 docs.
+    ops = np.zeros((8, 3, tk.FOREST_OP_FIELDS), np.int32)
+    pays = np.zeros((8, 3, 8), np.int32)
+    ops[:, 0] = [tk.ForestOpKind.INSERT, 1, 0, 3, 0, 0, 0, 0]
+    pays[:, 0, :3] = [10, 20, 30]
+    ops[:, 1] = [tk.ForestOpKind.MOVE, 2, 0, 1, 3, 0, 0, 0]
+    ops[:, 2] = [tk.ForestOpKind.SET, 3, 0, 0, 0, 99, 0, 0]
+    dry = tk.apply_forest_ops_fleet(tk.batch_forest(tk.init_forest(16, device=device), 8), ops, pays)
+    check(int(dry.error.sum()) == 0 and all(
+        tk.forest_values(tk.ForestState(*(x[d] for x in dry))).tolist() == [99, 30, 10]
+        for d in range(8)), "dds_clients: K11's dry-run case did not give [99, 30, 10]")
+
+    # The timed shapes, made once.
+    marks = _k11_marks(rng, rebase_b, rebase_m)
+    kinds, counts = tk.encode_marks(marks, rebase_m)
+    qpos = np.arange(rebase_b, dtype=np.int32)
+    base = rng.integers(0, 1000, (sets_docs, sets_n)).astype(np.int32)
+    idx = rng.integers(-1, sets_n + 1, (sets_docs, sets_b)).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, (sets_docs, sets_b)).astype(np.int32)
+    seqs = (np.argsort(rng.random((sets_docs, sets_b)), axis=1) + 1).astype(np.int32)
+
+    def forest_ring(n_docs):
+        """``forest_b`` ops a doc: inserts first, then removes, sets and
+        moves in the live range, a few off the end (range latches)."""
+        o = np.zeros((n_docs, forest_b, tk.FOREST_OP_FIELDS), np.int32)
+        p = rng.integers(0, 1000, (n_docs, forest_b, 8)).astype(np.int32)
+        live = np.zeros(n_docs, np.int64)
+        for j in range(forest_b):
+            kind = 1 if j < forest_b // 2 else int(rng.integers(1, 5))
+            pos = (rng.random(n_docs) * (live + 1)).astype(np.int64)
+            cnt = rng.integers(1, 9, n_docs)
+            o[:, j, :6] = np.stack([np.full(n_docs, kind), np.full(n_docs, j + 1), pos, cnt,
+                                    (rng.random(n_docs) * (live + 1)).astype(np.int64),
+                                    rng.integers(0, 1000, n_docs)], 1)
+            if kind == 1:
+                live = np.minimum(live + cnt, forest_n)
+        return o, p
+
+    f_ops, f_pays = forest_ring(forest_docs)
+    dev = torch.device(device)
+    t_kinds, t_counts, t_pos = (torch.from_numpy(x).to(dev) for x in (kinds, counts, qpos))
+    chunk = tk.ChunkState(torch.from_numpy(base).to(dev), torch.zeros(base.shape, dtype=torch.int32,
+                                                                       device=dev))
+    t_idx, t_vals, t_seqs = (torch.from_numpy(x).to(dev) for x in (idx, vals, seqs))
+    forest1 = tk.init_forest(forest_n, device=device)
+    forestD = tk.batch_forest(forest1, forest_docs)
+    t_ops, t_pays = torch.from_numpy(f_ops).to(dev), torch.from_numpy(f_pays).to(dev)
+    progs = {
+        "rebase_insert_positions": (
+            lambda: tk.rebase_insert_positions(t_pos, t_kinds, t_counts, True, device=dev),
+            lambda: tk.rebase_insert_positions(qpos, kinds, counts, True, device="cpu"),
+            [rebase_b, rebase_m], 2 * qpos.nbytes + 2 * kinds.nbytes),
+        "rebase_node_positions": (
+            lambda: tk.rebase_node_positions(t_pos, t_kinds, t_counts, device=dev),
+            lambda: tk.rebase_node_positions(qpos, kinds, counts, device="cpu"),
+            [rebase_b, rebase_m], 3 * qpos.nbytes + 2 * kinds.nbytes),
+        "apply_value_sets_fleet": (
+            lambda: tk.apply_value_sets_fleet(chunk, t_idx, t_vals, t_seqs),
+            lambda: tk.apply_value_sets_fleet(
+                tk.ChunkState(torch.from_numpy(base), torch.zeros(base.shape, dtype=torch.int32)),
+                idx, vals, seqs),
+            [sets_docs, sets_n, sets_b], 4 * base.nbytes + 3 * idx.nbytes),
+        "apply_value_sets": (
+            lambda: tk.apply_value_sets(tk.ChunkState(chunk.values[0], chunk.val_seq[0]),
+                                        t_idx[0], t_vals[0], t_seqs[0]),
+            lambda: tk.apply_value_sets(tk.init_chunk(base[0], device="cpu"), idx[0], vals[0],
+                                        seqs[0]),
+            [1, sets_n, sets_b], 4 * base[0].nbytes + 3 * idx[0].nbytes),
+        "apply_forest_op": (
+            lambda: tk.apply_forest_op(forest1, t_ops[0, 0], t_pays[0, 0]),
+            lambda: tk.apply_forest_op(tk.init_forest(forest_n, device="cpu"), f_ops[0, 0],
+                                       f_pays[0, 0]),
+            [1, forest_n, 1], 4 * 4 * forest_n + 2 * 8 + f_ops[0, 0].nbytes + f_pays[0, 0].nbytes),
+        "apply_forest_ops": (
+            lambda: tk.apply_forest_ops(forest1, t_ops[0], t_pays[0]),
+            lambda: tk.apply_forest_ops(tk.init_forest(forest_n, device="cpu"), f_ops[0], f_pays[0]),
+            [1, forest_n, forest_b],
+            4 * 4 * forest_n + 2 * 8 + f_ops[0].nbytes + f_pays[0].nbytes),
+        "apply_forest_ops_fleet": (
+            lambda: tk.apply_forest_ops_fleet(forestD, t_ops, t_pays),
+            lambda: tk.apply_forest_ops_fleet(
+                tk.batch_forest(tk.init_forest(forest_n, device="cpu"), forest_docs), f_ops, f_pays),
+            [forest_docs, forest_n, forest_b],
+            forest_docs * (4 * 4 * forest_n + 2 * 8) + f_ops.nbytes + f_pays.nbytes),
+    }
+    out = {}
+    for name, (run, cpu_run, shape, nbytes) in progs.items():
+        got = run()
+        got = got if isinstance(got, tuple) else (got,)
+        want = cpu_run()
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(got, want))
+        check(err == 0 and all(a.dtype == b.dtype == torch.int32 for a, b in zip(got, want)),
+              f"dds_clients: K11 {name} on {device} disagrees with the CPU")
+        out[name] = {"shape": shape, "max_abs_err": err, "bound_bytes": int(nbytes),
+                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    if on_card:
+        fns = {name: getattr(tk, name) for name in progs}
+        counts0 = {name: f.launches for name, f in fns.items()}
+        for name, (run, _cpu, _shape, _nbytes) in progs.items():
+            out[name]["ms"] = cuda_ms(run, 5 if "fleet" in name else 20, warmup=1)
+        for name, f in fns.items():  # timing launches are not the path's
+            f.launches = counts0[name]
+    line = {"rebase_changes_checked": checked, "dry_run": [99, 30, 10], "programs": out}
+    return line, {name: p[0] for name, p in progs.items()}
+
+
+def time_k11_device(timed: dict, line: dict) -> None:
+    """K11's device times (torch.profiler), taken after every call time
+    of the script: the profiler's session leaves later launches dearer on
+    the host.  Launch counts stay as the path left them."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    for name, run in timed.items():
+        f = getattr(tk, name)
+        n = f.launches
+        line["programs"][name]["device_ms"] = _device_sum(device_ms_by_name(run, 5))
+        f.launches = n
+    emit({"phase": "dds_clients_k11_device", **{
+        name: line["programs"][name]["device_ms"] for name in timed}})
+
+
+def phase_dds_clients(seed: int, card: str, device: str = "cuda") -> tuple:
+    """Phase 17: the port's own DDS clients drive the card's programs —
+    (a) SharedTree clients into ``TreeBatchEngine`` (K7, K8, and K9 with
+    ``device_rebase=True``), (b) SharedMatrix clients into the scribe's
+    matrix family (K10), (c) SharedMap clients into its map family (K10),
+    (d) K11 alone, at the ``DDS_*`` sizes.  Returns the line and K11's
+    timed programs."""
+    import torch
+
+    t0 = time.perf_counter()
+    line = {"phase": "dds_clients", "card": card}
+    parts_s = {}
+    for part, fn in (("tree", lambda: _dds_tree(seed, card, device, **DDS_TREE)),
+                     ("matrix", lambda: _dds_matrix(seed, device, **DDS_MATRIX)),
+                     ("map", lambda: _dds_map(seed, device, **DDS_MAP))):
+        t = time.perf_counter()
+        line[part] = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        parts_s[part] = time.perf_counter() - t
+    t = time.perf_counter()
+    line["k11"], timed = _dds_k11(seed, card, device, **DDS_K11)
+    parts_s["k11"] = time.perf_counter() - t
+    phase_s = time.perf_counter() - t0
+    line.update({"parts_s": parts_s, "phase_s": phase_s, "cap_s": DDS_CAP_S,
+                 "over_cap": phase_s > DDS_CAP_S, "reduced": DDS_REDUCED})
+    emit(line)
+    return line, timed
 
 
 def main(argv=None) -> int:
@@ -4269,7 +4952,8 @@ def main(argv=None) -> int:
                 "apply_ops_fleet": mxk.apply_ops_fleet,
                 "gather_cohort": dbe.gather_cohort, "scatter_cohort": dbe.scatter_cohort,
                 "apply_op": mk.apply_op, "restamp": mk.restamp,
-                "drop_squashed": mk.drop_squashed, "strip_stamp": mk.strip_stamp}
+                "drop_squashed": mk.drop_squashed, "strip_stamp": mk.strip_stamp,
+                **{name: getattr(tk, name) for name in K11_PROGRAMS}}
     paths = {name: {} for name in counters}
 
     def path(name, fn, *args, **kw):
@@ -4283,12 +4967,26 @@ def main(argv=None) -> int:
     # Phase 16 (the SharedString client path) runs first, before any
     # torch.profiler session: its rate is host issue, one op at a time, and
     # a profiler session leaves every later launch dearer on the host.
-    _line, string_kmt = path("string_client", phase_string_client, args.seed, card, "cuda")
+    emit({"phase": "cuts", "why": "the script's 1,200 s limit (1,286 s uncut on an H100)",
+          "reduced": CUTS})
+    finish_string, string_kmt = path("string_client", phase_string_client, args.seed, card,
+                                     "cuda")
     for prog, what in (("apply_op", "the one-doc apply_op"), ("compact", "K3"),
                        ("restamp", "K5's restamp"), ("drop_squashed", "K5's drop_squashed"),
                        ("strip_stamp", "K5's strip_stamp")):
         check(paths[prog]["string_client"] > 0,
               f"{what} was never launched on the string_client path")
+    # Phase 17 (the DDS clients into the card's programs) runs next, also
+    # before any profiler session: its rates are host-bound, and K11's
+    # call times are taken in it (its device times at the end).  Phase 16's
+    # CPU run goes on meanwhile, in its own process, and is read after it.
+    dds_line, k11_timed = path("dds_clients", phase_dds_clients, args.seed, card, "cuda")
+    for prog, what in (("apply_nested_megastep", "K7"), ("rebase_window", "K9"),
+                       ("apply_batch_fleet", "the map program"),
+                       ("apply_ops_fleet", "the matrix program"),
+                       *((name, f"K11's {name}") for name in K11_PROGRAMS)):
+        check(paths[prog]["dds_clients"] > 0, f"{what} was never launched on the dds_clients path")
+    finish_string()
     k = phase_kernels(args.seed, card)
     k9 = phase_rebase_kernel(args.seed, card)
     one_doc = _time_one_doc_programs(card, string_kmt)
@@ -4311,14 +5009,15 @@ def main(argv=None) -> int:
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
     phase_fleet_programs(args.seed, card, traffic)
     _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda",
-                       record=True, trace_dir=args.trace_dir)
+                       n_docs=CUTS["tree_fleet"]["n_docs"], record=True,
+                       trace_dir=args.trace_dir)
     _line, deep = path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
     _line, churn = path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
     path("wire_ingest", phase_wire_ingest, args.seed, card, "cuda", churn)
     tree = time_tree_programs(card, ring)
     del ring
     path("tree_rebase", phase_tree_rebase, args.seed, card, "cuda", deep,
-         trace_dir=args.trace_dir)
+         fleet_docs=CUTS["tree_rebase"]["fleet_docs"], trace_dir=args.trace_dir)
     del deep
     mp_line = path("map_lww", phase_map_lww, args.seed, card, "cuda")
     mx_line = path("matrix", phase_matrix, args.seed, card, "cuda")
@@ -4349,6 +5048,8 @@ def main(argv=None) -> int:
                        ("apply_ops_fleet", "the matrix program")):
         check(paths[prog]["serving"] > 0, f"{what} was never launched on the serving path")
 
+    time_k11_device(k11_timed, dds_line["k11"])
+    k11 = dds_line["k11"]["programs"]
     emit({"phase": "fleet_programs_launches", **{prog: paths[prog] for prog in (
         "apply_megastep", "compact", "apply_megastep_seg", "compact_seg", "gather_cohort",
         "scatter_cohort")}})
@@ -4442,7 +5143,15 @@ def main(argv=None) -> int:
         "ms": one_doc[name]["ms"], "device_ms": one_doc[name]["device_ms"], "plain_ms": None,
         "bound_ms": one_doc[name]["bound_ms"], "bound_by": "bytes", "library_ms": None,
     } for name, line in (("apply_op", 775), ("drop_squashed", 1556), ("strip_stamp", 1571),
-                         ("restamp", 1590))]})
+                         ("restamp", 1590))] + [{
+        "name": name, "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/tree_kernel.py",
+        "replaces": f"fluidframework_tpu/ops/tree_kernel.py:{line}",
+        "launches": sum(paths[name].values()), "launches_by_path": paths[name],
+        "max_abs_err": k11[name]["max_abs_err"], "shape": k11[name]["shape"],
+        "ms": k11[name]["ms"], "device_ms": k11[name]["device_ms"], "plain_ms": None,
+        "bound_ms": k11[name]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    } for name, line in K11_PROGRAMS.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -878,17 +878,13 @@ SharedMapFactory = ChannelTypeFactory(SharedMapChannel)
 # (queue 1) that ports it.  Asking the port's registry for one raises: it
 # never falls through to another type.
 UNPORTED_CHANNEL_TYPES: dict[str, str] = {
-    "sharedTree": "item 9 (the tree family's rest)",
-    "sharedMatrix": "item 11 (map and matrix channel halves)",
-    **{
-        t: "item 13 (the other DDSes)"
-        for t in (
-            "sharedDirectory", "ink", "sharedSummaryBlock", "sharedCell",
-            "sharedCounter", "consensusQueue", "consensusRegisterCollection",
-            "taskManager", "pactMap", "sharedJsonOT", "sharedJson1",
-            "propertyTree",
-        )
-    },
+    t: "item 9 (the other DDSes)"
+    for t in (
+        "sharedDirectory", "ink", "sharedSummaryBlock", "sharedCell",
+        "sharedCounter", "consensusQueue", "consensusRegisterCollection",
+        "taskManager", "pactMap", "sharedJsonOT", "sharedJson1",
+        "propertyTree",
+    )
 }
 
 
@@ -916,8 +912,15 @@ class ChannelRegistry(dict):
 
 def default_registry() -> ChannelRegistry:
     """Type string -> factory map of the channel types the port has
-    (ref ISharedObjectRegistry): ``sharedString`` and ``sharedMap``."""
-    return ChannelRegistry({
+    (ref ISharedObjectRegistry): ``sharedString``, ``sharedMap``,
+    ``sharedTree`` and ``sharedMatrix``."""
+    from .shared_matrix import SharedMatrixFactory
+    from .tree import SharedTreeFactory
+
+    out = ChannelRegistry({
         SharedStringFactory.channel_type: SharedStringFactory,
         SharedMapFactory.channel_type: SharedMapFactory,
+        SharedTreeFactory.channel_type: SharedTreeFactory,
     })
+    out[SharedMatrixFactory.channel_type] = SharedMatrixFactory
+    return out

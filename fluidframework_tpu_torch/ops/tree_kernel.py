@@ -40,6 +40,12 @@ What changes from the reference is the idiom, as in ``mergetree_kernel``:
 ``apply_nested_megastep.launches`` counts the K7 programs and
 ``compact_nested.launches`` the K8 programs run on a CUDA device (one per
 call of a public entry point).
+
+The module also holds the plain form of the rebase window program (K9's
+``rebase_window_kernel``) and, at its end, K11: the flat forest and the
+rebase position arithmetic of the reference module's first part
+(``rebase_insert_positions``, ``apply_value_sets``, ``apply_forest_ops``
+and their doc-batched forms).
 """
 
 from __future__ import annotations
@@ -51,6 +57,14 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, count_launch, resolve_device
+from ..protocol.mark_schema import (  # noqa: F401  (TreeMarkKind: re-export)
+    DEVICE_CODE_OFFSET,
+    K_INSERT,
+    K_MODIFY,
+    K_REMOVE,
+    K_SKIP,
+    TreeMarkKind,
+)
 
 I32 = torch.int32
 
@@ -894,3 +908,363 @@ def rebase_enc_from_numpy(enc, device=DEFAULT_DEVICE) -> RebaseEnc:
     reference encoding read with ``np.asarray``), as int32 tensors."""
     dev = resolve_device(device)
     return RebaseEnc(*(torch.as_tensor(np.array(f, np.int32)).to(dev) for f in enc))
+
+
+# ------------------------------------------------- K11: the flat forest
+# Counterpart of the first part of the reference module (:46-331): the
+# rebase position arithmetic over one change's [M] mark columns, the LWW
+# value chunk, and ``ForestState``, one document's root field of uniform
+# leaves as device state, mutated by trunk-coordinate ops.  Plain torch on
+# an explicit device, exact against the jnp functions on the raw columns
+# and the error latch:
+#
+# - sums and cumsums are taken back to int32 (``jnp`` keeps int32 and
+#   wraps);
+# - the reference's gathers clamp (``_take``), its ``.at[pos].set`` wraps
+#   a negative index once and drops what is still out of range, and its
+#   ``mode="drop"`` scatters drop: the port's scatters write into one
+#   extra trailing slot that is cut off;
+# - ``lax.switch`` over the op kind (kinds clamped into [0, 4]) and the
+#   ``lax.cond`` guards become every branch computed and one
+#   ``torch.where`` on the kind and the guard: no host read per op.
+#
+# Every function works on a leading doc axis ([D, N] columns, [D]
+# scalars); the one-doc entry points are that axis at 1, and the
+# ``*_fleet`` forms are what ``jax.vmap`` gives the reference's callers.
+# Each public entry point that runs device work counts one launch on its
+# own ``launches`` when its input lives on a CUDA device.
+
+FOREST_OP_FIELDS = 8
+# Forest op row layout (int32[8]):
+#   0 kind | 1 seq | 2 pos | 3 count | 4 dst | 5 value | 6..7 unused
+
+
+class ForestOpKind:
+    NOOP = 0
+    INSERT = 1   # count nodes at pos, values from the payload row
+    REMOVE = 2   # count nodes at pos
+    SET = 3      # value at pos
+    MOVE = 4     # count nodes from pos to boundary dst (pre-move coords)
+
+
+def encode_marks(marks, max_marks: int) -> tuple[np.ndarray, np.ndarray]:
+    """Columnar encode a host mark list (changeset.py Mark objects) to
+    (kinds[M], counts[M]) int32 arrays. Insert counts are content lengths.
+
+    Dispatches on the protocol mark-schema class tag ``m.K`` — no upward
+    import of the dds changeset classes."""
+    kinds = np.zeros((max_marks,), np.int32)
+    counts = np.zeros((max_marks,), np.int32)
+    assert len(marks) <= max_marks, "mark list exceeds kernel width"
+    for i, m in enumerate(marks):
+        k = m.K
+        if k == K_SKIP:
+            kinds[i], counts[i] = TreeMarkKind.SKIP, m.count
+        elif k == K_INSERT:
+            kinds[i], counts[i] = TreeMarkKind.INSERT, len(m.content)
+        elif k == K_REMOVE:
+            kinds[i], counts[i] = TreeMarkKind.REMOVE, m.count
+        elif k == K_MODIFY:
+            kinds[i], counts[i] = TreeMarkKind.MODIFY, 1
+        else:
+            raise TypeError(m)
+    return kinds, counts
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., clip(idx, 0, n - 1)]`` along the last axis: the reference's
+    gathers clip their index (or read only non-negative ones, which a jnp
+    gather clamps high)."""
+    n = x.shape[-1]
+    idx = idx.clamp(0, n - 1).long()
+    if idx.dim() < x.dim():
+        idx = idx.expand(x.shape[:-1] + idx.shape[-1:])
+    return x.gather(-1, idx)
+
+
+def _mark_geometry(kinds: torch.Tensor, counts: torch.Tensor):
+    """Per-mark input-space start offsets and effect sizes.
+
+    input-consuming marks: SKIP/REMOVE consume `count`, MODIFY consumes 1,
+    INSERT consumes 0. Returns (in_start[M], ins_len[M], rm_len[M])."""
+    consumed = torch.where(
+        (kinds == TreeMarkKind.SKIP) | (kinds == TreeMarkKind.REMOVE),
+        counts,
+        (kinds == TreeMarkKind.MODIFY).to(I32),
+    )
+    in_start = torch.cumsum(consumed, -1, dtype=I32) - consumed
+    ins_len = torch.where(kinds == TreeMarkKind.INSERT, counts, 0)
+    rm_len = torch.where(kinds == TreeMarkKind.REMOVE, counts, 0)
+    return in_start, ins_len, rm_len
+
+
+def _rm_below(p: torch.Tensor, in_start, rm_len) -> torch.Tensor:
+    """``jnp.clip(p - in_start, 0, rm_len)``: max then min, whatever the
+    bounds' order."""
+    return torch.minimum((p - in_start.unsqueeze(-2)).clamp_min(0), rm_len.unsqueeze(-2))
+
+
+def _marks_on(positions, b_kinds, b_counts, device, fn):
+    dev = resolve_device(device)
+    p, k, c = (_as_tensor(x, dev) for x in (positions, b_kinds, b_counts))
+    count_launch(p, fn)
+    return p, k, c
+
+
+def rebase_insert_positions(positions, b_kinds, b_counts, a_after: bool,
+                            device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Where does each pending INSERT land after change b applies?
+    (``positions[..., B]``, ``b_kinds``/``b_counts[..., M]``, int32.)
+
+    Mirrors rebase_marks for a = [Skip(p), Insert(..)]: b's removes pull the
+    boundary to the range start; b's inserts at the same boundary shift the
+    pending insert right iff the pending one is the later-sequenced side
+    (a_after=True, the >= mask) — the host tie-break contract."""
+    positions, b_kinds, b_counts = _marks_on(
+        positions, b_kinds, b_counts, device, rebase_insert_positions)
+    in_start, ins_len, rm_len = _mark_geometry(b_kinds, b_counts)
+    p = positions.unsqueeze(-1)  # [B, 1]
+    ins_at = in_start.unsqueeze(-2)
+    hit = (p >= ins_at) if a_after else (p > ins_at)
+    shift = torch.where(hit, ins_len.unsqueeze(-2), 0)
+    return (positions + shift.sum(-1, dtype=I32)
+            - _rm_below(p, in_start, rm_len).sum(-1, dtype=I32))
+
+
+rebase_insert_positions.launches = 0
+
+
+def rebase_node_positions(positions, b_kinds, b_counts,
+                          device=DEFAULT_DEVICE) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where does each targeted NODE land after change b — and does it
+    survive? Mirrors rebase_marks for a = [Skip(p), Modify/Remove(1)]:
+    a node inside a b-removed range is dropped (mask 0)."""
+    positions, b_kinds, b_counts = _marks_on(
+        positions, b_kinds, b_counts, device, rebase_node_positions)
+    in_start, ins_len, rm_len = _mark_geometry(b_kinds, b_counts)
+    p = positions.unsqueeze(-1)
+    at = in_start.unsqueeze(-2)
+    # Node positions: a b-insert AT the node's index lands before it (the
+    # node's content moves right) — always the >= mask for occupied slots.
+    shift = torch.where(p >= at, ins_len.unsqueeze(-2), 0)
+    dropped = ((rm_len.unsqueeze(-2) > 0) & (p >= at)
+               & (p < (in_start + rm_len).unsqueeze(-2))).any(-1)
+    out = (positions + shift.sum(-1, dtype=I32)
+           - _rm_below(p, in_start, rm_len).sum(-1, dtype=I32))
+    return out, (~dropped).to(I32)
+
+
+rebase_node_positions.launches = 0
+
+
+class ChunkState(NamedTuple):
+    """One numeric column of a uniform chunk, with per-row attribution."""
+
+    values: torch.Tensor   # int32[N] ([D, N] batched)
+    val_seq: torch.Tensor  # int32[N] seq of winning write
+
+
+def init_chunk(values, device=DEFAULT_DEVICE) -> ChunkState:
+    v = _as_tensor(values, resolve_device(device))
+    return ChunkState(values=v, val_seq=torch.zeros_like(v))
+
+
+def _value_sets(s: ChunkState, idx, vals, seqs) -> ChunkState:
+    """The LWW pass over [D, N] columns and [D, B] writes."""
+    D, n = s.values.shape
+    dev = s.values.device
+    idx, vals, seqs = (_as_tensor(x, dev) for x in (idx, vals, seqs))
+    valid = idx >= 0
+    # Lanes the reference's scatter drops (padding, idx >= n) go to slot n.
+    tgt = torch.where(valid & (idx < n), idx, n).long()
+    best = torch.zeros((D, n + 1), dtype=I32, device=dev).scatter_reduce_(
+        1, tgt, torch.where(valid, seqs, 0), "amax")[:, :n]
+    win = valid & (seqs == _take(best, torch.where(valid, idx, 0)))
+    win_idx = torch.where(win, tgt, n)
+    pad = torch.zeros((D, 1), dtype=I32, device=dev)
+    values = torch.cat([s.values, pad], 1).scatter_(1, win_idx, vals)[:, :n]
+    val_seq = torch.cat([s.val_seq, pad], 1).scatter_(1, win_idx, seqs)[:, :n]
+    return ChunkState(values=values, val_seq=val_seq)
+
+
+def apply_value_sets(s: ChunkState, idx, vals, seqs) -> ChunkState:
+    """Apply a sequenced batch of value overwrites in ONE scatter pass: for
+    rows hit multiple times the highest-seq write wins (LWW by total order),
+    matching sequential host application exactly (``idx``/``vals``/``seqs``
+    int32[B]; ``idx < 0`` pads; seqs distinct and > 0).
+
+    Determinism: the winner per row is picked first with a commutative
+    scatter-MAX of seqs, and only winning lanes scatter values."""
+    count_launch(s.values, apply_value_sets)
+    out = _value_sets(ChunkState(s.values[None], s.val_seq[None]),
+                      *(_as_tensor(x, s.values.device)[None] for x in (idx, vals, seqs)))
+    return ChunkState(out.values[0], out.val_seq[0])
+
+
+apply_value_sets.launches = 0
+
+
+def apply_value_sets_fleet(s: ChunkState, idx, vals, seqs) -> ChunkState:
+    """``apply_value_sets`` over a doc axis: ``[D, N]`` columns, ``[D, B]``
+    writes, one program."""
+    count_launch(s.values, apply_value_sets_fleet)
+    return _value_sets(s, idx, vals, seqs)
+
+
+apply_value_sets_fleet.launches = 0
+
+
+def batched_value_engine(n_docs: int):
+    """The D-doc batched form (the reference's ``jit(vmap(apply_value_sets))``):
+    a callable over ``[n_docs, N]`` states and ``[n_docs, B]`` writes."""
+
+    def engine(s: ChunkState, idx, vals, seqs) -> ChunkState:
+        if s.values.shape[0] != n_docs:
+            raise ValueError(f"state has {s.values.shape[0]} docs, the engine {n_docs}")
+        return apply_value_sets_fleet(s, idx, vals, seqs)
+
+    return engine
+
+
+class ForestState(NamedTuple):
+    values: torch.Tensor   # int32[N] leaf value column ([D, N] batched)
+    val_seq: torch.Tensor  # int32[N] seq of last write (attribution)
+    nnode: torch.Tensor    # int32 scalar live node count ([D] batched)
+    error: torch.Tensor    # int32 scalar bitmask
+
+
+def init_forest(capacity: int = 1024, device=DEFAULT_DEVICE) -> ForestState:
+    """One empty document on ``device``."""
+    dev = resolve_device(device)
+    z = lambda *shape: torch.zeros(shape, dtype=I32, device=dev)
+    return ForestState(values=z(capacity), val_seq=z(capacity), nnode=z(), error=z())
+
+
+def batch_forest(proto: ForestState, n_docs: int) -> ForestState:
+    """``n_docs`` copies of a one-document forest, stacked on a doc axis."""
+    return ForestState(*(x.unsqueeze(0).repeat((n_docs,) + (1,) * x.dim()) for x in proto))
+
+
+def _forest_gather(s: ForestState, src: torch.Tensor, n_new) -> ForestState:
+    """Rebuild the columns through a source-index map (-1 = fresh slot,
+    filled by the caller afterwards)."""
+    take = src >= 0
+    return s._replace(
+        values=torch.where(take, _take(s.values, src), 0),
+        val_seq=torch.where(take, _take(s.val_seq, src), 0),
+        nnode=n_new,
+    )
+
+
+def _forest_step(s: ForestState, op: torch.Tensor, payload: torch.Tensor) -> ForestState:
+    """One op per doc over [D, N] columns (``op[D, 8]``, ``payload[D, P]``):
+    the five ``lax.switch`` branches computed together, the committing one
+    selected per doc."""
+    N = s.values.shape[-1]
+    kind = op[:, 0].clamp(0, ForestOpKind.MOVE)
+    seq, pos, count, dst, value = (op[:, i:i + 1] for i in range(1, 6))
+    n = s.nnode[:, None]
+    idx = torch.arange(N, dtype=I32, device=op.device)[None]
+    is_ins, is_rm, is_set, is_mv = (
+        kind == k for k in (ForestOpKind.INSERT, ForestOpKind.REMOVE,
+                            ForestOpKind.SET, ForestOpKind.MOVE))
+
+    # INSERT: count fresh slots at pos, values from the payload row.
+    over = (n + count > N)[:, 0]
+    bad_ins = (pos > n)[:, 0]
+    src_ins = torch.where(idx < pos, idx, torch.where(idx < pos + count, -1, idx - count))
+    fresh = is_ins[:, None] & (idx >= pos) & (idx < pos + count)
+    pay = _take(payload, idx - pos)
+    # REMOVE: close the gap.
+    bad_rm = (pos + count > n)[:, 0]
+    src_rm = torch.where(idx < pos, idx, idx + count)
+    # MOVE: the remove map composed with the insert map at the post-remove
+    # boundary dst'.
+    bad_mv = ((pos + count > n) | (dst > n))[:, 0]
+    dstp = torch.where(dst > pos + count, dst - count, torch.minimum(dst, pos))
+    in_block = (idx >= dstp) & (idx < dstp + count)
+    u = torch.where(idx < dstp, idx, idx - count)      # rank among survivors
+    surv = torch.where(u < pos, u, u + count)          # survivor rank -> old idx
+    src_mv = torch.where(in_block, pos + (idx - dstp), surv)
+    # SET: ``.at[pos].set`` wraps a negative pos once and drops the rest.
+    bad_set = (pos >= n)[:, 0]
+    at = torch.where(pos < 0, pos + N, pos)
+
+    src = torch.where(is_ins[:, None], src_ins, torch.where(
+        is_rm[:, None], src_rm, torch.where(is_mv[:, None], src_mv, idx)))
+    n_new = torch.where(is_ins, s.nnode + count[:, 0],
+                        torch.where(is_rm, s.nnode - count[:, 0], s.nnode))
+    out = _forest_gather(s, src, n_new)
+    hit = is_set[:, None] & (idx == at)
+    values = torch.where(fresh, pay, torch.where(hit, value, out.values))
+    val_seq = torch.where(fresh | hit, seq, out.val_seq)
+
+    ok = ((is_ins & ~(over | bad_ins)) | (is_rm & ~bad_rm)
+          | (is_set & ~bad_set) | (is_mv & ~bad_mv))
+    fail_bits = torch.where(
+        is_ins, over.to(I32) * ERR_NODE_OVERFLOW | bad_ins.to(I32) * ERR_FOREST_RANGE,
+        (is_rm | is_set | is_mv).to(I32) * ERR_FOREST_RANGE)
+    return ForestState(
+        values=torch.where(ok[:, None], values, s.values),
+        val_seq=torch.where(ok[:, None], val_seq, s.val_seq),
+        nnode=torch.where(ok, out.nnode, s.nnode),
+        error=s.error | torch.where(ok, 0, fail_bits),
+    )
+
+
+def _forest_ops(s: ForestState, ops, payloads) -> ForestState:
+    """``ops[D, B, 8]`` in order along B (the reference's ``lax.scan``)."""
+    dev = s.values.device
+    ops, payloads = _as_tensor(ops, dev), _as_tensor(payloads, dev)
+    for b in range(ops.shape[1]):
+        s = _forest_step(s, ops[:, b], payloads[:, b])
+    return s
+
+
+def _one_doc(s: ForestState) -> ForestState:
+    return ForestState(*(x[None] for x in s))
+
+
+def _doc0(s: ForestState) -> ForestState:
+    return ForestState(*(x[0] for x in s))
+
+
+def apply_forest_op(s: ForestState, op, payload) -> ForestState:
+    """Apply one trunk-coordinate structural/value op (``op[8]``,
+    ``payload[P]``) to one document."""
+    count_launch(s.values, apply_forest_op)
+    dev = s.values.device
+    return _doc0(_forest_step(_one_doc(s), _as_tensor(op, dev)[None],
+                              _as_tensor(payload, dev)[None]))
+
+
+apply_forest_op.launches = 0
+
+
+def apply_forest_ops(s: ForestState, ops, payloads) -> ForestState:
+    """Apply a [B]-op batch (``ops[B, 8]``, ``payloads[B, P]``) to one
+    document in order; ``apply_forest_ops_fleet`` batches over docs."""
+    count_launch(s.values, apply_forest_ops)
+    dev = s.values.device
+    return _doc0(_forest_ops(_one_doc(s), _as_tensor(ops, dev)[None],
+                             _as_tensor(payloads, dev)[None]))
+
+
+apply_forest_ops.launches = 0
+
+
+def apply_forest_ops_fleet(s: ForestState, ops, payloads) -> ForestState:
+    """``apply_forest_ops`` over a doc axis (the reference's
+    ``vmap(apply_forest_ops)``): ``[D, N]`` columns, ``[D]`` scalars,
+    ``ops[D, B, 8]``, ``payloads[D, B, P]``."""
+    count_launch(s.values, apply_forest_ops_fleet)
+    return _forest_ops(s, ops, payloads)
+
+
+apply_forest_ops_fleet.launches = 0
+
+
+def forest_values(s: ForestState) -> np.ndarray:
+    """Host view of one document's live value column."""
+    n = int(s.nnode)
+    return s.values.cpu().numpy()[:n]

@@ -19,7 +19,7 @@ reference's virtual devices:
   ``StackedShardGroup``).
 
 A mesh over distinct devices raises ``NotImplementedError`` (ROADMAP.md
-queue 1 item 14: per-shard state on each card, NCCL collectives for the
+queue 1 item 5: per-shard state on each card, NCCL collectives for the
 segment lanes).
 """
 
@@ -42,7 +42,7 @@ from ..ops.mergetree_kernel import (
 )
 
 CROSS_CARD_ITEM = (
-    "ROADMAP.md queue 1 item 14 (cross-card meshes: per-shard state on its "
+    "ROADMAP.md queue 1 item 5 (cross-card meshes: per-shard state on its "
     "own card, NCCL collectives for the segment lanes)"
 )
 

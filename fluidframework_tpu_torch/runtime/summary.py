@@ -6,7 +6,7 @@ ISummaryTree node builders (``blob``, ``tree``, ``handle``) re-exported
 from ``protocol/snapshot_formats.py``.  The rest of that module (the
 summarizer election and heuristics, ``SummaryManager``,
 ``HiddenSummaryManager``) drives the loader and is not ported (ROADMAP
-queue 1 item 13).
+queue 1 item 7).
 """
 
 from __future__ import annotations

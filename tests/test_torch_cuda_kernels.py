@@ -377,3 +377,46 @@ def test_rebase_window_refuses_bad_inputs_on_card(cuda_device):
         rk9.rebase_window(c, xs[:, :, :-1], elig)
     with pytest.raises(ValueError):
         rk9.rebase_window(c, xs, elig.cpu())
+
+
+def test_flat_forest_on_card_matches_cpu(cuda_device):
+    """K11 (the flat forest and the rebase position arithmetic) on the card
+    equals the same calls on the CPU, column for column and latch for
+    latch, and counts one launch a call on the card only."""
+    from fluidframework_tpu_torch.ops import tree_kernel as nk
+
+    rng = np.random.default_rng(11)
+    M, Q, D, N, B, P = 16, 64, 8, 32, 12, 4
+    kinds = rng.integers(0, 6, (D, M)).astype(np.int32)
+    counts = rng.integers(-2, 9, (D, M)).astype(np.int32)
+    pos = rng.integers(-3, 40, (D, Q)).astype(np.int32)
+    idx = rng.integers(-2, N + 2, (D, 2 * B)).astype(np.int32)
+    vals = rng.integers(-99, 99, (D, 2 * B)).astype(np.int32)
+    seqs = np.stack([rng.permutation(2 * B) + 1 for _ in range(D)]).astype(np.int32)
+    ops = np.zeros((D, B, nk.FOREST_OP_FIELDS), np.int32)
+    ops[..., 0] = rng.integers(-1, 6, (D, B))
+    ops[..., 1] = 1 + np.arange(B)
+    ops[..., 2] = rng.integers(-2, 10, (D, B))
+    ops[..., 3] = rng.integers(-1, 6, (D, B))
+    ops[..., 4] = rng.integers(-1, 12, (D, B))
+    ops[..., 5] = rng.integers(0, 99, (D, B))
+    pays = rng.integers(0, 99, (D, B, P)).astype(np.int32)
+    fns = (nk.rebase_insert_positions, nk.rebase_node_positions, nk.apply_value_sets_fleet,
+           nk.apply_forest_ops_fleet, nk.apply_forest_ops, nk.apply_forest_op)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = [f.launches for f in fns]
+        chunk = nk.ChunkState(torch.zeros((D, N), dtype=torch.int32, device=dev),
+                              torch.zeros((D, N), dtype=torch.int32, device=dev))
+        forest = nk.batch_forest(nk.init_forest(N, device=dev), D)
+        res = [nk.rebase_insert_positions(pos, kinds, counts, True, device=dev),
+               *nk.rebase_node_positions(pos, kinds, counts, device=dev),
+               *nk.apply_value_sets_fleet(chunk, idx, vals, seqs),
+               *nk.apply_forest_ops_fleet(forest, ops, pays),
+               *nk.apply_forest_ops(nk.init_forest(N, device=dev), ops[0], pays[0]),
+               *nk.apply_forest_op(nk.init_forest(N, device=dev), ops[0, 0], pays[0, 0])]
+        out[dev] = [r.cpu() for r in res]
+        delta = [f.launches - b for f, b in zip(fns, before)]
+        assert delta == ([1] * len(fns) if dev == "cuda" else [0] * len(fns)), (dev, delta)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)

@@ -42,8 +42,9 @@ _BLOCKER = textwrap.dedent(
 )
 
 # Modules the blocker must reach by name (the walk finds every module; these
-# pin that the wire-ingest, observability and serving layers and the
-# SharedString client path are among them).
+# pin that the wire-ingest, observability and serving layers, the
+# SharedString client path and the tree, matrix and map channels with the
+# flat forest are among them).
 _REQUIRED = {
     "fluidframework_tpu_torch.server.scribe",
     "fluidframework_tpu_torch.server.failover",
@@ -81,6 +82,16 @@ _REQUIRED = {
     "fluidframework_tpu_torch.runtime.channel",
     "fluidframework_tpu_torch.runtime.snapshot_formats",
     "fluidframework_tpu_torch.framework.attributor",
+    "fluidframework_tpu_torch.utils.id_compressor",
+    "fluidframework_tpu_torch.dds.tree.schema",
+    "fluidframework_tpu_torch.dds.tree.shared_tree",
+    "fluidframework_tpu_torch.dds.tree.branch",
+    "fluidframework_tpu_torch.dds.tree.simple_tree",
+    "fluidframework_tpu_torch.dds.tree.reference_summary",
+    "fluidframework_tpu_torch.dds.shared_map",
+    "fluidframework_tpu_torch.dds.shared_matrix",
+    "fluidframework_tpu_torch.framework.undo_redo",
+    "fluidframework_tpu_torch.ops.tree_kernel",
 }
 
 

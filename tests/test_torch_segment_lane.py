@@ -138,9 +138,9 @@ def test_multi_shard_lanes_are_not_ported():
     over distinct devices, naming its ROADMAP item, and a segs axis that
     does not divide the mesh."""
     for devices in ([torch.device("cpu"), torch.device("meta")], ["cpu", "meta", "cpu"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             tpm.docs_segs_mesh(devices, seg_shards=1)
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             tpm.doc_mesh(devices)
     with pytest.raises(ValueError):
         tpm.docs_segs_mesh(["cpu"] * 4, seg_shards=3)

@@ -480,7 +480,7 @@ def test_unported_channel_types_name_their_roadmap_item(channel_type):
     type."""
     assert channel_type in ref_channels.default_registry()
     reg = port_channels.default_registry()
-    assert set(reg) == {"sharedString", "sharedMap"}
+    assert set(reg) == {"sharedString", "sharedMap", "sharedTree", "sharedMatrix"}
     item = port_channels.UNPORTED_CHANNEL_TYPES[channel_type]
     rt = PortRuntime(reg, container_id="c")
     ds = rt.create_datastore("root")
