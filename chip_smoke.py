@@ -221,11 +221,51 @@ runs these phases on the card, one JSON line each:
     programs and every K11 program launched on it.  Its line carries the
     clients' and engines' edits/s, each part's seconds, ``over_cap``
     against a 150 s budget and ``reduced`` (the tree leg's cut).
+18. ``network``: the network service plane and the loader, right after
+    phase 16's CPU run is read.  (a) ``server.launcher.launch`` brings up
+    two netserver shards of the port as processes (host only).  (b) The
+    client leg: on its ``shard_index`` shard, one document made as
+    ``tests/test_loader.py`` ``boot_doc`` makes it (a ``sharedString``
+    "text" and a ``sharedMap`` "meta") and four loader ``Container``s over
+    ``NetworkDocumentServiceFactory``, two with ``KernelMergeTree`` on the
+    card at config 1's geometry and two on ``RefMergeTree``, run phase
+    16's seeded script at 1,000 edits (of its 2,000, for the script's
+    time limit; the line's ``reduced`` names the cut; a kernel client drops
+    and rejoins through its ``ConnectionManager`` every sixth round; one
+    stash goes
+    through ``get_pending_local_state`` and ``Container.load``); every
+    client runs a ``SummaryManager``, and a late client loads on the card
+    from the newest snapshot over HTTP.  Every sync checks the four texts,
+    annotations and intervals; every replica's channel summary equals the
+    others', the late client's view equals them.  Then, as a path of its
+    own, the squash regeneration runs on a replica restored from a kernel
+    client's summary.  (c) The fleet leg: 256 docs and a hot doc over the
+    two shards by ``shard_index``; the shard without the hot doc serves
+    its docs at config-3 geometry, the hot doc's shard serves all of its
+    docs (the hot doc and the cold docs that hash there) at config-1
+    geometry, as one engine has one geometry; 4 network writers a doc
+    (``SharedString`` over ``NetworkDeltaConnection``) running 8 rounds of
+    phase 2's mix (each submit sequenced before the next; the hot doc takes
+    64 ops a round); one in-process
+    ``FleetConsumer`` a shard over a ``DocBatchEngine`` on the card (the
+    hot doc's shard on a docs x segs mesh with 4 segment shards, the hot
+    doc promoted by ``enable_segment_sharding`` after round 3 and demoted
+    at the end); a step and a compact a round.  No error bits, every doc's
+    text equals its writers', and 32 sampled docs and the hot doc equal,
+    raw row and latch, a CPU engine fed the streams read back over each
+    shard's HTTP delta storage.  (d) ``python -m
+    fluidframework_tpu_torch.server.fleet_main --device cuda`` over the
+    other shard's docs: its last status line's texts equal the consumer's.
+    The line carries the clients' edits/s and sync p50 ms, the writers'
+    submit ops/s, the firehose -> device ops/s, the step seconds, each
+    shard's geometry and doc count, each shard's sequenced ops
+    (``/status``), the late client's boot seconds,
+    each part's seconds and ``over_cap`` against a 150 s budget.
 
 The fleet's traffic is made once, before phase 2, and shared by phases
 2, 3, 6, 14 and 15 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
-7-9b and 11-15 are the port's main path: the launch counters of K1, of the
+7-9b, 11-15 and 18 are the port's main path: the launch counters of K1, of the
 fleet programs, of K7 and K8, of K9, of the map and matrix programs and of
 the cohort gather and scatter are set to 0 just before each of them and
 read just after, and a path
@@ -237,10 +277,15 @@ and matrix programs all launched on it.  Phase 15's parts are paths of
 their own: ``sharded_fleet`` fails unless K2, K3 and the cohort gather and
 scatter launched, ``sharded_hot`` unless K1 and K6 (``apply_megastep_seg``,
 ``compact_seg``) did, ``sharded_tree`` unless K7 did; ``string_client``
-(16) fails unless the one-doc ``apply_op``, K3's ``compact`` and the three
-K5 programs launched on it.  Then it prints the ``kernels`` summary line
-(K1 with its launches by path, the segment lane's among them; K7, K8, K9,
-map, matrix; K6 at 4 shards; the cohort gather and scatter; the one-doc
+(16) fails unless the one-doc ``apply_op``, K3's ``compact`` and K5's
+``restamp`` launched on it, and its squash regeneration, a path of its
+own (``string_squash``: the runtime never asks for squash), unless K5's
+``drop_squashed`` and ``strip_stamp`` did; phase 18's ``network_clients``
+and ``network_squash`` paths the same, and ``network_fleet`` unless K2,
+K3, K6 (both programs) and K1 did.  Then
+it prints the ``kernels`` summary line (K1 with its launches by path, the
+segment lane's among them; K7, K8, K9, map, matrix; K2 and K3 at the
+fleet's shape; K6 at 4 shards; the cohort gather and scatter; the one-doc
 ``apply_op`` and K5; K11's seven programs), the card's name and power
 limit, and, last, the
 ``{"ok": true, ...}`` line.
@@ -259,6 +304,7 @@ import argparse
 import contextlib
 import gc
 import gzip
+import http.client
 import json
 import os
 import shutil
@@ -1365,18 +1411,30 @@ def state_bound(state_leaves, ring_leaves=()) -> tuple[int, float]:
     return nbytes, nbytes / H100_BYTES_PER_S * 1e3
 
 
+def leaf_max_err(got, want, n: int | None = None) -> int:
+    """The largest absolute difference between two leaf lists (the first
+    ``n`` rows of ``got`` against ``want`` when ``n`` is given), as int64
+    on the host."""
+    return max(int((g[:n].cpu().long() - w.cpu().long()).abs().max()) if w.numel() else 0
+               for g, w in zip(got, want))
+
+
 def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
                          geom: dict = FLEET_GEOM, hot_S: int = 16_384,
-                         hot_T: int = 131_072, hot_rounds: int = 96) -> dict:
+                         hot_T: int = 131_072, hot_rounds: int = 96,
+                         cmp_docs: int = 256) -> dict:
     """K2 (``apply_megastep``), K3 (``set_min_seq`` + ``compact``) and K6
     (``apply_megastep_seg``, ``compact_seg``) timed alone on the card.
 
     K2 and K3 run at the fleet phase's geometry on the state and ring of
     its second megastep: an engine takes rounds 0-7 of ``traffic`` and
     steps and compacts, then rounds 8-15 are drained into one K=8 ring.
-    K6 runs at the hot document's geometry on the state after half of its
-    trace, with the next K x B chunk.  Each is printed beside its bytes
-    bound (state read and written once, plus the ring)."""
+    The card's K2 and K3 outputs on the first ``cmp_docs`` rows (the Zipf
+    head among them) must equal the same programs run on CPU copies of
+    those rows' state and ring.  K6 runs at the hot document's geometry
+    on the state after half of its trace, with the next K x B chunk.  Each
+    is printed beside its bytes bound (state read and written once, plus
+    the ring)."""
     import torch
 
     from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine, _fleet_compact_body
@@ -1411,9 +1469,19 @@ def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
     after = mk.apply_megastep(state, dev_ops, dev_pays, kinds=kinds)
     mins = torch.as_tensor([h.min_seq for h in eng.hosts], dtype=torch.int32, device="cuda")
     k3 = time_program(lambda: _fleet_compact_body(after, mins), 5)
+    n = min(cmp_docs, n_docs)
+    cpu_s = mk.tree_map(lambda x: x[:n].cpu(), state)
+    want2 = mk.apply_megastep(cpu_s, dev_ops[:, :n].cpu(), dev_pays[:, :n].cpu(),
+                              kinds=kinds[:, :n])
+    err2 = leaf_max_err(mk.leaves(after), mk.leaves(want2), n)
+    check(err2 == 0, f"K2 on the card differs from the CPU by {err2}")
+    cpu_after = mk.tree_map(lambda x: x[:n].cpu(), after)
+    err3 = leaf_max_err(mk.leaves(_fleet_compact_body(after, mins)),
+                        mk.leaves(_fleet_compact_body(cpu_after, mins[:n].cpu())), n)
+    check(err3 == 0, f"K3 on the card differs from the CPU by {err3}")
     k2_bytes, k2_bound = state_bound(mk.leaves(state), (dev_ops, dev_pays))
     k3_bytes, k3_bound = state_bound(mk.leaves(state), (mins,))
-    del eng, state, after
+    del eng, state, after, cpu_s, want2, cpu_after
 
     L, Kh, B = 8, 8, 16
     h_ops, h_pays, h_refs = four_writer_trace(seed, hot_rounds, L)
@@ -1445,9 +1513,10 @@ def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
     out = {
         "phase": "fleet_programs", "card": card,
         "k2": {"shape": [K, n_docs, geom["ops_per_step"]], **k2,
-               "bound_ms": k2_bound, "bound_bytes": k2_bytes, "bound_by": "bytes"},
+               "bound_ms": k2_bound, "bound_bytes": k2_bytes, "bound_by": "bytes",
+               "max_abs_err": err2, "compared_docs": n},
         "k3": {"docs": n_docs, **k3, "bound_ms": k3_bound, "bound_bytes": k3_bytes,
-               "bound_by": "bytes"},
+               "bound_by": "bytes", "max_abs_err": err3, "compared_docs": n},
         "k6_megastep": {"shape": [Kh, B], "S": hot_S, "T": hot_T, **k6_mega,
                         "bound_ms": k6_bound, "bound_bytes": k6_bytes, "bound_by": "bytes"},
         "k6_compact": {"S": hot_S, "T": hot_T, **k6_compact, "bound_ms": k6c_bound,
@@ -3450,7 +3519,12 @@ def _time_cohort_pair(eng, Kc: int = 16) -> dict:
     geometry on a 16-lane cohort (12 busy slots, 4 pad lanes) of ``eng``'s
     state, beside their bytes bounds (the cohort's rows read and written
     once).  The scatter writes the rows it gathered: the state's bytes do
-    not change."""
+    not change.  Each is held against the same program on CPU copies of
+    the cohort's rows (copied one row at a time): the gather's lanes, and
+    the rows a scatter of changed lanes leaves (then the gathered lanes
+    are written back)."""
+    import torch
+
     from fluidframework_tpu_torch.models import doc_batch_engine as dbe
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
 
@@ -3460,16 +3534,33 @@ def _time_cohort_pair(eng, Kc: int = 16) -> dict:
     valid = np.zeros((Kc,), bool)
     valid[:12] = True
     state = eng.state
+    counts = dbe.gather_cohort.launches, dbe.scatter_cohort.launches
     sub = dbe.gather_cohort(state, idx)
     row_bytes = nbytes_of(mk.leaves(sub)) // Kc
-    counts = dbe.gather_cohort.launches, dbe.scatter_cohort.launches
+    rows = sorted(set(idx.tolist()))
+    local = np.asarray([rows.index(int(i)) for i in idx], np.int64)
+
+    def host_rows(st):
+        return mk.tree_map(lambda x: torch.stack([x[r].cpu() for r in rows]), st)
+
+    errs = {"gather": leaf_max_err(mk.leaves(sub),
+                                   mk.leaves(dbe.gather_cohort(host_rows(state), local)))}
+    changed = mk.tree_map(lambda x: x + 1, sub)
+    want = dbe.scatter_cohort(host_rows(state), mk.tree_map(lambda x: x.cpu(), changed),
+                              local, valid)
+    errs["scatter"] = leaf_max_err(mk.leaves(host_rows(dbe.scatter_cohort(
+        state, changed, idx, valid))), mk.leaves(want))
+    dbe.scatter_cohort(state, sub, idx, valid)
+    for name, err in errs.items():
+        check(err == 0, f"sharded: the cohort {name} differs from the CPU by {err}")
     out = {}
     for name, fn, nbytes in (
         ("gather", lambda: dbe.gather_cohort(state, idx), 2 * Kc * row_bytes),
         ("scatter", lambda: dbe.scatter_cohort(state, sub, idx, valid), 2 * 12 * row_bytes),
     ):
         out[name] = {"lanes": Kc, **time_program(fn, 20), "bound_bytes": nbytes,
-                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                     "max_abs_err": errs[name]}
     dbe.gather_cohort.launches, dbe.scatter_cohort.launches = counts
     return out
 
@@ -3676,17 +3767,24 @@ def _sharded_hot(seed: int, card: str, device: str, traffic, n_cold: int = 64,
     serve(parts[4], 2)
     out["occupancy_second_lane"] = check_lane("second lane")
     hot._seg_megastep = seg_prog
-    # K6 at n=4 alone on a captured ring (its launches, and K1's inside,
-    # stay off the path's counts).
+    # K6 at n=4 alone on a captured ring, held against the same program on
+    # CPU copies of its inputs (its launches, and K1's inside, stay off the
+    # path's counts).
     timing = {}
     if on_card and "ring" in captured:
         st, o, p, kinds = captured["ring"]
         counts = mk.apply_megastep_seg.launches, resolve_positions.launches
         timing = time_program(lambda: seg_prog(st, o, p, kinds=kinds), 2, 1)
+        want = mk.apply_megastep_seg(
+            mk.tree_map(lambda x: x.cpu(), st), torch.as_tensor(o).cpu(),
+            torch.as_tensor(p).cpu(), group=mk.StackedShardGroup(hot.seg_shards), kinds=kinds)
+        err = leaf_max_err(mk.leaves(seg_prog(st, o, p, kinds=kinds)), mk.leaves(want))
+        check(err == 0, f"sharded hot: K6 at n=4 differs from the CPU by {err}")
         mk.apply_megastep_seg.launches, resolve_positions.launches = counts
         nbytes, bound = state_bound(mk.leaves(st), (o, p))
         timing.update({"shape": [int(o.shape[0]), int(o.shape[1])], "seg_shards": 4,
-                       "bound_bytes": nbytes, "bound_ms": bound, "bound_by": "bytes"})
+                       "bound_bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
+                       "max_abs_err": err})
     check(hot.disable_segment_sharding(0), "sharded hot: the final demotion refused")
     _repack(oracle, 0)
     rows, latch = _fleets_differ(hot, oracle)
@@ -3947,10 +4045,17 @@ class _StringClients:
             raise ValueError(kind)
 
     def views(self, i: int) -> tuple:
-        s = self.s(i)
-        return (s.text, json.dumps(s.annotations(), sort_keys=True),
-                sorted(json.dumps(iv.to_json(), sort_keys=True)
-                       for iv in s.get_interval_collection("f")))
+        return _string_views(self.s(i))
+
+    def stream(self) -> list:
+        return list(self.doc.sequencer.log)
+
+
+def _string_views(s) -> tuple:
+    """A string channel's text, resolved annotations and intervals."""
+    return (s.text, json.dumps(s.annotations(), sort_keys=True),
+            sorted(json.dumps(iv.to_json(), sort_keys=True)
+                   for iv in s.get_interval_collection("f")))
 
 
 def _gen_string_edit(rng, s) -> tuple:
@@ -3992,20 +4097,21 @@ def _string_edit(s, op: tuple) -> None:
 
 
 def _string_client_run(device: str, geom: dict, seed: int, n_edits: int,
-                       reconnect_every: int, script=None, sink=None) -> dict:
+                       reconnect_every: int, script=None, sink=None, fleet=None) -> dict:
     """One run of phase 16's script.  With ``script`` None the seeded
     script is made as it runs (from the acting client's view), each action
     passed to ``sink`` as it is taken (and None at the end); otherwise the
     actions of ``script`` (any iterable) are replayed one by one.  Every
     sync checks that the four clients' texts, resolved annotations and
-    intervals are equal."""
+    intervals are equal.  ``fleet``: the four clients (phase 16's
+    ``_StringClients`` when None; phase 18 passes its loader containers)."""
     import random
 
     import torch
 
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
 
-    fleet = _StringClients(device, geom)
+    fleet = _StringClients(device, geom) if fleet is None else fleet
     rng = random.Random(seed)
     record = script is None
     taken: list = []
@@ -4064,7 +4170,7 @@ def _string_client_run(device: str, geom: dict, seed: int, n_edits: int,
         "states": [[x.cpu().numpy() for x in mk.leaves(k.state)] for k in kernels],
         "errors": [k.check_errors() for k in kernels],
         "summaries": [json.dumps(k.export_summary(), sort_keys=True) for k in kernels],
-        "stream": [dict(json.loads(m.to_json()), timestamp=0) for m in fleet.doc.sequencer.log],
+        "stream": [dict(json.loads(m.to_json()), timestamp=0) for m in fleet.stream()],
         "text": fleet.s(0).text, "kernels": kernels,
     }
 
@@ -4188,7 +4294,7 @@ def _time_one_doc_programs(card: str, kmt) -> dict:
 
 
 def phase_string_client(seed: int, card: str, device: str = "cuda", geom: dict | None = None,
-                        n_edits: int = 4000, reconnect_every: int = 6) -> tuple:
+                        n_edits: int = 4000, reconnect_every: int = 6, path=None) -> tuple:
     """Phase 16: the SharedString client path (``ContainerRuntime`` +
     ``LocalService`` + ``SharedStringChannel``), two ``KernelMergeTree``
     replicas on ``device`` and two ``RefMergeTree`` ones, a seeded script
@@ -4196,9 +4302,11 @@ def phase_string_client(seed: int, card: str, device: str = "cuda", geom: dict |
     script with the kernel replicas on the CPU: every kernel replica's raw
     state, error latch and summary identical between the runs; and the
     squash regeneration on one replica restored from the summary, held
-    against the CPU.  The CPU run replays the card run's actions in a
-    process of its own, alongside, and runs on past the card run while
-    later phases use the card.  Returns ``finish`` (waits for the CPU run,
+    against the CPU.  The client run and the squash regeneration are paths
+    of their own through ``path`` (``string_client``, ``string_squash``):
+    the runtime never asks for squash.  The CPU run replays the card run's
+    actions in a process of its own, alongside, and runs on past the card
+    run while later phases use the card.  Returns ``finish`` (waits for the CPU run,
     holds the two runs against each other and prints the line) and a
     kernel replica on ``device`` (``_time_one_doc_programs`` times the
     one-doc programs on its state)."""
@@ -4222,14 +4330,16 @@ def phase_string_client(seed: int, card: str, device: str = "cuda", geom: dict |
         if proc.is_alive():
             proc.kill()
 
+    run = path if path is not None else (lambda _name, fn, *a, **kw: fn(*a, **kw))
     try:
-        card_run = _string_client_run(device, geom, seed, n_edits, reconnect_every,
-                                      sink=parent.send)
+        card_run = run("string_client", _string_client_run, device, geom, seed, n_edits,
+                       reconnect_every, sink=parent.send)
         check(card_run["regenerated"] > 0 and card_run["rehydrated"] == 1,
               "string_client: no op was regenerated, or the stash never rehydrated")
         summary = json.loads(card_run["summaries"][0])
         last_seq = card_run["stream"][-1]["sequenceNumber"]
-        plans, sq = _squash_regeneration(device, geom, summary, last_seq, seed)
+        plans, sq = run("string_squash", _squash_regeneration, device, geom, summary, last_seq,
+                        seed)
         cpu_plans, sq_cpu = _squash_regeneration("cpu", geom, summary, last_seq, seed)
         check(plans == cpu_plans and all(
             np.array_equal(x.cpu().numpy(), y.numpy())
@@ -4895,6 +5005,568 @@ def phase_dds_clients(seed: int, card: str, device: str = "cuda") -> tuple:
     return line, timed
 
 
+# ------------------------------------------- phase 18: the network service plane
+
+# Phase 18's sizes, as main() runs them: (b) phase 16's action mix over four
+# loader containers, (c) 256 docs and one hot doc behind two launcher shards
+# (the hot doc's shard at config-1 geometry, the other at config-3), 4
+# network writers a doc.  The client leg's own size is 2,000 edits; the
+# whole script took 1,186 s of its 1,200 s limit with it on an H100 80GB
+# HBM3 at 700 W (the client leg 64 s), so it runs 1,000 (NET_REDUCED).
+NET_CLIENTS = dict(n_edits=1000, reconnect_every=6, summary_ops=400)
+NET_FLEET = dict(n_docs=256, writers=4, rounds=8, ops_per_round=16, hot_ops=64, ins_len=8,
+                 sample=32, promote_after=3, seg_shards=4)
+NET_REDUCED = {"clients": {"n_edits": "1,000 (of 2,000)"}}
+NET_CAP_S = 150.0
+NET_CLIENT_DOC = "net-client"
+NET_HOT_DOC = "net-hot"
+
+
+class _NetStringClients:
+    """Phase 18's client leg: phase 16's four clients as loader
+    ``Container``s over ``NetworkDocumentServiceFactory``, on the document's
+    ``shard_index`` shard of a launcher deployment.  The document is made
+    as ``tests/test_loader.py`` ``boot_doc`` makes it (a detached container
+    with a ``sharedString`` "text" and a ``sharedMap`` "meta", attached and
+    closed).  Each flush is followed by a sync of that client's connection,
+    so the shard sequences the clients' ops in the order they were made.
+    A drop and a rejoin go through the container's ``ConnectionManager``; a
+    rehydrate through ``get_pending_local_state`` and ``Container.load``
+    with the stash.  Every client runs a ``SummaryManager``; each sync ticks
+    them, and the elected one summarizes to the shard's storage."""
+
+    def __init__(self, device: str, geom: dict, dep, doc_id: str, summary_ops: int):
+        from fluidframework_tpu_torch.dds import channels
+        from fluidframework_tpu_torch.dds.kernel_backend import KernelMergeTree
+        from fluidframework_tpu_torch.driver.network_driver import NetworkDocumentServiceFactory
+        from fluidframework_tpu_torch.loader import Container
+        from fluidframework_tpu_torch.runtime.summary import SummaryConfig
+
+        host, port, http_port = dep.endpoint_for(doc_id)
+        self.factory = NetworkDocumentServiceFactory(host, port, http_port)
+        self.make_kernel = lambda: KernelMergeTree(**geom, device=device)
+        self.doc_id = doc_id
+        self.config = SummaryConfig(max_ops=summary_ops)
+        creator = Container.create_detached(channels.default_registry(), container_id="creator")
+        ds = creator.runtime.create_datastore("root")
+        ds.create_channel("sharedString", "text")
+        ds.create_channel("sharedMap", "meta")
+        creator.attach(doc_id, self.factory, "creator")
+        self.factory.sync_all()
+        creator.close()  # its leave is sequenced: it holds no MSN back
+        self.managers: dict = {}
+        self.clients = [self.load(f"C{i}", k) for i, k in enumerate(STRING_CLIENT_KINDS)]
+        self.epoch = [0] * len(self.clients)
+        self.factory.sync_all()
+        self.sync_ms: list[float] = []
+
+    def load(self, name: str, kind: str, stash: str | None = None):
+        from fluidframework_tpu_torch.dds import channels
+        from fluidframework_tpu_torch.loader import Container
+
+        channels.set_string_backend_factory(self.make_kernel if kind == "k" else None)
+        try:
+            c = Container.load(self.doc_id, self.factory, channels.default_registry(), name,
+                               stash=stash)
+        finally:
+            channels.set_string_backend_factory(None)
+        self.managers[c] = c.make_summary_manager(self.config)
+        return c
+
+    def s(self, i: int):
+        return self.clients[i].runtime.datastore("root").get_channel("text")
+
+    def kernels(self) -> list:
+        return [self.s(i).backend for i, k in enumerate(STRING_CLIENT_KINDS) if k == "k"]
+
+    def _sync_one(self, c) -> None:
+        conn = c.delta_manager.connection_manager.connection
+        if conn is not None and conn.connected:
+            conn.sync()
+
+    def act(self, action: tuple) -> None:
+        kind, i, *rest = action
+        c = self.clients[i]
+        if kind == "edit":
+            _string_edit(self.s(i), rest[0])
+        elif kind == "flush":
+            c.runtime.flush()
+            self._sync_one(c)
+        elif kind == "sync":
+            t = time.perf_counter()
+            for x in self.clients:
+                x.runtime.flush()
+                self._sync_one(x)
+            self.factory.sync_all()
+            self.sync_ms.append((time.perf_counter() - t) * 1e3)
+            if any(m.tick() for m in self.managers.values()):
+                self.factory.sync_all()  # the summary op, then its ack
+        elif kind == "drop":
+            c.disconnect()
+        elif kind == "rejoin":
+            c.connect()  # the connection manager names the new epoch's client
+            self.factory.sync_all()
+        elif kind == "rehydrate":
+            stash = c.get_pending_local_state()
+            c.close()
+            self.managers.pop(c, None)
+            self.epoch[i] += 1
+            self.clients[i] = self.load(f"C{i}.s{self.epoch[i]}", STRING_CLIENT_KINDS[i],
+                                        stash=stash)
+            self.factory.sync_all()
+        else:
+            raise ValueError(kind)
+
+    def views(self, i: int) -> tuple:
+        return _string_views(self.s(i))
+
+    def stream(self) -> list:
+        """The document's sequenced messages, read over the shard's HTTP
+        delta storage."""
+        storage = self.factory.create_document_service(self.doc_id).connect_to_delta_storage()
+        return storage.get_deltas(1, 0)
+
+    def summaries(self) -> list[str]:
+        return [json.dumps(self.s(i).summarize(), sort_keys=True)
+                for i in range(len(self.clients))]
+
+    def close(self) -> None:
+        for c in self.clients:
+            c.close()
+        for conn in list(self.factory.live_connections):
+            conn.disconnect()
+
+
+def _net_clients(seed: int, device: str, dep, geom: dict, n_edits: int, reconnect_every: int,
+                 summary_ops: int) -> tuple:
+    """Part (b): phase 16's seeded script over the network (see
+    ``_NetStringClients``), then a late client loads on ``device`` from the
+    newest snapshot over HTTP.  Returns the leg's figures, a kernel
+    client's summary and the last sequence number (the squash
+    regeneration's inputs)."""
+    import torch
+
+    from fluidframework_tpu_torch.dds.kernel_backend import KernelMergeTree
+
+    fleet = _NetStringClients(device, geom, dep, NET_CLIENT_DOC, summary_ops)
+    try:
+        kinds = [type(s.backend).__name__ for s in map(fleet.s, range(4))]
+        check(kinds == ["KernelMergeTree" if k == "k" else "RefMergeTree"
+                        for k in STRING_CLIENT_KINDS],
+              f"network clients: backends {kinds}")
+        run = _string_client_run(device, geom, seed, n_edits, reconnect_every, fleet=fleet)
+        check(run["regenerated"] > 0 and run["rehydrated"] == 1,
+              "network clients: no op was regenerated, or the stash never rehydrated")
+        check(run["errors"] == [0, 0], f"network clients: error latches {run['errors']}")
+        summaries = fleet.summaries()
+        check(all(x == summaries[0] for x in summaries[1:]),
+              "network clients: a kernel replica's summary differs from the oracle's")
+        acked = sum(m.acked for m in fleet.managers.values())
+        check(acked > 0, "network clients: no summary was acked")
+        status, snap = fleet.factory.http.request("GET", f"/doc/{NET_CLIENT_DOC}/snapshot")
+        check(status == 200 and snap["seq"] > 0, "network clients: no summary snapshot stored")
+        # The late client boots on the card from the newest snapshot.
+        t = time.perf_counter()
+        late = fleet.load("late", "k")
+        fleet.factory.sync_all()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t
+        check(isinstance(late.runtime.datastore("root").get_channel("text").backend,
+                         KernelMergeTree), "network clients: the late client is not on the kernel")
+        check(_string_views(late.runtime.datastore("root").get_channel("text"))
+              == fleet.views(0), "network clients: the late client differs")
+        summary = run["kernels"][0].export_summary()
+        last_seq = run["stream"][-1]["sequenceNumber"]
+        late.close()
+    finally:
+        fleet.close()
+    sync_ms = sorted(fleet.sync_ms)
+    return {
+        "doc": NET_CLIENT_DOC, "clients": STRING_CLIENT_KINDS, "geometry": geom,
+        "edits": run["edits"], "syncs": run["syncs"], "reconnects": run["reconnects"],
+        "stash_rehydrations": run["rehydrated"], "regenerated_ops": run["regenerated"],
+        "sequenced": len(run["stream"]), "text_len": len(run["text"]),
+        "summaries_acked": acked, "snapshot_seq": snap["seq"], "peak_nseg": run["peak_nseg"],
+        "edits_per_s": run["edits_per_s"], "run_s": run["seconds"],
+        "sync_p50_ms": sync_ms[len(sync_ms) // 2], "late_boot_s": boot_s,
+        "summaries_equal": True,
+    }, summary, last_seq
+
+
+def _net_storage(dep, doc_id: str):
+    """The document's HTTP delta storage on its shard."""
+    from fluidframework_tpu_torch.driver.network_driver import NetworkDocumentServiceFactory
+
+    factory = NetworkDocumentServiceFactory(*dep.endpoint_for(doc_id))
+    return factory.create_document_service(doc_id).connect_to_delta_storage()
+
+
+def _net_stream(dep, doc_id: str) -> list:
+    """Every sequenced message of the document, read over HTTP."""
+    return _net_storage(dep, doc_id).get_deltas(1, 0)
+
+
+def _net_writer(dep, doc_id: str, client_id: str) -> tuple:
+    """A ``SharedString`` writing over ``NetworkDeltaConnection`` to the
+    document's shard; the prefix sequenced before it joined (earlier
+    writers' joins and ops) is read over the shard's HTTP delta storage."""
+    from fluidframework_tpu_torch.dds.shared_string import SharedString
+    from fluidframework_tpu_torch.driver.network_driver import NetworkDeltaConnection
+
+    host, port, _http_port = dep.endpoint_for(doc_id)
+    ss = SharedString(client_id=client_id)
+    conn = NetworkDeltaConnection(host, port, doc_id, client_id, "write", listener=ss.process,
+                                  nack_listener=None, signal_listener=None)
+    if conn.checkpoint_seq:
+        for m in _net_storage(dep, doc_id).get_deltas(1, conn.checkpoint_seq):
+            ss.process(m)
+    return ss, conn
+
+
+def _net_fleet_round(writers, counts, rng, ins_len: int) -> int:
+    """One round of phase 2's mix through real writers: slot ``b`` of the
+    round goes to writer ``b % W`` of every doc whose Zipf count passes
+    ``b``; writer slots alternate an insert of ``ins_len`` letters at a
+    random place of the writer's view and a remove of 2 characters there.
+    Each submit waits for its connection's sync echo, so the shard
+    sequences the ops in the order they were made and a run repeats
+    message for message; every writer syncs at the round's end.  Returns
+    the ops submitted."""
+    W = len(writers[0])
+    pair: dict = {}
+    ops = 0
+    for b in range(int(counts.max())):
+        w = b % W
+        insert = (b // W) % 2 == 0
+        for d in np.nonzero(b < counts)[0].tolist():
+            ss, conn = writers[d][w]
+            n = len(ss.text)
+            if insert or n < 2:
+                pos = int(rng.integers(0, n + 1))
+                ss.insert_text(pos, "".join(chr(int(c)) for c in rng.integers(97, 123, ins_len)))
+                pair[d, w] = pos
+            else:
+                pos = min(pair.get((d, w), 0), n - 2)
+                ss.remove_range(pos, pos + 2)
+            for m in ss.take_outbox():
+                conn.submit(m)
+                ops += 1
+            conn.sync()
+    for ws in writers:
+        for _ss, conn in ws:
+            conn.sync()
+    return ops
+
+
+def _net_drain(fc, want: int, max_idle_pumps: int = 500) -> None:
+    """``FleetConsumer.run_for`` without its closing step: pump until
+    ``want`` op rows are staged (stepping only while flow control holds a
+    doc paused)."""
+    idle = 0
+    while fc.rows_staged < want:
+        if fc.paused_socks:
+            fc.step()
+        if fc.pump() == 0:
+            idle += 1
+            check(idle < max_idle_pumps, f"network fleet: firehose idle at "
+                                         f"{fc.rows_staged}/{want} rows")
+        else:
+            idle = 0
+
+
+def net_fleet_run(dep, doc_ids: list[str], engines: dict, writers: int, rounds: int,
+                  counts, ins_len: int, seed: int, promote=None, sync=None) -> dict:
+    """The fleet leg's traffic and consumers: ``writers`` network writers a
+    doc, ``rounds`` rounds of ``_net_fleet_round`` with ``counts`` ops a
+    round a doc (doc ``i`` of ``doc_ids`` takes ``counts[i]``), and one
+    in-process ``FleetConsumer`` a shard over ``engines[shard]`` (its docs in
+    ``doc_ids`` order).  After each round every consumer drains the round
+    (``_net_drain``), steps and compacts; after round
+    ``promote[0]`` the doc ``promote[1]`` (a doc id) is promoted onto a
+    segment lane by ``enable_segment_sharding``.  Returns per-doc round
+    bounds (the last seq of each round), each doc's writers' texts, the
+    consumers' texts and the timings: the writers' connect and submit
+    seconds, the consumers' firehose drain seconds (``drain_s``) and step
+    and compact seconds (``step_s``)."""
+    from fluidframework_tpu_torch.server.fleet_consumer import FleetConsumer
+    from fluidframework_tpu_torch.server.launcher import shard_index
+
+    rng = np.random.default_rng(seed)
+    n_shards = len(dep.shards)
+    by_shard = {s: [d for d in doc_ids if shard_index(d, n_shards) == s] for s in range(n_shards)}
+    t = time.perf_counter()
+    ws = [[_net_writer(dep, d, f"{d}-w{w}") for w in range(writers)] for d in doc_ids]
+    for row in ws:
+        for _ss, conn in row:
+            conn.sync()
+    connect_s = time.perf_counter() - t
+    consumers = {}
+    try:
+        for s, docs in by_shard.items():
+            if docs:
+                consumers[s] = FleetConsumer("127.0.0.1", dep.shards[s].port, engines[s], docs)
+        want = {s: 0 for s in consumers}
+        bounds = {d: [] for d in doc_ids}
+        submit_s = drain_s = step_s = 0.0
+        ops = 0
+        for r in range(rounds):
+            t = time.perf_counter()
+            n = _net_fleet_round(ws, counts, rng, ins_len)
+            submit_s += time.perf_counter() - t
+            ops += n
+            for i, d in enumerate(doc_ids):
+                bounds[d].append(ws[i][0][0].current_seq)
+                want[shard_index(d, n_shards)] += int(counts[i])
+            for s, fc in consumers.items():
+                t = time.perf_counter()
+                _net_drain(fc, want[s])
+                drain_s += time.perf_counter() - t
+                t = time.perf_counter()
+                fc.step()
+                fc.engine.compact()
+                if sync is not None:
+                    sync()
+                step_s += time.perf_counter() - t
+            if promote is not None and r == promote[0]:
+                s = shard_index(promote[1], n_shards)
+                row = by_shard[s].index(promote[1])
+                check(engines[s].enable_segment_sharding(row),
+                      "network fleet: enable_segment_sharding refused")
+        writer_texts = {d: [ss.text for ss, _c in ws[i]] for i, d in enumerate(doc_ids)}
+        texts = {d: engines[s].text(by_shard[s].index(d))
+                 for s in consumers for d in by_shard[s]}
+        rows = {s: fc.rows_staged for s, fc in consumers.items()}
+    finally:
+        for fc in consumers.values():
+            fc.close()
+        for row in ws:
+            for _ss, conn in row:
+                conn.disconnect()
+    return {"by_shard": by_shard, "bounds": bounds, "writer_texts": writer_texts,
+            "texts": texts, "rows": rows, "ops": ops, "connect_s": connect_s,
+            "submit_s": submit_s, "drain_s": drain_s, "step_s": step_s}
+
+
+def net_fleet_replay(engine, docs: list[str], rows: list[int], streams: dict, bounds: dict,
+                     demote_at_end=()) -> None:
+    """Feed ``engine`` the sequenced streams of ``docs`` (into engine rows
+    ``rows``) round by round as the consumers took them: each round's
+    wire lines through ``ingest_lines``, a step and a compact; then re-pack
+    the rows in ``demote_at_end`` as a demotion from a segment lane does."""
+    rounds = len(next(iter(bounds.values())))
+    lo = {d: 0 for d in docs}
+    for r in range(rounds):
+        for d, row in zip(docs, rows):
+            hi = bounds[d][r]
+            lines = b"".join(m.wire_line() for m in streams[d] if lo[d] < m.seq <= hi)
+            lo[d] = hi
+            if lines:
+                engine.ingest_lines(row, lines)
+        engine.step()
+        engine.compact()
+    for row in demote_at_end:
+        _repack(engine, row)
+
+
+def _doc_rows_differ(a, rows_a, b, rows_b) -> list[int]:
+    """The rows of ``rows_a`` whose raw state (every column, padding
+    included) or error latch differs from ``b``'s ``rows_b``."""
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    ea, eb = np.asarray(a.errors()), np.asarray(b.errors())
+    bad = []
+    for ra, rb in zip(rows_a, rows_b):
+        same = all(np.array_equal(x.cpu().numpy(), y.cpu().numpy()) for x, y in zip(
+            mk.leaves(a.doc_state(ra)), mk.leaves(b.doc_state(rb))))
+        if not same or ea[ra] != eb[rb]:
+            bad.append(ra)
+    return bad
+
+
+def _net_fleet(seed: int, card: str, device: str, dep, n_docs: int, writers: int, rounds: int,
+               ops_per_round: int, hot_ops: int, ins_len: int, sample: int, promote_after: int,
+               seg_shards: int) -> dict:
+    """Part (c): ``n_docs`` docs at config-3 geometry and a hot doc at
+    config-1 geometry over the deployment's shards (``shard_index``), fed
+    by ``net_fleet_run``.  The hot doc's shard serves its engine (all its
+    docs at config-1 geometry) on a docs x segs mesh with ``seg_shards``
+    segment shards; the hot doc goes onto a lane after round
+    ``promote_after`` and is demoted at the end.  Checks: no error bits,
+    every doc's text equals its writers', and the raw rows and latches of
+    ``sample`` sampled docs and the hot doc equal a CPU engine's fed the
+    same streams read back over each shard's HTTP delta storage."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.parallel.mesh import docs_segs_mesh
+    from fluidframework_tpu_torch.server.launcher import shard_index
+
+    on_card = device == "cuda"
+    cold = [f"net{d}" for d in range(n_docs)]
+    doc_ids = [NET_HOT_DOC] + cold
+    n_shards = len(dep.shards)
+    hot_shard = shard_index(NET_HOT_DOC, n_shards)
+    counts = np.concatenate([[hot_ops], zipf_counts(n_docs, ops_per_round, 1.1)])
+    by_shard = {s: [d for d in doc_ids if shard_index(d, n_shards) == s] for s in range(n_shards)}
+    cold_geom = dict(FLEET_GEOM, recovery="grow")
+    geoms = {s: (dict(HOT_GEOM, recovery="grow") if s == hot_shard else cold_geom)
+             for s in range(n_shards)}
+    engines = {}
+    for s, docs in by_shard.items():
+        if s == hot_shard:
+            mesh = docs_segs_mesh([device] * (2 * seg_shards), seg_shards=seg_shards)
+            engines[s] = DocBatchEngine(len(docs), mesh=mesh, doc_keys=docs, **geoms[s])
+        else:
+            engines[s] = DocBatchEngine(len(docs), device=device, doc_keys=docs, **geoms[s])
+    sync = torch.cuda.synchronize if on_card else None
+    t0 = time.perf_counter()
+    run = net_fleet_run(dep, doc_ids, engines, writers, rounds, counts, ins_len, seed,
+                        promote=(promote_after, NET_HOT_DOC), sync=sync)
+    run_s = time.perf_counter() - t0
+    hot_eng, hot_row = engines[hot_shard], by_shard[hot_shard].index(NET_HOT_DOC)
+    check(hot_row in hot_eng.seg_lanes, "network fleet: the hot doc is not on a segment lane")
+    lane = {"seg_occupancy": hot_eng.health()["seg_occupancy"],
+            "seg_promotions": hot_eng.health()["seg_promotions"]}
+    check(hot_eng.disable_segment_sharding(hot_row), "network fleet: the demotion refused")
+    for s, eng in engines.items():
+        check(eng.error_count() == 0 and not eng.overflow and not eng.quarantine,
+              f"network fleet: shard {s} latched, overflowed or quarantined")
+    for d in doc_ids:
+        w = run["writer_texts"][d]
+        check(all(x == w[0] for x in w[1:]), f"network fleet: {d}'s writers diverged")
+        check(run["texts"][d] == w[0], f"network fleet: {d}'s engine text differs from its writers'")
+    # The CPU replay: sampled docs of each shard (the hot doc among them).
+    rng = np.random.default_rng(seed + 18)
+    picked = set(rng.choice(cold, size=min(sample, n_docs), replace=False).tolist())
+    t = time.perf_counter()
+    replayed = 0
+    for s, docs in by_shard.items():
+        mine = [d for d in docs if d in picked or d == NET_HOT_DOC]
+        if not mine:
+            continue
+        streams = {d: _net_stream(dep, d) for d in mine}
+        cpu = DocBatchEngine(len(mine), device="cpu", doc_keys=mine, **geoms[s])
+        rows = list(range(len(mine)))
+        demote = [mine.index(NET_HOT_DOC)] if NET_HOT_DOC in mine else []
+        net_fleet_replay(cpu, mine, rows, streams, run["bounds"], demote_at_end=demote)
+        bad = _doc_rows_differ(engines[s], [docs.index(d) for d in mine], cpu, rows)
+        check(not bad, f"network fleet: shard {s} rows {bad} differ from the CPU replay")
+        replayed += len(mine)
+    replay_s = time.perf_counter() - t
+    stats = {}
+    for s, shard in enumerate(dep.shards):
+        conn = http.client.HTTPConnection("127.0.0.1", shard.http_port, timeout=30)
+        try:
+            conn.request("GET", "/status")
+            resp = conn.getresponse()
+            status, body = resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+        check(status == 200, f"network fleet: shard {s} /status answered {status}")
+        stats[shard.name] = {"docs": body["n_docs"],
+                             "sequenced": sum(v["log_depth"] for v in body["docs"].values())}
+    rows = sum(run["rows"].values())
+    return {
+        "docs": len(doc_ids), "hot_doc": NET_HOT_DOC, "hot_shard": dep.shards[hot_shard].name,
+        "geometry": {dep.shards[s].name: {"docs": len(docs), "hot_doc": s == hot_shard,
+                                          **{k: v for k, v in geoms[s].items() if k != "recovery"}}
+                     for s, docs in by_shard.items()},
+        "writers": writers, "rounds": rounds,
+        "ops": run["ops"], "rows": run["rows"], "seg_shards": seg_shards, "lane": lane,
+        "connect_s": run["connect_s"], "submit_s": run["submit_s"],
+        "submit_ops_per_s": run["ops"] / run["submit_s"],
+        "drain_s": run["drain_s"], "step_s": run["step_s"],
+        "firehose_to_device_ops_per_s": rows / (run["drain_s"] + run["step_s"]), "run_s": run_s,
+        "replayed_docs": replayed, "replay_s": replay_s, "shard_stats": stats,
+        "texts": run["texts"], "by_shard": run["by_shard"],
+    }
+
+
+def _net_entry(device: str, dep, fleet: dict) -> dict:
+    """``python -m fluidframework_tpu_torch.server.fleet_main`` on the shard
+    without the hot doc, over that shard's docs: its catch-up replays the
+    whole firehose, and its last status line's texts must equal the
+    in-process consumer's."""
+    shard = next(s for s in dep.shards if s.name != fleet["hot_shard"])
+    si = dep.shards.index(shard)
+    docs = fleet["by_shard"][si]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "fluidframework_tpu_torch.server.fleet_main",
+           "--port", str(shard.port), "--docs", ",".join(docs), "--device", device,
+           "--capacity", str(FLEET_GEOM["max_segments"]),
+           "--text-capacity", str(FLEET_GEOM["text_capacity"]),
+           "--max-insert-len", str(FLEET_GEOM["max_insert_len"]),
+           "--ops-per-step", str(FLEET_GEOM["ops_per_step"]),
+           "--megastep-k", str(FLEET_GEOM["megastep_k"]), "--status-every", "600",
+           "--exit-after-rows", str(fleet["rows"][si])]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=repo)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"network entry: fleet_main exited {proc.returncode}: "
+                                f"{proc.stderr[-1500:]}")
+    last = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")][-1]
+    check(last.get("done") and last["errors"] == 0, "network entry: fleet_main did not end clean")
+    check(last["texts"] == {d: fleet["texts"][d] for d in docs},
+          "network entry: fleet_main's texts differ from the in-process consumer's")
+    return {"shard": shard.name, "docs": len(docs), "rows": fleet["rows"][si], "run_s": wall}
+
+
+def phase_network(seed: int, card: str, device: str, path=None) -> dict:
+    """Phase 18 at ``NET_CLIENTS`` and ``NET_FLEET``: (a) ``launcher.launch``
+    brings up two netserver shards of the port as processes; (b) the
+    client leg (``_net_clients``), then the squash regeneration on a kernel
+    replica restored from a kernel client's summary (the runtime never
+    asks for squash), and (c) the fleet leg (``_net_fleet``), each a path
+    of its own through ``path`` (``network_clients``, ``network_squash``,
+    ``network_fleet``); then (d) ``fleet_main`` over one shard's docs
+    (``_net_entry``)."""
+    from fluidframework_tpu_torch.server.launcher import launch
+
+    clients, fleet = NET_CLIENTS, NET_FLEET
+    run = path if path is not None else (lambda _name, fn, *a, **kw: fn(*a, **kw))
+    t0 = time.perf_counter()
+    # Writers and consumers hold a socket each here (the shards' ends are
+    # in their own processes).
+    limit = _raise_fd_limit(fleet["writers"] * (fleet["n_docs"] + 1) + fleet["n_docs"] + 512)
+    line = {"phase": "network", "card": card, "fd_limit": limit}
+    t = time.perf_counter()
+    dep = launch({"shards": [{"name": "s0"}, {"name": "s1"}]})
+    line["launch_s"] = time.perf_counter() - t
+    parts_s = {}
+    try:
+        line["shards"] = dep.manifest()["shards"]
+        t = time.perf_counter()
+        geom = dict(STRING_CLIENT_GEOM)
+        line["clients"], summary, last_seq = run("network_clients", _net_clients, seed, device,
+                                                 dep, geom, **clients)
+        parts_s["clients"] = time.perf_counter() - t
+        t = time.perf_counter()
+        plans, _sq = run("network_squash", _squash_regeneration, device, geom, summary,
+                         last_seq, seed)
+        check(not plans[0], "network clients: the pending obliterate was not retired")
+        line["clients"]["squash_plans"] = len(plans)
+        parts_s["squash"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out = run("network_fleet", _net_fleet, seed, card, device, dep, **fleet)
+        parts_s["fleet"] = time.perf_counter() - t
+        t = time.perf_counter()
+        line["entry"] = _net_entry(device, dep, out)
+        parts_s["entry"] = time.perf_counter() - t
+        out.pop("texts")
+        out.pop("by_shard")
+        line["fleet"] = out
+    finally:
+        dep.stop()
+    phase_s = time.perf_counter() - t0
+    line.update({"parts_s": parts_s, "phase_s": phase_s, "cap_s": NET_CAP_S,
+                 "over_cap": phase_s > NET_CAP_S, "reduced": NET_REDUCED})
+    emit(line)
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4964,18 +5636,23 @@ def main(argv=None) -> int:
             paths[prog][name] = c.launches
         return out
 
+    def check_client_paths(clients, squash):
+        """A client path runs the one-doc apply_op, K3 and K5's restamp (its
+        reconnects); the squash regeneration beside it runs K5's other two."""
+        for name, progs in ((clients, (("apply_op", "the one-doc apply_op"), ("compact", "K3"),
+                                       ("restamp", "K5's restamp"))),
+                            (squash, (("drop_squashed", "K5's drop_squashed"),
+                                      ("strip_stamp", "K5's strip_stamp")))):
+            for prog, what in progs:
+                check(paths[prog][name] > 0, f"{what} was never launched on the {name} path")
+
     # Phase 16 (the SharedString client path) runs first, before any
     # torch.profiler session: its rate is host issue, one op at a time, and
     # a profiler session leaves every later launch dearer on the host.
     emit({"phase": "cuts", "why": "the script's 1,200 s limit (1,286 s uncut on an H100)",
           "reduced": CUTS})
-    finish_string, string_kmt = path("string_client", phase_string_client, args.seed, card,
-                                     "cuda")
-    for prog, what in (("apply_op", "the one-doc apply_op"), ("compact", "K3"),
-                       ("restamp", "K5's restamp"), ("drop_squashed", "K5's drop_squashed"),
-                       ("strip_stamp", "K5's strip_stamp")):
-        check(paths[prog]["string_client"] > 0,
-              f"{what} was never launched on the string_client path")
+    finish_string, string_kmt = phase_string_client(args.seed, card, "cuda", path=path)
+    check_client_paths("string_client", "string_squash")
     # Phase 17 (the DDS clients into the card's programs) runs next, also
     # before any profiler session: its rates are host-bound, and K11's
     # call times are taken in it (its device times at the end).  Phase 16's
@@ -4987,6 +5664,16 @@ def main(argv=None) -> int:
                        *((name, f"K11's {name}") for name in K11_PROGRAMS)):
         check(paths[prog]["dds_clients"] > 0, f"{what} was never launched on the dds_clients path")
     finish_string()
+    # Phase 18 (the network service plane: launcher shards, loader clients,
+    # network writers into the card's fleet) runs next, also before any
+    # profiler session: its rates are host issue and socket round trips.
+    # Its client and fleet legs are paths of their own.
+    phase_network(args.seed, card, "cuda", path=path)
+    check_client_paths("network_clients", "network_squash")
+    for prog, what in (("apply_megastep", "K2"), ("compact", "K3"),
+                       ("apply_megastep_seg", "K6"), ("compact_seg", "K6's compaction"),
+                       ("resolve_positions", "K1")):
+        check(paths[prog]["network_fleet"] > 0, f"{what} was never launched on the network_fleet path")
     k = phase_kernels(args.seed, card)
     k9 = phase_rebase_kernel(args.seed, card)
     one_doc = _time_one_doc_programs(card, string_kmt)
@@ -5007,7 +5694,7 @@ def main(argv=None) -> int:
     path("recovery", phase_recovery, args.seed, card, "cuda", traffic)
     path("hot_doc", phase_hot_doc, args.seed, card, "cuda")
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
-    phase_fleet_programs(args.seed, card, traffic)
+    fleet_programs = phase_fleet_programs(args.seed, card, traffic)
     _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda",
                        n_docs=CUTS["tree_fleet"]["n_docs"], record=True,
                        trace_dir=args.trace_dir)
@@ -5053,6 +5740,7 @@ def main(argv=None) -> int:
     emit({"phase": "fleet_programs_launches", **{prog: paths[prog] for prog in (
         "apply_megastep", "compact", "apply_megastep_seg", "compact_seg", "gather_cohort",
         "scatter_cohort")}})
+    k2, k3 = fleet_programs["k2"], fleet_programs["k3"]
     k6n4 = sharded["hot"]["k6_n4"]
     cohort = sharded["fleet"]["cohort_programs"]
     k7, k8 = tree["k7"], tree["k8"]
@@ -5117,12 +5805,33 @@ def main(argv=None) -> int:
         "ms": mx_prog["ms"], "device_ms": mx_prog["device_ms"], "plain_ms": None,
         "bound_ms": mx_prog["bound_ms"], "bound_by": mx_prog["bound_by"], "library_ms": None,
     }, {
+        "name": "apply_megastep", "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/mergetree_kernel.py",
+        "replaces": "fluidframework_tpu/ops/mergetree_kernel.py:850",
+        "launches": sum(paths["apply_megastep"].values()),
+        "launches_by_path": paths["apply_megastep"],
+        "max_abs_err": k2["max_abs_err"], "shape": k2["shape"], "ms": k2["ms"],
+        "device_ms": k2["device_ms"],
+        "plain_ms": None, "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "compact", "route": "torch",
+        "source": "fluidframework_tpu_torch/ops/mergetree_kernel.py",
+        "replaces": "fluidframework_tpu/ops/mergetree_kernel.py:1532",
+        "launches": sum(paths["compact"].values()),
+        "launches_by_path": paths["compact"],
+        "max_abs_err": k3["max_abs_err"], "docs": k3["docs"], "ms": k3["ms"],
+        "device_ms": k3["device_ms"],
+        "plain_ms": None, "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "apply_megastep_seg", "route": "torch",
         "source": "fluidframework_tpu_torch/ops/mergetree_kernel.py",
         "replaces": "fluidframework_tpu/ops/mergetree_kernel.py:1291",
         "launches": sum(paths["apply_megastep_seg"].values()),
         "launches_by_path": paths["apply_megastep_seg"],
-        "max_abs_err": 0, "seg_shards": k6n4["seg_shards"], "shape": k6n4["shape"],
+        "max_abs_err": k6n4["max_abs_err"], "seg_shards": k6n4["seg_shards"],
+        "shape": k6n4["shape"],
         "ms": k6n4["ms"], "device_ms": k6n4["device_ms"], "plain_ms": None,
         "bound_ms": k6n4["bound_ms"], "bound_by": k6n4["bound_by"], "library_ms": None,
     }] + [{
@@ -5131,7 +5840,7 @@ def main(argv=None) -> int:
         "replaces": f"fluidframework_tpu/models/doc_batch_engine.py:{line}",
         "launches": sum(paths[f"{name}_cohort"].values()),
         "launches_by_path": paths[f"{name}_cohort"],
-        "max_abs_err": 0, "lanes": cohort[name]["lanes"],
+        "max_abs_err": cohort[name]["max_abs_err"], "lanes": cohort[name]["lanes"],
         "ms": cohort[name]["ms"], "device_ms": cohort[name]["device_ms"], "plain_ms": None,
         "bound_ms": cohort[name]["bound_ms"], "bound_by": "bytes", "library_ms": None,
     } for name, line in (("gather", 222), ("scatter", 249))] + [{

@@ -9,8 +9,18 @@ modules it keeps as its own copy.
 Every entry point takes ``device=``; the default is ``"cuda"`` and a call
 that asks for the card on a machine without one raises (see
 :func:`fluidframework_tpu_torch.device.resolve_device`).
+
+Importing the package loads no ``torch``: the host-only processes (the
+netserver shards and their launcher) never touch a device, so
+``resolve_device`` loads on first use.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -37,13 +37,9 @@ import json
 import selectors
 import socket
 
+from ..fanout.plane import RESYNC_BOOT_MARKER
 from ..models.doc_batch_engine import DocBatchEngine
 
-# The fan-out plane's boot-flavoured drop-to-catch-up line (the reference's
-# ``fanout/plane.py`` RESYNC_BOOT_MARKER; the plane itself is not ported):
-# the consumer's range left the retained log, so it must boot from a
-# snapshot instead of consuming a gapped stream.
-RESYNC_BOOT_MARKER = b'{"t":"resync","boot":true}\n'
 _BOOT_MARKER = RESYNC_BOOT_MARKER.rstrip(b"\n")
 
 

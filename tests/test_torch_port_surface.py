@@ -43,8 +43,9 @@ _BLOCKER = textwrap.dedent(
 
 # Modules the blocker must reach by name (the walk finds every module; these
 # pin that the wire-ingest, observability and serving layers, the
-# SharedString client path and the tree, matrix and map channels with the
-# flat forest are among them).
+# SharedString client path, the tree, matrix and map channels with the
+# flat forest, and the loader, drivers and network service plane are among
+# them).
 _REQUIRED = {
     "fluidframework_tpu_torch.server.scribe",
     "fluidframework_tpu_torch.server.failover",
@@ -92,6 +93,24 @@ _REQUIRED = {
     "fluidframework_tpu_torch.dds.shared_matrix",
     "fluidframework_tpu_torch.framework.undo_redo",
     "fluidframework_tpu_torch.ops.tree_kernel",
+    "fluidframework_tpu_torch.loader.container",
+    "fluidframework_tpu_torch.loader.delta_manager",
+    "fluidframework_tpu_torch.loader.connection_manager",
+    "fluidframework_tpu_torch.loader.audience",
+    "fluidframework_tpu_torch.loader.protocol",
+    "fluidframework_tpu_torch.driver.definitions",
+    "fluidframework_tpu_torch.driver.local_driver",
+    "fluidframework_tpu_torch.driver.network_driver",
+    "fluidframework_tpu_torch.server.netserver",
+    "fluidframework_tpu_torch.server.launcher",
+    "fluidframework_tpu_torch.server.auth",
+    "fluidframework_tpu_torch.server.admission",
+    "fluidframework_tpu_torch.fanout.plane",
+    "fluidframework_tpu_torch.fanout.frames",
+    "fluidframework_tpu_torch.fanout.writer",
+    "fluidframework_tpu_torch.fanout.historian",
+    "fluidframework_tpu_torch.testing.network_env",
+    "fluidframework_tpu_torch.framework.presence",
 }
 
 

@@ -4,17 +4,30 @@
 every ``fluidframework_tpu`` import pointed at ``fluidframework_tpu_torch``:
 the port's own copy of the same test code.  ``cases(file)`` pairs each test
 of the reference module with its twin (class methods and ``parametrize``d
-cases expanded; tests that need fixtures are left out), and
-``run_pair(case, monkeypatch)`` runs the two under the same conditions:
+cases expanded; tests that need a fixture this harness does not supply are
+left out), and ``run_pair(case, monkeypatch)`` runs the two under the same
+conditions.  ``cases`` supplies two of the reference's fixtures in either
+package: ``env`` (``ENV_LOCAL``, a ``LocalService`` and its local driver
+factory; ``ENV_NETWORK``, the network plane in-process over real sockets)
+and the ``string_backend`` setup (``BACKENDS``: the ``RefMergeTree`` oracle,
+or ``KernelMergeTree`` behind the channel boundary, the port's on the CPU).
+Under ``run_pair``:
 
 - both packages' sequencers read one counter clock in place of the wall
   clock, both packages' ``create_session_id`` draw from one seeded
   sequence, and both packages' move-id counters start at 0, so
   timestamps, id-compressor sessions and move ids agree;
+- network delta connections submit one at a time: each submit waits for
+  the server's echo of a sync marker sent behind it, so the server
+  sequences concurrent clients' ops in the order the test made them, and
+  the default reconnect jitter of ``loader.connection_manager`` draws from
+  a seeded generator;
+- ``SummaryManager.tick()`` called without ``now`` reads a counter clock;
 - every document, container runtime and tree, matrix and map replica the
-  test builds is recorded, and after the test body its observable state is
-  taken: each document's sequenced messages (wire JSON, message by
-  message), each tree channel's forest, ``em.summarize()``,
+  test builds is recorded, and after the test body (and, where it ran a
+  network front, once the documents' logs stop growing: ``settle``) its
+  observable state is taken: each document's sequenced messages (wire
+  JSON, message by message), each tree channel's forest, ``em.summarize()``,
   ``summarize()`` and ``summary_tree()``, each runtime's ``summarize()``,
   each matrix's grid and summary and each map's items.
 
@@ -25,6 +38,7 @@ holds them.  The test body's own assertions must hold in both packages.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import inspect
 import itertools
@@ -32,6 +46,7 @@ import json
 import os
 import random
 import re
+import time
 import types
 import uuid
 from types import SimpleNamespace
@@ -43,21 +58,26 @@ _PKG = re.compile(r"\bfluidframework_tpu\b(?!_torch)")
 _twins: dict[str, types.ModuleType] = {}
 
 
-def port_twin(file: str) -> types.ModuleType:
+def port_twin(file: str, subs: tuple[tuple[str, str], ...] = ()) -> types.ModuleType:
     """The reference test module ``file`` with its package imports pointed
-    at the port."""
-    if file not in _twins:
+    at the port, and each ``(old, new)`` of ``subs`` replaced in its source
+    (where the port's entry point spells an option differently)."""
+    key = (file, subs)
+    if key not in _twins:
         path = os.path.join(TESTS_DIR, file)
         with open(path) as f:
             src = _PKG.sub("fluidframework_tpu_torch", f.read())
+        for old, new in subs:
+            assert old in src, (file, old)
+            src = src.replace(old, new)
         mod = types.ModuleType(f"port_twin_{file[:-3]}")
         mod.__file__ = path
         exec(compile(src, path, "exec"), mod.__dict__)
         for name, obj in vars(mod).items():  # nothing of the reference left
             home = getattr(obj, "__module__", None) or getattr(obj, "__name__", "")
             assert not (isinstance(home, str) and home.startswith("fluidframework_tpu.")), name
-        _twins[file] = mod
-    return _twins[file]
+        _twins[key] = mod
+    return _twins[key]
 
 
 def _param_sets(fn) -> list[dict]:
@@ -71,24 +91,93 @@ def _param_sets(fn) -> list[dict]:
     return sets
 
 
-def cases(file: str, skip: tuple[str, ...] = ()) -> list[tuple]:
+@contextlib.contextmanager
+def env_local(root: str):
+    """The reference's ``env`` fixture, local: a ``LocalService`` and its
+    local driver factory."""
+    svc = importlib.import_module(f"{root}.server.local_service").LocalService()
+    factory = importlib.import_module(f"{root}.driver").LocalDocumentServiceFactory
+    yield svc, factory(svc)
+
+
+@contextlib.contextmanager
+def env_network(root: str):
+    """The reference's ``env`` fixture, network: the service plane on
+    ephemeral local ports and the network driver's factory."""
+    net = importlib.import_module(f"{root}.testing.network_env").NetworkTestService()
+    try:
+        yield net, net.factory
+    finally:
+        net.close()
+
+
+ENV_LOCAL = {"local": env_local}
+ENV_NETWORK = {"local": env_local, "network": env_network}
+
+# The reference conftest's ``string_backend`` kernel geometry.
+KERNEL_GEOMETRY = dict(max_segments=1024, remove_slots=6, prop_slots=4,
+                       text_capacity=16384, max_insert_len=16, ob_slots=16)
+
+
+@contextlib.contextmanager
+def oracle_backend(root: str):
+    yield "oracle"
+
+
+@contextlib.contextmanager
+def kernel_backend(root: str):
+    """``KernelMergeTree`` behind every string channel made in the block
+    (the port's on the CPU), as the reference conftest's fixture does."""
+    channels = importlib.import_module(f"{root}.dds.channels")
+    kmt = importlib.import_module(f"{root}.dds.kernel_backend").KernelMergeTree
+    extra = {"device": "cpu"} if root.endswith("_torch") else {}
+    channels.set_string_backend_factory(lambda: kmt(**KERNEL_GEOMETRY, **extra))
+    try:
+        yield "kernel"
+    finally:
+        channels.set_string_backend_factory(None)
+
+
+BACKENDS = {"oracle": oracle_backend, "kernel": kernel_backend}
+
+
+def cases(file: str, skip: tuple[str, ...] = (), fixtures: dict | None = None,
+          setup: dict | None = None, subs: tuple[tuple[str, str], ...] = ()) -> list[tuple]:
     """``(id, ref_callable, port_callable)`` for every test of ``file``
-    that needs no fixture, in file order."""
+    whose fixtures are supplied, in file order.
+
+    ``fixtures`` maps a fixture name to ``{param_id: provider}``, and
+    ``setup`` is one more ``{param_id: provider}`` axis entered around the
+    test (a module's ``usefixtures``); a provider takes the package root
+    and is a context manager yielding the fixture's value.  ``subs`` are
+    source substitutions for the port's copy (``port_twin``)."""
     ref = importlib.import_module(file[:-3])
-    port = port_twin(file)
+    port = port_twin(file, subs)
+    fixtures = fixtures or {}
+    setups = list((setup or {None: None}).items())
     out = []
 
     def add(name, ref_fn, port_fn, bind=None):
         if name in skip:
             return
+        wanted = [p for p in inspect.signature(ref_fn).parameters if p != "self"]
         for params in _param_sets(ref_fn):
-            wanted = [p for p in inspect.signature(ref_fn).parameters if p != "self"]
-            if set(wanted) - set(params):
+            missing = [w for w in wanted if w not in params]
+            if set(missing) - set(fixtures):
                 continue  # a fixture this harness does not provide
-            tag = "-".join(f"{v}" for v in params.values())
-            cid = f"{file[5:-3]}::{name}" + (f"[{tag}]" if tag else "")
-            out.append((cid, _bound(ref_fn, bind and bind[0], params),
-                        _bound(port_fn, bind and bind[1], params)))
+            axes = [list(fixtures[m].items()) for m in missing]
+            for picks in itertools.product(*axes):
+                for setup_id, setup_fn in setups:
+                    given = dict(zip(missing, picks))
+                    tag = "-".join([f"{v}" for v in params.values()]
+                                   + [pid for pid, _ in picks]
+                                   + ([setup_id] if setup_id else []))
+                    cid = f"{file[5:-3]}::{name}" + (f"[{tag}]" if tag else "")
+                    out.append((cid,
+                                _bound(ref_fn, bind and bind[0], params, given, setup_fn,
+                                       "fluidframework_tpu"),
+                                _bound(port_fn, bind and bind[1], params, given, setup_fn,
+                                       "fluidframework_tpu_torch")))
 
     for name, obj in vars(ref).items():
         if name.startswith("test_") and inspect.isfunction(obj):
@@ -101,10 +190,17 @@ def cases(file: str, skip: tuple[str, ...] = ()) -> list[tuple]:
     return out
 
 
-def _bound(fn, cls, params):
-    if cls is None:
-        return lambda: fn(**params)
-    return lambda: fn(cls(), **params)
+def _bound(fn, cls, params, given=None, setup=None, root=None):
+    def call():
+        with contextlib.ExitStack() as stack:
+            if setup is not None:
+                stack.enter_context(setup(root))
+            kw = dict(params)
+            for name, (_pid, provider) in (given or {}).items():
+                kw[name] = stack.enter_context(provider(root))
+            return fn(cls(), **kw) if cls is not None else fn(**kw)
+
+    return call
 
 
 def packages():
@@ -121,6 +217,10 @@ def packages():
             SharedMatrix=imp("dds.shared_matrix").SharedMatrix,
             SharedMatrixChannel=imp("dds.shared_matrix").SharedMatrixChannel,
             SharedMap=imp("dds.shared_map").SharedMap,
+            network_driver=imp("driver.network_driver"),
+            connection_manager=imp("loader.connection_manager"),
+            summary=imp("runtime.summary"),
+            NetworkServer=imp("server.netserver").NetworkServer,
         )
     return out
 
@@ -131,7 +231,7 @@ def seeded_session_ids(seed: int):
 
 
 RECORDED = ("LocalDocument", "ContainerRuntime", "SharedTreeChannel", "SharedMatrix",
-            "SharedMatrixChannel", "SharedMap")
+            "SharedMatrixChannel", "SharedMap", "NetworkServer")
 
 
 def install(pkg, monkeypatch, seed: int = 0) -> dict[str, list]:
@@ -143,6 +243,15 @@ def install(pkg, monkeypatch, seed: int = 0) -> dict[str, list]:
     # Move ids come from a module-global counter: start both packages at 0,
     # whatever earlier tests in the process minted.
     monkeypatch.setattr(pkg.changeset, "_move_counter", 0)
+    monkeypatch.setattr(pkg.network_driver.NetworkDeltaConnection, "submit",
+                        serialized_submit(pkg.network_driver.NetworkDeltaConnection.submit))
+    monkeypatch.setattr(pkg.connection_manager, "random",
+                        SimpleNamespace(Random=lambda r=random.Random(seed): r))
+    clock = itertools.count(1)
+    tick_fn = pkg.summary.SummaryManager.tick
+    monkeypatch.setattr(pkg.summary.SummaryManager, "tick",
+                        lambda self, now=None: tick_fn(self, next(clock) / 1000.0
+                                                       if now is None else now))
     seen: dict[str, list] = {name: [] for name in RECORDED}
     for name in RECORDED:
         cls = getattr(pkg, name)
@@ -155,6 +264,31 @@ def install(pkg, monkeypatch, seed: int = 0) -> dict[str, list]:
 
         monkeypatch.setattr(cls, "__init__", rec_init)
     return seen
+
+
+def serialized_submit(submit):
+    """``NetworkDeltaConnection.submit`` followed by a wait for the server's
+    echo of a sync marker sent behind the op: the server handles a
+    socket's lines in order, so when the echo is in the connection's
+    inbound queue the op is sequenced.  The echo stays queued (dispatching
+    it later only sets ``_sync_seen``); nothing is dispatched here."""
+
+    def run(self, message):
+        submit(self, message)
+        self._sync_counter += 1
+        n = self._sync_counter
+        self._send({"t": "sync", "n": n})
+        deadline = time.monotonic() + 30.0
+        while True:
+            with self._inbound.mutex:
+                if any(i.get("t") == "__eof__" or (i.get("t") == "sync" and i.get("n") == n)
+                       for i in self._inbound.queue):
+                    return
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"submit not echoed by the server: sync {n}")
+            time.sleep(0.0002)
+
+    return run
 
 
 def _try(fn):
@@ -187,12 +321,30 @@ def observe(seen: dict[str, list]) -> dict:
     }
 
 
+def settle(seen: dict[str, list], quiet_s: float = 0.2, limit_s: float = 10.0) -> None:
+    """Where the body ran a network front, wait until no document's log has
+    grown for ``quiet_s``: a socket the body closed without a goodbye is
+    torn down on the server's handler thread, which sequences its leave
+    after the body returned."""
+    if not seen["NetworkServer"]:
+        return
+    lens, still, end = None, time.monotonic(), time.monotonic() + limit_s
+    while time.monotonic() < end:
+        now = [len(d.sequencer.log) for d in seen["LocalDocument"]]
+        if now != lens:
+            lens, still = now, time.monotonic()
+        elif time.monotonic() - still >= quiet_s:
+            return
+        time.sleep(0.02)
+
+
 def run_traced(fn, pkg, monkeypatch, seed: int = 0) -> tuple[str, dict]:
     """Run ``fn`` with ``pkg`` recorded; its trace as canonical JSON, and
     the recorded objects."""
     with monkeypatch.context() as mp:
         seen = install(pkg, mp, seed)
         result = fn()
+        settle(seen)
         trace = _canon({"result": result, **observe(seen)})
     return trace, seen
 
