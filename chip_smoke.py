@@ -171,7 +171,7 @@ runs these phases on the card, one JSON line each:
     clients 0 and 2 on ``KernelMergeTree(device="cuda")`` at config 1's
     single-document geometry (S=16,384, T=131,072, the reference's default
     slot counts), 1 and 3 on ``RefMergeTree``.  A seeded script of 4,000
-    edits (inserts, removes, annotates, plain and sided obliterates,
+    edits (``main`` runs 2,000 of them, ``CUTS``; inserts, removes, annotates, plain and sided obliterates,
     interval adds), each client flushing after its edits and a sync a
     round; every sixth round a kernel client drops, edits offline and
     rejoins (its pending ops regenerate through K5), and once it stashes
@@ -244,13 +244,13 @@ runs these phases on the card, one JSON line each:
     its docs at config-3 geometry, the hot doc's shard serves all of its
     docs (the hot doc and the cold docs that hash there) at config-1
     geometry, as one engine has one geometry; 4 network writers a doc
-    (``SharedString`` over ``NetworkDeltaConnection``) running 8 rounds of
-    phase 2's mix (each submit sequenced before the next; the hot doc takes
-    64 ops a round); one in-process
-    ``FleetConsumer`` a shard over a ``DocBatchEngine`` on the card (the
-    hot doc's shard on a docs x segs mesh with 4 segment shards, the hot
-    doc promoted by ``enable_segment_sharding`` after round 3 and demoted
-    at the end); a step and a compact a round.  No error bits, every doc's
+    (``SharedString`` over ``NetworkDeltaConnection``) running 8 rounds
+    (``main`` runs 4, ``NET_REDUCED``) of phase 2's mix (each submit
+    sequenced before the next; the hot doc takes 64 ops a round); one
+    in-process ``FleetConsumer`` a shard over a ``DocBatchEngine`` on the
+    card (the hot doc's shard on a docs x segs mesh with 4 segment shards,
+    the hot doc promoted by ``enable_segment_sharding`` after round 3, or
+    after round 1 of ``main``'s 4, and demoted at the end); a step and a compact a round.  No error bits, every doc's
     text equals its writers', and 32 sampled docs and the hot doc equal,
     raw row and latch, a CPU engine fed the streams read back over each
     shard's HTTP delta storage.  (d) ``python -m
@@ -261,11 +261,39 @@ runs these phases on the card, one JSON line each:
     shard's geometry and doc count, each shard's sequenced ops
     (``/status``), the late client's boot seconds,
     each part's seconds and ``over_cap`` against a 150 s budget.
+19. ``chaos``: the chaos soak over the whole serving stack, first of all
+    phases and in a fresh process (``bench.py:2075`` runs it so), so no
+    other phase warms the restores its recovery percentiles measure: the
+    reference's headline soak (``bench.py:2117-2140``: seed 10, 240 ticks,
+    6 string and 3 tree docs, every fault kind of ``testing/chaos.py``
+    twice, warm standbys, 0.25 s checkpoint staleness, churn 0.08,
+    ``ChaosStack``'s own engine geometry) through ``run_soak`` on the card,
+    the tree engine on a mesh of 8 shards of the card, the service plane's
+    documents sequenced by the native deli (``NativeSequencer``); then, as
+    a path of its own (``chaos_migrate``), the reference's mixed-fleet
+    chaos smoke (``tests/test_chaos.py:502``), whose two ``migrate`` faults
+    move tree docs between shards (the soak's two target string docs,
+    which the stack serves unsharded, so they are skip-counted there, as in
+    the reference).  Fails unless every invariant held (each doc's fleet
+    state and every writer equal the fault-free oracle replay, no double
+    acks, bounded queues and recovery, the RSS bound on what the soak adds
+    to its process), every fault kind fired, both families promoted a
+    standby at each fleet kill, the engines' state was on the card, the
+    native deli sequenced every document, K2, K3, K7 and K8 launched on
+    the soak, and the smoke made a real migration over 8 shards.  The line
+    carries the soak's seconds, ops sequenced and ops/s, op latency
+    p50/p99 under fault, both families' recovery p50/p99 and intervals,
+    events by kind, the counters, admission, the scribe pool's health, the
+    process's peak RSS beside the RSS of the bare CUDA-initialised torch
+    process (the child's, before the port loads) and the bound, the
+    launches of K2, K3, K7, K8, the restore scatter and the cohort gather
+    and scatter on each path, and whether the native deli served.
 
 The fleet's traffic is made once, before phase 2, and shared by phases
 2, 3, 6, 14 and 15 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
-7-9b, 11-15 and 18 are the port's main path: the launch counters of K1, of the
+7-9b, 11-15, 18 and 19 are the port's main path (phase 19's counts are
+taken in its own process): the launch counters of K1, of the
 fleet programs, of K7 and K8, of K9, of the map and matrix programs and of
 the cohort gather and scatter are set to 0 just before each of them and
 read just after, and a path
@@ -290,12 +318,13 @@ fleet's shape; K6 at 4 shards; the cohort gather and scatter; the one-doc
 limit, and, last, the
 ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
-CUDA card, or a directory without the port.  ``main`` runs two phases
-below the sizes above (``CUTS``: tree_fleet at 512 docs, so
-``time_tree_programs`` holds K7 and K8 on a 512-doc ring, and
-tree_rebase at 128 fleet docs) to stay inside the script's 1,200 s
-limit; its ``cuts`` line, printed first, lists them, and every phase
-line carries ``script_s``, the script's seconds so far.
+CUDA card, or a directory without the port.  ``main`` runs four phases
+below the sizes above (``CUTS``: tree_fleet at 256 docs, so
+``time_tree_programs`` holds K7 and K8 on a 256-doc ring, tree_rebase at
+64 fleet docs, the serving phase's scribe at 32 string, tree and map docs
+of 64, and phase 16 at 2,000 of its 4,000 edits) to stay inside the
+script's 1,200 s limit; its ``cuts`` line, printed first, lists them, and
+every phase line carries ``script_s``, the script's seconds so far.
 """
 
 from __future__ import annotations
@@ -1005,6 +1034,27 @@ def _docs_equivalent(a, da: int, b, db: int) -> bool:
     return _summary(a, da) == _summary(b, db)
 
 
+@contextlib.contextmanager
+def _host_views(*engines):
+    """Each engine's batch state read through one host (numpy) copy of it
+    inside the block: the views of its docs (text, annotations, summaries;
+    a tree doc's ``tree_json``) come from the copy, one transfer from the
+    card in place of several a doc, and a row is numpy views in place of
+    tensor views.  The block only reads."""
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    saved = [e.state for e in engines]
+    try:
+        for e in engines:
+            tree = isinstance(e.state, tk.NestedForestState)
+            e.state = (tk.to_numpy if tree else mk.to_numpy)(e.state)
+        yield
+    finally:
+        for e, st in zip(engines, saved):
+            e.state = st
+
+
 def _docs_identical(a, da: int, b, db: int) -> bool:
     """``_docs_equivalent`` and, for device-held docs, every raw state
     column (batch row or overflow lane) equal."""
@@ -1036,7 +1086,9 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
     import torch
 
     from fluidframework_tpu_torch.dds import kernel_backend as kb
-    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine, fleet_digest
+    from fluidframework_tpu_torch.models.doc_batch_engine import (
+        DocBatchEngine, fleet_digest, scatter_rows,
+    )
     from fluidframework_tpu_torch.ops import mergetree_kernel as mk
     from fluidframework_tpu_torch.ops.resolve_kernel import resolve_positions
     from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
@@ -1057,6 +1109,15 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
         torch.cuda.reset_peak_memory_stats()
     launches0 = resolve_positions.launches
     ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    parts_s = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the previous lap, as the line's ``parts_s``."""
+        now = time.perf_counter()
+        parts_s[name] = now - t_lap[0]
+        t_lap[0] = now
+
     try:
         eng = DocBatchEngine(n_docs, device=device, checkpoint_store=CheckpointStore(ck_dir), **geom)
         # recover() as a whole (its error-count read waits for the queued
@@ -1081,6 +1142,7 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
                 eng.compact()
                 sync()
         wall_s = time.perf_counter() - t_all
+        lap("rounds")
         ops_applied = eng.counters.get("ops_staged")
         check(not eng.errors().any(), "recovery left error bits")
         check(sorted(eng.overflow) == sorted(plan["text"] + plan["seg"]),
@@ -1109,6 +1171,7 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
                 cpu.step()
                 cpu.compact()
         cpu_replay_s = time.perf_counter() - t1
+        lap("cpu_replay")
         same = sum(_docs_identical(eng, d, cpu, j) for d, j in local.items())
         check(same == len(pick), f"{len(pick) - same} of {len(pick)} docs differ from the CPU replay")
 
@@ -1141,6 +1204,7 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
             cpu_dig = fleet_digest(mk.from_numpy(mk.to_numpy(eng.state), device="cpu"))
             check(torch.equal(card_dig.cpu(), cpu_dig), "K4 on the card differs from the CPU")
 
+        lap("watchdog_digest")
         # Tamper check on a separate engine at the same geometry.
         tw = DocBatchEngine(tamper_docs, device=device, **geom)
         t_joins, t_rounds = fleet_traffic(tamper_docs, 2, geom["ops_per_step"], 8, seed + 3)
@@ -1169,6 +1233,7 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
         check(tamper["tamper_prefiltered"] == tamper_docs - 1, f"tamper {tamper}")
         check(tw.text(victim) == before_text, "tampered doc's oracle text differs")
         del tw
+        lap("tamper")
 
         # Checkpoint sweep, then restore into a fresh engine.
         t1 = time.perf_counter()
@@ -1182,11 +1247,15 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
         restored = eng2.restore_from_checkpoints()
         sync()
         restore_s = time.perf_counter() - t1
+        lap("checkpoint_restore")
         check(restored == sorted(written), "restore missed docs")
         # Every restored doc holds the original's summary, lane and text;
         # a sampled batch row equals, column by column, the original's
         # summary packed at the batch geometry (what restore must write).
-        check(all(_docs_equivalent(eng, d, eng2, d) for d in restored), "restored docs differ")
+        with _host_views(eng, eng2):
+            check(all(_docs_equivalent(eng, d, eng2, d) for d in restored),
+                  "restored docs differ")
+        lap("restore_check")
         sampled = [d for d in pick if d in set(restored)]
         for d in sampled:
             if _lane_of(eng, d) == "batch":
@@ -1195,6 +1264,7 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
                 check(_state_rows_equal(eng2.doc_state(d), mk.from_numpy(want, device="cpu")),
                       f"restored row {d} is not its summary's pack")
 
+        lap("row_pack_check")
         # The parallel restore's scatter alone (K4's neighbour on the table):
         # the restored batch rows written again from a host stack — the
         # same bytes, so the state does not change.
@@ -1215,14 +1285,15 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
             scatter = {
                 "scatter_rows": len(rows), "scatter_bytes": nbytes,
                 "scatter_bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
-                "scatter_ms": cuda_ms(lambda: eng2._scatter_rows(rows, stacked), 3, warmup=1),
+                "scatter_ms": cuda_ms(lambda: scatter_rows(eng2.state, rows, stacked), 3, warmup=1),
                 "scatter_device_ms": _device_sum(device_ms_by_name(
-                    lambda: eng2._scatter_rows(rows, stacked), 3)),
+                    lambda: scatter_rows(eng2.state, rows, stacked), 3)),
                 "scatter_library_ms": cuda_ms(index_copy, 3, warmup=1),
                 "scatter_library_device_ms": _device_sum(device_ms_by_name(index_copy, 3)),
             }
             del stacked, on_dev
 
+        lap("scatter_timing")
         # Two more rounds to both engines, then one checkpointed round again.
         live = set(restored)
         for r in (rounds, rounds + 1):
@@ -1244,6 +1315,7 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
         check(skipped > 0 and torch.equal(fleet_digest(eng2.state).cpu(), dig0)
               and all(_docs_equivalent(eng, d, eng2, d) for d in sampled),
               "re-fed checkpointed round changed the restored engine")
+        lap("post_restore")
         health = eng.health()
         out = {
             "phase": "recovery", "card": card, "docs": n_docs, "rounds": rounds,
@@ -1266,6 +1338,7 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
                 "quarantined_docs", "checkpoints_written", "megastep_dispatches",
                 "megastep_slices")},
             "docs_restored": eng2.counters.get("docs_restored"),
+            "parts_s": parts_s,
         }
     finally:
         shutil.rmtree(ck_dir, ignore_errors=True)
@@ -1795,11 +1868,13 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
             torch.cuda.synchronize()
         rematerialize_s = time.perf_counter() - t
         check(len(restored) == n_docs, f"tree_fleet: restored {len(restored)} of {n_docs} docs")
-        same = sum(_tree_views_equal(eng, d, eng2, d) for d in range(n_docs))
+        with _host_views(eng, eng2):
+            same = sum(_tree_views_equal(eng, d, eng2, d) for d in range(n_docs))
         check(same == n_docs, f"tree_fleet: {n_docs - same} restored docs differ")
         _drive_tree(eng, extra, on_card=on_card)
         _drive_tree(eng2, extra, on_card=on_card)
-        same = sum(_tree_views_equal(eng, d, eng2, d) for d in range(n_docs))
+        with _host_views(eng, eng2):
+            same = sum(_tree_views_equal(eng, d, eng2, d) for d in range(n_docs))
         check(same == n_docs, f"tree_fleet: {n_docs - same} docs differ after a round past the restore")
         check(not eng.errors().any() and not eng2.errors().any(),
               "tree_fleet: error bits after the round past the restore")
@@ -4406,14 +4481,22 @@ DDS_CAP_S = 150.0
 
 # The earlier phases main() runs below their sizes to keep the whole script
 # inside its 1,200 s limit (uncut, with phase 17 at 6 rounds of 64 docs:
-# 1,286.4 s on an H100 80GB HBM3 at 700 W).  Only these two cuts bought time
-# that the phase lines show: tree_fleet's timed parts took 103.0 s at 1,024
-# docs and 51.1 s at 512; tree_rebase took 72.0 s at 128 fleet docs and
-# 41.1 s at 64 (on a faster host), so some 60 s more at 256.  Printed in the
-# ``cuts`` line.
+# 1,286.4 s on an H100 80GB HBM3 at 700 W).  Each cut is one the phase lines
+# show buys time: tree_fleet's timed parts took 103.0 s at 1,024 docs and
+# 51.1 s at 512 (the phase 83.2 s at 512 with phase 19 on a slow host, so
+# 256 now); tree_rebase 72.0 s at 128 fleet docs and 41.1 s at 64.
+# With phase 19 (74.5 s) and the cuts before it the script took 1,103.2 s,
+# so the serving phase's scribe runs 32 docs a family (its part 20.8 s,
+# against 32.6-34.9 s at 64), tree_rebase 64 fleet docs, and phase 16 2,000
+# of its 4,000 edits (its card run took 81.9 s at 4,000).  The recovery
+# phase keeps its 16 rounds: at 8 it took 197.9 s, at 16 191.8 s in one run
+# (its time goes to per-doc work over the 10,000 docs, not to rounds).
+# Printed in the ``cuts`` line.
 CUTS = {
-    "tree_fleet": {"n_docs": 512},         # of 1,024 (time_tree_programs' ring too)
-    "tree_rebase": {"fleet_docs": 128},    # of 256
+    "tree_fleet": {"n_docs": 256},         # of 1,024 (time_tree_programs' ring too)
+    "tree_rebase": {"fleet_docs": 64},     # of 256
+    "serving": {"scribe_docs": (32, 32, 32, 4)},  # of (64, 64, 64, 4): strings, trees, maps, matrices
+    "string_client": {"n_edits": 2000},    # of 4,000
 }
 # K11's public programs and the reference lines they replace.
 K11_PROGRAMS = {"rebase_insert_positions": 86, "rebase_node_positions": 111,
@@ -5012,11 +5095,15 @@ def phase_dds_clients(seed: int, card: str, device: str = "cuda") -> tuple:
 # (the hot doc's shard at config-1 geometry, the other at config-3), 4
 # network writers a doc.  The client leg's own size is 2,000 edits; the
 # whole script took 1,186 s of its 1,200 s limit with it on an H100 80GB
-# HBM3 at 700 W (the client leg 64 s), so it runs 1,000 (NET_REDUCED).
+# HBM3 at 700 W (the client leg 64 s), so it runs 1,000 (NET_REDUCED).  The
+# fleet leg's own size is 8 rounds; with phase 19 the script took 1,177 s on
+# a slow host (the fleet leg's submits 24 s of 8 rounds on a faster one), so
+# it runs 4, the hot doc on its lane for the last two (promoted after round
+# 1, where its own size promotes it after round 3 and serves it there for 4).
 NET_CLIENTS = dict(n_edits=1000, reconnect_every=6, summary_ops=400)
-NET_FLEET = dict(n_docs=256, writers=4, rounds=8, ops_per_round=16, hot_ops=64, ins_len=8,
-                 sample=32, promote_after=3, seg_shards=4)
-NET_REDUCED = {"clients": {"n_edits": "1,000 (of 2,000)"}}
+NET_FLEET = dict(n_docs=256, writers=4, rounds=4, ops_per_round=16, hot_ops=64, ins_len=8,
+                 sample=32, promote_after=1, seg_shards=4)
+NET_REDUCED = {"clients": {"n_edits": "1,000 (of 2,000)"}, "fleet": {"rounds": "4 (of 8)"}}
 NET_CAP_S = 150.0
 NET_CLIENT_DOC = "net-client"
 NET_HOT_DOC = "net-hot"
@@ -5567,6 +5654,178 @@ def phase_network(seed: int, card: str, device: str, path=None) -> dict:
     return line
 
 
+# ------------------------------------------------- phase 19: the chaos soak
+
+# The reference's headline soak (``bench.py --config soak``, :2117-2140):
+# ChaosStack's own engine geometry, every fault kind twice, warm standbys,
+# bounded-staleness checkpoint writers; the tree engine on a mesh of 8
+# shards on the card, the plane's documents on the native deli.
+CHAOS_SOAK = dict(seed=10, ticks=240, n_docs=6, n_tree_docs=3, events_per_kind=2,
+                  standby=True, ckpt_stale_seconds=0.25, churn_rate=0.08, tree_shards=8,
+                  native_sequencer=True)
+# The reference's mixed-fleet chaos smoke (tests/test_chaos.py:502): its two
+# migrate events move tree docs, where the soak's (seed 10) both target
+# string docs, which ChaosStack serves unsharded, so they are skip-counted
+# there as in the reference.
+CHAOS_MIGRATE = dict(seed=16, ticks=30, n_docs=2, n_tree_docs=2, standby=True,
+                     ckpt_stale_seconds=0.25, tree_shards=8, native_sequencer=True,
+                     events=[(5, "nack_storm", "cd0", 4), (8, "migrate", "td1", 0),
+                             (12, "fleet_kill", "", 0), (18, "torn_socket", "td0", 0),
+                             (22, "migrate", "td0", 0)])
+CHAOS_TIMEOUT_S = 480
+# The child's code: torch and the card first, so its RSS there is that of a
+# bare CUDA-initialised torch process, then the soak.
+_CHAOS_CHILD = (
+    "import resource, sys, torch\n"
+    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()\n"
+    "rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0\n"
+    "import chip_smoke\n"
+    "chip_smoke._chaos_child_main(rss0)\n"
+)
+
+
+def _chaos_programs() -> dict:
+    from fluidframework_tpu_torch.models import doc_batch_engine as dbe
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    return {"apply_megastep": mk.apply_megastep, "compact": mk.compact,
+            "apply_nested_megastep": tk.apply_nested_megastep,
+            "compact_nested": tk.compact_nested, "scatter_rows": dbe.scatter_rows,
+            "gather_cohort": dbe.gather_cohort, "scatter_cohort": dbe.scatter_cohort}
+
+
+def _chaos_child_main(rss_cuda_init_mb: float) -> None:
+    """Phase 19's process: the soak on the card, then the migration smoke,
+    each a path of its own (the launch counts set to 0 just before it and
+    read just after).  Prints one JSON line."""
+    import resource
+
+    from fluidframework_tpu_torch.native import native_available
+    from fluidframework_tpu_torch.testing.chaos import (
+        ChaosEvent, ChaosSchedule, run_chaos, run_soak,
+    )
+
+    progs = _chaos_programs()
+    out = {"rss_cuda_init_mb": rss_cuda_init_mb, "native_available": native_available()}
+
+    def launches():
+        return {name: fn.launches for name, fn in progs.items()}
+
+    for fn in progs.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    out["soak"] = run_soak(device="cuda", **CHAOS_SOAK)
+    out["soak_s"] = time.perf_counter() - t
+    out["soak_launches"] = launches()
+    out["rss_after_soak_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+    cfg = dict(CHAOS_MIGRATE)
+    schedule = ChaosSchedule(seed=cfg["seed"], events=[
+        ChaosEvent(*e) for e in cfg.pop("events")])
+    for fn in progs.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    rep = run_chaos(schedule=schedule, device="cuda", **cfg)
+    out["migrate_s"] = time.perf_counter() - t
+    out["migrate_launches"] = launches()
+    out["migrate"] = {k: rep[k] for k in ("invariants", "counters", "recovery", "devices",
+                                          "sequencer", "events_by_kind")}
+    out["migrate"]["n_shards"] = rep["tree"]["n_shards"]
+    print(json.dumps(out), flush=True)
+
+
+def phase_chaos(card: str, paths: dict | None = None) -> dict:
+    """Phase 19: the chaos soak over the whole serving stack on the card,
+    in a fresh process (as ``bench.py:2075`` runs it), so no other phase
+    warms the restores its recovery percentiles measure.  Fails unless
+    every invariant held (``run_chaos`` raises otherwise: byte identity
+    of every doc against the reference's fault-free oracles, no double
+    acks, bounded queues, bounded recovery; ``run_soak`` the RSS bound),
+    every fault kind fired, both families promoted a standby at each fleet
+    kill, the engines' state was on the card, the native deli sequenced
+    every document, K2, K3, K7 and K8 launched on the soak, and the
+    migration smoke moved a tree doc between its 8 shards."""
+    import torch
+
+    from fluidframework_tpu_torch.testing.chaos import EVENT_KINDS
+
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _CHAOS_CHILD], cwd=root, capture_output=True, text=True,
+            timeout=CHAOS_TIMEOUT_S,
+            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                p for p in (root, os.environ.get("PYTHONPATH")) if p)},
+        )
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"chaos: the soak's process ran past {CHAOS_TIMEOUT_S} s") from e
+    phase_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"chaos: the soak's process exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    soak, mig = out["soak"], out["migrate"]
+    inv, c, rec = soak["invariants"], soak["counters"], soak["recovery"]
+    fired = {
+        "fleet_kill": c["fleet_restarts"], "torn_socket": c["torn_sockets"],
+        "nack_storm": soak["admission"]["shed_ops"], "scribe_kill": c["scribe_kills"],
+        "scribe_crash": c["scribe_crashes"], "migrate": c["doc_migrations"] + c["migrations_skipped"],
+        "fsync_delay": soak["events_by_kind"].get("fsync_delay", 0),
+    }
+    check(out["native_available"], "chaos: the native sequencer library did not build")
+    check(soak["sequencer"] == ["NativeSequencer"] and mig["sequencer"] == ["NativeSequencer"],
+          f"chaos: documents sequenced by {soak['sequencer']}, {mig['sequencer']}")
+    check(all(d.startswith("cuda") for d in (*soak["devices"].values(), *mig["devices"].values())),
+          f"chaos: engine state on {soak['devices']}, {mig['devices']}")
+    check(inv["converged_docs"] == CHAOS_SOAK["n_docs"]
+          and inv["tree_converged_docs"] == CHAOS_SOAK["n_tree_docs"], f"chaos: {inv}")
+    check(inv["double_acks"] == 0, "chaos: double acks")
+    check(inv["max_queue_depth"] <= inv["queue_depth_bound"]
+          and inv["max_tree_queue_depth"] <= inv["tree_queue_depth_bound"], f"chaos: {inv}")
+    check(set(soak["events_by_kind"]) >= set(EVENT_KINDS)
+          and all(n > 0 for n in fired.values()), f"chaos: faults fired {fired}")
+    check(c["standby_promotions"] == 2 * c["fleet_restarts"],
+          f"chaos: {c['standby_promotions']} promotions for {c['fleet_restarts']} kills of 2 families")
+    bound = inv["recovery_bound_ms"]
+    check(rec["incidents"] >= 1 and rec["tree_incidents"] >= 1
+          and 0 < soak["recovery_p99_ms"] <= bound and 0 < soak["tree_recovery_p99_ms"] <= bound,
+          f"chaos: recovery {rec}")
+    check(soak["soak_rss_mb"] < soak["rss_bound_mb"], "chaos: RSS bound")
+    for prog, what in (("apply_megastep", "K2"), ("compact", "K3"),
+                       ("apply_nested_megastep", "K7"), ("compact_nested", "K8")):
+        check(out["soak_launches"][prog] > 0, f"{what} was never launched on the chaos path")
+    check(mig["counters"]["doc_migrations"] >= 1 and mig["n_shards"] == 8
+          and mig["invariants"]["tree_converged_docs"] == CHAOS_MIGRATE["n_tree_docs"],
+          f"chaos: migration smoke {mig['counters']}, {mig['n_shards']} shards")
+    if paths is not None:
+        for name, key in (("chaos", "soak_launches"), ("chaos_migrate", "migrate_launches")):
+            for prog, n in out[key].items():
+                if prog in paths:
+                    paths[prog][name] = n
+    line = {
+        "phase": "chaos", "card": card, "config": {k: v for k, v in CHAOS_SOAK.items()},
+        "phase_s": phase_s, "soak_s": out["soak_s"], "migrate_s": out["migrate_s"],
+        "duration_s": soak["duration_s"], "ops_sequenced": soak["ops_sequenced"],
+        "ops_per_sec": soak["ops_per_sec"], "p50_ms": soak["p50_ms"], "p99_ms": soak["p99_ms"],
+        **{k: soak[k] for k in ("recovery_p50_ms", "recovery_p99_ms", "tree_recovery_p50_ms",
+                                "tree_recovery_p99_ms", "events_by_kind", "counters",
+                                "admission", "scribe", "invariants", "devices", "sequencer")},
+        "fired": fired, "recovery_intervals_ms": rec["intervals_ms"],
+        "tree_recovery_intervals_ms": rec["tree_intervals_ms"],
+        **{k: soak[k] for k in ("max_rss_mb", "rss_baseline_mb", "soak_rss_mb", "rss_bound_mb")},
+        "rss_cuda_init_mb": out["rss_cuda_init_mb"], "rss_after_soak_mb": out["rss_after_soak_mb"],
+        "native_sequencer": out["native_available"] and soak["sequencer"] == ["NativeSequencer"],
+        "launches": out["soak_launches"],
+        "migrate": {"counters": mig["counters"], "n_shards": mig["n_shards"],
+                    "launches": out["migrate_launches"],
+                    "recovery_p99_ms": mig["recovery"]["recovery_p99_ms"],
+                    "tree_recovery_p99_ms": mig["recovery"]["tree_recovery_p99_ms"]},
+    }
+    emit(line)
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5651,7 +5910,11 @@ def main(argv=None) -> int:
     # a profiler session leaves every later launch dearer on the host.
     emit({"phase": "cuts", "why": "the script's 1,200 s limit (1,286 s uncut on an H100)",
           "reduced": CUTS})
-    finish_string, string_kmt = phase_string_client(args.seed, card, "cuda", path=path)
+    # Phase 19 (the chaos soak) runs first, in a process of its own on a
+    # card no other phase has touched yet.
+    phase_chaos(card, paths)
+    finish_string, string_kmt = phase_string_client(
+        args.seed, card, "cuda", n_edits=CUTS["string_client"]["n_edits"], path=path)
     check_client_paths("string_client", "string_squash")
     # Phase 17 (the DDS clients into the card's programs) runs next, also
     # before any profiler session: its rates are host-bound, and K11's
@@ -5708,7 +5971,8 @@ def main(argv=None) -> int:
     del deep
     mp_line = path("map_lww", phase_map_lww, args.seed, card, "cuda")
     mx_line = path("matrix", phase_matrix, args.seed, card, "cuda")
-    path("serving", phase_serving, args.seed, card, "cuda", traffic, churn)
+    path("serving", phase_serving, args.seed, card, "cuda", traffic, churn,
+         scribe_docs=CUTS["serving"]["scribe_docs"])
     sharded = phase_sharded(args.seed, card, "cuda", traffic, churn, path=path)
     del traffic, churn
     for name in ("hot_doc", "long_doc", "sharded_hot"):

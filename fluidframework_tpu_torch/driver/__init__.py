@@ -1,13 +1,12 @@
 """Driver layer: the service abstraction between loader and ordering service.
 
-A port of ``fluidframework_tpu/driver/__init__.py`` (no JAX in it).
+A port of ``fluidframework_tpu/driver/__init__.py`` (no JAX in it).  The network
+driver is ``driver.network_driver``; the replay, file and fault-injection
+drivers are ``driver.replay_driver`` and ``driver.fault_injection``.
 
 Reference parity: packages/common/driver-definitions (IDocumentServiceFactory
 / IDocumentService / IDocumentDeltaConnection / IDocumentStorageService /
-IDocumentDeltaStorageService) + packages/drivers/local-driver.  The network
-driver is ``driver.network_driver``; the reference's ``virtual_storage``
-names (prefetch, snapshot cache, throttling retry) are not ported (ROADMAP
-queue 1).
+IDocumentDeltaStorageService) + packages/drivers/local-driver.
 """
 
 from .definitions import (
@@ -19,6 +18,14 @@ from .definitions import (
     StorageService,
 )
 from .local_driver import LocalDocumentServiceFactory
+from .virtual_storage import (
+    PrefetchStorageService,
+    SnapshotCache,
+    ThrottlingError,
+    VirtualizedDocumentServiceFactory,
+    VirtualizedStorageService,
+    run_with_retry,
+)
 
 __all__ = [
     "DeltaConnection",
@@ -27,5 +34,11 @@ __all__ = [
     "DocumentServiceFactory",
     "DriverError",
     "LocalDocumentServiceFactory",
+    "PrefetchStorageService",
+    "SnapshotCache",
     "StorageService",
+    "ThrottlingError",
+    "VirtualizedDocumentServiceFactory",
+    "VirtualizedStorageService",
+    "run_with_retry",
 ]

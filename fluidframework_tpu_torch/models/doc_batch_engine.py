@@ -239,8 +239,19 @@ def scatter_cohort(state: mk.DocState, sub: mk.DocState, idx: np.ndarray,
     return state
 
 
+def scatter_rows(state: mk.DocState, slots: list[int], stacked: mk.DocState) -> None:
+    """The parallel restore's scatter (``DocBatchEngine._restore``):
+    host rows stacked [n, ...] (numpy) into the state rows ``slots``, in
+    place — one host-to-device copy and one ``index_copy_`` per state leaf."""
+    count_launch(state.nseg, scatter_rows)
+    idx = torch.tensor(slots, device=state.nseg.device)
+    for x, y in zip(mk.leaves(state), mk.leaves(stacked)):
+        x.index_copy_(0, idx, torch.from_numpy(y).to(x.device))
+
+
 gather_cohort.launches = 0
 scatter_cohort.launches = 0
+scatter_rows.launches = 0
 
 
 # ----------------------------------------------------------------- K4 digest
@@ -2278,8 +2289,8 @@ class DocBatchEngine:
                 self.counters.bump("docs_restored")
         if batch_rows:
             with span("restore_scatter", rows=len(batch_rows)):
-                self._scatter_rows(
-                    [slot for slot, _ in batch_rows],
+                scatter_rows(
+                    self.state, [slot for slot, _ in batch_rows],
                     mk.tree_map(lambda *xs: np.stack(xs), *[r for _, r in batch_rows]),
                 )
         if restored and not refresh:
@@ -2287,14 +2298,6 @@ class DocBatchEngine:
             # the first post-restore op applies.
             self.recovery_tracker.begin(t_start)
         return restored
-
-    def _scatter_rows(self, slots: list[int], stacked: mk.DocState) -> None:
-        """The parallel restore's scatter: host rows stacked [n, ...] (numpy)
-        into the state rows ``slots`` — one host-to-device copy and one
-        ``index_copy_`` per state leaf."""
-        idx = torch.tensor(slots, device=self.device)
-        for x, y in zip(mk.leaves(self.state), mk.leaves(stacked)):
-            x.index_copy_(0, idx, torch.from_numpy(y).to(x.device))
 
     def _lane_state(self, summary: dict, h: _DocHost, geom: dict) -> mk.DocState:
         """A summary packed at ``geom`` as an overflow lane's state."""

@@ -20,19 +20,14 @@ engines' ``ckpt_lock``, where a compiler run would stall every ingest.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
+from . import gxx
+
 SRC = Path(__file__).resolve().parent / "ingest.cpp"
-BUILD_DIR = _PKG / "_build"
-CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 OP_FIELDS = 8
 
@@ -42,36 +37,7 @@ _warmed: list = []
 
 def library_path() -> Path:
     """Build output keyed by the content hash of the source and flags."""
-    h = hashlib.sha256(SRC.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libtpuingest-{h.hexdigest()[:16]}.so"
-
-
-def _build(lib: Path) -> None:
-    """One g++ run into a temporary file renamed into place, so processes
-    building at once (test workers) never load a half-written library.  A failure
-    prints the compiler's output on stderr."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            ["g++", *CXX_FLAGS, "-o", tmp, str(SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            print(
-                f"native ingest: g++ failed (exit {proc.returncode}):\n"
-                f"{proc.stderr}",
-                file=sys.stderr,
-            )
-            return
-        os.replace(tmp, lib)
-    except OSError as e:
-        print(f"native ingest: g++ could not run: {e}", file=sys.stderr)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    return gxx.library_path(SRC, "libtpuingest")
 
 
 def warm() -> bool:
@@ -83,7 +49,7 @@ def warm() -> bool:
     _warmed.append(True)
     lib = library_path()
     if not lib.exists():
-        _build(lib)
+        gxx.build(SRC, lib, "native ingest")
     _lib_cache[:] = [_try_load(lib) if lib.exists() else None]
     return _lib_cache[0] is not None
 

@@ -1,11 +1,11 @@
 """The port's network service plane against the JAX package's, exact.
 
-- Every case of the reference's ``tests/test_fanout.py`` but the one that
-  drives the broadcaster lambda (``server/lambdas.py``, not ported): the
-  plane's encode-once publish and drain, drop-and-resync byte identity, the boot marker, the historian's
-  HTTP caching contract, presence, the firehose over TCP, the fleet
-  consumer's snapshot-boot resync and its refusal, the driver's boot
-  listener) runs in both packages through ``torch_twins``.  The port's
+- Every case of the reference's ``tests/test_fanout.py`` (the plane's
+  encode-once publish and drain, the broadcaster lambda's shared frames,
+  drop-and-resync byte identity, the boot marker, the historian's HTTP
+  caching contract, presence, the firehose over TCP, the fleet consumer's
+  snapshot-boot resync and its refusal, the driver's boot listener) runs
+  in both packages through ``torch_twins``.  The port's
   copy builds its ``DocBatchEngine`` on the CPU (``device="cpu"``).
 - Both cases of ``tests/test_network_service.py`` run each package's own
   netserver as a subprocess (``python -m <package>.server.netserver``)
@@ -95,11 +95,8 @@ def server_proc(root: str):
             proc.wait(timeout=10)
 
 
-# The reference's broadcaster-lambda case drives ``server/lambdas.py``,
-# which the port does not have yet (ROADMAP queue 1).
-BROADCASTER = "test_broadcaster_frames_encode_once_shared"
 FANOUT = twins.cases(
-    "test_fanout.py", skip=(BROADCASTER,),
+    "test_fanout.py",
     fixtures={"historian_store": {"store": historian_store}, "tmp_path": {"tmp": tmp_dir}},
     subs=(('recovery="off", doc_keys=["d0"],', 'recovery="off", doc_keys=["d0"], device="cpu",'),),
 )
@@ -109,7 +106,7 @@ ARRIVAL_ORDER = "network_service::test_cross_process_concurrent_edits[proc]"
 
 def test_every_reference_case_is_twinned():
     ids = [c[0] for c in FANOUT + NETWORK]
-    assert len(ids) == len(set(ids)) == 15 + 2, len(ids)
+    assert len(ids) == len(set(ids)) == 16 + 2, len(ids)
     assert ARRIVAL_ORDER in ids
 
 

@@ -44,7 +44,9 @@ _BLOCKER = textwrap.dedent(
 # Modules the blocker must reach by name (the walk finds every module; these
 # pin that the wire-ingest, observability and serving layers, the
 # SharedString client path, the tree, matrix and map channels with the
-# flat forest, and the loader, drivers and network service plane are among
+# flat forest, the loader, drivers and network service plane, and the
+# lambda pipeline with the native sequencer, the fault, replay and
+# virtual-storage drivers, the fuzz harness and the chaos soak are among
 # them).
 _REQUIRED = {
     "fluidframework_tpu_torch.server.scribe",
@@ -111,6 +113,15 @@ _REQUIRED = {
     "fluidframework_tpu_torch.fanout.historian",
     "fluidframework_tpu_torch.testing.network_env",
     "fluidframework_tpu_torch.framework.presence",
+    "fluidframework_tpu_torch.native.sequencer_native",
+    "fluidframework_tpu_torch.native.gxx",
+    "fluidframework_tpu_torch.server.lambdas",
+    "fluidframework_tpu_torch.server.partition_manager",
+    "fluidframework_tpu_torch.driver.fault_injection",
+    "fluidframework_tpu_torch.driver.replay_driver",
+    "fluidframework_tpu_torch.driver.virtual_storage",
+    "fluidframework_tpu_torch.testing.fuzz",
+    "fluidframework_tpu_torch.testing.chaos",
 }
 
 
@@ -161,15 +172,17 @@ def test_entry_points_refuse_a_silent_cpu():
 
 
 def test_serving_entry_points_refuse_a_silent_cpu(tmp_path):
-    """The scribe, its kernel-backed replicas and ``fleet_main`` default to
-    the card as well, and say how to ask for the CPU."""
+    """The scribe, its pool, its kernel-backed replicas and ``fleet_main``
+    default to the card as well, and say how to ask for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device is usable")
     from fluidframework_tpu_torch.server import scribe
     from fluidframework_tpu_torch.server.fleet_main import main
     from fluidframework_tpu_torch.server.ordered_log import Topic
+    from fluidframework_tpu_torch.server.partition_manager import ScribePool
 
     for call in (lambda: scribe.ScribeLambda(Topic("t"), str(tmp_path)),
+                 lambda: ScribePool(Topic("t"), str(tmp_path)),
                  lambda: scribe._MapDocScribe(), lambda: scribe._MatrixDocScribe(),
                  lambda: main(["--port", "1", "--docs", "a"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):

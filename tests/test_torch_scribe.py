@@ -38,46 +38,9 @@ from fluidframework_tpu_torch.runtime import summary as port_summary
 from fluidframework_tpu_torch.server import gitstore as port_git
 from fluidframework_tpu_torch.server import ordered_log as port_log
 from fluidframework_tpu_torch.server import scribe as port_scribe
+from fluidframework_tpu_torch.server.partition_manager import ScribePool as PortPool
 
 from test_tree_batch_engine import drive_tree_docs
-
-
-class _PortPool:
-    """The reference's ``partition_manager.ScribePool`` over the port's
-    scribe (the pool itself is a test harness here): members share one
-    consumer group, one object store and one ``refs.json``."""
-
-    def __init__(self, topic, directory, config=None):
-        os.makedirs(directory, exist_ok=True)
-        self.topic, self.directory, self.config = topic, directory, config
-        self.store = port_git.GitStore(os.path.join(directory, "objects"))
-        self.group = port_log.ConsumerGroup(topic, "scribe", directory)
-        self.members = {}
-
-    def add_member(self, member_id):
-        m = self.members[member_id] = port_scribe.ScribeLambda(
-            self.topic, self.directory, config=self.config, member_id=member_id,
-            store=self.store, group=self.group, device="cpu",
-        )
-        return m
-
-    def kill_member(self, member_id):
-        self.members.pop(member_id)
-        self.group.leave(member_id)
-
-    def pump(self):
-        return sum(m.pump() for m in list(self.members.values()))
-
-    def compact(self):
-        lead = next(iter(self.members.values()))
-        with open(os.path.join(self.directory, "refs.json")) as f:
-            for doc, ref in json.load(f).items():
-                if doc not in lead.refs and doc not in lead._dropped_refs:
-                    lead.refs[doc] = dict(ref)
-        return lead.compact()
-
-    def close(self):
-        self.store.close()
 
 
 REF = SimpleNamespace(
@@ -92,7 +55,7 @@ PORT = SimpleNamespace(
     name="port", Msg=PortMsg, log=port_log, scribe=port_scribe,
     parse_ack=port_summary.parse_scribe_ack,
     make=lambda topic, d, **kw: port_scribe.ScribeLambda(topic, d, device="cpu", **kw),
-    pool=lambda topic, d, config: _PortPool(topic, d, config),
+    pool=lambda topic, d, config: PortPool(topic, d, config=config, device="cpu"),
     map_doc=lambda **kw: port_scribe._MapDocScribe(device="cpu", **kw),
     matrix_doc=lambda **kw: port_scribe._MatrixDocScribe(device="cpu", **kw),
 )
