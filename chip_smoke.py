@@ -288,12 +288,47 @@ runs these phases on the card, one JSON line each:
     process (the child's, before the port loads) and the bound, the
     launches of K2, K3, K7, K8, the restore scatter and the cohort gather
     and scatter on each path, and whether the native deli served.
+20. ``native_plane``: the native dispatch plane
+    (``parallel/native_plane.py``: the fleet megastep and compact as the
+    host C++ row loops of ``native/megastep.cpp``, built with g++), right
+    after phase 18, before any profiler session.  (a) On phase 6's state
+    and ring ([8, 10,000, 16] at config 3, made here and handed to phase 6):
+    K2 on the card and the native megastep (columns copied out of the
+    card, stepped on the host, copied back) give every raw column, padding
+    remnants included, and the error latch byte for byte; so do K3 and the
+    native compact over the 10,000 docs.  The line carries K2's and K3's
+    call times (CUDA events) beside the native loop's host time and the
+    two copies.  (b) In a fresh process whose
+    ``FFTPU_TORCH_DISPATCH_PLANE`` names the native plane: the fleet's
+    traffic for its first 256 docs and 4 rounds into a 1,024-doc
+    ``DocBatchEngine(device="cuda", use_mesh=False)`` on each plane (cohort
+    steps: the cohort gather and scatter and K4 on the card, the fleet
+    programs on the host on the native plane): equal raw state and texts,
+    no K2 or K3 launched on the native plane; checkpoints written on one
+    plane restore on the other, both ways; a seg-shard request on the
+    native plane leaves ``seg_plane_unsupported`` = 1.  Ops/s on each plane.
+21. ``loadgen``: the loadgen traffic plant (``loadgen/``) at ``bench.py
+    --config loadgen``'s size (seed 17, 6 workers on a host with 8 CPUs or
+    more, else 4; 2 shards; ramp 8, steady 24, boots 6; the default doc
+    matrix: 2 string, 1 tree, 1 map, 1 matrix and 1 channel-string doc),
+    right after phase 19 and, like it, in a process of its own:
+    ``run_loadgen(device="cuda")`` spawns 2 netserver shards, three
+    ``fleet_main --device cuda`` processes (the string and tree fleets) and
+    the worker OS processes, which run their phases over real TCP.  Fails
+    unless the verdict is byte-identical for every family, no summary was
+    double-acked, no foreign presence arrived, the historian served 304s,
+    every fleet's engine state was on the card and launched its fleet
+    programs (K2 and K3, or K7 and K8: the final drain line's ``launches``;
+    a drained fleet compacts before its final checkpoint) and no worker
+    initialised CUDA.  The line carries ramp, steady and boot-storm p50 and
+    p99, ops sequenced and a row per fleet.
 
-The fleet's traffic is made once, before phase 2, and shared by phases
-2, 3, 6, 14 and 15 (a ``traffic`` line gives its generation time); each tree
+The fleet's traffic is made once, after phase 18, and shared by phases
+2, 3, 6, 14, 15 and 20 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
-7-9b, 11-15, 18 and 19 are the port's main path (phase 19's counts are
-taken in its own process): the launch counters of K1, of the
+7-9b, 11-15 and 18-21 are the port's main path (the counts of phases 19
+and 20(b) are taken in their own processes, phase 21's in its fleets'
+processes): the launch counters of K1, of the
 fleet programs, of K7 and K8, of K9, of the map and matrix programs and of
 the cohort gather and scatter are set to 0 just before each of them and
 read just after, and a path
@@ -318,11 +353,13 @@ fleet's shape; K6 at 4 shards; the cohort gather and scatter; the one-doc
 limit, and, last, the
 ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
-CUDA card, or a directory without the port.  ``main`` runs four phases
-below the sizes above (``CUTS``: tree_fleet at 256 docs, so
-``time_tree_programs`` holds K7 and K8 on a 256-doc ring, tree_rebase at
-64 fleet docs, the serving phase's scribe at 32 string, tree and map docs
-of 64, and phase 16 at 2,000 of its 4,000 edits) to stay inside the
+CUDA card, or a directory without the port.  ``main`` runs six phases
+below the sizes above (``CUTS``: the recovery phase at the traffic's
+first 5,000 docs, tree_fleet at 256 docs, so
+``time_tree_programs`` holds K7 and K8 on a 256-doc ring and times K7's
+routes at 2 of their 4 shares, tree_rebase at 32 fleet docs, the serving
+phase's scribe at 32 string, tree and map docs of 64, and phase 16 at
+2,000 of its 4,000 edits) to stay inside the
 script's 1,200 s limit; its ``cuts`` line, printed first, lists them, and
 every phase line carries ``script_s``, the script's seconds so far.
 """
@@ -1102,6 +1139,9 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
     geom = dict(geom, recovery="grow")
     joins, rounds_msgs = traffic
     check(len(rounds_msgs) >= rounds + 2, f"recovery: traffic holds {len(rounds_msgs)} rounds")
+    # The first ``n_docs`` docs of the traffic (all of them uncut).
+    joins = [(d, m) for d, m in joins if d < n_docs]
+    rounds_msgs = [[(d, m) for d, m in rnd if d < n_docs] for rnd in rounds_msgs]
     t0 = time.perf_counter()
     plan, faults = fault_traffic(n_docs, rounds, 2, geom, seed)
     gen_s = time.perf_counter() - t0
@@ -1492,27 +1532,15 @@ def leaf_max_err(got, want, n: int | None = None) -> int:
                for g, w in zip(got, want))
 
 
-def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
-                         geom: dict = FLEET_GEOM, hot_S: int = 16_384,
-                         hot_T: int = 131_072, hot_rounds: int = 96,
-                         cmp_docs: int = 256) -> dict:
-    """K2 (``apply_megastep``), K3 (``set_min_seq`` + ``compact``) and K6
-    (``apply_megastep_seg``, ``compact_seg``) timed alone on the card.
-
-    K2 and K3 run at the fleet phase's geometry on the state and ring of
-    its second megastep: an engine takes rounds 0-7 of ``traffic`` and
-    steps and compacts, then rounds 8-15 are drained into one K=8 ring.
-    The card's K2 and K3 outputs on the first ``cmp_docs`` rows (the Zipf
-    head among them) must equal the same programs run on CPU copies of
-    those rows' state and ring.  K6 runs at the hot document's geometry
-    on the state after half of its trace, with the next K x B chunk.  Each
-    is printed beside its bytes bound (state read and written once, plus
-    the ring)."""
+def fleet_ring(traffic, n_docs: int = 10_000, geom: dict = FLEET_GEOM) -> dict:
+    """The state and ring of the fleet phase's second megastep on the card:
+    an engine takes rounds 0-7 of ``traffic`` and steps and compacts, then
+    rounds 8-15 are drained into one K=8 ring.  Returns the state, the
+    ring on the card (``ops``, ``pays``), its host kinds, ``K``, every
+    doc's MSN floor (``mins``) and the doc count."""
     import torch
 
-    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine, _fleet_compact_body
-    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
-    from fluidframework_tpu_torch.parallel import mesh as pm
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
 
     joins, rounds_msgs = traffic
     eng = DocBatchEngine(n_docs, device="cuda", **dict(geom, recovery="off"))
@@ -1536,11 +1564,42 @@ def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
         busy = [d for d in busy if d in eng._busy]
     kinds = ops[..., 0].copy()
     dev_ops, dev_pays = stage.upload(ops, pays)
-    state = eng.state
+    mins = torch.as_tensor([h.min_seq for h in eng.hosts], dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    return {"state": eng.state, "ops": dev_ops, "pays": dev_pays,
+            "kinds": kinds, "K": K, "mins": mins, "n_docs": n_docs}
+
+
+def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
+                         geom: dict = FLEET_GEOM, hot_S: int = 16_384,
+                         hot_T: int = 131_072, hot_rounds: int = 96,
+                         cmp_docs: int = 256, ring: dict | None = None) -> dict:
+    """K2 (``apply_megastep``), K3 (``set_min_seq`` + ``compact``) and K6
+    (``apply_megastep_seg``, ``compact_seg``) timed alone on the card.
+
+    K2 and K3 run at the fleet phase's geometry on the state and ring of
+    its second megastep (``fleet_ring``; ``ring``, when given, is the one
+    phase 20 built from the same traffic).  The card's K2 and K3 outputs
+    on the first ``cmp_docs`` rows (the Zipf
+    head among them) must equal the same programs run on CPU copies of
+    those rows' state and ring.  K6 runs at the hot document's geometry
+    on the state after half of its trace, with the next K x B chunk.  Each
+    is printed beside its bytes bound (state read and written once, plus
+    the ring)."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import _fleet_compact_body
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.parallel import mesh as pm
+
+    if ring is None:
+        ring = fleet_ring(traffic, n_docs, geom)
+    state, dev_ops, dev_pays = ring["state"], ring["ops"], ring["pays"]
+    kinds, K, mins = ring["kinds"], ring["K"], ring["mins"]
+    del ring
     torch.cuda.synchronize()
     k2 = time_program(lambda: mk.apply_megastep(state, dev_ops, dev_pays, kinds=kinds), 2, 1)
     after = mk.apply_megastep(state, dev_ops, dev_pays, kinds=kinds)
-    mins = torch.as_tensor([h.min_seq for h in eng.hosts], dtype=torch.int32, device="cuda")
     k3 = time_program(lambda: _fleet_compact_body(after, mins), 5)
     n = min(cmp_docs, n_docs)
     cpu_s = mk.tree_map(lambda x: x[:n].cpu(), state)
@@ -1554,7 +1613,7 @@ def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
     check(err3 == 0, f"K3 on the card differs from the CPU by {err3}")
     k2_bytes, k2_bound = state_bound(mk.leaves(state), (dev_ops, dev_pays))
     k3_bytes, k3_bound = state_bound(mk.leaves(state), (mins,))
-    del eng, state, after, cpu_s, want2, cpu_after
+    del state, after, cpu_s, want2, cpu_after
 
     L, Kh, B = 8, 8, 16
     h_ops, h_pays, h_refs = four_writer_trace(seed, hot_rounds, L)
@@ -4490,11 +4549,24 @@ DDS_CAP_S = 150.0
 # against 32.6-34.9 s at 64), tree_rebase 64 fleet docs, and phase 16 2,000
 # of its 4,000 edits (its card run took 81.9 s at 4,000).  The recovery
 # phase keeps its 16 rounds: at 8 it took 197.9 s, at 16 191.8 s in one run
-# (its time goes to per-doc work over the 10,000 docs, not to rounds).
+# (its time goes to per-doc work over the 10,000 docs, not to rounds; again
+# with phases 20 and 21 on an H100: 154.9 s at 8 rounds, run first, and
+# 146.9 s at 16 in the same process).  Phases 20 and 21 add about 60 s (24.7
+# s, its ring 4.2 s, and 35.6 s alone on the card), so tree_rebase runs 32
+# fleet docs (41.1 s of timed parts at 64, 72.0 s at 128: about 0.48 s a
+# doc) and tree_programs times K7's two routes at 2 of its 4 shares (each
+# share is 4 timed turns with a profiler session each).  With those the
+# script took 1,040.1 s on an H100 whose host ran the fleet turns 50% slower
+# than the 914.1 s run's, so the recovery phase runs the traffic's first
+# 5,000 of its 10,000 docs: of its 185.3 s there, 140.3 s were per-doc parts
+# over the 10,000 (rounds 55.6, checkpoint and restore 46.6, the
+# restored-doc check 21.1, the rounds after the restore 17.0: ``parts_s``).
 # Printed in the ``cuts`` line.
 CUTS = {
+    "recovery": {"n_docs": 5000},          # of 10,000
     "tree_fleet": {"n_docs": 256},         # of 1,024 (time_tree_programs' ring too)
-    "tree_rebase": {"fleet_docs": 64},     # of 256
+    "tree_rebase": {"fleet_docs": 32},     # of 256
+    "tree_programs": {"shares": (1 / 16, 1)},  # of (1/16, 1/4, 1/2, 1)
     "serving": {"scribe_docs": (32, 32, 32, 4)},  # of (64, 64, 64, 4): strings, trees, maps, matrices
     "string_client": {"n_edits": 2000},    # of 4,000
 }
@@ -5826,6 +5898,355 @@ def phase_chaos(card: str, paths: dict | None = None) -> dict:
     return line
 
 
+# ------------------------------------------------- phase 20: native plane
+
+NATIVE_PLANE = "fluidframework_tpu_torch.parallel.native_plane"
+# Phase 20(b): the fleet's traffic for its first 256 docs and 4 rounds into an
+# engine of 1,024 docs on each plane: a busy quarter of the fleet, so every
+# step is a cohort step (the cohort gather and scatter and K4 on the card).
+NATIVE_ENGINE = dict(n_docs=1024, fed_docs=256, rounds=4, watchdog_every=2)
+NATIVE_TIMEOUT_S = 300
+# The child's code: the plane comes from FFTPU_TORCH_DISPATCH_PLANE, set by
+# the parent, so the engines' first dispatch_plane() resolves it.
+_NATIVE_CHILD = (
+    "import sys, torch\n"
+    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()\n"
+    "import chip_smoke\n"
+    "chip_smoke._native_child_main(sys.argv[1])\n"
+)
+
+
+def _leaves_diff(a, b) -> int:
+    """The largest absolute difference over every raw column of two
+    states (tensors on the card), 0 when they are equal byte for byte."""
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    err = 0
+    for x, y in zip(mk.leaves(a), mk.leaves(b)):
+        check(x.shape == y.shape and x.dtype == y.dtype, "native plane: leaf shapes differ")
+        if not x.equal(y):
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return err
+
+
+def _native_child_main(path: str) -> None:
+    """Phase 20(b)'s process: the same traffic into a ``DocBatchEngine`` on
+    the plane ``FFTPU_TORCH_DISPATCH_PLANE`` selected (the native one) and
+    one on the torch plane, both with ``device="cuda"``; checkpoints
+    restored across the planes both ways; a seg-shard request on the
+    native plane.  Prints one JSON line."""
+    import importlib
+
+    import torch
+
+    from fluidframework_tpu_torch.models import dispatch
+    from fluidframework_tpu_torch.models.doc_batch_engine import (
+        DocBatchEngine, gather_cohort, scatter_cohort,
+    )
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.protocol.messages import SequencedMessage
+    from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
+
+    with open(path) as f:
+        data = json.load(f)
+    n_docs, fed, geom = data["n_docs"], data["fed_docs"], data["geom"]
+    joins = [(d, SequencedMessage.from_json(m)) for d, m in data["joins"]]
+    rounds = [[(d, SequencedMessage.from_json(m)) for d, m in rnd] for rnd in data["rounds"]]
+    native = dispatch.dispatch_plane()
+    out = {"selected_plane": native.__name__,
+           "env": os.environ.get(dispatch.PROVIDER_ENV)}
+    check(native.__name__ == NATIVE_PLANE, f"native_plane: the variable selected {native.__name__}")
+    torch_plane = importlib.import_module("fluidframework_tpu_torch.parallel.mesh")
+    progs = {"apply_megastep": mk.apply_megastep, "compact": mk.compact,
+             "gather_cohort": gather_cohort, "scatter_cohort": scatter_cohort}
+    work = tempfile.mkdtemp(prefix="native_plane_")
+
+    def make(plane, ckpt: str):
+        dispatch.register_dispatch_plane(plane)
+        return DocBatchEngine(n_docs, device="cuda", use_mesh=False,
+                              checkpoint_store=CheckpointStore(ckpt),
+                              watchdog_every=NATIVE_ENGINE["watchdog_every"], **geom)
+
+    def run(plane, name: str):
+        eng = make(plane, os.path.join(work, name))
+        for fn in progs.values():
+            fn.launches = 0
+        for d, m in joins:
+            eng.ingest(d, m)
+        ops = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for msgs in rounds:
+            eng.ingest_batch([d for d, _ in msgs], [m for _, m in msgs])
+            eng.step()
+            eng.compact()
+            ops += len(msgs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(not eng.errors().any(), f"native_plane: error bits on the {name} plane")
+        out[name] = {"ops": ops, "wall_s": wall, "ops_per_s": ops / wall,
+                     "launches": {k: fn.launches for k, fn in progs.items()},
+                     "device": str(eng.state.nseg.device),
+                     "full_steps": eng.full_steps, "cohort_steps": eng.cohort_steps,
+                     "health": {k: eng.health().get(k, 0) for k in (
+                         "megastep_dispatches", "watchdog_checks")}}
+        return eng
+
+    eng_n = run(native, "native")
+    eng_t = run(torch_plane, "torch")
+    out["engine_max_abs_err"] = _leaves_diff(eng_n.state, eng_t.state)
+    texts = [eng_t.text(d) for d in range(n_docs)]
+    check([eng_n.text(d) for d in range(n_docs)] == texts, "native_plane: texts differ")
+    check(out["engine_max_abs_err"] == 0, "native_plane: the two planes' states differ")
+    check(out["native"]["launches"]["apply_megastep"] == 0
+          and out["native"]["launches"]["compact"] == 0,
+          f"native_plane: K2/K3 launched on the native plane {out['native']['launches']}")
+    check(out["native"]["cohort_steps"] > 0
+          and out["native"]["launches"]["gather_cohort"] > 0,
+          "native_plane: the cohort programs never ran on the card")
+    check(all(out[p]["device"].startswith("cuda") for p in ("native", "torch")),
+          "native_plane: engine state off the card")
+
+    restores = {}
+    for src, eng, reader, name in ((os.path.join(work, "native"), eng_n, torch_plane,
+                                    "native-to-torch"),
+                                   (os.path.join(work, "torch"), eng_t, native,
+                                    "torch-to-native")):
+        eng.maybe_checkpoint(force=True)
+        t = time.perf_counter()
+        back = make(reader, src)
+        restored = sorted(back.restore_from_checkpoints())
+        with _host_views(eng, back):
+            same = sum(_docs_equivalent(eng, d, back, d) for d in range(n_docs))
+        restores[name] = {"docs": len(restored), "equivalent": same,
+                          "s": time.perf_counter() - t}
+        check(restored == list(range(fed)) and same == n_docs,
+              f"native_plane: {name} restore {restores[name]}")
+        del back
+    out["restores"] = restores
+
+    dispatch.register_dispatch_plane(native)
+    seg = DocBatchEngine(8, device="cuda", seg_shards=2, max_segments=64, text_capacity=512)
+    out["seg_plane_unsupported"] = seg.health().get("seg_plane_unsupported", 0)
+    out["seg_shards_after"] = seg.seg_shards
+    check(out["seg_plane_unsupported"] == 1 and seg.seg_shards == 1,
+          f"native_plane: seg request {out['seg_plane_unsupported']}, {seg.seg_shards}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+
+
+def phase_native_plane(card: str, traffic, ring: dict, paths: dict | None = None) -> dict:
+    """Phase 20: the native dispatch plane (``parallel/native_plane.py``
+    over ``native/megastep.cpp``, host C++ built with g++) against the
+    card's fleet programs.  (a) On ``fleet_ring``'s state and ring
+    ([8, 10,000, 16] at config 3): K2 on the card and the native megastep
+    (its columns copied out of the card, stepped on the host, copied back)
+    must give every raw column and the error latch byte for byte, and so
+    must K3 and the native compact over the 10,000 docs; K2's call time,
+    the native loop's host time and the two copies.  (b) In a fresh
+    process whose ``FFTPU_TORCH_DISPATCH_PLANE`` names the native plane:
+    the fleet's traffic for its first 256 docs and 4 rounds through a
+    1,024-doc engine on each plane (``device="cuda"``, cohort steps):
+    equal raw state and texts, no K2 or K3 on the native plane (the cohort
+    programs and K4 on the card), checkpoints restored across the planes
+    both ways, and a seg-shard request downgraded with
+    ``seg_plane_unsupported`` = 1."""
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import _fleet_compact_body
+    from fluidframework_tpu_torch.native import megastep_native as mn
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    t0 = time.perf_counter()
+    check(mn.available(), "native_plane: libtpumegastep did not build")
+    state, dev_ops, dev_pays = ring["state"], ring["ops"], ring["pays"]
+    kinds, mins = ring["kinds"], ring["mins"]
+    n_ops = int((kinds != 0).sum())
+    torch.cuda.synchronize()
+    k2_ms = cuda_ms(lambda: mk.apply_megastep(state, dev_ops, dev_pays, kinds=kinds), 2, warmup=1)
+    after = mk.apply_megastep(state, dev_ops, dev_pays, kinds=kinds)
+    torch.cuda.synchronize()
+
+    def native(st, fn, *args):
+        """One native dispatch in its three parts, each timed on the host
+        clock (the copies end synchronised)."""
+        t = time.perf_counter()
+        cols = mn.state_columns(st)
+        host_args = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
+        t_out = time.perf_counter()
+        fn(cols, *host_args)
+        t_loop = time.perf_counter()
+        got = mn.unpack_columns(st, cols)
+        torch.cuda.synchronize()
+        t_in = time.perf_counter()
+        return got, {"copy_out_ms": (t_out - t) * 1e3, "loop_ms": (t_loop - t_out) * 1e3,
+                     "copy_in_ms": (t_in - t_loop) * 1e3, "total_ms": (t_in - t) * 1e3}
+
+    nat_after, mega = native(state, mn.run_megastep, dev_ops, dev_pays)
+    err2 = _leaves_diff(nat_after, after)
+    check(err2 == 0, f"native_plane: the native megastep differs from K2 by {err2}")
+    check(int(torch.count_nonzero(nat_after.error)) == int(torch.count_nonzero(after.error)),
+          "native_plane: error latches differ")
+    del nat_after
+    k3_ms = cuda_ms(lambda: _fleet_compact_body(after, mins), 3, warmup=1)
+    k3_after = _fleet_compact_body(after, mins)
+    nat_compact, comp = native(after, mn.run_compact, mins)
+    err3 = _leaves_diff(nat_compact, k3_after)
+    check(err3 == 0, f"native_plane: the native compact differs from K3 by {err3}")
+    state_bytes = nbytes_of(mk.leaves(state))
+    del nat_compact, k3_after, after
+    part_a_s = time.perf_counter() - t0
+
+    # (b) a fresh process selecting the plane through the variable.
+    t1 = time.perf_counter()
+    joins, rounds_msgs = traffic
+    fed = NATIVE_ENGINE["fed_docs"]
+    payload = {
+        "n_docs": NATIVE_ENGINE["n_docs"], "fed_docs": fed, "geom": FLEET_GEOM,
+        "joins": [(d, m.to_json()) for d, m in joins if d < fed],
+        "rounds": [[(d, m.to_json()) for d, m in rnd if d < fed]
+                   for rnd in rounds_msgs[:NATIVE_ENGINE["rounds"]]],
+    }
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump(payload, f)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _NATIVE_CHILD, f.name], cwd=root, capture_output=True,
+            text=True, timeout=NATIVE_TIMEOUT_S,
+            env={**os.environ, "FFTPU_TORCH_DISPATCH_PLANE": NATIVE_PLANE,
+                 "PYTHONPATH": os.pathsep.join(
+                     p for p in (root, os.environ.get("PYTHONPATH")) if p)},
+        )
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"native_plane: the engine process ran past {NATIVE_TIMEOUT_S} s") from e
+    finally:
+        os.unlink(f.name)
+    check(proc.returncode == 0,
+          f"native_plane: the engine process exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if paths is not None:  # the native-plane engine's launches, in its process
+        for prog, n in child["native"]["launches"].items():
+            paths[prog]["native_plane"] = n
+    line = {
+        "phase": "native_plane", "card": card,
+        "ring": {"shape": [ring["K"], ring["n_docs"], FLEET_GEOM["ops_per_step"]],
+                 "ops": n_ops, "state_bytes": state_bytes},
+        "k2_call_ms": k2_ms, "native_megastep": mega, "megastep_max_abs_err": err2,
+        "k3_call_ms": k3_ms, "native_compact": comp, "compact_max_abs_err": err3,
+        "native_loop_ops_per_s": n_ops / (mega["loop_ms"] / 1e3),
+        "part_a_s": part_a_s, "part_b_s": time.perf_counter() - t1,
+        "engine": child, "phase_s": time.perf_counter() - t0,
+    }
+    emit(line)
+    return line
+
+
+# ------------------------------------------------------ phase 21: loadgen
+
+# bench.py --config loadgen's size (bench.py:2423-2430): seed 17, 6 workers
+# on a host with 8 CPUs or more (else 4), 2 shards, ramp 8, steady 24,
+# boots 6, the default doc matrix (string 2, tree 1, map 1, matrix 1,
+# chan_string 1): three fleet processes on the card.
+LOADGEN = dict(seed=17, n_shards=2, ramp_ops=8, steady_ops=24, boots=6, deadline_s=600.0)
+LOADGEN_TIMEOUT_S = 660
+_LOADGEN_CHILD = "import chip_smoke\nchip_smoke._loadgen_child_main()\n"
+
+
+def _loadgen_child_main() -> None:
+    """Phase 21's process: ``run_loadgen`` at the bench's loadgen size with
+    the fleets (and the coordinator's scribe pool) on the card.  Prints
+    one JSON line; on a failure, the tails of the plant's stderr files."""
+    from fluidframework_tpu_torch.loadgen.coordinator import run_loadgen
+
+    n_cpus = os.cpu_count() or 1
+    n_workers = 6 if n_cpus >= 8 else 4
+    workdir = tempfile.mkdtemp(prefix="loadgen_")
+    t = time.perf_counter()
+    try:
+        rep = run_loadgen(workdir, n_workers=n_workers, device="cuda", **LOADGEN)
+    except BaseException:
+        for name in sorted(os.listdir(workdir)):
+            if name.endswith(".err"):
+                with open(os.path.join(workdir, name)) as f:
+                    tail = f.read()[-1500:]
+                if tail.strip():
+                    print(f"--- {name}\n{tail}", file=sys.stderr)
+        raise
+    wall = time.perf_counter() - t
+    shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"report": rep, "wall_s": wall, "cpus": n_cpus,
+                      "n_workers": n_workers}), flush=True)
+
+
+def phase_loadgen(card: str, paths: dict | None = None) -> dict:
+    """Phase 21: the loadgen traffic plant (``loadgen/``) in a process of
+    its own: 2 netserver shards, the string and tree fleets
+    (``fleet_main --device cuda``) behind ``FleetConsumer``, worker OS
+    processes over real TCP across five channel families, through ramp,
+    steady, boot storm and drain.  Fails unless the verdict is
+    byte-identical for every family, no summary was double-acked, no
+    foreign presence arrived, the historian served 304s, every fleet's
+    state was on the card and launched its fleet programs (K2 and K3, or
+    K7 and K8), and no worker initialised CUDA."""
+    from fluidframework_tpu_torch.loadgen.coordinator import DEFAULT_DOC_MATRIX
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _LOADGEN_CHILD], cwd=root, capture_output=True, text=True,
+            timeout=LOADGEN_TIMEOUT_S,
+            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                p for p in (root, os.environ.get("PYTHONPATH")) if p)},
+        )
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"loadgen: the plant's process ran past {LOADGEN_TIMEOUT_S} s") from e
+    phase_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"loadgen: the plant's process exited {proc.returncode}:\n{proc.stderr[-6000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    rep = out["report"]
+    conv = rep["convergence"]
+    check(conv["verdict"] == "byte-identical" and conv["converged_docs"] == DEFAULT_DOC_MATRIX,
+          f"loadgen: convergence {conv}")
+    check(rep["scribe"]["double_acks"] == 0, "loadgen: double acks")
+    check(rep["presence"]["foreign"] == 0 and rep["presence"]["fanout_scope_drops"] > 0,
+          f"loadgen: presence {rep['presence']}")
+    check(rep["boot_storm"]["historian"]["not_modified_304"] > 0,
+          f"loadgen: historian {rep['boot_storm']['historian']}")
+    programs = {"string": ("apply_megastep", "compact"),
+                "tree": ("apply_nested_megastep", "compact_nested")}
+    fleets = rep["server"]["fleets"]
+    check(len(fleets) == 3, f"loadgen: {len(fleets)} fleet processes")
+    for fl in fleets:
+        check(str(fl["device"]).startswith("cuda"), f"loadgen: a fleet on {fl['device']}")
+        for prog in programs[fl["family"]]:
+            check(fl["launches"][prog] > 0,
+                  f"loadgen: {prog} never launched in the {fl['family']} fleet {fl['docs']}")
+    check(not any(rep["workers_cuda_initialized"].values()),
+          f"loadgen: workers initialised CUDA {rep['workers_cuda_initialized']}")
+    if paths is not None:  # the fleets' launches, each in its own process
+        for fl in fleets:
+            for prog, n in fl["launches"].items():
+                paths[prog]["loadgen"] = paths[prog].get("loadgen", 0) + n
+    line = {
+        "phase": "loadgen", "card": card,
+        "config": dict(LOADGEN, n_workers=out["n_workers"], cpus=out["cpus"],
+                       doc_matrix=DEFAULT_DOC_MATRIX),
+        "phase_s": phase_s, "run_s": out["wall_s"],
+        "phases": rep["phases"], "boot_storm": {k: rep["boot_storm"][k] for k in (
+            "cold", "not_modified", "historian")},
+        "ops_sequenced": rep["client"]["ops_sequenced"], "client": rep["client"],
+        "fleets": [{k: v for k, v in fl.items() if k != "states"} for fl in fleets],
+        "convergence": conv, "scribe": rep["scribe"], "presence": rep["presence"],
+        "admission_shed_ops": rep["server"]["admission_shed_ops"],
+        "workers_cuda_initialized": rep["workers_cuda_initialized"],
+    }
+    emit(line)
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5911,8 +6332,11 @@ def main(argv=None) -> int:
     emit({"phase": "cuts", "why": "the script's 1,200 s limit (1,286 s uncut on an H100)",
           "reduced": CUTS})
     # Phase 19 (the chaos soak) runs first, in a process of its own on a
-    # card no other phase has touched yet.
+    # card no other phase has touched yet; phase 21 (the loadgen plant,
+    # whose fleets are processes of their own on the card) next, in a
+    # process of its own too.
     phase_chaos(card, paths)
+    phase_loadgen(card, paths)
     finish_string, string_kmt = phase_string_client(
         args.seed, card, "cuda", n_edits=CUTS["string_client"]["n_edits"], path=path)
     check_client_paths("string_client", "string_squash")
@@ -5937,34 +6361,40 @@ def main(argv=None) -> int:
                        ("apply_megastep_seg", "K6"), ("compact_seg", "K6's compaction"),
                        ("resolve_positions", "K1")):
         check(paths[prog]["network_fleet"] > 0, f"{what} was never launched on the network_fleet path")
-    k = phase_kernels(args.seed, card)
-    k9 = phase_rebase_kernel(args.seed, card)
-    one_doc = _time_one_doc_programs(card, string_kmt)
-    del string_kmt
-
     # One traffic for every fleet turn, the recovery phase (which takes two
-    # rounds past the fleet's 16) and the fleet programs' timing, made
-    # outside the timed runs.
+    # rounds past the fleet's 16), the native plane and the fleet programs'
+    # timing, made outside the timed runs.
     t0 = time.perf_counter()
     traffic = fleet_traffic(10_000, 18, FLEET_GEOM["ops_per_step"], 8, args.seed)
     emit({"phase": "traffic", "docs": 10_000, "rounds": 18,
           "traffic_gen_s": time.perf_counter() - t0})
+    # Phase 20 (the native dispatch plane against K2 and K3) runs before any
+    # profiler session too: K2's call time is host issue.  Its ring is the
+    # one phase 6 times later.
+    k2_ring = fleet_ring(traffic)
+    phase_native_plane(card, traffic, k2_ring, paths)
+    k = phase_kernels(args.seed, card)
+    k9 = phase_rebase_kernel(args.seed, card)
+    one_doc = _time_one_doc_programs(card, string_kmt)
+    del string_kmt
     path("fleet", phase_fleet, args.seed, card, "cuda", traffic, recovery="grow")
     for recovery, ingest, record in (("off", "batch", False), ("grow", "message", False),
                                      ("grow", "batch", True), ("off", "batch", False)):
         phase_fleet(args.seed, card, "cuda", traffic, recovery=recovery, ingest=ingest,
                     record=record, trace_dir=args.trace_dir)
-    path("recovery", phase_recovery, args.seed, card, "cuda", traffic)
+    path("recovery", phase_recovery, args.seed, card, "cuda", traffic,
+         n_docs=CUTS["recovery"]["n_docs"])
     path("hot_doc", phase_hot_doc, args.seed, card, "cuda")
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
-    fleet_programs = phase_fleet_programs(args.seed, card, traffic)
+    fleet_programs = phase_fleet_programs(args.seed, card, traffic, ring=k2_ring)
+    del k2_ring
     _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda",
                        n_docs=CUTS["tree_fleet"]["n_docs"], record=True,
                        trace_dir=args.trace_dir)
     _line, deep = path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
     _line, churn = path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
     path("wire_ingest", phase_wire_ingest, args.seed, card, "cuda", churn)
-    tree = time_tree_programs(card, ring)
+    tree = time_tree_programs(card, ring, shares=CUTS["tree_programs"]["shares"])
     del ring
     path("tree_rebase", phase_tree_rebase, args.seed, card, "cuda", deep,
          fleet_docs=CUTS["tree_rebase"]["fleet_docs"], trace_dir=args.trace_dir)

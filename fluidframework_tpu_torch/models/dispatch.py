@@ -5,10 +5,19 @@ depends on an abstract **dispatch plane** — the object that owns device
 placement and the fleet/segment program factories — and the concrete
 plane registers itself here when its module loads.
 
-The active plane is whatever called :func:`register_dispatch_plane`
-last; when nothing has registered, the default provider,
-``fluidframework_tpu_torch.parallel.mesh`` (a mesh of shards on one device), is
-imported and registers itself.
+Resolution order:
+
+1. whatever called :func:`register_dispatch_plane` last (importing a
+   plane's module registers it);
+2. otherwise the provider named by ``FFTPU_TORCH_DISPATCH_PLANE`` (a
+   dotted module path of the port, e.g.
+   ``fluidframework_tpu_torch.parallel.native_plane``) is imported and
+   must register itself;
+3. the default provider, ``fluidframework_tpu_torch.parallel.mesh`` (a
+   mesh of shards on one device).
+
+The port reads its own variable: the reference's ``FFTPU_DISPATCH_PLANE``
+names a module of the JAX package, which the port never imports.
 
 The plane's surface is duck-typed; the engine uses ``doc_mesh`` /
 ``docs_segs_mesh``, ``shard_fleet_state``, ``shard_docs``,
@@ -19,10 +28,12 @@ The plane's surface is duck-typed; the engine uses ``doc_mesh`` /
 from __future__ import annotations
 
 import importlib
+import os
 
 _PLANE = None
 
 DEFAULT_PROVIDER = "fluidframework_tpu_torch.parallel.mesh"
+PROVIDER_ENV = "FFTPU_TORCH_DISPATCH_PLANE"
 
 
 def register_dispatch_plane(plane):
@@ -33,12 +44,14 @@ def register_dispatch_plane(plane):
 
 
 def dispatch_plane():
-    """The active dispatch plane, loading the default provider on first
-    use."""
+    """The active dispatch plane, loading the configured provider on first
+    use (see the module docstring)."""
     if _PLANE is None:
-        importlib.import_module(DEFAULT_PROVIDER)
+        provider = os.environ.get(PROVIDER_ENV) or DEFAULT_PROVIDER
+        importlib.import_module(provider)
         if _PLANE is None:
             raise RuntimeError(
-                f"dispatch provider {DEFAULT_PROVIDER!r} did not register a plane"
+                f"dispatch provider {provider!r} did not register a plane "
+                "(it must call models.dispatch.register_dispatch_plane)"
             )
     return _PLANE

@@ -501,9 +501,18 @@ class DocBatchEngine:
         self._compact = pm.mesh_fleet_program(_fleet_compact_body, self._fleet_mesh)
         self._seg_megastep = self._seg_compact = None
         if self.seg_shards > 1:
-            seg_specs = pm.seg_state_specs(proto)
-            self._seg_megastep = pm.mesh_seg_program(mk.apply_megastep_seg, self.mesh, seg_specs)
-            self._seg_compact = pm.mesh_seg_program(mk.compact_seg, self.mesh, seg_specs)
+            # A plane without segment-lane programs (the native plane)
+            # raises NotImplementedError here: the engine serves every doc
+            # on the fleet path and counts the downgrade, never silently.
+            try:
+                seg_specs = pm.seg_state_specs(proto)
+                self._seg_megastep = pm.mesh_seg_program(mk.apply_megastep_seg, self.mesh,
+                                                         seg_specs)
+                self._seg_compact = pm.mesh_seg_program(mk.compact_seg, self.mesh, seg_specs)
+            except NotImplementedError:
+                self._seg_megastep = self._seg_compact = None
+                self.seg_shards = 1
+                self.counters.bump("seg_plane_unsupported")
         # Docs with a nonempty host queue, maintained by ingest and drain.
         self._busy: set[int] = set()
         self._stage: StagingRing | None = None

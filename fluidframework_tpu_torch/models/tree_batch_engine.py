@@ -824,6 +824,13 @@ class TreeBatchEngine:
         self.maybe_checkpoint()
         return steps
 
+    def compact(self) -> None:
+        """K8 over the fleet now, watermarks or not (a drained fleet
+        compacts before its final checkpoint: ``server/fleet_main.py``'s
+        coordinated drain).  The step compacts on its own watermarks."""
+        with self.ckpt_lock:
+            self._compact_and_resync()
+
     def _compact_and_resync(self) -> None:
         """K8 over the fleet, then reset the watermark bounds to the live
         rows/words plus what each doc still has queued (fallback docs to 0:

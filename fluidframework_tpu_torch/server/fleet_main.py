@@ -16,7 +16,10 @@ applied, bytes consumed, per-doc error flags) for process supervisors;
 ``--exit-after-rows`` bounds the run (tests / draining restarts).  Standby,
 lease, bounded-staleness checkpoints, boot-from-summary, the historian
 resync, the metrics port, traces and coordinated drains behave as the
-reference's.
+reference's, with two additions of the port's own: a coordinated drain
+compacts the fleet before its final checkpoint, and every ``done`` line
+carries the engine's ``device`` and the ``launches`` of its fleet programs
+in this process (counted on a card only).
 
 Placement: ``--mesh N`` serves the fleet over an N-shard docs mesh on
 ``--device`` (``--seg-shards S`` makes it docs x segs, so hot docs can
@@ -396,11 +399,23 @@ def main(argv: list[str] | None = None) -> int:
         )), flush=True)
 
     def final_state() -> dict:
-        """The per-family identity surface for the done=True status line."""
+        """The per-family identity surface for the done=True status line,
+        with the port's own keys: the engine's ``device`` and the launches
+        of its fleet programs in this process (``count_launch``: on a card
+        only)."""
         if args.family == "tree":
-            return {"trees": {d: eng.tree_json(i)
-                              for i, d in enumerate(doc_ids)}}
-        return {"texts": {d: eng.text(i) for i, d in enumerate(doc_ids)}}
+            from ..ops import tree_kernel as tk
+
+            progs = (tk.apply_nested_megastep, tk.compact_nested)
+            out = {"trees": {d: eng.tree_json(i) for i, d in enumerate(doc_ids)}}
+        else:
+            from ..ops import mergetree_kernel as mk
+
+            progs = (mk.apply_megastep, mk.compact)
+            out = {"texts": {d: eng.text(i) for i, d in enumerate(doc_ids)}}
+        out["device"] = str(eng.device)
+        out["launches"] = {fn.__name__: fn.launches for fn in progs}
+        return out
 
     drain_want: dict | None = None
     last_drain_poll = 0.0
@@ -478,6 +493,11 @@ def main(argv: list[str] | None = None) -> int:
                         eng.hosts[i].last_seq >= int(drain_want.get(d, 0))
                         for i, d in enumerate(doc_ids)
                     ):
+                        # The port compacts a drained fleet (K3, or K8 for
+                        # trees) before its final checkpoint, so a restart
+                        # boots from compacted rows; the identity surface
+                        # is unchanged.
+                        eng.compact()
                         eng.maybe_checkpoint(force=True)
                         status(done=True, drained=True, **final_state())
                         return 0

@@ -126,7 +126,8 @@ def test_console_scripts_resolve():
     with open(os.path.join(REPO, "pyproject.toml")) as f:
         scripts = dict(re.findall(r'(fftpu-torch-[\w-]+) = "([\w.:]+)"', f.read()))
     assert set(scripts) == {"fftpu-torch-fleet", "fftpu-torch-netserver",
-                            "fftpu-torch-launcher"}
+                            "fftpu-torch-launcher", "fftpu-torch-summary-inspect",
+                            "fftpu-torch-trace"}
     for target in scripts.values():
         mod, fn = target.split(":")
         assert mod.startswith(f"{PORT}.") and callable(getattr(importlib.import_module(mod), fn))

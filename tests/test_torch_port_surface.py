@@ -46,8 +46,9 @@ _BLOCKER = textwrap.dedent(
 # SharedString client path, the tree, matrix and map channels with the
 # flat forest, the loader, drivers and network service plane, and the
 # lambda pipeline with the native sequencer, the fault, replay and
-# virtual-storage drivers, the fuzz harness and the chaos soak are among
-# them).
+# virtual-storage drivers, the fuzz harness and the chaos soak, and the
+# native dispatch plane, the loadgen plant, the tools and utils/config are
+# among them).
 _REQUIRED = {
     "fluidframework_tpu_torch.server.scribe",
     "fluidframework_tpu_torch.server.failover",
@@ -122,6 +123,15 @@ _REQUIRED = {
     "fluidframework_tpu_torch.driver.virtual_storage",
     "fluidframework_tpu_torch.testing.fuzz",
     "fluidframework_tpu_torch.testing.chaos",
+    "fluidframework_tpu_torch.native.megastep_native",
+    "fluidframework_tpu_torch.parallel.native_plane",
+    "fluidframework_tpu_torch.utils.config",
+    "fluidframework_tpu_torch.loadgen.schedule",
+    "fluidframework_tpu_torch.loadgen.worker",
+    "fluidframework_tpu_torch.loadgen.coordinator",
+    "fluidframework_tpu_torch.tools.trace_viewer",
+    "fluidframework_tpu_torch.tools.summary_inspect",
+    "fluidframework_tpu_torch.tools.replay_tool",
 }
 
 
