@@ -322,11 +322,42 @@ runs these phases on the card, one JSON line each:
     a drained fleet compacts before its final checkpoint) and no worker
     initialised CUDA.  The line carries ramp, steady and boot-storm p50 and
     p99, ops sequenced and a row per fleet.
+22. ``dds_family``: the rest of the DDS family, the snapshot corpus and
+    the fluid-static framework with their strings on the card, right after
+    phase 17, before any profiler session.  Every string channel's backend
+    is ``KernelMergeTree`` on the card at phase 16's geometry
+    (S=16,384, T=131,072).  (a) The snapshot corpus
+    (``testing/snapshot_corpus.py``): every ``SCRIPTS`` entry regenerated
+    into a temporary directory is byte-identical to its committed
+    ``tests/snapshots/<name>.v<fmt>.json``, and every committed file,
+    ``sharedString.v1.json`` included, loads into a container and
+    reproduces its recorded state.  (c) A ``ContainerSchema`` with one
+    channel of each of the registry's 16 types, four ``FluidContainer``s
+    from a ``LocalServiceClient`` running a seeded script of 8 rounds of 16
+    edits a container (string inserts, removes, annotates, markers and
+    intervals; directory and map sets; counter, cell and register writes;
+    queue adds, acquires and completes; ``AgentScheduler`` picks and
+    releases over the task manager; pact sets, ink strokes, JSON OT, json1
+    and property-tree ops; tree inserts and sets; matrix sets and row
+    inserts); container 1 disconnects at round 3 (editing offline) and
+    reconnects at round 5, so its pending string ops regenerate through
+    K5's ``restamp``, and a fifth container boots from a summary stored at
+    round 6.  Every sync checks the connected containers' views equal.  The
+    same actions with every string on the oracle (``RefMergeTree``) give
+    the same sequenced messages, container summaries, views, agent events
+    and summary blocks, byte for byte.  (b) The corpus string and the
+    oracle run's family string go through the legacy v1 chunks
+    (``dds/snapshot_v1.py``) into a replica on the card
+    (``import_summary``): its text, per-position props and markers equal
+    the decoded oracle's.  The path fails unless ``apply_op``, K3 and K5's
+    ``restamp`` launched on it.  The line carries each part's seconds,
+    the edits/s on the card and on the oracle, the launches and
+    ``over_cap`` against a 30 s budget.
 
 The fleet's traffic is made once, after phase 18, and shared by phases
 2, 3, 6, 14, 15 and 20 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
-7-9b, 11-15 and 18-21 are the port's main path (the counts of phases 19
+7-9b, 11-15 and 18-22 are the port's main path (the counts of phases 19
 and 20(b) are taken in their own processes, phase 21's in its fleets'
 processes): the launch counters of K1, of the
 fleet programs, of K7 and K8, of K9, of the map and matrix programs and of
@@ -345,7 +376,8 @@ scatter launched, ``sharded_hot`` unless K1 and K6 (``apply_megastep_seg``,
 own (``string_squash``: the runtime never asks for squash), unless K5's
 ``drop_squashed`` and ``strip_stamp`` did; phase 18's ``network_clients``
 and ``network_squash`` paths the same, and ``network_fleet`` unless K2,
-K3, K6 (both programs) and K1 did.  Then
+K3, K6 (both programs) and K1 did; ``dds_family`` (22) unless
+``apply_op``, K3 and K5's ``restamp`` did.  Then
 it prints the ``kernels`` summary line (K1 with its launches by path, the
 segment lane's among them; K7, K8, K9, map, matrix; K2 and K3 at the
 fleet's shape; K6 at 4 shards; the cohort gather and scatter; the one-doc
@@ -5160,6 +5192,521 @@ def phase_dds_clients(seed: int, card: str, device: str = "cuda") -> tuple:
     return line, timed
 
 
+# ------------------------------------------------ phase 22: the DDS family
+
+# Phase 22's container: one channel of each of the reference registry's 16
+# types, declared as a ``ContainerSchema``'s initial objects.
+FAMILY_SCHEMA = {
+    "text": "sharedString", "kv": "sharedMap", "tree": "sharedTree", "grid": "sharedMatrix",
+    "dir": "sharedDirectory", "ink": "ink", "block": "sharedSummaryBlock", "cell": "sharedCell",
+    "counter": "sharedCounter", "queue": "consensusQueue",
+    "regs": "consensusRegisterCollection", "tasks": "taskManager", "pact": "pactMap",
+    "jot": "sharedJsonOT", "json1": "sharedJson1", "props": "propertyTree",
+}
+# Its script, as main() runs it: 4 containers, 8 rounds of 16 edits a
+# container; container ``drop[0]`` disconnects at round ``drop[1]`` (and
+# edits offline) and reconnects at round ``drop[2]``; a fifth container
+# boots from a summary container 0 stores at ``boot_round``.
+FAMILY = dict(containers=4, rounds=8, edits=16, drop=(1, 3, 5), boot_round=6)
+FAMILY_TASKS = ("agent-a", "agent-b", "agent-c")
+FAMILY_DOC = "family"
+FAMILY_CAP_S = 30.0
+# Edit kinds: every channel type but the summary block (local only) has at
+# least one; a container that is offline draws from the first eight.
+FAMILY_KINDS = ("ins", "rem", "ann", "iv", "kv", "dir", "counter", "cell", "mark", "reg",
+                "q_add", "q_acq", "q_done", "pick", "release", "pact", "ink", "jot", "json1",
+                "prop", "tree", "grid")
+FAMILY_OFFLINE = 8
+
+
+@contextlib.contextmanager
+def _seeded_ids(seed: int):
+    """``_seeded_sessions`` plus consensus-queue acquire ids drawn from a
+    second generator seeded with ``seed``, so two runs of one script send
+    the same bytes."""
+    import random
+    import uuid
+    from types import SimpleNamespace
+
+    from fluidframework_tpu_torch.dds import small
+
+    rng = random.Random(seed + 1)
+    saved = small._uuid
+    small._uuid = SimpleNamespace(
+        uuid4=lambda: uuid.UUID(int=rng.getrandbits(128), version=4))
+    try:
+        with _seeded_sessions(seed):
+            yield
+    finally:
+        small._uuid = saved
+
+
+class _Family:
+    """Phase 22's document: ``FluidContainer``s from one
+    ``LocalServiceClient``, each with an ``AgentScheduler`` over its task
+    manager.  Every string channel made while it lives comes from
+    ``make_string`` (the oracle when None)."""
+
+    def __init__(self, make_string):
+        from fluidframework_tpu_torch.dds import channels
+        from fluidframework_tpu_torch.framework import ContainerSchema, LocalServiceClient
+
+        channels.set_string_backend_factory(make_string)
+        self.client = LocalServiceClient()
+        self.schema = ContainerSchema(initial_objects=dict(FAMILY_SCHEMA))
+        self.fcs, self.agents, self.connected = [], [], []
+        self.handles, self.strokes, self.picked, self.agent_log = [], [], [], []
+        fc, _services = self.client.create_container(self.schema, FAMILY_DOC, client_id="c0")
+        self._add(fc)
+        o = fc.initial_objects
+        o["block"].set("config", {"theme": "dark", "family": len(FAMILY_SCHEMA)})
+        o["dir"].create_subdirectory("sub")
+        o["grid"].insert_rows(0, 4)
+        o["grid"].insert_cols(0, 4)
+        o["jot"].replace([], {"items": [], "meta": {}})
+        o["json1"].replace([], None, {"list": []})
+        o["props"].insert_property(["geo"], "NodeProperty", {})
+        self.sync()
+        for i in range(1, FAMILY["containers"]):
+            self.boot(i)
+
+    def _add(self, fc) -> None:
+        from fluidframework_tpu_torch.framework import AgentScheduler
+
+        i = len(self.fcs)
+        self.fcs.append(fc)
+        self.agents.append(AgentScheduler(fc.initial_objects["tasks"]))
+        self.connected.append(True)
+        self.handles.append([])
+        self.strokes.append([])
+        self.picked.append(set())
+        self.agent_log.append([])
+
+    def boot(self, i: int) -> None:
+        """Container ``i`` loads from the newest stored summary and the ops
+        after it."""
+        fc, _services = self.client.get_container(FAMILY_DOC, self.schema, client_id=f"c{i}")
+        self._add(fc)
+        self.sync()
+
+    def close(self) -> None:
+        from fluidframework_tpu_torch.dds import channels
+
+        channels.set_string_backend_factory(None)
+
+    def o(self, i: int) -> dict:
+        return self.fcs[i].initial_objects
+
+    def sync(self) -> None:
+        while True:
+            for i, fc in enumerate(self.fcs):
+                if self.connected[i]:
+                    fc.flush()
+            if not self.client.service.process_all():
+                return
+
+    def act(self, action: tuple) -> None:
+        kind, *rest = action
+        if kind == "edit":
+            self.edit(*rest)
+        elif kind == "flush":
+            self.fcs[rest[0]].flush()
+        elif kind == "sync":
+            self.sync()
+        elif kind == "drop":
+            self.fcs[rest[0]].disconnect()
+            self.connected[rest[0]] = False
+        elif kind == "rejoin":
+            self.fcs[rest[0]].connect()
+            self.connected[rest[0]] = True
+            self.agents[rest[0]].resume()
+            self.sync()
+        elif kind == "summary":
+            self.fcs[rest[0]].container.summarize_to_storage()
+        elif kind == "boot":
+            self.boot(rest[0])
+        else:
+            raise ValueError(kind)
+
+    def edit(self, i: int, op: tuple) -> None:
+        from fluidframework_tpu_torch.dds.markers import MARKER_ID_KEY, REF_TILE
+        from fluidframework_tpu_torch.dds.tree.changeset import make_insert, make_set_value
+        from fluidframework_tpu_torch.dds.tree.schema import leaf
+
+        o = self.o(i)
+        kind, *a = op
+        if kind in ("ins", "rem", "ann", "iv"):
+            _string_edit(o["text"], op)
+        elif kind == "mark":
+            o["text"].insert_marker(a[0], REF_TILE, {MARKER_ID_KEY: a[1]})
+        elif kind == "kv":
+            o["kv"].set(*a)
+        elif kind == "dir":
+            o["dir"].set(*a)
+        elif kind == "counter":
+            o["counter"].increment(*a)
+        elif kind == "cell":
+            o["cell"].set(*a)
+        elif kind == "reg":
+            o["regs"].write(*a)
+        elif kind == "q_add":
+            o["queue"].add(*a)
+        elif kind == "q_acq":
+            self.handles[i].append(o["queue"].acquire())
+        elif kind == "q_done":
+            handle = [h for h in self.handles[i] if h.acquired][a[0]]
+            self.handles[i].remove(handle)
+            o["queue"].complete(handle)
+        elif kind == "pick":
+            log = self.agent_log[i]
+            self.agents[i].pick(a[0], lambda t=a[0]: log.append(["start", t]),
+                                lambda t=a[0]: log.append(["lost", t]))
+            self.picked[i].add(a[0])
+        elif kind == "release":
+            self.agents[i].release(a[0])
+            self.picked[i].discard(a[0])
+        elif kind == "pact":
+            o["pact"].set(*a)
+        elif kind == "ink_new":
+            self.strokes[i].append(o["ink"].create_stroke({"color": a[0]}))
+        elif kind == "ink_pt":
+            o["ink"].append_point(self.strokes[i][a[0]], *a[1:])
+        elif kind == "jot_ins":
+            o["jot"].insert(["items", a[0]], a[1])
+        elif kind == "jot_rm":
+            o["jot"].remove(["items", a[0]])
+        elif kind == "j1_ins":
+            o["json1"].insert(["list", a[0]], a[1])
+        elif kind == "j1_rm":
+            o["json1"].remove(["list", a[0]])
+        elif kind == "prop_new":
+            o["props"].insert_property(["geo", a[0]], "Int32", a[1])
+        elif kind == "prop_set":
+            o["props"].set_value(["geo", a[0]], a[1])
+        elif kind == "tree_ins":
+            o["tree"].submit_change(make_insert([], "", a[0], [leaf(a[1])]))
+        elif kind == "tree_set":
+            o["tree"].submit_change(make_set_value([("", a[0])], a[1]))
+        elif kind == "grid_set":
+            o["grid"].set_cell(*a)
+        elif kind == "grid_row":
+            o["grid"].insert_rows(a[0], 1)
+        else:
+            raise ValueError(kind)
+
+    def gen(self, rng, i: int) -> tuple:
+        """One seeded edit for container ``i``, drawn from its own view."""
+        o = self.o(i)
+        kinds = FAMILY_KINDS if self.connected[i] else FAMILY_KINDS[:FAMILY_OFFLINE]
+        kind = rng.choice(kinds)
+        n = len(o["text"].position_text())
+        if kind in ("ins", "rem", "ann", "iv", "mark") and (kind == "ins" or n < 2):
+            return ("ins", rng.randint(0, n), rng.choice("abcdefgh") * rng.randint(1, 8))
+        if kind == "mark":
+            return ("mark", rng.randint(0, n), f"m-{i}-{rng.getrandbits(24)}")
+        if kind in ("rem", "ann", "iv"):
+            p1 = rng.randrange(n)
+            p2 = rng.randint(p1 + 1, min(n, p1 + 8))
+            if kind == "rem":
+                return ("rem", p1, p2)
+            if kind == "ann":
+                return ("ann", p1, p2, rng.choice(["bold", "color"]), rng.choice([True, "red", 7]))
+            return ("iv", p1, rng.randint(p1, min(n - 1, p1 + 16)))
+        if kind == "kv":
+            return ("kv", f"k{rng.randrange(8)}", rng.randrange(1000))
+        if kind == "dir":
+            return ("dir", rng.choice(["", "sub"]), f"d{rng.randrange(4)}", rng.randrange(100))
+        if kind == "counter":
+            return ("counter", rng.randint(-3, 5))
+        if kind == "cell":
+            return ("cell", {"v": rng.randrange(100), "by": i})
+        if kind == "reg":
+            return ("reg", f"r{rng.randrange(3)}", rng.randrange(100))
+        if kind == "q_done" and any(h.acquired for h in self.handles[i]):
+            return ("q_done", 0)
+        if kind in ("q_add", "q_done"):
+            return ("q_add", f"job-{i}-{rng.randrange(1000)}")
+        if kind == "q_acq":
+            return ("q_acq",)
+        picked = self.picked[i]
+        if kind == "release" and picked:
+            return ("release", rng.choice(sorted(picked)))
+        if kind in ("pick", "release"):
+            free = [t for t in FAMILY_TASKS if t not in picked]
+            return ("pick", rng.choice(free)) if free else ("release", rng.choice(sorted(picked)))
+        if kind == "pact":
+            return ("pact", f"p{rng.randrange(3)}", rng.randrange(100))
+        if kind == "ink":
+            if self.strokes[i] and rng.random() < 0.7:
+                return ("ink_pt", rng.randrange(len(self.strokes[i])), rng.randrange(100),
+                        rng.randrange(100), 0.5, 0.5)
+            return ("ink_new", rng.choice(["red", "blue"]))
+        if kind == "jot":
+            items = o["jot"].get()["items"]
+            if items and rng.random() < 0.3:
+                return ("jot_rm", rng.randrange(len(items)))
+            return ("jot_ins", rng.randint(0, len(items)), rng.randrange(100))
+        if kind == "json1":
+            items = o["json1"].get()["list"]
+            if items and rng.random() < 0.3:
+                return ("j1_rm", rng.randrange(len(items)))
+            return ("j1_ins", rng.randint(0, len(items)), rng.randrange(100))
+        if kind == "prop":
+            mine = sorted(k for k in (o["props"].resolve_path(["geo"]) or {}).get("children", {})
+                          if k.startswith(f"c{i}-"))
+            if mine and rng.random() < 0.5:
+                return ("prop_set", rng.choice(mine), rng.randrange(100))
+            return ("prop_new", f"c{i}-{rng.getrandbits(16)}", rng.randrange(100))
+        if kind == "tree":
+            m = len(o["tree"].forest.root_field)
+            if m and rng.random() < 0.4:
+                return ("tree_set", rng.randrange(m), rng.randrange(100))
+            return ("tree_ins", rng.randint(0, m), rng.randrange(100))
+        rows, cols = o["grid"].row_count, o["grid"].col_count
+        if rng.random() < 0.15:
+            return ("grid_row", rng.randint(0, rows))
+        return ("grid_set", rng.randrange(rows), rng.randrange(cols), rng.randrange(100))
+
+    def views(self, i: int) -> str:
+        """Container ``i``'s view of every shared channel (the summary
+        block is local to each container until a summary carries it)."""
+        o = self.o(i)
+        return json.dumps({
+            "text": _string_views(o["text"]), "markers": o["text"].markers(),
+            "kv": o["kv"].items(), "tree": o["tree"].forest.to_json(),
+            "grid": o["grid"].to_grid(),
+            **{name: o[name].summarize() for name in (
+                "dir", "ink", "queue", "regs", "tasks", "pact")},
+            "cell": o["cell"].get(), "counter": o["counter"].value, "jot": o["jot"].get(),
+            "json1": o["json1"].get(), "props": o["props"].root(),
+        }, sort_keys=True)
+
+    def kernels(self) -> list:
+        from fluidframework_tpu_torch.dds.mergetree_ref import RefMergeTree
+
+        backends = [fc.initial_objects["text"].backend for fc in self.fcs]
+        return [b for b in backends if not isinstance(b, RefMergeTree)]
+
+
+def _family_run(make_string, seed: int, sizes: dict, script=None) -> dict:
+    """One run of phase 22(c)'s script over ``_Family(make_string)``.  With
+    ``script`` None the seeded script is made as it runs (each edit from
+    the acting container's view) and returned as ``actions``; otherwise
+    its actions are replayed one by one.  After every sync the connected
+    containers' views must be equal."""
+    import random
+
+    rng = random.Random(seed)
+    taken: list = []
+    edits = syncs = 0
+    t0 = time.perf_counter()
+    with _seeded_ids(seed):
+        fam = _Family(make_string)
+        try:
+            def run(action):
+                nonlocal edits, syncs
+                taken.append(action)
+                fam.act(action)
+                edits += action[0] == "edit"
+                if action[0] == "sync":
+                    syncs += 1
+                    views = [fam.views(i) for i, on in enumerate(fam.connected) if on]
+                    check(all(v == views[0] for v in views[1:]),
+                          f"dds_family: the containers' views differ at sync {syncs}")
+
+            if script is None:
+                j, drop_round, rejoin_round = sizes["drop"]
+                for r in range(sizes["rounds"]):
+                    if r == drop_round:
+                        run(("drop", j))
+                    if r == rejoin_round:
+                        run(("rejoin", j))
+                    if r == sizes["boot_round"]:
+                        run(("summary", 0))
+                        run(("boot", len(fam.fcs)))
+                    for i in rng.sample(range(len(fam.fcs)), len(fam.fcs)):
+                        for _ in range(sizes["edits"]):
+                            run(("edit", i, fam.gen(rng, i)))
+                        if fam.connected[i]:
+                            run(("flush", i))
+                    run(("sync",))
+            else:
+                for action in script:
+                    run(action)
+            check(all(fam.connected), "dds_family: a container is still offline at the end")
+            kernels = fam.kernels()
+            seconds = time.perf_counter() - t0
+            log = fam.client.service.document(FAMILY_DOC).sequencer.log
+            text = fam.o(0)["text"]
+            return {
+                "actions": taken, "edits": edits, "syncs": syncs, "seconds": seconds,
+                "edits_per_s": edits / seconds, "containers": len(fam.fcs),
+                "stream": [dict(json.loads(m.to_json()), timestamp=0) for m in log],
+                "summaries": [json.dumps(fc.container.runtime.summarize(), sort_keys=True)
+                              for fc in fam.fcs],
+                "views": [fam.views(i) for i in range(len(fam.fcs))],
+                "agent_log": fam.agent_log,
+                "blocks": [fam.o(i)["block"].get("config") for i in range(len(fam.fcs))],
+                "kernels": len(kernels), "errors": [k.check_errors() for k in kernels],
+                # ``regenerated`` is the port's counter (a CPU test runs this
+                # script on the reference's replicas too, which have none).
+                "regenerated": sum(getattr(k, "regenerated", 0) for k in kernels),
+                "string": (text.backend, text._connection.ref_seq()),
+            }
+        finally:
+            fam.close()
+
+
+def _family_corpus(make_string) -> dict:
+    """Phase 22(a): every ``SCRIPTS`` entry of the snapshot corpus
+    regenerated (``build_entry``) with ``make_string`` behind the string
+    channel into a temporary directory, each file against the committed
+    one; then every
+    committed file, each format version, loaded into a container (its
+    channel's summary under the format stamp the file records) and its
+    state against the recorded one."""
+    from fluidframework_tpu_torch.dds import channels
+    from fluidframework_tpu_torch.runtime import ContainerRuntime
+    from fluidframework_tpu_torch.testing import snapshot_corpus as sc
+
+    channels.set_string_backend_factory(make_string)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            differ = []
+            for script in sc.SCRIPTS:
+                entry = sc.build_entry(script)
+                name = f"{script}.v{entry['format']}.json"
+                with open(os.path.join(d, name), "w") as f:
+                    f.write(sc.canonical(entry) + "\n")
+                with open(os.path.join(d, name), "rb") as a, \
+                        open(os.path.join(sc.SNAPSHOT_DIR, name), "rb") as b:
+                    if a.read() != b.read():
+                        differ.append(name)
+        loaded, state_differ, backends = [], [], set()
+        for name in sorted(os.listdir(sc.SNAPSHOT_DIR)):
+            if not name.endswith(".json"):
+                continue
+            with open(os.path.join(sc.SNAPSHOT_DIR, name)) as f:
+                entry = json.load(f)
+            rt = ContainerRuntime(channels.default_registry(), container_id="golden")
+            rt.load_snapshot({"seq": 0, "minSeq": 0, "quorum": {}, "datastores": {"root": {
+                "root": True, "channels": {"golden": {
+                    "type": entry["type"], "fmt": entry["format"], "summary": entry["summary"]}}}}})
+            ch = rt.datastore("root").get_channel("golden")
+            if entry["type"] == "sharedString":
+                backends.add(type(ch.backend).__name__)
+            loaded.append(name)
+            if sc.extract_state(entry["type"], ch) != entry["state"]:
+                state_differ.append(name)
+    finally:
+        channels.set_string_backend_factory(None)
+    return {"written": len(sc.SCRIPTS), "differ": differ, "loaded": loaded,
+            "state_differ": state_differ, "string_backends": sorted(backends)}
+
+
+def _family_v1(make_kernel, docs: dict) -> dict:
+    """Phase 22(b): each ``(oracle tree, seq)`` of ``docs`` encoded as the
+    legacy v1 merge-tree chunks, decoded again and imported into
+    ``make_kernel()``'s replica: its text, per-position props and markers
+    equal the decoded oracle's, and the text the original's."""
+    from fluidframework_tpu_torch.dds.snapshot_v1 import decode_snapshot_v1, encode_snapshot_v1
+    from fluidframework_tpu_torch.protocol.stamps import ALL_ACKED
+
+    def views(t):
+        return (t.visible_text(ALL_ACKED, -1), t.annotations(ALL_ACKED, -1),
+                t.marker_scan(ALL_ACKED, -1))
+
+    out = {}
+    for name, (tree, seq) in docs.items():
+        blobs = encode_snapshot_v1(tree, seq=seq, get_long_client_id=lambda s: f"client-{s}")
+        loaded, seq_back, _min_seq = decode_snapshot_v1(blobs, lambda c: int(c.split("-")[1]))
+        kmt = make_kernel()
+        kmt.import_summary(loaded.export_summary())
+        check(seq_back == seq and views(loaded)[0] == tree.visible_text(ALL_ACKED, -1),
+              f"dds_family: the v1 round trip of the {name} string lost its text or seq")
+        check(views(kmt) == views(loaded),
+              f"dds_family: the {name} string's v1 import differs from the oracle's")
+        check(kmt.check_errors() == 0, f"dds_family: the {name} string's import latched errors")
+        out[name] = {"blobs": sorted(blobs), "chars": len(views(loaded)[0]),
+                     "markers": len(views(loaded)[2]),
+                     "annotated": sum(1 for d in views(loaded)[1] if d)}
+    return out
+
+
+def phase_dds_family(seed: int, card: str, device: str = "cuda",
+                     sizes: dict | None = None) -> dict:
+    """Phase 22 at ``FAMILY``: (a) the snapshot corpus with the string
+    channel's backend ``KernelMergeTree`` on ``device`` at
+    ``STRING_CLIENT_GEOM`` (``_family_corpus``); (c) the family script's
+    containers with every string on ``device`` (``_family_run``), then the
+    same actions with every string on the oracle: equal sequenced streams,
+    container summaries, views and agent logs; (b) the corpus string and
+    the oracle run's family string through the legacy v1 chunks into a
+    replica on ``device`` (``_family_v1``).  The line carries each part's
+    seconds, the edits/s and the one-doc programs' launches."""
+    import torch
+
+    from fluidframework_tpu_torch.dds import channels
+    from fluidframework_tpu_torch.dds.kernel_backend import KernelMergeTree
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.testing import snapshot_corpus as sc
+
+    sizes = dict(FAMILY if sizes is None else sizes)
+    make_kernel = lambda: KernelMergeTree(**STRING_CLIENT_GEOM, device=device)  # noqa: E731
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    line = {"phase": "dds_family", "card": card, "geometry": STRING_CLIENT_GEOM,
+            "sizes": sizes}
+    parts_s = {}
+    t0 = t = time.perf_counter()
+    corpus = _family_corpus(make_kernel)
+    check(not corpus["differ"], f"dds_family: corpus files differ from the committed ones: "
+                                f"{corpus['differ']}")
+    check(not corpus["state_differ"], f"dds_family: committed files load to other states: "
+                                      f"{corpus['state_differ']}")
+    check(corpus["string_backends"] == ["KernelMergeTree"],
+          f"dds_family: the corpus strings loaded on {corpus['string_backends']}")
+    line["corpus"] = corpus
+    sync()
+    parts_s["corpus"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run = _family_run(make_kernel, seed, sizes)
+    sync()
+    parts_s["containers"] = time.perf_counter() - t
+    launches = {name: getattr(mk, name).launches for name in ("apply_op", "compact", "restamp")}
+    t = time.perf_counter()
+    oracle = _family_run(None, seed, sizes, script=run["actions"])
+    parts_s["oracle_replay"] = time.perf_counter() - t
+    check(run["kernels"] == run["containers"] and oracle["kernels"] == 0,
+          "dds_family: a string channel was not on the backend its run asked for")
+    check(run["errors"] == [0] * run["kernels"], f"dds_family: error latches {run['errors']}")
+    check(run["regenerated"] > 0, "dds_family: no string op was regenerated on the rejoin")
+    for key in ("stream", "summaries", "views", "agent_log", "blocks"):
+        check(run[key] == oracle[key],
+              f"dds_family: the card run's {key} differ from the oracle run's")
+    check(run["blocks"][-1] == run["blocks"][0] is not None,
+          "dds_family: the booted container's summary block differs from the writer's")
+    t = time.perf_counter()
+    channels.set_string_backend_factory(None)
+    corpus_ch = sc.SCRIPTS["sharedString"]()
+    line["v1"] = _family_v1(make_kernel, {
+        "corpus": (corpus_ch.backend, corpus_ch._connection.ref_seq()),
+        "family": oracle["string"]})
+    sync()
+    parts_s["v1"] = time.perf_counter() - t
+    phase_s = time.perf_counter() - t0
+    line.update({
+        "containers": run["containers"], "edits": run["edits"], "syncs": run["syncs"],
+        "sequenced": len(run["stream"]), "regenerated_ops": run["regenerated"],
+        "agent_events": sum(len(log) for log in run["agent_log"]),
+        "edits_per_s": run["edits_per_s"], "oracle_edits_per_s": oracle["edits_per_s"],
+        "launches": launches, "identical_to_oracle": True,
+        "parts_s": parts_s, "phase_s": phase_s, "cap_s": FAMILY_CAP_S,
+        "over_cap": phase_s > FAMILY_CAP_S,
+    })
+    emit(line)
+    return line
+
+
 # ------------------------------------------- phase 18: the network service plane
 
 # Phase 18's sizes, as main() runs them: (b) phase 16's action mix over four
@@ -6350,6 +6897,13 @@ def main(argv=None) -> int:
                        ("apply_ops_fleet", "the matrix program"),
                        *((name, f"K11's {name}") for name in K11_PROGRAMS)):
         check(paths[prog]["dds_clients"] > 0, f"{what} was never launched on the dds_clients path")
+    # Phase 22 (the DDS family's containers, their strings on the card) runs
+    # right after, also before any profiler session: its rates are host
+    # issue, one op at a time.
+    path("dds_family", phase_dds_family, args.seed, card, "cuda")
+    for prog, what in (("apply_op", "the one-doc apply_op"), ("compact", "K3"),
+                       ("restamp", "K5's restamp")):
+        check(paths[prog]["dds_family"] > 0, f"{what} was never launched on the dds_family path")
     finish_string()
     # Phase 18 (the network service plane: launcher shards, loader clients,
     # network writers into the card's fleet) runs next, also before any

@@ -874,53 +874,26 @@ SharedStringFactory = ChannelTypeFactory(SharedStringChannel)
 SharedMapFactory = ChannelTypeFactory(SharedMapChannel)
 
 
-# The reference registry's other channel types, each with the ROADMAP item
-# (queue 1) that ports it.  Asking the port's registry for one raises: it
-# never falls through to another type.
-UNPORTED_CHANNEL_TYPES: dict[str, str] = {
-    t: "item 9 (the other DDSes)"
-    for t in (
-        "sharedDirectory", "ink", "sharedSummaryBlock", "sharedCell",
-        "sharedCounter", "consensusQueue", "consensusRegisterCollection",
-        "taskManager", "pactMap", "sharedJsonOT", "sharedJson1",
-        "propertyTree",
-    )
-}
-
-
-class ChannelRegistry(dict):
-    """Type string -> factory; a type the port has not ported yet raises
-    ``NotImplementedError`` naming its ROADMAP item, on lookup by either
-    ``registry[t]`` or ``registry.get(t)``."""
-
-    def _unported(self, channel_type: str):
-        raise NotImplementedError(
-            f"channel type {channel_type!r} is not ported to fluidframework_tpu_torch "
-            f"yet: ROADMAP queue 1 {UNPORTED_CHANNEL_TYPES[channel_type]}"
-        )
-
-    def __missing__(self, channel_type: str):
-        if channel_type in UNPORTED_CHANNEL_TYPES:
-            self._unported(channel_type)
-        raise KeyError(channel_type)
-
-    def get(self, channel_type, default=None):
-        if channel_type not in self and channel_type in UNPORTED_CHANNEL_TYPES:
-            self._unported(channel_type)
-        return super().get(channel_type, default)
-
-
-def default_registry() -> ChannelRegistry:
-    """Type string -> factory map of the channel types the port has
-    (ref ISharedObjectRegistry): ``sharedString``, ``sharedMap``,
-    ``sharedTree`` and ``sharedMatrix``."""
+def default_registry() -> dict[str, Any]:
+    """Type string -> factory map covering the full DDS family (ref
+    ISharedObjectRegistry + the fluid-framework re-export surface)."""
+    from .extras import EXTRA_DDS_FACTORIES
+    from .ot import SharedJsonOTFactory
+    from .ot_json1 import SharedJson1Factory
+    from .property_dds import PropertyTreeFactory
     from .shared_matrix import SharedMatrixFactory
+    from .small import SMALL_DDS_FACTORIES
     from .tree import SharedTreeFactory
 
-    out = ChannelRegistry({
+    out: dict[str, Any] = {
         SharedStringFactory.channel_type: SharedStringFactory,
         SharedMapFactory.channel_type: SharedMapFactory,
         SharedTreeFactory.channel_type: SharedTreeFactory,
-    })
+    }
+    out.update(SMALL_DDS_FACTORIES)
+    out.update(EXTRA_DDS_FACTORIES)
     out[SharedMatrixFactory.channel_type] = SharedMatrixFactory
+    out[SharedJsonOTFactory.channel_type] = SharedJsonOTFactory
+    out[SharedJson1Factory.channel_type] = SharedJson1Factory
+    out[PropertyTreeFactory.channel_type] = PropertyTreeFactory
     return out

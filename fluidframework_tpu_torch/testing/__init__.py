@@ -2,9 +2,11 @@
 
 The counterpart of ``fluidframework_tpu/testing/``, whose exports it keeps
 (the DDS fuzz harness of ``fuzz``), with ``network_env`` (the real network
-plane in-process, for loader tests) and ``chaos`` (the seeded fault
-schedule and soak over the whole serving stack).  The reference's snapshot
-helpers are not ported.
+plane in-process, for loader tests), ``chaos`` (the seeded fault
+schedule and soak over the whole serving stack), ``snapshot_corpus`` (the
+golden corpus scripts), ``reference_snapshots`` and ``reference_traces``
+(loaders of the reference checkout's artifacts, read only through
+``FFTPU_REFERENCE_DIR``).
 """
 
 from .fuzz import (

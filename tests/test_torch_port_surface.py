@@ -47,7 +47,9 @@ _BLOCKER = textwrap.dedent(
 # flat forest, the loader, drivers and network service plane, and the
 # lambda pipeline with the native sequencer, the fault, replay and
 # virtual-storage drivers, the fuzz harness and the chaos soak, and the
-# native dispatch plane, the loadgen plant, the tools and utils/config are
+# native dispatch plane, the loadgen plant, the tools and utils/config, and
+# the rest of the DDS family, the legacy v1 sequence snapshots, the snapshot
+# corpus and reference-artifact loaders, and the rest of the framework are
 # among them).
 _REQUIRED = {
     "fluidframework_tpu_torch.server.scribe",
@@ -132,6 +134,25 @@ _REQUIRED = {
     "fluidframework_tpu_torch.tools.trace_viewer",
     "fluidframework_tpu_torch.tools.summary_inspect",
     "fluidframework_tpu_torch.tools.replay_tool",
+    "fluidframework_tpu_torch.dds.small",
+    "fluidframework_tpu_torch.dds.extras",
+    "fluidframework_tpu_torch.dds.ot",
+    "fluidframework_tpu_torch.dds.ot_json1",
+    "fluidframework_tpu_torch.dds.property_dds",
+    "fluidframework_tpu_torch.dds.snapshot_v1",
+    "fluidframework_tpu_torch.testing.snapshot_corpus",
+    "fluidframework_tpu_torch.testing.reference_snapshots",
+    "fluidframework_tpu_torch.testing.reference_traces",
+    "fluidframework_tpu_torch.framework.request_handler",
+    "fluidframework_tpu_torch.framework.aqueduct",
+    "fluidframework_tpu_torch.framework.fluid_static",
+    "fluidframework_tpu_torch.framework.service_client",
+    "fluidframework_tpu_torch.framework.interceptions",
+    "fluidframework_tpu_torch.framework.oldest_client",
+    "fluidframework_tpu_torch.framework.agent_scheduler",
+    "fluidframework_tpu_torch.framework.synthesize",
+    "fluidframework_tpu_torch.framework.bindings",
+    "fluidframework_tpu_torch.framework.tree_agent",
 }
 
 

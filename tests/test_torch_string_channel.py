@@ -15,6 +15,10 @@ kernel replica's raw state columns and error latch equal its reference
 twin's; at the end the sequenced message streams and every container's
 summary are equal.
 
+The registry: ``default_registry()`` holds the reference's 16 channel
+types; each is built in both packages, edited, summarized and reloaded
+alike, and an unknown type raises ``KeyError`` in both.
+
 The two sequencers read a counter in place of the wall clock, so the
 stamped timestamps (and the attributor tables built from them) agree.
 One kernel geometry (S=112, T=1792, L=8, OB=6), used by no other file.
@@ -22,6 +26,7 @@ One kernel geometry (S=112, T=1792, L=8, OB=6), used by no other file.
 
 from __future__ import annotations
 
+import importlib
 import itertools
 import json
 import random
@@ -43,6 +48,7 @@ from fluidframework_tpu_torch.runtime import ContainerRuntime as PortRuntime
 from fluidframework_tpu_torch.server import sequencer as port_sequencer
 from fluidframework_tpu_torch.server.local_service import LocalService as PortService
 
+import torch_twins as twins
 from test_torch_kernel_merge_tree import assert_raw_equal, message_stream
 
 KGEOM = dict(max_segments=112, remove_slots=4, prop_slots=4, text_capacity=1792,
@@ -473,22 +479,132 @@ def test_shared_map_channel_matches_reference():
     assert fleets[1].m(0).items() == {"c": {"x": 1}, "d": 4}
 
 
-@pytest.mark.parametrize("channel_type", sorted(port_channels.UNPORTED_CHANNEL_TYPES))
-def test_unported_channel_types_name_their_roadmap_item(channel_type):
-    """Each channel type the reference registry has and the port does not
-    raises, naming its ROADMAP item, and never falls through to another
-    type."""
-    assert channel_type in ref_channels.default_registry()
-    reg = port_channels.default_registry()
-    assert set(reg) == {"sharedString", "sharedMap", "sharedTree", "sharedMatrix"}
-    item = port_channels.UNPORTED_CHANNEL_TYPES[channel_type]
-    rt = PortRuntime(reg, container_id="c")
-    ds = rt.create_datastore("root")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \d+") as e:
-        ds.create_channel(channel_type, "x")
-    assert item in str(e.value)
-    with pytest.raises(NotImplementedError):
-        reg[channel_type]
-    with pytest.raises(KeyError):
-        reg["noSuchType"]
-    assert reg.get("noSuchType") is None
+# ------------------------------------------------------------- the registry
+
+def _edit(kind: str, chs: list):
+    """A short two-client edit of channel type ``kind`` (``chs``: the
+    channel in each of the two containers); the caller syncs the
+    containers at each ``yield`` and at the end."""
+    a, b = chs
+    if kind == "sharedString":
+        a.insert_text(0, "hello")
+        b.insert_text(0, "ab")
+    elif kind == "sharedMap":
+        a.set("k", 1)
+        b.set("k", [2])
+    elif kind == "sharedTree":
+        imp = lambda m: importlib.import_module(f"{a.__module__.split('.')[0]}.{m}")
+        cs, schema = imp("dds.tree.changeset"), imp("dds.tree.schema")
+        a.submit_change(cs.make_insert([], "", 0, [schema.leaf(1)]))
+        b.submit_change(cs.make_insert([], "", 0, [schema.leaf("x")]))
+    elif kind == "sharedMatrix":
+        a.insert_rows(0, 2)
+        a.insert_cols(0, 2)
+        a.set_cell(1, 1, "v")
+    elif kind == "sharedDirectory":
+        a.create_subdirectory("sub")
+        a.set("sub", "k", 1)
+        b.set("", "top", {"x": 2})
+    elif kind == "ink":
+        sid = a.create_stroke({"color": "red"})
+        a.append_point(sid, 1.0, 2.0, 0.5, 0.25)
+    elif kind == "sharedSummaryBlock":
+        a.set("k", "only-in-summaries")
+    elif kind == "sharedCell":
+        a.set(1)
+        b.set({"v": 2})
+    elif kind == "sharedCounter":
+        a.increment(3)
+        b.increment(-1)
+    elif kind == "consensusQueue":
+        a.add("job1")
+        a.add("job2")
+        b.acquire()
+    elif kind == "consensusRegisterCollection":
+        a.write("r", 1)
+        b.write("r", 2)
+    elif kind == "taskManager":
+        a.volunteer("t")
+        b.volunteer("t")
+    elif kind == "pactMap":
+        a.set("p", "v")
+    elif kind == "sharedJsonOT":
+        a.replace([], {"items": []})
+        yield
+        a.insert(["items", 0], "x")
+        b.insert(["title"], "t")
+    elif kind == "sharedJson1":
+        a.replace([], None, {})
+        yield
+        a.insert(["k"], 1)
+        b.insert(["j"], [1, 2])
+    elif kind == "propertyTree":
+        a.insert_property(["p"], "Int32", 5)
+        b.insert_property(["q"], "String", "s")
+    else:
+        raise KeyError(kind)
+
+
+def _registry_round_trip(root: str, kind: str) -> dict:
+    imp = lambda m: importlib.import_module(f"{root}.{m}")  # noqa: E731
+    registry = imp("dds.channels").default_registry
+    doc = imp("server.local_service").LocalService().document("reg")
+    rts = []
+    for name in ("A", "B"):
+        rt = imp("runtime").ContainerRuntime(registry(), container_id=name)
+        rt.create_datastore("root").create_channel(kind, "ch")
+        rt.connect(doc, name)
+        rts.append(rt)
+    doc.process_all()
+    chs = [rt.datastore("root").get_channel("ch") for rt in rts]
+    for _phase in (*_edit(kind, chs), None):
+        for _ in range(2):  # the sequenced edits, then what they set off
+            for rt in rts:
+                rt.flush()
+            doc.process_all()
+    summaries = [ch.summarize() for ch in chs]
+    fresh = registry()[kind].create("ch")
+    fresh.load(json.loads(json.dumps(summaries[0])))
+    return {"type": fresh.channel_type, "summaries": summaries,
+            "reloaded": fresh.summarize(),
+            "runtimes": [rt.summarize() for rt in rts],
+            "stream": [m.to_json() for m in doc.sequencer.log]}
+
+
+REF_TYPES = sorted(ref_channels.default_registry())
+
+
+def test_registry_keys_equal_the_references():
+    """``default_registry()`` holds the reference's 16 channel types."""
+    assert sorted(port_channels.default_registry()) == REF_TYPES and len(REF_TYPES) == 16
+
+
+@pytest.mark.parametrize("kind", REF_TYPES)
+def test_registry_type_round_trips_like_the_reference(kind, monkeypatch):
+    """Each reference channel type, built in both packages and edited by
+    two clients, then summarized and loaded into a fresh channel: equal
+    sequenced streams, channel and container summaries, and the reloaded
+    channel re-summarizes to what it loaded."""
+    pkgs = twins.packages()
+    got = {}
+    for key, root in (("ref", "fluidframework_tpu"), ("port", "fluidframework_tpu_torch")):
+        with monkeypatch.context() as mp:
+            twins.install(pkgs[key], mp)
+            got[key] = twins._canon(_registry_round_trip(root, kind))
+    assert got["port"] == got["ref"]
+    out = json.loads(got["port"])
+    assert out["type"] == kind
+    assert out["reloaded"] == out["summaries"][0]
+
+
+def test_registry_unknown_type_raises_key_error():
+    """A type neither registry has raises ``KeyError``, as the reference's
+    does; nothing falls through to another type."""
+    for channels, runtime in ((ref_channels, RefRuntime), (port_channels, PortRuntime)):
+        reg = channels.default_registry()
+        with pytest.raises(KeyError):
+            reg["noSuchType"]
+        assert reg.get("noSuchType") is None
+        rt = runtime(reg, container_id="c")
+        with pytest.raises(KeyError):
+            rt.create_datastore("root").create_channel("noSuchType", "x")

@@ -7,16 +7,18 @@ of the reference module with its twin (class methods and ``parametrize``d
 cases expanded; tests that need a fixture this harness does not supply are
 left out), and ``run_pair(case, monkeypatch)`` runs the two under the same
 conditions.  ``cases`` supplies two of the reference's fixtures in either
-package: ``env`` (``ENV_LOCAL``, a ``LocalService`` and its local driver
+package (and ``module_fixture`` a reference module's own fixture):
+``env`` (``ENV_LOCAL``, a ``LocalService`` and its local driver
 factory; ``ENV_NETWORK``, the network plane in-process over real sockets)
 and the ``string_backend`` setup (``BACKENDS``: the ``RefMergeTree`` oracle,
 or ``KernelMergeTree`` behind the channel boundary, the port's on the CPU).
 Under ``run_pair``:
 
 - both packages' sequencers read one counter clock in place of the wall
-  clock, both packages' ``create_session_id`` draw from one seeded
-  sequence, and both packages' move-id counters start at 0, so
-  timestamps, id-compressor sessions and move ids agree;
+  clock, both packages' ``create_session_id`` and consensus-queue acquire
+  ids draw from one seeded sequence each, and both packages' move-id
+  counters start at 0, so timestamps, id-compressor sessions, acquire ids
+  and move ids agree;
 - network delta connections submit one at a time: each submit waits for
   the server's echo of a sync marker sent behind it, so the server
   sequences concurrent clients' ops in the order the test made them, and
@@ -141,6 +143,29 @@ def kernel_backend(root: str):
 BACKENDS = {"oracle": oracle_backend, "kernel": kernel_backend}
 
 
+def module_fixture(file: str, name: str, subs: tuple[tuple[str, str], ...] = ()):
+    """A ``cases`` provider for the fixture ``name`` that the reference
+    test module ``file`` defines itself: the reference's own function in
+    the reference package, the twin's copy in the port (a generator
+    fixture's teardown runs when the case ends)."""
+
+    @contextlib.contextmanager
+    def provide(root: str):
+        mod = (port_twin(file, subs) if root.endswith("_torch")
+               else importlib.import_module(file[:-3]))
+        out = getattr(mod, name).__wrapped__()
+        if not inspect.isgenerator(out):
+            yield out
+            return
+        value = next(out)
+        try:
+            yield value
+        finally:
+            next(out, None)
+
+    return provide
+
+
 def cases(file: str, skip: tuple[str, ...] = (), fixtures: dict | None = None,
           setup: dict | None = None, subs: tuple[tuple[str, str], ...] = ()) -> list[tuple]:
     """``(id, ref_callable, port_callable)`` for every test of ``file``
@@ -210,6 +235,7 @@ def packages():
         imp = lambda m, root=root: importlib.import_module(f"{root}.{m}")
         out[key] = SimpleNamespace(
             sequencer=imp("server.sequencer"), idc=imp("utils.id_compressor"),
+            small=imp("dds.small"),
             changeset=imp("dds.tree.changeset"),
             LocalDocument=imp("server.local_service").LocalDocument,
             ContainerRuntime=imp("runtime.container_runtime").ContainerRuntime,
@@ -240,6 +266,10 @@ def install(pkg, monkeypatch, seed: int = 0) -> dict[str, list]:
     tick = itertools.count(1)
     monkeypatch.setattr(pkg.sequencer, "time", SimpleNamespace(time=lambda: next(tick) / 8.0))
     monkeypatch.setattr(pkg.idc, "create_session_id", seeded_session_ids(seed))
+    # Consensus-queue acquire ids are fresh UUIDs: one seeded sequence.
+    acquire_ids = seeded_session_ids(seed)
+    monkeypatch.setattr(pkg.small, "_uuid",
+                        SimpleNamespace(uuid4=lambda: uuid.UUID(acquire_ids())))
     # Move ids come from a module-global counter: start both packages at 0,
     # whatever earlier tests in the process minted.
     monkeypatch.setattr(pkg.changeset, "_move_counter", 0)
