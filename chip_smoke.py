@@ -353,11 +353,36 @@ runs these phases on the card, one JSON line each:
     ``restamp`` launched on it.  The line carries each part's seconds,
     the edits/s on the card and on the oracle, the launches and
     ``over_cap`` against a 30 s budget.
+23. ``debugger``: a document's history stepped op by op through the
+    debugger driver (``driver/debugger_driver.py``) into viewers whose
+    strings are on the card, right after phase 22.  Two writer containers
+    (a ``sharedString`` with an interval collection and a ``sharedMap``,
+    their strings on the oracle) make 1,000 seeded inserts, removes,
+    interval adds and map sets over the local service.  (a) Two read-mode
+    viewers load through ``DebuggerDocumentServiceFactory(inner,
+    from_snapshot=False)`` before the datastore's attach op, one with its
+    strings on ``KernelMergeTree`` on the card at phase 16's geometry, one
+    on the oracle; each steps the held history the same way (``step(1)``
+    for 200 messages, ``play_to_seq(350)``, ``resume()``) and records, at
+    every sequence number that is a multiple of 50, its text and every
+    channel's ``visualize_channel`` view: the two lists are equal, the card
+    replica latched no error and launched ``apply_op`` at least once for
+    each insert and remove.  (b) A third viewer boots on the card from the
+    summary container 0 stores after 500 edits and steps only the tail:
+    its checkpoints equal (a)'s.  Then live edits pass straight through to
+    all three.  (c) ``FluidDevtools`` registers the three viewers and its
+    ``DevtoolsServer`` (an ephemeral port) serves each container's JSON:
+    the card viewers' equal the oracle's but for the container's key and
+    id, and no view carries an ``"error"`` key.  The path fails unless
+    ``apply_op`` and K3 launched on it.  The line carries the messages
+    stepped, steps/s on the card and on the oracle, the checkpoints
+    compared, the launches and each part's seconds, with ``over_cap``
+    against a 60 s budget.
 
 The fleet's traffic is made once, after phase 18, and shared by phases
 2, 3, 6, 14, 15 and 20 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
-7-9b, 11-15 and 18-22 are the port's main path (the counts of phases 19
+7-9b, 11-15 and 18-23 are the port's main path (the counts of phases 19
 and 20(b) are taken in their own processes, phase 21's in its fleets'
 processes): the launch counters of K1, of the
 fleet programs, of K7 and K8, of K9, of the map and matrix programs and of
@@ -377,7 +402,8 @@ own (``string_squash``: the runtime never asks for squash), unless K5's
 ``drop_squashed`` and ``strip_stamp`` did; phase 18's ``network_clients``
 and ``network_squash`` paths the same, and ``network_fleet`` unless K2,
 K3, K6 (both programs) and K1 did; ``dds_family`` (22) unless
-``apply_op``, K3 and K5's ``restamp`` did.  Then
+``apply_op``, K3 and K5's ``restamp`` did; ``debugger`` (23) unless
+``apply_op`` and K3 did.  Then
 it prints the ``kernels`` summary line (K1 with its launches by path, the
 segment lane's among them; K7, K8, K9, map, matrix; K2 and K3 at the
 fleet's shape; K6 at 4 shards; the cohort gather and scatter; the one-doc
@@ -5707,6 +5733,351 @@ def phase_dds_family(seed: int, card: str, device: str = "cuda",
     return line
 
 
+# ------------------------------------------- phase 23: the debugger and devtools
+
+# Phase 23's sizes, as main() runs them: two writer containers make
+# ``n_edits`` seeded edits (inserts, removes, interval adds and map sets);
+# container 0 stores a summary once ``summary_at`` edits are sequenced; the
+# whole-history viewers step their first ``stepped`` sequenced messages one
+# at a time and play to ``play_to`` (a sequence number) before they resume;
+# every ``every`` sequence numbers each viewer records a checkpoint;
+# ``live`` edits follow once the viewers are live.  A flush sends a
+# writer's 1-3 edits as one message, so 1,000 edits are ~500 messages.
+DEBUGGER = dict(n_edits=1000, summary_at=500, stepped=200, play_to=350, every=50, live=8)
+DEBUGGER_DOC = "debugged"
+DEBUGGER_CAP_S = 60.0
+
+
+def _viewer_views(c) -> dict:
+    """Every channel of container ``c`` through ``visualize_channel``."""
+    from fluidframework_tpu_torch.tools.devtools import visualize_channel
+
+    return {f"{ds_id}/{ch_id}": visualize_channel(ds.get_channel(ch_id))
+            for ds_id, ds in sorted(c.runtime.datastores.items())
+            for ch_id in sorted(ds.channels)}
+
+
+def _view_errors(obj) -> list:
+    """The ``"error"`` values anywhere in a view (``visualize_channel``
+    catches every exception into that key)."""
+    if isinstance(obj, dict):
+        return ([obj["error"]] if "error" in obj else []) + [
+            e for v in obj.values() for e in _view_errors(v)]
+    if isinstance(obj, list):
+        return [e for v in obj for e in _view_errors(v)]
+    return []
+
+
+def _debugger_edit(rng, s) -> tuple:
+    n = len(s.position_text())
+    kind = rng.choices(["ins", "rem", "iv", "kv"], [50, 25, 15, 10])[0]
+    if kind == "ins" or (n == 0 and kind != "kv"):
+        return ("ins", rng.randint(0, n), rng.choice("abcdefgh") * rng.randint(1, 8))
+    if kind == "kv":
+        return ("kv", f"k{rng.randrange(16)}", rng.randrange(1000))
+    p1 = rng.randrange(n)
+    if kind == "rem":
+        return ("rem", p1, rng.randint(p1 + 1, min(n, p1 + 8)))
+    return ("iv", p1, rng.randint(p1, min(n - 1, p1 + 16)))
+
+
+class _DebugSession:
+    """Phase 23's document: two writer containers over a ``LocalService``
+    (their strings on the host oracle), and the viewers that load through
+    ``DebuggerDocumentServiceFactory`` in read mode, each behind its own
+    controller, which records a checkpoint (the viewer's text and every
+    channel's view) whenever it releases a sequence number that is a
+    multiple of ``every``."""
+
+    def __init__(self, every: int):
+        from fluidframework_tpu_torch.dds.channels import default_registry
+        from fluidframework_tpu_torch.driver import LocalDocumentServiceFactory
+        from fluidframework_tpu_torch.loader import Container
+        from fluidframework_tpu_torch.server.local_service import LocalService
+
+        self.every = every
+        self.registry = default_registry
+        self.svc = LocalService()
+        self.inner = LocalDocumentServiceFactory(self.svc)
+        w0 = Container.create_detached(default_registry(), container_id="w0")
+        w0.attach(DEBUGGER_DOC, self.inner, "w0")
+        self.svc.process_all()
+        self.writers = [w0]
+        self.viewers: dict = {}
+
+    def create_channels(self) -> None:
+        """Container 0 makes the datastore after attach, so its attach op
+        is in the sequenced history a viewer replays from nothing."""
+        from fluidframework_tpu_torch.loader import Container
+
+        rt = self.writers[0].runtime
+        ds = rt.create_datastore("root")
+        ds.create_channel("sharedString", "text")
+        ds.create_channel("sharedMap", "map")
+        rt.submit_datastore_attach("root")
+        rt.flush()
+        self.svc.process_all()
+        self.writers.append(Container.load(DEBUGGER_DOC, self.inner, self.registry(), "w1"))
+        self.svc.process_all()
+
+    def load_viewer(self, name: str, make_string, from_snapshot: bool) -> None:
+        """A viewer whose strings ``make_string`` makes (None: the oracle);
+        the factory is set only while the viewer loads and while its
+        controller releases ops (the writers' strings stay on the host)."""
+        from fluidframework_tpu_torch.driver.debugger_driver import (
+            DebugController,
+            DebuggerDocumentServiceFactory,
+        )
+        from fluidframework_tpu_torch.loader import Container
+
+        session = self
+
+        class Checkpointing(DebugController):
+            def __init__(self):
+                super().__init__()
+                self.checkpoints: list = []
+                self.container = None
+
+            def _deliver(self, sink, msg):
+                super()._deliver(sink, msg)
+                if msg.seq % session.every == 0:
+                    self.checkpoints.append((msg.seq, json.dumps(
+                        {"text": session.text(self.container),
+                         "views": _viewer_views(self.container)}, sort_keys=True)))
+
+        dbg = DebuggerDocumentServiceFactory(self.inner, from_snapshot=from_snapshot)
+        ctl = dbg.controllers[DEBUGGER_DOC] = Checkpointing()
+        with self.strings(make_string):
+            c = Container.load(DEBUGGER_DOC, dbg, self.registry(), name, mode="read")
+        ctl.container = c
+        self.svc.process_all()
+        self.viewers[name] = (c, ctl, make_string)
+
+    @contextlib.contextmanager
+    def strings(self, make_string):
+        from fluidframework_tpu_torch.dds import channels
+
+        channels.set_string_backend_factory(make_string)
+        try:
+            yield
+        finally:
+            channels.set_string_backend_factory(None)
+
+    def release(self, name: str, how: str, arg=None) -> int:
+        _c, ctl, make_string = self.viewers[name]
+        with self.strings(make_string):
+            if how == "step":
+                return ctl.step(arg)
+            if how == "play_to_seq":
+                return ctl.play_to_seq(arg)
+            before = ctl.released
+            ctl.resume()
+            return ctl.released - before
+
+    @staticmethod
+    def string(c):
+        return c.runtime.datastore("root").get_channel("text")
+
+    def text(self, c):
+        return self.string(c).text if "root" in c.runtime.datastores else None
+
+    def edit(self, w: int, op: tuple) -> None:
+        kind, *a = op
+        ds = self.writers[w].runtime.datastore("root")
+        s = ds.get_channel("text")
+        if kind == "ins":
+            s.insert_text(*a)
+        elif kind == "rem":
+            s.remove_range(*a)
+        elif kind == "iv":
+            s.get_interval_collection("marks").add(*a)
+        else:
+            ds.get_channel("map").set(*a)
+
+    def write(self, rng, n_edits: int, counts: dict) -> None:
+        """Rounds of 1-3 edits a writer, flushed, then sequenced, until
+        ``n_edits`` more edits are made."""
+        made = 0
+        while made < n_edits:
+            for w in rng.sample(range(len(self.writers)), len(self.writers)):
+                for _ in range(rng.randint(1, 3)):
+                    op = _debugger_edit(rng, self.string(self.writers[w]))
+                    self.edit(w, op)
+                    counts[op[0]] = counts.get(op[0], 0) + 1
+                    made += 1
+                self.writers[w].runtime.flush()
+            self.svc.process_all()
+
+
+def _debugger_replay(session, name: str, stepped: int, play_to: int, sync) -> dict:
+    """Step ``name``'s held history: ``step(1)`` for ``stepped`` ops (or
+    until the buffer is empty), ``play_to_seq(play_to)``, ``resume()``."""
+    _c, ctl, _make = session.viewers[name]
+    held, first_seq = ctl.pending, ctl.next_seq()
+    t0 = time.perf_counter()
+    steps = 0
+    while steps < stepped and ctl.pending:
+        check(session.release(name, "step", 1) == 1, f"debugger: {name}'s step(1) released nothing")
+        steps += 1
+    played = session.release(name, "play_to_seq", play_to)
+    check(ctl.pending == 0 or ctl.next_seq() > play_to,
+          f"debugger: {name} holds seq {ctl.next_seq()} after play_to_seq({play_to})")
+    resumed = session.release(name, "resume")
+    sync()
+    seconds = time.perf_counter() - t0
+    check(steps + played + resumed == held and ctl.pending == 0,
+          f"debugger: {name} released {steps + played + resumed} of {held} held ops")
+    return {"held": held, "first_seq": first_seq, "stepped": steps, "played": played,
+            "resumed": resumed,
+            "seconds": seconds, "steps_per_s": held / seconds}
+
+
+def phase_debugger(seed: int, card: str, device: str = "cuda", geom: dict | None = None,
+                   sizes: dict | None = None) -> dict:
+    """Phase 23 at ``DEBUGGER``: (a) two writers' seeded edits held by two
+    whole-history viewers (``from_snapshot=False``), one with its strings
+    on ``KernelMergeTree`` on ``device``, one on the oracle, both stepped
+    through the controller the same way: their checkpoints are equal, and
+    the card replica launched ``apply_op`` at least once for each insert
+    and remove it stepped; (b) a viewer booted from the summary container 0
+    stores half way steps the tail and ends equal to (a); then live edits
+    pass straight through; (c) ``FluidDevtools`` over the three viewers and
+    its HTTP surface: the card viewers' container JSON equals the oracle's
+    but for the names, and no view carries an ``"error"`` key."""
+    import random
+    import urllib.request
+
+    import torch
+
+    from fluidframework_tpu_torch.dds.kernel_backend import KernelMergeTree
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.tools.devtools import DevtoolsServer, FluidDevtools
+
+    geom = dict(STRING_CLIENT_GEOM if geom is None else geom)
+    sizes = dict(DEBUGGER if sizes is None else sizes)
+    make_kernel = lambda: KernelMergeTree(**geom, device=device)  # noqa: E731
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    progs = ("apply_op", "compact", "restamp")
+    launches = lambda: {p: getattr(mk, p).launches for p in progs}  # noqa: E731
+    rng = random.Random(seed)
+    parts_s: dict = {}
+    t0 = t = time.perf_counter()
+    session = _DebugSession(sizes["every"])
+    session.load_viewer("card", make_kernel, from_snapshot=False)
+    session.load_viewer("oracle", None, from_snapshot=False)
+    session.create_channels()
+    counts: dict = {}
+    session.write(rng, sizes["summary_at"], counts)
+    summary_seq = session.writers[0].summarize_to_storage()
+    session.load_viewer("summary", make_kernel, from_snapshot=True)
+    session.write(rng, sizes["n_edits"] - sum(counts.values()), counts)
+    writers_text = session.text(session.writers[0])
+    check(session.text(session.writers[1]) == writers_text, "debugger: the writers diverged")
+    parts_s["writers"] = time.perf_counter() - t
+    runs, launched = {}, {}
+    for name, stepped in (("card", sizes["stepped"]), ("oracle", sizes["stepped"]),
+                          ("summary", sizes["stepped"] // 2)):
+        before = launches()
+        runs[name] = _debugger_replay(session, name, stepped, sizes["play_to"], sync)
+        launched[name] = {p: n - before[p] for p, n in launches().items()}
+        parts_s[f"replay_{name}"] = runs[name]["seconds"]
+    viewers = {name: c for name, (c, _ctl, _m) in session.viewers.items()}
+    ctls = {name: ctl for name, (_c, ctl, _m) in session.viewers.items()}
+    card_ck, oracle_ck = ctls["card"].checkpoints, ctls["oracle"].checkpoints
+    last_seq = session.svc.document(DEBUGGER_DOC).sequencer.log[-1].seq
+    every = sizes["every"]
+    for name, ck in (("card", card_ck), ("oracle", oracle_ck)):
+        first = runs[name]["first_seq"]
+        check([s for s, _ in ck] == list(range(-(-first // every) * every, last_seq + 1, every)),
+              f"debugger: the {name} viewer checkpointed at seqs {[s for s, _ in ck]}")
+    for (seq, got), (_s, want) in zip(card_ck, oracle_ck):
+        check(got == want, f"debugger: the card viewer differs from the oracle's at seq {seq}")
+    by_seq = dict(card_ck)
+    tail_ck = ctls["summary"].checkpoints
+    check(tail_ck and tail_ck[0][0] > summary_seq,
+          "debugger: the summary viewer stepped no op above its summary")
+    for seq, got in tail_ck:
+        check(by_seq.get(seq) == got, f"debugger: the summary viewer differs at seq {seq}")
+    stepped_edits = counts.get("ins", 0) + counts.get("rem", 0)
+    check(launched["card"]["apply_op"] >= stepped_edits,
+          f"debugger: {launched['card']['apply_op']} apply_op launches for {stepped_edits} "
+          "stepped inserts and removes")
+    check(launched["oracle"]["apply_op"] == 0, "debugger: the oracle viewer launched apply_op")
+    for name in ("card", "summary", "oracle"):
+        check(session.text(viewers[name]) == writers_text,
+              f"debugger: the {name} viewer's text differs from the writers'")
+    kernels = [session.string(viewers[n]).backend for n in ("card", "summary")]
+    check(all(isinstance(k, KernelMergeTree) for k in kernels),
+          "debugger: a card viewer's string is not on KernelMergeTree")
+    check(not isinstance(session.string(viewers["oracle"]).backend, KernelMergeTree),
+          "debugger: the oracle viewer's string is on KernelMergeTree")
+    check([k.check_errors() for k in kernels] == [0, 0], "debugger: a card replica latched errors")
+
+    t = time.perf_counter()
+    before = launches()
+    live_counts: dict = {}
+    session.write(rng, sizes["live"], live_counts)
+    sync()
+    parts_s["live"] = time.perf_counter() - t
+    launched["live"] = {p: n - before[p] for p, n in launches().items()}
+    writers_text = session.text(session.writers[0])
+    for name, c in viewers.items():
+        check(ctls[name].pending == 0 and session.text(c) == writers_text,
+              f"debugger: a live edit did not pass straight through to the {name} viewer")
+
+    t = time.perf_counter()
+    devtools = FluidDevtools()
+    for name, c in viewers.items():
+        devtools.register_container(name, c.runtime)
+    local = {name: dt.to_json() for name, dt in devtools.containers.items()}
+    server = DevtoolsServer(devtools).start()
+    try:
+        served = {}
+        for name in viewers:
+            with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/devtools/container/"
+                                        f"{name}", timeout=30) as resp:
+                served[name] = json.loads(resp.read())
+    finally:
+        server.stop()
+    parts_s["devtools"] = time.perf_counter() - t
+
+    def unnamed(view):
+        meta = {k: v for k, v in view["metadata"].items() if k not in ("containerKey",
+                                                                        "containerId")}
+        return json.dumps({**view, "metadata": meta}, sort_keys=True)
+
+    for name in viewers:
+        check(served[name] == json.loads(json.dumps(local[name])),
+              f"debugger: devtools served another {name} container than it holds")
+        check(not _view_errors(served[name]),
+              f"debugger: the {name} viewer's devtools views carry errors "
+              f"{_view_errors(served[name])}")
+        check(unnamed(served[name]) == unnamed(served["oracle"]),
+              f"debugger: devtools shows the {name} viewer other than the oracle's")
+    check(not [e for _s, v in card_ck + oracle_ck + tail_ck
+               for e in _view_errors(json.loads(v))],
+          "debugger: a checkpoint's view carries an error")
+    for c in list(viewers.values()) + session.writers:
+        c.disconnect()
+    phase_s = time.perf_counter() - t0
+    line = {
+        "phase": "debugger", "card": card, "geometry": geom, "sizes": sizes,
+        "edits": counts, "live_edits": live_counts, "sequenced": len(
+            session.svc.document(DEBUGGER_DOC).sequencer.log),
+        "summary_seq": summary_seq, "replays": runs,
+        "ops_stepped": runs["card"]["held"],
+        "edits_stepped": sum(counts.values()), "steps_per_s": runs["card"]["steps_per_s"],
+        "oracle_steps_per_s": runs["oracle"]["steps_per_s"],
+        "summary_ops_stepped": runs["summary"]["held"],
+        "checkpoints_compared": len(card_ck) + len(tail_ck),
+        "launches": launched, "identical_to_oracle": True,
+        "parts_s": parts_s, "phase_s": phase_s, "cap_s": DEBUGGER_CAP_S,
+        "over_cap": phase_s > DEBUGGER_CAP_S,
+    }
+    emit(line)
+    return line
+
+
 # ------------------------------------------- phase 18: the network service plane
 
 # Phase 18's sizes, as main() runs them: (b) phase 16's action mix over four
@@ -6904,6 +7275,12 @@ def main(argv=None) -> int:
     for prog, what in (("apply_op", "the one-doc apply_op"), ("compact", "K3"),
                        ("restamp", "K5's restamp")):
         check(paths[prog]["dds_family"] > 0, f"{what} was never launched on the dds_family path")
+    # Phase 23 (a document's history stepped through the debugger into
+    # viewers whose strings are on the card) next, also host issue, one op
+    # at a time.
+    path("debugger", phase_debugger, args.seed, card, "cuda")
+    for prog, what in (("apply_op", "the one-doc apply_op"), ("compact", "K3")):
+        check(paths[prog]["debugger"] > 0, f"{what} was never launched on the debugger path")
     finish_string()
     # Phase 18 (the network service plane: launcher shards, loader clients,
     # network writers into the card's fleet) runs next, also before any

@@ -445,7 +445,7 @@ class KernelMergeTree:
         ``_min_seq`` means an empty table.  ``_min_seq`` may lag the
         state's (it is the last floor this replica read or set), which
         only leaves the gate on."""
-        return any(k > self._min_seq for k in self.slice_keys)
+        return max(self.slice_keys, default=self._min_seq) > self._min_seq
 
     def _step(self, op, payload=None) -> None:
         p = self._empty_payload if payload is None else payload

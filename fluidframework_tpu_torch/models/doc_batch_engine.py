@@ -1941,11 +1941,13 @@ class DocBatchEngine:
         Returns the number of warmup dispatches (the reference's count: the
         port compiles nothing, so there is no recompile poll)."""
         warmed = 0
-        with self.ckpt_lock, span("warmup", k_max=self.megastep_k):
-            if self.device.type == "cuda":
-                from ..ops import cuda_build
+        if self.device.type == "cuda":
+            # Load (on a cold _build/, build) the kernel library with no
+            # lock held: an nvcc run under ckpt_lock would stall ingest.
+            from ..ops import cuda_build
 
-                cuda_build.load()
+            cuda_build.load()
+        with self.ckpt_lock, span("warmup", k_max=self.megastep_k):
             stage = self._staging()
             for k in warmup_depths(self.megastep_k):
                 ops, payloads = stage.acquire(k, self.capacity)

@@ -1214,11 +1214,13 @@ class TreeBatchEngine:
         the state bytes are untouched.
         Returns the number of warmup dispatches (the reference's count)."""
         warmed = 0
-        with self.ckpt_lock, span("warmup", k_max=self.megastep_k):
-            if self.device.type == "cuda":
-                from ..ops import cuda_build
+        if self.device.type == "cuda":
+            # Load (on a cold _build/, build) the kernel library with no
+            # lock held: an nvcc run under ckpt_lock would stall ingest.
+            from ..ops import cuda_build
 
-                cuda_build.load()
+            cuda_build.load()
+        with self.ckpt_lock, span("warmup", k_max=self.megastep_k):
             stage = self._staging()
             for k in warmup_depths(self.megastep_k):
                 ops, payloads = stage.acquire(k, self.fleet_capacity)

@@ -1473,13 +1473,10 @@ def _rss_now_mb() -> float:
     its peak so far where that file is missing."""
     import resource
 
-    try:
-        with open("/proc/self/status") as f:
-            for line in f:
-                if line.startswith("VmRSS:"):
-                    return int(line.split()[1]) / 1024.0
-    except OSError:
-        pass
+    with contextlib.suppress(OSError), open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 

@@ -127,7 +127,7 @@ def test_console_scripts_resolve():
         scripts = dict(re.findall(r'(fftpu-torch-[\w-]+) = "([\w.:]+)"', f.read()))
     assert set(scripts) == {"fftpu-torch-fleet", "fftpu-torch-netserver",
                             "fftpu-torch-launcher", "fftpu-torch-summary-inspect",
-                            "fftpu-torch-trace"}
+                            "fftpu-torch-trace", "fftpu-torch-check"}
     for target in scripts.values():
         mod, fn = target.split(":")
         assert mod.startswith(f"{PORT}.") and callable(getattr(importlib.import_module(mod), fn))

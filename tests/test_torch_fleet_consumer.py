@@ -45,6 +45,7 @@ from fluidframework_tpu_torch.server.fleet_consumer import RESYNC_BOOT_MARKER, F
 from fluidframework_tpu_torch.server.ordered_log import CheckpointStore, Topic
 from fluidframework_tpu_torch.server.scribe import ScribeConfig, ScribeLambda, SummaryRecordStore
 
+import torch_twins as twins
 from test_torch_recovery import assert_engines_equal
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,7 +59,7 @@ TRANSPORT = ("dead_socks", "rows_staged", "bytes_consumed", "booted_docs",
 @pytest.fixture(scope="module", autouse=True)
 def _native_encoder():
     ingest_native.warm()
-    if not ingest_native.loaded():
+    if not (ingest_native.loaded() and twins.reference_encoder_loaded()):
         pytest.skip("the native ingest encoder did not build (no g++)")
 
 

@@ -42,13 +42,14 @@ from fluidframework_tpu_torch.native import ingest_native
 from fluidframework_tpu_torch.protocol.messages import SequencedMessage as PortMessage
 from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
 
+import torch_twins as twins
 from test_columnar_ingest import _interleaved, _join, _op
 from test_doc_batch_engine import drive_docs
 from test_torch_mergetree_kernel import assert_states_equal
 from test_tree_batch_engine import drive_tree_docs
 
 pytestmark = pytest.mark.skipif(
-    not (ingest_native.available() and ref_native.available()),
+    not (ingest_native.available() and twins.reference_encoder_loaded()),
     reason="the native ingest library did not build (no g++)",
 )
 

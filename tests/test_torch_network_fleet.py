@@ -55,6 +55,7 @@ from fluidframework_tpu.models.doc_batch_engine import DocBatchEngine as RefEngi
 from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine  # noqa: E402
 from fluidframework_tpu_torch.native import ingest_native  # noqa: E402
 
+import torch_twins as twins  # noqa: E402
 from test_torch_recovery import assert_engines_equal  # noqa: E402
 
 GEOM = dict(max_segments=64, text_capacity=512, max_insert_len=8, ops_per_step=8,
@@ -66,7 +67,7 @@ WRITERS, ROUNDS, INS_LEN = 4, 4, 4
 @pytest.fixture(scope="module", autouse=True)
 def _native_encoder():
     ingest_native.warm()
-    if not ingest_native.loaded():
+    if not (ingest_native.loaded() and twins.reference_encoder_loaded()):
         pytest.skip("the native ingest encoder did not build (no g++)")
 
 

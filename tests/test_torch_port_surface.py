@@ -49,8 +49,8 @@ _BLOCKER = textwrap.dedent(
 # virtual-storage drivers, the fuzz harness and the chaos soak, and the
 # native dispatch plane, the loadgen plant, the tools and utils/config, and
 # the rest of the DDS family, the legacy v1 sequence snapshots, the snapshot
-# corpus and reference-artifact loaders, and the rest of the framework are
-# among them).
+# corpus and reference-artifact loaders, the rest of the framework, and the
+# static analyzer with the debugger driver and devtools are among them).
 _REQUIRED = {
     "fluidframework_tpu_torch.server.scribe",
     "fluidframework_tpu_torch.server.failover",
@@ -153,6 +153,13 @@ _REQUIRED = {
     "fluidframework_tpu_torch.framework.synthesize",
     "fluidframework_tpu_torch.framework.bindings",
     "fluidframework_tpu_torch.framework.tree_agent",
+    "fluidframework_tpu_torch.analysis",
+    *(f"fluidframework_tpu_torch.analysis.{m}" for m in (
+        "core", "layer_check", "swallowed", "determinism", "markchurn", "jit_safety",
+        "donation", "mesh_safety", "threads", "lock_order", "lock_consistency", "blocking",
+        "cli")),
+    "fluidframework_tpu_torch.driver.debugger_driver",
+    "fluidframework_tpu_torch.tools.devtools",
 }
 
 

@@ -321,6 +321,30 @@ def serialized_submit(submit):
     return run
 
 
+def reference_encoder_loaded(limit_s: float = 120.0) -> bool:
+    """Whether the reference's native ingest encoder is loaded in this
+    process, retrying its load until ``limit_s`` has passed.
+
+    The reference builds ``native/libtpuingest.so`` in place (g++ writes
+    the library's own path) and keeps its first load attempt for the rest
+    of the process.  On a checkout with no built library, test workers
+    that warm it at once see the file while another worker's g++ is still
+    writing it: the load fails, and that worker's reference engines decode
+    on their Python path for the whole session, where the engines'
+    ``health()["checkpoint_age_seqs"]`` differs from the native path's
+    that the port's engines take.  So the parity tests load it here, again
+    and again until the file is whole; ``False`` only when no library
+    loads within the limit (no g++)."""
+    ref = importlib.import_module("fluidframework_tpu.native.ingest_native")
+    end = time.monotonic() + limit_s
+    loaded = ref.warm()
+    while not loaded and time.monotonic() < end:
+        time.sleep(0.5)
+        ref._lib_cache[:] = []  # the accessor loads a built library afresh
+        loaded = ref._ensure_built() is not None
+    return loaded
+
+
 def _try(fn):
     try:
         return fn()
