@@ -171,7 +171,7 @@ runs these phases on the card, one JSON line each:
     clients 0 and 2 on ``KernelMergeTree(device="cuda")`` at config 1's
     single-document geometry (S=16,384, T=131,072, the reference's default
     slot counts), 1 and 3 on ``RefMergeTree``.  A seeded script of 4,000
-    edits (``main`` runs 2,000 of them, ``CUTS``; inserts, removes, annotates, plain and sided obliterates,
+    edits (``main`` runs 500 of them, ``CUTS``; inserts, removes, annotates, plain and sided obliterates,
     interval adds), each client flushing after its edits and a sync a
     round; every sixth round a kernel client drops, edits offline and
     rejoins (its pending ops regenerate through K5), and once it stashes
@@ -229,7 +229,7 @@ runs these phases on the card, one JSON line each:
     "text" and a ``sharedMap`` "meta") and four loader ``Container``s over
     ``NetworkDocumentServiceFactory``, two with ``KernelMergeTree`` on the
     card at config 1's geometry and two on ``RefMergeTree``, run phase
-    16's seeded script at 1,000 edits (of its 2,000, for the script's
+    16's seeded script at 500 edits (of its 2,000, for the script's
     time limit; the line's ``reduced`` names the cut; a kernel client drops
     and rejoins through its ``ConnectionManager`` every sixth round; one
     stash goes
@@ -264,7 +264,8 @@ runs these phases on the card, one JSON line each:
 19. ``chaos``: the chaos soak over the whole serving stack, first of all
     phases and in a fresh process (``bench.py:2075`` runs it so), so no
     other phase warms the restores its recovery percentiles measure: the
-    reference's headline soak (``bench.py:2117-2140``: seed 10, 240 ticks,
+    reference's headline soak (``bench.py:2117-2140``: seed 10, 240 ticks;
+    ``main`` runs 120, ``CUTS``;
     6 string and 3 tree docs, every fault kind of ``testing/chaos.py``
     twice, warm standbys, 0.25 s checkpoint staleness, churn 0.08,
     ``ChaosStack``'s own engine geometry) through ``run_soak`` on the card,
@@ -378,9 +379,44 @@ runs these phases on the card, one JSON line each:
     stepped, steps/s on the card and on the oracle, the checkpoints
     compared, the launches and each part's seconds, with ``over_cap``
     against a 60 s budget.
+24. ``cross_card``: the rank mesh, one process a rank
+    (``parallel.mesh.rank_mesh``), run last.  With two or more visible
+    cards the ranks join an NCCL group, one rank a card (up to 4); on one
+    card 4 ranks join a gloo group with every rank's rows on card 0 (the
+    card count picks the backend; the line prints ``backend`` and
+    ``cards``).  The parent builds nothing (the kernels are built) and
+    starts the ranks, each with a timeout on ``init_process_group`` and
+    the parent's cap on the whole world.  One docs x segs mesh
+    (``seg_shards`` = the ranks) serves the fleet's first 4 rounds for all
+    10,000 docs at config 3's geometry (2,517 slots a rank), a config-1
+    hot doc (8 rounds of the four-writer soup, staged with the first fleet
+    round: a K=4 lane megastep) promoted to a lane over
+    every rank (S=16,384, T=131,072), and one doc migrated across ranks
+    with its rows staged; then the long document (Q=256, S=262,144) over
+    the same ranks.  Meanwhile the parent serves the same stream on one
+    card (the stacked docs x segs mesh of phase 15).  It fails unless
+    every rank's raw rows and latches equal the one-card engine's at the
+    same slots (blake2b digests of each row's bytes), the hot doc's lane
+    equals the stacked lane leaf for leaf, 32 sampled docs' texts equal a
+    CPU replay, the error counts, quarantine and overflow sets agree, the
+    migrated doc changed ranks with its row byte-identical, the long-doc
+    answers equal K1's plain version, and on every rank K2, K3, K6, its
+    compaction and K1 launched (the counts set to 0 just before the
+    rank's main path and read just after; they join the ``kernels`` line
+    as ``cross_card_ranks``).  A rank's traceback fails the phase.  Per
+    rank it prints the launches, each step's seconds, K2's call and device
+    time on its rows (ranks in turn, after the parent has left the card),
+    the lane's seconds, rows/s and collectives an op, ``psum`` and
+    ``all_gather`` ms a call, and one K6 call at [4, 16] over the ranks.
+    ``--only cross_card`` runs the build and this phase alone, the last
+    line's ``count`` the visible cards; over NCCL it then runs
+    ``fleet_main --mesh N`` under ``torch.distributed.run`` on the same
+    ranks (``cross_entry``: 256 docs of the fleet traffic's first 4
+    rounds from a firehose; rank 0 alone prints, its texts equal an
+    engine's on the CPU fed the same bytes, K2 launched).
 
 The fleet's traffic is made once, after phase 18, and shared by phases
-2, 3, 6, 14, 15 and 20 (a ``traffic`` line gives its generation time); each tree
+2, 3, 6, 14, 15, 20 and 24 (a ``traffic`` line gives its generation time); each tree
 path makes its own from the seed, outside its timed window.  Phases 2-5,
 7-9b, 11-15 and 18-23 are the port's main path (the counts of phases 19
 and 20(b) are taken in their own processes, phase 21's in its fleets'
@@ -403,7 +439,8 @@ own (``string_squash``: the runtime never asks for squash), unless K5's
 and ``network_squash`` paths the same, and ``network_fleet`` unless K2,
 K3, K6 (both programs) and K1 did; ``dds_family`` (22) unless
 ``apply_op``, K3 and K5's ``restamp`` did; ``debugger`` (23) unless
-``apply_op`` and K3 did.  Then
+``apply_op`` and K3 did; ``cross_card`` (24) unless K2, K3, K6 (both
+programs) and K1 launched on every rank.  Then
 it prints the ``kernels`` summary line (K1 with its launches by path, the
 segment lane's among them; K7, K8, K9, map, matrix; K2 and K3 at the
 fleet's shape; K6 at 4 shards; the cohort gather and scatter; the one-doc
@@ -411,13 +448,15 @@ fleet's shape; K6 at 4 shards; the cohort gather and scatter; the one-doc
 limit, and, last, the
 ``{"ok": true, ...}`` line.
 Any failure exits nonzero without that line; so does a machine without a
-CUDA card, or a directory without the port.  ``main`` runs six phases
+CUDA card, or a directory without the port.  ``main`` runs eight phases
 below the sizes above (``CUTS``: the recovery phase at the traffic's
-first 5,000 docs, tree_fleet at 256 docs, so
+first 1,000 docs with 16 sampled docs, phase 15's fleet part at its three
+checked turns (no timing turns), the serving phase's fleet_main entry at
+64 docs, tree_fleet at 256 docs, so
 ``time_tree_programs`` holds K7 and K8 on a 256-doc ring and times K7's
 routes at 2 of their 4 shares, tree_rebase at 32 fleet docs, the serving
-phase's scribe at 32 string, tree and map docs of 64, and phase 16 at
-2,000 of its 4,000 edits) to stay inside the
+phase's scribe at 16 string, tree and map docs of 64, phase 16 at 500 of
+its 4,000 edits, and phase 19's soak at 120 of its 240 ticks) to stay inside the
 script's 1,200 s limit; its ``cuts`` line, printed first, lists them, and
 every phase line carries ``script_s``, the script's seconds so far.
 """
@@ -3605,13 +3644,14 @@ def _sharded_fleet_run(eng, joins, rounds_msgs, role: str, plan: dict, shard0: s
 
 def _sharded_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000,
                    rounds: int = SHARDED_ROUNDS, spare: int = 64, sample: int = 64,
-                   geom: dict = FLEET_GEOM) -> dict:
+                   geom: dict = FLEET_GEOM, turns: int = 6) -> dict:
     """Parts (a) and (b): the config-3 fleet on a 4-shard mesh with
     ``spare`` spare slots (migrations, a hot-shard rebalance) against a
     control with no mesh (``use_mesh=False``: cohort steps) and the default
     full-fleet engine; every doc's raw row and latch equal across the
     three, 64 sampled unmoved docs equal a CPU replay; ops/s of each in
-    turns."""
+    turns (the first ``turns`` of mesh, cohort, full, full, cohort, mesh:
+    the checked three, then the timing turns in reverse)."""
     import gc
 
     import torch
@@ -3636,7 +3676,7 @@ def _sharded_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_
     engines = {}
     # Checked turns first (mesh, then the two controls), then timing turns
     # in reverse: mesh, cohort, full, full, cohort, mesh.
-    for turn, name in enumerate(("mesh", "cohort", "full", "full", "cohort", "mesh")):
+    for turn, name in enumerate(("mesh", "cohort", "full", "full", "cohort", "mesh")[:turns]):
         eng = makers[name]()
         if shard0 is None:
             shard0 = {d for d in range(n_docs) if eng.shard_of(d) == 0}
@@ -3696,7 +3736,7 @@ def _sharded_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_
             torch.cuda.empty_cache()
     migrate_ms = [x for run in runs["mesh"] for x in run["migrate_ms"]]
     return {
-        "docs": n_docs, "rounds": rounds, "spare_slots": spare,
+        "docs": n_docs, "rounds": rounds, "spare_slots": spare, "turns": turns,
         "reduced": f"rounds 16 -> {rounds} (the fleet phase's 16 rounds of the shared traffic)",
         "ops": runs["mesh"][0]["ops"],
         "ops_per_s": {k: [r["ops_per_s"] for r in v] for k, v in runs.items()},
@@ -4619,14 +4659,40 @@ DDS_CAP_S = 150.0
 # 5,000 of its 10,000 docs: of its 185.3 s there, 140.3 s were per-doc parts
 # over the 10,000 (rounds 55.6, checkpoint and restore 46.6, the
 # restored-doc check 21.1, the rounds after the restore 17.0: ``parts_s``).
+# Phase 24 (the rank mesh) took 108.5 s alone on one H100 80GB HBM3 at 700 W
+# with 40 hot rounds, two K6 calls and a profiler session a K2 turn, and
+# 106.7 s in a whole run of 1,320 s on a slower host, so it runs 8 hot rounds,
+# one K6 call and one profiler session a rank.  To pay for it the recovery
+# phase runs the traffic's first 2,500 docs (137.0 s at 5,000 in a whole run
+# of 1,024.3 s; 151.1 s at 2,500 on the slower host, 35.0 s of it the CPU
+# replay of the faulted and sampled docs) and replays 32 sampled docs of 64,
+# phase 15's fleet part its three checked turns without the three timing
+# turns (25.5 s before, 14.2 s after; the rank mesh now carries the fleet
+# across shards), and the serving phase's fleet_main entry 128 docs of 256
+# (39.5 s at 256 on the slower host).  The whole script then took 942.9 s
+# on an H100 80GB HBM3 at 700 W whose host ran it about 1.4 times faster
+# than the slower host's 1,326.5 s, too close to the limit there, so the
+# recovery phase runs 1,000 docs with 16 sampled (at 2,500 its per-doc
+# parts took 74.2 s of 109.2 s), the serving phase's scribe 16 docs a
+# family and its entry 64 docs (21.8 s and 28.1 s at 32 and 128), phase 16
+# 1,000 edits (its card run 32.0 s at 2,000), and phase 24 times its
+# collectives over 50 calls (of 200).  With those the script took 907.7 s
+# (the recovery phase 92.8 s: its rounds, 45.7 s, are the faulted docs'
+# grow replays and do not shrink with the docs), so phase 19's soak runs
+# 120 of its 240 ticks (every fault kind still fires twice; the soak took
+# 55.6 s at 240), phase 16 500 edits (17.6 s at 1,000) and phase 18's
+# client leg 500 (``NET_REDUCED``; 21.3 s at 1,000).
 # Printed in the ``cuts`` line.
 CUTS = {
-    "recovery": {"n_docs": 5000},          # of 10,000
+    "recovery": {"n_docs": 1000, "sample": 16},  # of 10,000 docs, of 64 sampled
+    "sharded": {"fleet": {"turns": 3}},    # of 6: the checked turns, no timing turns
     "tree_fleet": {"n_docs": 256},         # of 1,024 (time_tree_programs' ring too)
     "tree_rebase": {"fleet_docs": 32},     # of 256
     "tree_programs": {"shares": (1 / 16, 1)},  # of (1/16, 1/4, 1/2, 1)
-    "serving": {"scribe_docs": (32, 32, 32, 4)},  # of (64, 64, 64, 4): strings, trees, maps, matrices
-    "string_client": {"n_edits": 2000},    # of 4,000
+    # scribe of (64, 64, 64, 4): strings, trees, maps, matrices; entry of 256
+    "serving": {"scribe_docs": (16, 16, 16, 4), "entry_docs": 64},
+    "string_client": {"n_edits": 500},     # of 4,000
+    "chaos": {"ticks": 120},               # of the reference soak's 240
 }
 # K11's public programs and the reference lines they replace.
 K11_PROGRAMS = {"rebase_insert_positions": 86, "rebase_node_positions": 111,
@@ -6085,15 +6151,16 @@ def phase_debugger(seed: int, card: str, device: str = "cuda", geom: dict | None
 # (the hot doc's shard at config-1 geometry, the other at config-3), 4
 # network writers a doc.  The client leg's own size is 2,000 edits; the
 # whole script took 1,186 s of its 1,200 s limit with it on an H100 80GB
-# HBM3 at 700 W (the client leg 64 s), so it runs 1,000 (NET_REDUCED).  The
+# HBM3 at 700 W (the client leg 64 s), so it runs 1,000, and since 500
+# (NET_REDUCED; ``CUTS`` says why).  The
 # fleet leg's own size is 8 rounds; with phase 19 the script took 1,177 s on
 # a slow host (the fleet leg's submits 24 s of 8 rounds on a faster one), so
 # it runs 4, the hot doc on its lane for the last two (promoted after round
 # 1, where its own size promotes it after round 3 and serves it there for 4).
-NET_CLIENTS = dict(n_edits=1000, reconnect_every=6, summary_ops=400)
+NET_CLIENTS = dict(n_edits=500, reconnect_every=6, summary_ops=400)
 NET_FLEET = dict(n_docs=256, writers=4, rounds=4, ops_per_round=16, hot_ops=64, ins_len=8,
                  sample=32, promote_after=1, seg_shards=4)
-NET_REDUCED = {"clients": {"n_edits": "1,000 (of 2,000)"}, "fleet": {"rounds": "4 (of 8)"}}
+NET_REDUCED = {"clients": {"n_edits": "500 (of 2,000)"}, "fleet": {"rounds": "4 (of 8)"}}
 NET_CAP_S = 150.0
 NET_CLIENT_DOC = "net-client"
 NET_HOT_DOC = "net-hot"
@@ -6705,7 +6772,7 @@ def _chaos_child_main(rss_cuda_init_mb: float) -> None:
     for fn in progs.values():
         fn.launches = 0
     t = time.perf_counter()
-    out["soak"] = run_soak(device="cuda", **CHAOS_SOAK)
+    out["soak"] = run_soak(device="cuda", **dict(CHAOS_SOAK, **CUTS["chaos"]))
     out["soak_s"] = time.perf_counter() - t
     out["soak_launches"] = launches()
     out["rss_after_soak_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
@@ -6794,7 +6861,7 @@ def phase_chaos(card: str, paths: dict | None = None) -> dict:
                 if prog in paths:
                     paths[prog][name] = n
     line = {
-        "phase": "chaos", "card": card, "config": {k: v for k, v in CHAOS_SOAK.items()},
+        "phase": "chaos", "card": card, "config": dict(CHAOS_SOAK, **CUTS["chaos"]),
         "phase_s": phase_s, "soak_s": out["soak_s"], "migrate_s": out["migrate_s"],
         "duration_s": soak["duration_s"], "ops_sequenced": soak["ops_sequenced"],
         "ops_per_sec": soak["ops_per_sec"], "p50_ms": soak["p50_ms"], "p99_ms": soak["p99_ms"],
@@ -7165,11 +7232,541 @@ def phase_loadgen(card: str, paths: dict | None = None) -> dict:
     return line
 
 
+# Phase 24: cross-card meshes, one rank a card.  One docs x segs mesh of
+# ``ranks`` ranks (seg_shards = ranks) serves the config-3 fleet at full
+# width, a config-1 hot doc promoted to a lane over every rank, and one doc
+# migrated across ranks; the long document runs over the same ranks.
+CROSS_CARD = dict(ranks=4, n_docs=10_000, rounds=4, hot_rounds=8, hot_per_step=8, spare=64,
+                  sample=32, migrate_doc=7, long_S=262_144, long_Q=256, k2_iters=10,
+                  coll_iters=50)
+CROSS_CARD_TIMEOUT_S = 300
+_CROSS_CHILD = "import chip_smoke\nchip_smoke._cross_card_rank_main()\n"
+
+
+def _cross_geom(ranks: int) -> dict:
+    """The rank mesh's engine: config 3's fleet geometry (16 obliterate slots,
+    as the hot doc's four-writer soup needs), lanes at config 1's S and T."""
+    return dict(FLEET_GEOM, ob_slots=16, recovery="grow",
+                seg_lane_segments=HOT_GEOM["max_segments"] // ranks,
+                seg_lane_text_capacity=HOT_GEOM["text_capacity"])
+
+
+def _cross_programs() -> dict:
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.ops.resolve_kernel import resolve_positions
+
+    return {"apply_megastep": mk.apply_megastep, "compact": mk.compact,
+            "apply_megastep_seg": mk.apply_megastep_seg, "compact_seg": mk.compact_seg,
+            "resolve_positions": resolve_positions}
+
+
+def _row_hashes(state) -> list:
+    """A blake2b digest of every row of a fleet state (all its leaves'
+    bytes): the rows compare byte for byte across processes by digest."""
+    import hashlib
+
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+
+    leaves = mk.leaves(state)
+    n = int(leaves[0].shape[0])
+    flat = torch.cat([x.reshape(n, -1) for x in leaves], 1).cpu().numpy()
+    return [hashlib.blake2b(flat[i].tobytes(), digest_size=16).hexdigest() for i in range(n)]
+
+
+def _cross_drive(eng, traffic, hot_msgs, sizes, hot: int, sync, on_round=None) -> dict:
+    """The main path on one engine (a rank's or the parent's): joins, the hot
+    doc promoted to its lane, then each fleet round (one ``ingest_batch``)
+    with the next ``hot_per_step`` hot rounds (64 lane rows at 8: a K=4
+    lane megastep), ``step`` and ``compact``; the migrated doc moves after
+    round 2 is staged."""
+    joins, rounds = _rounds_for(traffic, sizes["n_docs"], sizes["rounds"])
+    hjoins, hrounds = hot_msgs
+    eng.ingest_batch([d for d, _ in joins], [m for _, m in joins])
+    for m in hjoins:
+        eng.ingest(hot, m)
+    eng.step()
+    check(eng.enable_segment_sharding(hot), "cross_card: enable_segment_sharding refused")
+    per = sizes["hot_per_step"]
+    out = {"step_s": [], "migrated": None}
+    for r, msgs in enumerate(rounds):
+        eng.ingest_batch([d for d, _ in msgs], [m for _, m in msgs])
+        for rr in hrounds[r * per:(r + 1) * per]:
+            for m in rr:
+                eng.ingest(hot, m)
+        if r == 2:
+            d = sizes["migrate_doc"]
+            src = eng.shard_of(d)
+            check(eng.migrate_doc(d, (src + 3) % eng.n_shards), "cross_card: migrate_doc refused")
+            out["migrated"] = {"doc": d, "from": src, "to": eng.shard_of(d),
+                               "slot": int(eng._slot[d])}
+        t = time.perf_counter()
+        eng.step()
+        eng.compact()
+        sync()
+        out["step_s"].append(time.perf_counter() - t)
+        if on_round is not None:
+            on_round(r)
+    return out
+
+
+def _cross_card_rank_main() -> None:
+    """One rank of phase 24 (a process of its own, started by
+    ``phase_cross_card``): joins the group (NCCL on its own card, or gloo
+    with every rank's rows on card 0), drives the main path on the rank
+    mesh with the launch counts set to 0 just before it and read just
+    after, then times K2 on its rows (ranks in turn), the lane's
+    collectives and K6 over the ranks.  Writes its results to
+    ``rank<RANK>.pkl``; a failure prints its traceback and exits 1."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    work, backend = os.environ["CROSS_DIR"], os.environ["CROSS_BACKEND"]
+    device, seed = os.environ["CROSS_DEVICE"], int(os.environ["CROSS_SEED"])
+    sizes = json.loads(os.environ["CROSS_SIZES"])
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(work, "store"), world),
+                            rank=rank, world_size=world, timeout=timedelta(seconds=120))
+    try:
+        out = _cross_card_rank(rank, world, device, seed, sizes, work)
+        with open(os.path.join(work, f"rank{rank}.pkl.tmp"), "wb") as f:
+            pickle.dump(out, f)
+        os.replace(os.path.join(work, f"rank{rank}.pkl.tmp"),
+                   os.path.join(work, f"rank{rank}.pkl"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _cross_card_rank(rank: int, world: int, device: str, seed: int, sizes: dict,
+                     work: str) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.parallel import long_doc as ld
+    from fluidframework_tpu_torch.parallel.mesh import rank_mesh
+    from fluidframework_tpu_torch.protocol.stamps import ALL_ACKED
+
+    on_card = device.startswith("cuda")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    progs = _cross_programs()
+    t0 = time.perf_counter()
+    traffic = fleet_traffic(sizes["n_docs"], sizes["rounds"], FLEET_GEOM["ops_per_step"], 8, seed)
+    hot_msgs = hot_doc_messages(seed + 3, sizes["hot_rounds"])
+    long_state, queries = _long_doc_input(seed, sizes["long_S"], sizes["long_Q"])
+    mesh = rank_mesh(seg_shards=world, device=device)
+    eng = DocBatchEngine(sizes["n_docs"] + 1, mesh=mesh, spare_slots=sizes["spare"],
+                         **_cross_geom(world))
+    hot = sizes["n_docs"]
+    setup_s = time.perf_counter() - t0
+    group = eng._seg_megastep.group
+    captured = {}
+    lane = {"s": 0.0, "dispatches": 0, "calls": 0}
+    megastep, seg_megastep = eng._megastep, eng._seg_megastep
+
+    def capture(state, ops, pays, kinds=None):
+        if ops.shape[0] > captured.get("k", 0):
+            captured.update(k=ops.shape[0], ops=ops.clone(), pays=pays.clone(), kinds=kinds.copy())
+        return megastep(state, ops, pays, kinds=kinds)
+
+    def timed_lane(state, ops, pays, kinds=None):
+        calls, t = group.calls, time.perf_counter()
+        out = seg_megastep(state, ops, pays, kinds=kinds)
+        sync()
+        lane["s"] += time.perf_counter() - t
+        lane["dispatches"] += 1
+        lane["calls"] += group.calls - calls
+        if ops.shape[0] == 4 and "lane" not in captured:
+            captured["lane"] = (ops.clone(), pays.clone(), kinds.copy())
+        return out
+
+    eng._megastep, eng._seg_megastep = capture, timed_lane
+    timed_lane.group = group
+    for fn in progs.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = _cross_drive(eng, traffic, hot_msgs, sizes, hot, sync)
+    lstate = ld.shard_doc_state(long_state, mesh)
+    _vis, resolve, _mark = ld.make_sharded_ops(mesh, lstate)
+    gi, off = resolve(lstate, queries, ALL_ACKED, -2)
+    sync()
+    main_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in progs.items()}
+    eng._megastep, eng._seg_megastep = megastep, seg_megastep
+    lo, hi = eng._rows
+    rng = np.random.default_rng(seed + 24)
+    sample = sorted(int(d) for d in rng.choice(sizes["n_docs"], sizes["sample"], replace=False))
+    out = {
+        "rank": rank, "device": device, "rows": [lo, hi], "setup_s": setup_s, "main_s": main_s,
+        "run": run, "launches": launches,
+        "hashes": _row_hashes(eng.state), "latches": eng.state.error.cpu().numpy(),
+        "lane": mk.to_numpy(eng.seg_lanes[hot].state),
+        "texts": {d: eng.text(d) for d in sample},
+        "error_count": eng.error_count(), "quarantine": sorted(eng.quarantine),
+        "overflow": sorted(eng.overflow), "long": (gi.cpu().numpy(), off.cpu().numpy()),
+        "ob_gate_opens": eng.ob_gate_opens, "ob_gate_syncs": eng.counters.get("ob_gate_syncs"),
+        "lane_s": lane["s"], "lane_dispatches": lane["dispatches"],
+        "lane_rows": sum(len(r) for r in hot_msgs[1]),
+        "collectives_per_dispatch": lane["calls"] / max(lane["dispatches"], 1),
+    }
+    # Timings, outside the main path.  The parent's engine must be off the
+    # card first (it writes "parent_done").  K2 runs on one rank at a time:
+    # its call time in turns, then its device time in turns inside one
+    # profiler session a rank, the sessions opened together (a session's
+    # start costs seconds).
+    while not os.path.exists(os.path.join(work, "parent_done")):
+        time.sleep(0.05)
+    ring = captured
+    if ring.get("k"):
+        fn = lambda: mk.apply_megastep(eng.state, ring["ops"], ring["pays"],  # noqa: E731
+                                       kinds=ring["kinds"])
+        out["k2"] = {"shape": list(ring["ops"].shape[:3]), "ms": None, "device_ms": None}
+        for r in range(world):
+            dist.barrier()
+            if r == rank and on_card:
+                out["k2"]["ms"] = cuda_ms(fn, sizes["k2_iters"], warmup=3)
+        dist.barrier()
+        if on_card:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for r in range(world):
+                    dist.barrier()
+                    if r == rank:
+                        for _ in range(2):
+                            fn()
+                        torch.cuda.synchronize()
+                dist.barrier()
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "nccl" not in e.key.lower()]
+            out["k2"]["device_ms"] = sum(
+                (getattr(e, "device_time_total", None) or e.cuda_time_total) for e in dev) / 2e3
+    dist.barrier()
+    x = torch.ones(1, dtype=torch.int32, device=device)
+    for name, coll in (("psum", group.psum), ("all_gather", group.all_gather)):
+        dist.barrier()
+        sync()
+        t = time.perf_counter()
+        for _ in range(sizes["coll_iters"]):
+            coll(x)
+        sync()
+        out[f"{name}_ms"] = (time.perf_counter() - t) * 1e3 / sizes["coll_iters"]
+    if "lane" in captured:
+        ops, pays, kinds = captured["lane"]
+        st = eng.seg_lanes[hot].state
+        dist.barrier()
+        sync()
+        t = time.perf_counter()
+        mk.apply_megastep_seg(st, ops, pays, group=group, kinds=kinds)
+        sync()
+        out["k6"] = {"shape": list(ops.shape[:2]), "ms": (time.perf_counter() - t) * 1e3}
+    out["backend"] = str(dist.get_backend())
+    return out
+
+
+def _long_doc_input(seed: int, S: int, Q: int) -> tuple:
+    """Phase 5's long document (seeded lengths, 15% removed) as a host
+    state, and its queries."""
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.protocol.stamps import NO_REMOVE
+
+    rng = np.random.default_rng(seed)
+    seg_len = rng.integers(1, 9, size=S).astype(np.int32)
+    removed = rng.random(S) < 0.15
+    host = mk.to_numpy(mk.init_state(S, 2, 2, int(seg_len.sum()), 8, device="cpu"))
+    rem0 = np.where(removed, S + 1 + np.arange(S), NO_REMOVE).astype(np.int32)
+    host = host._replace(
+        nseg=np.asarray(S, np.int32), seg_start=(np.cumsum(seg_len) - seg_len).astype(np.int32),
+        seg_len=seg_len, ins_key=np.arange(1, S + 1, dtype=np.int32),
+        ins_client=np.zeros(S, np.int32), rem_keys=(rem0,) + host.rem_keys[1:],
+    )
+    total = int(np.where(removed, 0, seg_len).sum())
+    return mk.from_numpy(host, device="cpu"), rng.integers(0, total, size=Q).astype(np.int32)
+
+
+def phase_cross_card(seed: int, card: str, device: str = "cuda", traffic=None, paths=None,
+                     sizes: dict | None = None) -> dict:
+    """Phase 24: the rank mesh, one process a rank.  With two or more
+    visible cards NCCL, one rank a card (up to ``ranks``); on one card
+    gloo, every rank's rows on card 0 (the card count picks the backend).
+    The parent builds nothing (the kernels are built), starts the ranks,
+    and meanwhile serves the same stream on a one-card engine (the stacked
+    docs x segs mesh of phase 15); it fails unless every rank's rows and
+    latches are byte-identical to the one-card engine's at the same slots
+    (blake2b digests), the hot doc's lane equals the stacked lane, sampled
+    docs' texts equal a CPU replay, the error counts agree, the migrated
+    doc's row is byte-identical, the long-document answers equal K1's
+    plain version, and on every rank K2, K3, K6, its compaction and K1
+    launched.  A rank's failure or the timeout fails the phase."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mk
+    from fluidframework_tpu_torch.ops.resolve_kernel import resolve_positions_plain
+    from fluidframework_tpu_torch.parallel.mesh import docs_segs_mesh
+
+    sizes = dict(CROSS_CARD, **(sizes or {}))
+    on_card = device == "cuda"
+    cards = torch.cuda.device_count() if on_card else 0
+    if cards >= 2:
+        backend, ranks = "nccl", min(sizes["ranks"], cards)
+        rank_devices = [f"cuda:{r}" for r in range(ranks)]
+    else:
+        backend, ranks = "gloo", sizes["ranks"]
+        rank_devices = ["cuda:0" if on_card else "cpu"] * ranks
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cross_card_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p),
+        "WORLD_SIZE": str(ranks), "CROSS_DIR": work, "CROSS_BACKEND": backend,
+        "CROSS_SEED": str(seed), "CROSS_SIZES": json.dumps(sizes), "OMP_NUM_THREADS": "2"}
+    errs = [open(os.path.join(work, f"rank{r}.err"), "w+") for r in range(ranks)]
+    procs = [subprocess.Popen([sys.executable, "-c", _CROSS_CHILD], cwd=root,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r),
+                                   "CROSS_DEVICE": rank_devices[r]},
+                              stdout=subprocess.DEVNULL, stderr=errs[r])
+             for r in range(ranks)]
+    try:
+        # The one-card engine on the same stream, while the ranks start.
+        if traffic is None:
+            traffic = fleet_traffic(sizes["n_docs"], sizes["rounds"], FLEET_GEOM["ops_per_step"],
+                                    8, seed)
+        hot_msgs = hot_doc_messages(seed + 3, sizes["hot_rounds"])
+        hot = sizes["n_docs"]
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize()
+
+        t1 = time.perf_counter()
+        one = DocBatchEngine(hot + 1, mesh=docs_segs_mesh([device] * ranks, seg_shards=ranks),
+                             spare_slots=sizes["spare"], **_cross_geom(ranks))
+        one_run = _cross_drive(one, traffic, hot_msgs, sizes, hot, sync)
+        want = {"hashes": _row_hashes(one.state), "latches": one.state.error.cpu().numpy(),
+                "lane": mk.to_numpy(one.seg_lanes[hot].state), "error_count": one.error_count(),
+                "quarantine": sorted(one.quarantine), "overflow": sorted(one.overflow)}
+        one_s = time.perf_counter() - t1
+        rng = np.random.default_rng(seed + 24)
+        sample = sorted(int(d) for d in rng.choice(sizes["n_docs"], sizes["sample"],
+                                                   replace=False))
+        one_texts = {d: one.text(d) for d in sample}
+        check(one.error_count() == 0 and not one.quarantine, "cross_card: the one-card engine latched")
+        del one
+        if on_card:
+            torch.cuda.empty_cache()
+        long_state, queries = _long_doc_input(seed, sizes["long_S"], sizes["long_Q"])
+        lens = torch.where(long_state.rem_keys[0] == mk.NO_REMOVE, long_state.seg_len, 0)
+        plain = resolve_positions_plain(lens[None].to(device), torch.as_tensor(
+            queries, device=device)[None])
+        want_long = (plain[0][0].cpu().numpy(), plain[1][0].cpu().numpy())
+        sync()
+        open(os.path.join(work, "parent_done"), "w").close()
+        # The CPU replay of the sampled docs.
+        t1 = time.perf_counter()
+        local = {d: j for j, d in enumerate(sample)}
+        joins, rounds = _rounds_for(traffic, sizes["n_docs"], sizes["rounds"])
+        cpu = DocBatchEngine(len(sample), device="cpu", **_cross_geom(ranks))
+        for msgs in [joins] + rounds:
+            mine = [(local[d], m) for d, m in msgs if d in local]
+            cpu.ingest_batch([d for d, _ in mine], [m for _, m in mine])
+            cpu.step()
+            cpu.compact()
+        replay = {d: cpu.text(local[d]) for d in sample}
+        replay_s = time.perf_counter() - t1
+        deadline = time.monotonic() + CROSS_CARD_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            check(time.monotonic() < deadline,
+                  f"cross_card: the ranks ran past {CROSS_CARD_TIMEOUT_S} s")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = []
+        for r in failed:
+            errs[r].seek(0)
+            tails.append(f"rank {r} (rc {procs[r].returncode}):\n{errs[r].read()[-3000:]}")
+        raise AssertionError("cross_card: a rank failed:\n" + "\n".join(tails))
+    outs = []
+    for r in range(ranks):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    dps = len(want["hashes"]) // ranks
+    for o in outs:
+        r, (lo, hi) = o["rank"], o["rows"]
+        check((lo, hi) == (r * dps, (r + 1) * dps), f"cross_card: rank {r} holds {lo}:{hi}")
+        bad = sum(a != b for a, b in zip(o["hashes"], want["hashes"][lo:hi]))
+        check(bad == 0, f"cross_card: {bad} rows of rank {r} differ from the one-card engine")
+        check(np.array_equal(o["latches"], want["latches"][lo:hi]),
+              f"cross_card: rank {r}'s latches differ")
+        check(o["texts"] == replay == one_texts,
+              f"cross_card: rank {r}'s sampled texts differ from the CPU replay")
+        for key in ("error_count", "quarantine", "overflow"):
+            check(o[key] == want[key], f"cross_card: rank {r}'s {key} {o[key]} != {want[key]}")
+        check(o["run"]["migrated"] == one_run["migrated"],
+              f"cross_card: migration {o['run']['migrated']} != {one_run['migrated']}")
+        check(np.array_equal(o["long"][0], want_long[0]) and np.array_equal(o["long"][1],
+                                                                              want_long[1]),
+              f"cross_card: rank {r}'s long-document answers differ from K1's plain version")
+        if on_card:
+            for prog, n in o["launches"].items():
+                check(n > 0, f"cross_card: {prog} never launched on rank {r}")
+    lane = mk.tree_map(lambda *xs: np.concatenate(xs), *[o["lane"] for o in outs])
+    check(mk.seg_replica_mismatch(lane) == [], "cross_card: the ranks' lane replicas disagree")
+    diff = [i for i, (a, b) in enumerate(zip(mk.leaves(lane), mk.leaves(want["lane"])))
+            if not np.array_equal(a, b)]
+    check(diff == [], f"cross_card: the hot doc's lane differs from the stacked lane (leaves {diff})")
+    mig = one_run["migrated"]
+    check(mig["from"] != mig["to"], f"cross_card: the doc did not change ranks ({mig})")
+    if paths is not None:
+        for prog in _cross_programs():
+            paths[prog]["cross_card_ranks"] = sum(o["launches"][prog] for o in outs)
+    line = {
+        "phase": "cross_card", "card": card, "backend": backend, "cards": cards, "ranks": ranks,
+        "rank_devices": rank_devices, "docs": sizes["n_docs"], "rounds": sizes["rounds"],
+        "hot_rounds": sizes["hot_rounds"], "capacity": len(want["hashes"]), "docs_per_rank": dps,
+        "identical_rows": len(want["hashes"]), "sampled_texts": len(sample),
+        "migrated": mig, "one_card_s": one_s, "cpu_replay_s": replay_s,
+        "ranks_detail": [{
+            "rank": o["rank"], "device": o["device"], "launches": o["launches"],
+            "setup_s": o["setup_s"], "main_s": o["main_s"], "step_s": o["run"]["step_s"],
+            "k2": o.get("k2"), "lane_s": o["lane_s"], "lane_dispatches": o["lane_dispatches"],
+            "lane_rows": o["lane_rows"],
+            "lane_rows_per_s": o["lane_rows"] / o["lane_s"] if o["lane_s"] else None,
+            "collectives_per_dispatch": o["collectives_per_dispatch"],
+            "collectives_per_op": o["collectives_per_dispatch"] * o["lane_dispatches"]
+            / max(o["lane_rows"], 1),
+            "psum_ms": o["psum_ms"], "all_gather_ms": o["all_gather_ms"], "k6": o.get("k6"),
+            "ob_gate_opens": o["ob_gate_opens"], "ob_gate_syncs": o["ob_gate_syncs"],
+        } for o in outs],
+        "phase_s": time.perf_counter() - t0,
+    }
+    emit(line)
+    return line
+
+
+# Phase 24's entry point over ranks: the fleet traffic's first docs and
+# rounds through ``fleet_main --mesh N`` under ``torch.distributed.run``.
+CROSS_ENTRY = dict(n_docs=256, rounds=4)
+CROSS_ENTRY_TIMEOUT_S = 300
+
+
+def phase_cross_entry(card: str, device: str, ranks: int, seed: int = 0, traffic=None,
+                      sizes: dict | None = None, geom: dict = FLEET_GEOM) -> dict:
+    """``fleet_main --mesh N`` under ``torch.distributed.run``, ``ranks``
+    ranks (NCCL, one rank a card, for ``device="cuda"``; gloo for
+    ``"cpu"``), fed the fleet traffic's first docs and rounds by a
+    firehose, against an engine on the CPU fed the same bytes.  Fails
+    unless the world exits 0 within its cap, rank 0 alone printed (one
+    ``ready`` line, one ``done`` line), the done line's texts equal the
+    engine's with no error and every row consumed over ``ranks`` shards,
+    and on the cards K2 launched on rank 0's process (``fleet_main``
+    compacts only when it drains, so K3 may not run)."""
+    from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
+
+    sizes = dict(CROSS_ENTRY, **(sizes or {}))
+    n_docs, rounds = sizes["n_docs"], sizes["rounds"]
+    geom = dict(geom, recovery="grow")
+    if traffic is None:
+        traffic = fleet_traffic(n_docs, rounds, geom["ops_per_step"], 8, seed)
+    joins, rounds_msgs = _rounds_for(traffic, n_docs, rounds)
+    doc_ids = [f"x{d}" for d in range(n_docs)]
+    waves = _doc_waves(doc_ids, [joins + rounds_msgs[0]] + rounds_msgs[1:],
+                       [list(range(rounds))])
+    rows = sum(len(r) for r in rounds_msgs)
+    feeder = FirehoseFeeder(waves)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cross_entry_")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        feeder.release(0)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(ranks), "-m", "fluidframework_tpu_torch.server.fleet_main",
+               "--mesh", str(ranks), "--port", str(feeder.port), "--docs", ",".join(doc_ids),
+               "--device", device, "--checkpoint-dir", os.path.join(root, "ckpt"),
+               "--capacity", str(geom["max_segments"]),
+               "--text-capacity", str(geom["text_capacity"]),
+               "--max-insert-len", str(geom["max_insert_len"]),
+               "--ops-per-step", str(geom["ops_per_step"]),
+               "--megastep-k", str(geom["megastep_k"]), "--status-every", "600",
+               "--exit-after-rows", str(rows)]
+        env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        # The launcher and its ranks in a session of their own, so the cap
+        # ends every rank with it.
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=env, cwd=repo, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=CROSS_ENTRY_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise AssertionError(
+                f"cross_entry: the world ran past {CROSS_ENTRY_TIMEOUT_S} s") from e
+        run_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"cross_entry: the world exited {proc.returncode}: {stderr[-3000:]}")
+        lines = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+        eng = DocBatchEngine(n_docs, device="cpu", **geom)
+        for d, doc in enumerate(doc_ids):
+            if waves[0].get(doc):
+                eng.ingest_lines(d, waves[0][doc])
+        eng.step()
+        want = {doc: eng.text(d) for d, doc in enumerate(doc_ids)}
+    finally:
+        feeder.close()
+        shutil.rmtree(root, ignore_errors=True)
+    ready = [x for x in lines if x.get("ready")]
+    done = [x for x in lines if x.get("done")]
+    check(len(ready) == 1 and len(done) == 1,
+          f"cross_entry: {len(ready)} ready and {len(done)} done lines (rank 0 alone prints)")
+    done = done[0]
+    check(done["errors"] == 0 and done["rows"] == rows,
+          f"cross_entry: {done['errors']} errors, {done['rows']} of {rows} rows")
+    check(done["health"]["n_shards"] == ranks,
+          f"cross_entry: {done['health']['n_shards']} shards for {ranks} ranks")
+    check(done["texts"] == want, "cross_entry: the texts differ from the CPU engine's")
+    if device == "cuda":
+        check(done["device"].startswith("cuda"), f"cross_entry: rank 0 served on {done['device']}")
+        check(done["launches"].get("apply_megastep", 0) > 0, "cross_entry: K2 never launched")
+    line = {"phase": "cross_entry", "card": card, "device": done["device"], "ranks": ranks,
+            "docs": n_docs, "rounds": rounds, "rows": rows, "run_s": run_s,
+            "launches": done["launches"], "lines": len(lines)}
+    emit(line)
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-dir", default=None,
                     help="write the recorded turns' Chrome traces here (none by default)")
+    ap.add_argument("--only", choices=("cross_card",), default=None,
+                    help="build the kernels and run this phase alone (cross_card: phase 24 "
+                         "over every visible card, NCCL with two or more, and then "
+                         "fleet_main over as many ranks)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -7192,6 +7789,16 @@ def main(argv=None) -> int:
     emit({"phase": "build", "card": card, "build_s": time.perf_counter() - t0,
           "library": str(cuda_build.library_path().name),
           "sources": [src.name for src in cuda_build.sources()]})
+    if args.only == "cross_card":
+        cross = {name: {} for name in _cross_programs()}
+        line = phase_cross_card(args.seed, card, "cuda", paths=cross)
+        emit({"phase": "cross_card_launches", "backend": line["backend"], **cross})
+        if line["backend"] == "nccl":
+            phase_cross_entry(card, "cuda", line["ranks"], args.seed)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # The main path, phase by phase: the launch counts of K1, of the fleet
     # programs (K2, K3, K6), of the tree programs (K7, K8), of K9 and of the
@@ -7313,8 +7920,7 @@ def main(argv=None) -> int:
                                      ("grow", "batch", True), ("off", "batch", False)):
         phase_fleet(args.seed, card, "cuda", traffic, recovery=recovery, ingest=ingest,
                     record=record, trace_dir=args.trace_dir)
-    path("recovery", phase_recovery, args.seed, card, "cuda", traffic,
-         n_docs=CUTS["recovery"]["n_docs"])
+    path("recovery", phase_recovery, args.seed, card, "cuda", traffic, **CUTS["recovery"])
     path("hot_doc", phase_hot_doc, args.seed, card, "cuda")
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
     fleet_programs = phase_fleet_programs(args.seed, card, traffic, ring=k2_ring)
@@ -7332,10 +7938,18 @@ def main(argv=None) -> int:
     del deep
     mp_line = path("map_lww", phase_map_lww, args.seed, card, "cuda")
     mx_line = path("matrix", phase_matrix, args.seed, card, "cuda")
-    path("serving", phase_serving, args.seed, card, "cuda", traffic, churn,
-         scribe_docs=CUTS["serving"]["scribe_docs"])
-    sharded = phase_sharded(args.seed, card, "cuda", traffic, churn, path=path)
-    del traffic, churn
+    path("serving", phase_serving, args.seed, card, "cuda", traffic, churn, **CUTS["serving"])
+    sharded = phase_sharded(args.seed, card, "cuda", traffic, churn, path=path, **CUTS["sharded"])
+    del churn
+    # Phase 24 (the rank mesh: one process a rank, NCCL across cards or gloo
+    # on one) last: its ranks' launches land in "cross_card_ranks".
+    path("cross_card", phase_cross_card, args.seed, card, "cuda", traffic, paths)
+    del traffic
+    for prog, what in (("apply_megastep", "K2"), ("compact", "K3"),
+                       ("apply_megastep_seg", "K6"), ("compact_seg", "K6's compaction"),
+                       ("resolve_positions", "K1")):
+        check(paths[prog]["cross_card_ranks"] > 0,
+              f"{what} was never launched on the cross_card ranks")
     for name in ("hot_doc", "long_doc", "sharded_hot"):
         check(paths["resolve_positions"][name] > 0, f"K1 was never launched on the {name} path")
     for prog, what in (("apply_megastep_seg", "K6"), ("compact_seg", "K6's compaction")):

@@ -84,6 +84,24 @@ demotes.
 Cohort steps (``use_mesh=False``): with no mesh, a busy set at or below a
 quarter of the fleet steps as a gathered power-of-two cohort
 (``_cohort_step``) instead of a fleet-wide megastep.
+
+Rank mesh (``mesh=parallel.mesh.rank_mesh(...)``: one process a card over
+``torch.distributed``): every rank builds the same engine and ingests the
+whole stream, so the host state (queues, logs, quorum, lanes, placement,
+counters) is the same on every rank; each rank's state holds only its own
+shard's rows.  Each rank packs the whole staging ring, uploads its rows'
+slice and applies K2 and K3 once on its rows, its obliterate gate read
+from its own rows (the reference's per-shard gate).  Overflow lanes and
+the host oracles are replicated (every rank replays them); a segment lane
+holds the rank's block, its collectives over the rank's ``segs`` group.
+A read of one doc's row is a broadcast from the rank that owns it, a
+fleet-wide figure a reduction over the group; each rank writes the
+checkpoint files of the docs it owns and restores its own rows.  The
+public methods are collective there: every rank calls them in the same
+order, from one thread (the background checkpoint writer and a warm
+standby are refused).  No collective runs under ``ckpt_lock``: the
+collective parts run with it released and the mesh raises on one that
+does not.
 """
 
 from __future__ import annotations
@@ -114,6 +132,7 @@ from .dispatch import dispatch_plane
 from .recovery import (
     RecoveryTracker,
     load_checkpoint_records,
+    mark_write_failures,
     stale_due_docs,
     write_checkpoint_records,
 )
@@ -495,7 +514,19 @@ class DocBatchEngine:
         self._proto = proto  # pristine row: retires vacated and reserved slots
         # Where the fleet state lives: the mesh, or one shard on the device.
         self._fleet_mesh = self.mesh if self.mesh is not None else pm.doc_mesh(self.device)
-        self.state = pm.shard_fleet_state(mk.batch_state(proto, self.capacity), self._fleet_mesh)
+        # A rank mesh: this rank holds slots [lo, hi) (``_rows``) and no
+        # collective may run under ckpt_lock.
+        self._ranked = bool(getattr(self._fleet_mesh, "ranked", False))
+        self._rows = (
+            self._fleet_mesh.row_range(self.capacity) if self._ranked else (0, self.capacity)
+        )
+        if self._ranked:
+            self._fleet_mesh.forbid_collectives_under(self.ckpt_lock)
+            self.state = mk.batch_state(proto, self._rows[1] - self._rows[0])
+        else:
+            self.state = pm.shard_fleet_state(
+                mk.batch_state(proto, self.capacity), self._fleet_mesh
+            )
         # The fleet programs: one launch over every slot of every shard.
         self._megastep = pm.mesh_fleet_program(mk.apply_megastep, self._fleet_mesh)
         self._compact = pm.mesh_fleet_program(_fleet_compact_body, self._fleet_mesh)
@@ -521,6 +552,9 @@ class DocBatchEngine:
         # steps it, and scatters the rows back (pad lanes dropped).  Under
         # a mesh every megastep runs fleet-wide, as the reference's does.
         self.bucketing = self.mesh is None
+        # Fleet-wide slices whose obliterate gate opened on this process's
+        # rows (on a rank mesh, its own shard's: the per-shard gate).
+        self.ob_gate_opens = 0
         self.full_steps = 0     # fleet-wide slices applied
         self.cohort_steps = 0   # bucketed slices applied
         self.cohort_lanes = 0   # sum of cohort sizes (work proxy)
@@ -1200,12 +1234,18 @@ class DocBatchEngine:
                 pairs = [(d, r) for d, r in zip(busy, rows) if d in self._busy]
                 busy = [d for d, _ in pairs]
                 rows = [r for _, r in pairs]
-        kinds = ops[..., 0].copy()  # host-side op kinds: branch selection
-        dev_ops, dev_payloads = stage.upload(ops, payloads)
+        # Host-side op kinds (branch selection) of this process's rows: on
+        # a rank mesh its own shard's, so its obliterate gate reads only
+        # its own rows.
+        lo, hi = self._rows
+        kinds = ops[:, lo:hi, :, 0].copy()
+        dev_ops, dev_payloads = stage.upload(ops, payloads, rows=self._rows)
         syncs = mk.apply_megastep.ob_gate_syncs
+        opens = mk.apply_megastep.ob_gate_opens
         with span("dispatch", kind="full", k=K, shards=self.n_shards):
             self.state = self._megastep(self.state, dev_ops, dev_payloads, kinds=kinds)
         self.counters.bump("ob_gate_syncs", mk.apply_megastep.ob_gate_syncs - syncs)
+        self.ob_gate_opens += mk.apply_megastep.ob_gate_opens - opens
         self.full_steps += K
         self.counters.bump("megastep_dispatches")
         self.counters.bump("megastep_slices", K)
@@ -1252,14 +1292,37 @@ class DocBatchEngine:
         (a K-slice megastep counts K).  Then, unless recovery is off,
         recover every latched doc (``errors()`` is all zero on return), run
         the watchdog and readmissions when due, and write the cadence
-        checkpoints (after ``ckpt_lock`` releases)."""
+        checkpoints (after ``ckpt_lock`` releases).  Collective on a rank
+        mesh."""
+        if self._ranked:
+            return self._step_ranked()
         with self.ckpt_lock:
-            had_work = bool(
-                self._busy
-                or any(ln.queue for ln in self.overflow.values())
-                or any(ln.queue for ln in self.seg_lanes.values())
-            )
+            had_work = self._had_work()
             steps = self._step_fleet()
+            if had_work and self.recovery_tracker.active:
+                self.recovery_tracker.complete()
+        self.maybe_checkpoint()
+        return steps
+
+    def _had_work(self) -> bool:
+        return bool(
+            self._busy
+            or any(ln.queue for ln in self.overflow.values())
+            or any(ln.queue for ln in self.seg_lanes.values())
+        )
+
+    def _step_ranked(self) -> int:
+        """``step`` on a rank mesh: the fleet megasteps and the overflow
+        lanes (no collective) under ``ckpt_lock``; the segment lanes, the
+        error count, the watchdog and the checkpoint sweep, which run
+        collectives, with it released (each takes it for what it mutates)."""
+        t0 = time.perf_counter() if self.sampled is not None else 0.0
+        with self.ckpt_lock:
+            had_work = self._had_work()
+            steps = self._step_batch()
+        self._step_seg_lanes()
+        self._after_step(t0)
+        with self.ckpt_lock:
             if had_work and self.recovery_tracker.active:
                 self.recovery_tracker.complete()
         self.maybe_checkpoint()
@@ -1267,6 +1330,14 @@ class DocBatchEngine:
 
     def _step_fleet(self) -> int:
         t0 = time.perf_counter() if self.sampled is not None else 0.0
+        steps = self._step_batch()
+        self._step_seg_lanes()
+        self._after_step(t0)
+        return steps
+
+    def _step_batch(self) -> int:
+        """The batch's megasteps until no doc has staged rows, then the
+        overflow lanes."""
         steps = 0
         while self._busy:
             busy = sorted(self._busy)
@@ -1275,7 +1346,11 @@ class DocBatchEngine:
             else:
                 steps += self._full_step(busy)
         self._step_lanes()
-        self._step_seg_lanes()
+        return steps
+
+    def _after_step(self, t0: float) -> None:
+        """Recovery, the watchdog and readmissions when due, then the
+        latency samples and the sampled step timing."""
         self._step_count += 1
         if self.recovery != "off":
             self.recover()
@@ -1287,14 +1362,14 @@ class DocBatchEngine:
                 self._steps_since_watchdog = 0
                 self.watchdog()
             if self.readmit_after_steps:
-                self._maybe_readmit()
+                with self.ckpt_lock:
+                    self._maybe_readmit()
         # Resolve the latency samples (after recover()'s readback waited for
         # the dispatches, unless recovery is off) and feed the sampled step
         # timing when a telemetry sink is attached.
         self._lat_flush()
         if self.sampled is not None:
             self.sampled.record(time.perf_counter() - t0, "step")
-        return steps
 
     def _lane_apply(self, state: mk.DocState, rows_ops: np.ndarray,
                     rows_payloads: np.ndarray) -> mk.DocState:
@@ -1383,21 +1458,21 @@ class DocBatchEngine:
     def enable_segment_sharding(self, d: int, s_local: int = 0,
                                 text_capacity: int = 0) -> bool:
         """Promote a hot doc onto the segment-parallel path (under
-        ``ckpt_lock``: the checkpoint sweep reads the lanes)."""
+        ``ckpt_lock``: the checkpoint sweep reads the lanes).  Collective
+        on a rank mesh: the doc's row is broadcast from its rank first."""
+        if self._ranked:
+            with self.ckpt_lock:
+                slot = int(self._slot[d]) if self._promotable(d) else None
+            if slot is None:
+                return False
+            row = mk.to_numpy(self._row(slot))
+            with self.ckpt_lock:
+                return self._enable_segment_sharding_locked(d, s_local, text_capacity, row)
         with self.ckpt_lock:
             return self._enable_segment_sharding_locked(d, s_local, text_capacity)
 
-    def _enable_segment_sharding_locked(self, d: int, s_local: int = 0,
-                                        text_capacity: int = 0) -> bool:
-        """The doc's row re-blocks into the seg-sharded layout
-        (``mk.seg_shard_state``: live segments in contiguous runs over the
-        segs axis, text, scalars and obliterate table replicated) and future
-        ops apply segment-parallel.  The batch slot stays reserved (the
-        pristine row), so placement is untouched and demotion lands back in
-        place.  Staged rows move to the lane queue: promotion is legal
-        mid-stream.  Returns False when seg serving is off, the doc is off
-        the batch path, the lane budget is spent, or the state does not
-        block."""
+    def _promotable(self, d: int) -> bool:
+        """The host checks of a promotion (counts a spent lane budget)."""
         if self.seg_shards <= 1 or self._seg_megastep is None:
             return False
         if not (0 <= d < self.n_docs):
@@ -1410,8 +1485,25 @@ class DocBatchEngine:
         if len(self.seg_lanes) >= self.max_seg_lanes:
             self.counters.bump("seg_promotions_skipped")
             return False
+        return True
+
+    def _enable_segment_sharding_locked(self, d: int, s_local: int = 0,
+                                        text_capacity: int = 0, row=None) -> bool:
+        """The doc's row re-blocks into the seg-sharded layout
+        (``mk.seg_shard_state``: live segments in contiguous runs over the
+        segs axis, text, scalars and obliterate table replicated) and future
+        ops apply segment-parallel.  The batch slot stays reserved (the
+        pristine row), so placement is untouched and demotion lands back in
+        place.  Staged rows move to the lane queue: promotion is legal
+        mid-stream.  Returns False when seg serving is off, the doc is off
+        the batch path, the lane budget is spent, or the state does not
+        block.  ``row``: the doc's row when the caller read it (a rank
+        mesh's broadcast, after the same checks)."""
+        if row is None:
+            if not self._promotable(d):
+                return False
+            row = mk.to_numpy(mk.doc_row(self.state, int(self._slot[d])))
         slot = int(self._slot[d])
-        row = mk.to_numpy(mk.doc_row(self.state, slot))
         if int(row.error):
             return False  # recover first; never promote a latched row
         s_local = s_local or self.seg_lane_segments or self.geometry["max_segments"]
@@ -1445,17 +1537,29 @@ class DocBatchEngine:
         """Demote a segment-sharded doc back into its reserved batch row
         (gather, summary export, re-pack at batch geometry).  Staged lane
         rows apply first.  Returns False when the gathered state no longer
-        fits the batch geometry (the doc stays on its lane)."""
+        fits the batch geometry (the doc stays on its lane).  Collective on
+        a rank mesh: the lane drains and gathers with ``ckpt_lock``
+        released."""
+        if self._ranked:
+            lane = self.seg_lanes.get(d)
+            if lane is None:
+                return False
+            if lane.queue:
+                self._drain_seg_lane(d, lane)
+            host = mk.seg_unstack(self._lane_host(lane))
+            with self.ckpt_lock:
+                return self._disable_segment_sharding_locked(d, host)
         with self.ckpt_lock:
             return self._disable_segment_sharding_locked(d)
 
-    def _disable_segment_sharding_locked(self, d: int) -> bool:
+    def _disable_segment_sharding_locked(self, d: int, host=None) -> bool:
         lane = self.seg_lanes.get(d)
         if lane is None:
             return False
-        if lane.queue:
-            self._drain_seg_lane(d, lane)
-        host = mk.seg_unstack(mk.to_numpy(lane.state))
+        if host is None:
+            if lane.queue:
+                self._drain_seg_lane(d, lane)
+            host = mk.seg_unstack(mk.to_numpy(lane.state))
         if int(host.error):
             return False  # recover() handles latched lanes
         gathered = mk.seg_gather_state(host)
@@ -1480,11 +1584,20 @@ class DocBatchEngine:
         """Re-block a segment lane so every shard holds an even share of
         the live segments again (inserts land shard-local, so runs skew
         toward one shard over time): gather and re-shard, byte- and
-        order-preserving (``mk.seg_rebalance_state``)."""
+        order-preserving (``mk.seg_rebalance_state``).  Collective on a
+        rank mesh: the lane gathers with ``ckpt_lock`` released."""
+        if self._ranked:
+            lane = self.seg_lanes.get(d)
+            # error is replicated: every rank reads the same latch.
+            if lane is None or int(lane.state.error[0]):
+                return False
+            host = self._lane_host(lane)
+            with self.ckpt_lock:
+                return self._rebalance_segments_locked(d, host)
         with self.ckpt_lock:
             return self._rebalance_segments_locked(d)
 
-    def _rebalance_segments_locked(self, d: int) -> bool:
+    def _rebalance_segments_locked(self, d: int, host=None) -> bool:
         lane = self.seg_lanes.get(d)
         if lane is None:
             return False
@@ -1492,7 +1605,9 @@ class DocBatchEngine:
             # One scalar read: a latched lane waits for recover().
             return False
         with span("seg_rebalance", doc=self.doc_keys[d], shards=lane.n_shards):
-            blocked = mk.seg_rebalance_state(mk.to_numpy(lane.state), s_local=lane.s_local)
+            if host is None:
+                host = mk.to_numpy(lane.state)
+            blocked = mk.seg_rebalance_state(host, s_local=lane.s_local)
             lane.state = self._pm.shard_seg_state(blocked, self.mesh)
         lane.version += 1
         lane.rebalances += 1
@@ -1529,13 +1644,24 @@ class DocBatchEngine:
         One scalar read of the batch's error count per call (the error
         vector is read only when it is nonzero) and one read each of the
         overflow and segment lanes' error scalars.  Capacity bits grow-and-replay (or
-        oracle-route); poison bits (ERR_POS_RANGE alone) quarantine."""
-        recovered: list[int] = []
+        oracle-route); poison bits (ERR_POS_RANGE alone) quarantine.
+        Collective on a rank mesh: the count is summed over the ranks and a
+        nonzero one gathers the error column, with ``ckpt_lock`` released;
+        the recoveries then run under it on every rank alike."""
         with span("readback", kind="error_count"):
             batch_dirty = self.error_count()
+        err = None
         if batch_dirty:
             with span("readback", kind="error_vector"):
-                err = self.state.error.cpu().numpy()[self._slot]  # by doc
+                err = self._slot_column(self.state.error)[self._slot]  # by doc
+        with self.ckpt_lock:
+            return self._recover_docs(err)
+
+    def _recover_docs(self, err) -> list[int]:
+        """``recover``'s recoveries, given the batch's by-doc error vector
+        (None when no batch row latched)."""
+        recovered: list[int] = []
+        if err is not None:
             for d in np.flatnonzero(err).tolist():
                 if d in self.overflow or d in self.oracles or d in self.quarantine:
                     continue
@@ -1545,9 +1671,11 @@ class DocBatchEngine:
                 else:  # poison: ERR_POS_RANGE with no capacity bit
                     self._quarantine_doc(d, f"error bits {bits:#x}")
                 # Retire the batch row's latch: future ops route to the lane.
-                self.state.error[int(self._slot[d])] = 0
+                self._clear_latch(int(self._slot[d]))
                 recovered.append(d)
         if self.overflow:
+            # Overflow lanes are replicated on a rank mesh (every rank
+            # replays them): every rank reads the same bits.
             lanes = list(self.overflow.items())
             lane_bits = torch.cat([ln.state.error for _, ln in lanes]).tolist()
             for (d, lane), bits in zip(lanes, lane_bits):
@@ -1558,6 +1686,7 @@ class DocBatchEngine:
                         self._quarantine_doc(d, f"error bits {bits:#x}")
                     recovered.append(d)
         if self.seg_lanes:
+            # error is a replicated leaf of a segment lane (psum'd latches).
             lanes = list(self.seg_lanes.items())
             lane_bits = torch.stack([ln.state.error[0] for _, ln in lanes]).tolist()
             for (d, _lane), bits in zip(lanes, lane_bits):
@@ -1765,16 +1894,58 @@ class DocBatchEngine:
                 self._readmit_due[d] = self._step_count + interval
         h.queue.clear()
         self._busy.discard(d)
-        self.state.error[int(self._slot[d])] = 0
+        self._clear_latch(int(self._slot[d]))
         self.counters.bump("quarantines")
         if self.counters.logger is not None:
             self.counters.logger.error("doc_quarantined", reason, doc=self.doc_keys[d])
 
     def _put_row(self, slot: int, row: mk.DocState) -> None:
         """Write a one-document state (tensors or numpy) into state row
-        ``slot``."""
+        ``slot`` (on a rank mesh, only the rank that holds it writes)."""
+        lo, hi = self._rows
+        if not lo <= slot < hi:
+            return
         for x, y in zip(mk.leaves(self.state), mk.leaves(row)):
-            x[slot] = torch.as_tensor(y).to(x.device)
+            x[slot - lo] = torch.as_tensor(y).to(x.device)
+
+    def _clear_latch(self, slot: int) -> None:
+        """Zero one slot's error latch (where its row lives)."""
+        lo, hi = self._rows
+        if lo <= slot < hi:
+            self.state.error[slot - lo] = 0
+
+    def _row(self, slot: int) -> mk.DocState:
+        """Slot ``slot``'s row as a one-document state on the engine's
+        device: views of the state, or on a rank mesh (a collective) a copy
+        broadcast from the rank that holds it."""
+        if not self._ranked:
+            return mk.doc_row(self.state, slot)
+        lo, hi = self._rows
+        shapes = [x.shape for x in mk.leaves(self._proto)]
+        if lo <= slot < hi:
+            flat = torch.cat([x[slot - lo].reshape(-1) for x in mk.leaves(self.state)])
+        else:
+            flat = torch.empty(sum(int(np.prod(sh)) for sh in shapes), dtype=torch.int32,
+                               device=self.device)
+        flat = self._fleet_mesh.broadcast(flat, slot // self.docs_per_shard)
+        parts = iter(torch.split(flat, [int(np.prod(sh)) for sh in shapes]))
+        return mk.tree_map(lambda p: next(parts).reshape(p.shape), self._proto)
+
+    def _slot_column(self, col: torch.Tensor) -> np.ndarray:
+        """A per-slot column of the fleet state (``[rows]``) as host numpy
+        over every slot: on a rank mesh every rank's rows gathered (a
+        collective)."""
+        if self._ranked:
+            col = self._fleet_mesh.gather_rows(col)
+        return col.cpu().numpy()
+
+    def _lane_host(self, lane: _SegmentLane) -> mk.DocState:
+        """A segment lane's stacked state as host numpy: on a rank mesh the
+        rank's ``segs`` row gathered, leaf by leaf (a collective)."""
+        if not self._ranked:
+            return mk.to_numpy(lane.state)
+        g = self._seg_megastep.group
+        return mk.to_numpy(mk.tree_map(lambda x: self.mesh.seg_gather(x, g), lane.state))
 
     def readmit(self, d: int) -> bool:
         """Re-admit a quarantined doc to the lockstep batch: pack the
@@ -1831,12 +2002,39 @@ class DocBatchEngine:
         return self.placement_plane.free_slots(shard)
 
     def migrate_doc(self, d: int, dst_shard: int) -> bool:
+        """Move doc ``d``'s row to a free slot of shard ``dst_shard``
+        (``_migrate_doc_locked``).  Collective on a rank mesh: the row is
+        broadcast from the source rank, with ``ckpt_lock`` released, and
+        the destination rank writes it."""
+        if self._ranked:
+            with self.ckpt_lock:
+                reservation = self._migration_reserve(d, dst_shard)
+            if reservation is None:
+                return False
+            row = mk.to_numpy(self._row(reservation[0]))
+            with self.ckpt_lock:
+                return self._migrate_doc_locked(d, dst_shard, reservation, row)
         # ckpt_lock: migration mutates the state and the slot map, which the
         # checkpoint sweep reads.
         with self.ckpt_lock:
             return self._migrate_doc_locked(d, dst_shard)
 
-    def _migrate_doc_locked(self, d: int, dst_shard: int) -> bool:
+    def _migration_reserve(self, d: int, dst_shard: int):
+        """A migration's checks and its destination slot: ``(src_slot,
+        dst_slot)``, or None when the doc stays."""
+        plane = self.placement_plane
+        plane.validate(d, dst_shard)
+        plane.require_migratable(
+            d,
+            "segment" if d in self.seg_lanes
+            else "overflow" if d in self.overflow else None,
+        )
+        if d in self.oracles or d in self.quarantine:
+            return None
+        return plane.reserve(d, dst_shard)
+
+    def _migrate_doc_locked(self, d: int, dst_shard: int, reservation=None,
+                            row=None) -> bool:
         """Live doc migration between shards (hot-shard rebalancing).
 
         The handoff is the checkpoint codec: the doc's row exports through
@@ -1850,23 +2048,19 @@ class DocBatchEngine:
         ``placement.PlacementError`` for a doc on a segment or overflow
         lane; returns False (the doc stays) when it is oracle- or
         quarantine-routed, already on ``dst_shard``, latched, or the
-        destination has no free slot."""
+        destination has no free slot.  ``reservation`` and ``row``: the
+        slots and the source row when the caller took them (a rank mesh's
+        broadcast)."""
         plane = self.placement_plane
-        plane.validate(d, dst_shard)
-        plane.require_migratable(
-            d,
-            "segment" if d in self.seg_lanes
-            else "overflow" if d in self.overflow else None,
-        )
-        if d in self.oracles or d in self.quarantine:
-            return False
-        reservation = plane.reserve(d, dst_shard)
         if reservation is None:
-            return False
+            reservation = self._migration_reserve(d, dst_shard)
+            if reservation is None:
+                return False
         src_slot, dst_slot = reservation
         src_shard = src_slot // self.docs_per_shard
         h = self.hosts[d]
-        row = mk.to_numpy(mk.doc_row(self.state, src_slot))
+        if row is None:
+            row = mk.to_numpy(mk.doc_row(self.state, src_slot))
         if int(row.error):
             plane.release(dst_slot)
             return False  # recover first; never migrate a latched row
@@ -1949,10 +2143,11 @@ class DocBatchEngine:
             cuda_build.load()
         with self.ckpt_lock, span("warmup", k_max=self.megastep_k):
             stage = self._staging()
+            lo, hi = self._rows
             for k in warmup_depths(self.megastep_k):
                 ops, payloads = stage.acquire(k, self.capacity)
-                kinds = ops[..., 0].copy()
-                dev_ops, dev_payloads = stage.upload(ops, payloads)
+                kinds = ops[:, lo:hi, :, 0].copy()
+                dev_ops, dev_payloads = stage.upload(ops, payloads, rows=self._rows)
                 self.state = self._megastep(self.state, dev_ops, dev_payloads, kinds=kinds)
                 warmed += 1
             # The compact program's first launch runs on the live state and
@@ -1970,7 +2165,9 @@ class DocBatchEngine:
     def watchdog(self, sample: int | None = None) -> list[int]:
         """Cross-check a rotating sample of batch docs against a host-oracle
         replay of checkpoint + tail; quarantine (the oracle wins) on
-        mismatch.  Returns the doc indices that failed the check."""
+        mismatch.  Returns the doc indices that failed the check.
+        Collective on a rank mesh: the digests are gathered and each
+        checked row broadcast from its rank."""
         if self.recovery == "off":
             return []
         eligible = [
@@ -1989,7 +2186,7 @@ class DocBatchEngine:
         # ingested seq both match its last passed check is skipped
         # (counted).  A segment lane's slot holds the pristine reserved
         # row, so its host-side version stamp vouches instead.
-        digests = fleet_digest(self.state).cpu().tolist()
+        digests = self._slot_column(fleet_digest(self.state)).tolist()
         drifted = []
         for d in eligible:
             if self._verified_digest.get(d) == self._watch_mark(d, digests):
@@ -2015,13 +2212,15 @@ class DocBatchEngine:
                     self._oracle_apply(tree, h, msg)
                 expected = tree.visible_text()
             except Exception:  # noqa: BLE001 — a log the strict path rejects
-                self._quarantine_doc(d, "watchdog: oracle replay failed")
+                with self.ckpt_lock:
+                    self._quarantine_doc(d, "watchdog: oracle replay failed")
                 failed.append(d)
                 continue
             self.counters.bump("watchdog_checks")
             if mk.visible_text(self.doc_state(d)) != expected:
                 self.counters.bump("watchdog_mismatches")
-                self._quarantine_doc(d, "watchdog: device/oracle divergence")
+                with self.ckpt_lock:
+                    self._quarantine_doc(d, "watchdog: device/oracle divergence")
                 failed.append(d)
             else:
                 # Passed: pin the mark until the row or stream moves.
@@ -2042,11 +2241,14 @@ class DocBatchEngine:
         when ``force``; ``docs`` restricts the sweep to an explicit list,
         checkpointed whenever dirty), then truncate their replay logs to
         the tail.  The records are built under ``ckpt_lock`` and written
-        after it is released.  Returns the doc indices checkpointed."""
+        after it is released.  Returns the doc indices checkpointed.
+        Collective on a rank mesh (``_checkpoint_ranked``)."""
         if self.checkpoint_store is None:
             return []
         if docs is None and not force and self.checkpoint_every <= 0:
             return []
+        if self._ranked:
+            return self._checkpoint_ranked(force, docs)
         with self.ckpt_lock, span("checkpoint_sweep", docs=self.n_docs):
             out, pending = self._checkpoint_sweep(force, docs)
         write_checkpoint_records(self, pending)
@@ -2058,12 +2260,26 @@ class DocBatchEngine:
         """Bounded-staleness sweep: checkpoint every dirty doc whose
         durable record is ``max_ops_behind`` applied ops or
         ``max_seconds_behind`` seconds behind the live stream (0 disables
-        that bound).  Returns the doc indices checkpointed."""
+        that bound).  Returns the doc indices checkpointed.  Collective on a
+        rank mesh: the due set is the union of every rank's (each rank's
+        clock stamps its own ``dirty_since``)."""
         if self.checkpoint_store is None or not (
             max_ops_behind or max_seconds_behind
         ):
             return []
         now = time.monotonic()
+        if self._ranked:
+            with self.ckpt_lock:
+                due = stale_due_docs(
+                    self.hosts, self.n_docs, max_ops_behind, max_seconds_behind, now,
+                )
+            mask = np.zeros((self.n_docs,), np.int64)
+            mask[due] = 1
+            due = np.flatnonzero(self._fleet_mesh.max_all(mask)).tolist()
+            out = self._checkpoint_ranked(False, due) if due else []
+            if out:
+                self.counters.bump("stale_checkpoints_written", len(out))
+            return out
         with self.ckpt_lock:
             due = stale_due_docs(
                 self.hosts, self.n_docs, max_ops_behind, max_seconds_behind, now,
@@ -2082,15 +2298,7 @@ class DocBatchEngine:
     ) -> tuple[list[int], list[tuple[int, int, dict]]]:
         """Build-and-account half of a checkpoint sweep (under
         ``ckpt_lock``); the returned records are written after release."""
-        candidates = range(self.n_docs) if docs is None else docs
-        due = [
-            d for d in candidates
-            if self.hosts[d].ops_since_ckpt > 0
-            and (
-                force or docs is not None
-                or self.hosts[d].ops_since_ckpt >= self.checkpoint_every
-            )
-        ]
+        due = self._sweep_due(force, docs)
         if not due:
             return [], []  # host-side check only: no device read paid
         out: list[int] = []
@@ -2098,85 +2306,164 @@ class DocBatchEngine:
         # ONE bulk device-to-host copy of the fleet state covers every due
         # batch doc; the per-doc summary walks then slice host arrays.
         host_state = (
-            mk.to_numpy(self.state)
-            if any(
-                d not in self.quarantine
-                and d not in self.oracles
-                and d not in self.overflow
-                and d not in self.seg_lanes
-                for d in due
-            )
-            else None
+            mk.to_numpy(self.state) if any(self._on_batch(d) for d in due) else None
         )
         for d in due:
-            h = self.hosts[d]
-            if (
-                h.queue
-                or (d in self.overflow and self.overflow[d].queue)
-                or (d in self.seg_lanes and self.seg_lanes[d].queue)
-            ):
+            if self._staged(d):
                 continue  # staged-but-unapplied ops: state is mid-step
-            lane = "batch"
-            geometry = None
-            prop_names = {v: k for k, v in h.prop_slot.items()}
-            if d in self.seg_lanes:
-                # A segment lane checkpoints through the same codec (its
-                # live prefixes gathered first) and restores as a batch row
-                # (or a fitted overflow lane); the supervisor re-promotes.
-                seg_host = mk.seg_unstack(mk.to_numpy(self.seg_lanes[d].state))
-                if int(seg_host.error):
-                    continue  # never checkpoint a latched lane
-                self._sync_native_props(h)
-                summary = kb.state_to_summary(
-                    mk.seg_gather_state(seg_host),
-                    {v: k for k, v in h.prop_slot.items()},
-                )
-            elif d in self.quarantine:
-                lane = "quarantine"
-                summary = self.quarantine[d].export_summary()
-            elif d in self.oracles:
-                lane = "oracle"
-                summary = self.oracles[d].export_summary()
-            elif d in self.overflow:
-                lane = "overflow"
-                ln = self.overflow[d]
-                row = mk.to_numpy(mk.doc_row(ln.state, 0))
-                if int(row.error):
-                    continue
-                geometry = ln.geometry
-                growths = ln.growths
-                summary = kb.state_to_summary(row, prop_names)
-            else:
-                row = mk.tree_map(lambda x, _s=int(self._slot[d]): x[_s], host_state)
-                if int(row.error):
-                    continue  # never checkpoint a poisoned row
-                self._sync_native_props(h)
-                prop_names = {v: k for k, v in h.prop_slot.items()}
-                summary = kb.state_to_summary(row, prop_names)
-            record = {
-                "engine": "doc_batch",
-                "lane": lane,
-                "summary": summary,
-                "quorum": h.quorum,
-                "prop_slot": {str(k): v for k, v in h.prop_slot.items()},
-                "min_seq": h.min_seq,
-                "mode": h.mode,
-            }
-            if geometry is not None:
-                record["geometry"] = geometry
-                record["growths"] = growths
-            pending.append((d, h.last_seq, record))
-            h.base_seq = h.last_seq
-            h.base_summary = summary
-            h.log = [m for m in h.log if m.seq > h.base_seq]
-            if h.raw_log:
-                h.raw_log = self._truncate_raw_log(h.raw_log, h.base_seq)
-            h.ops_since_ckpt = 0
-            h.dirty_since = 0.0
-            h.boot_counting = False  # a new durable floor ends the boot phase
-            self.counters.bump("checkpoints_written")
+            res = self._sweep_summary(d, host_state)
+            if res is None:
+                continue
+            pending.append(self._sweep_commit(d, *res))
             out.append(d)
         return out, pending
+
+    def _sweep_due(self, force: bool, docs) -> list[int]:
+        candidates = range(self.n_docs) if docs is None else docs
+        return [
+            d for d in candidates
+            if self.hosts[d].ops_since_ckpt > 0
+            and (
+                force or docs is not None
+                or self.hosts[d].ops_since_ckpt >= self.checkpoint_every
+            )
+        ]
+
+    def _on_batch(self, d: int) -> bool:
+        """The doc is served from its batch row (no lane, no oracle)."""
+        return not (
+            d in self.quarantine or d in self.oracles
+            or d in self.overflow or d in self.seg_lanes
+        )
+
+    def _staged(self, d: int) -> bool:
+        h = self.hosts[d]
+        return bool(
+            h.queue
+            or (d in self.overflow and self.overflow[d].queue)
+            or (d in self.seg_lanes and self.seg_lanes[d].queue)
+        )
+
+    def _sweep_summary(self, d: int, host_state, seg_host=None):
+        """A due doc's checkpoint summary: ``(lane, summary, geometry,
+        growths)``, or None for a latched row.  ``host_state``: the host
+        copy of the fleet state's rows (this process's); ``seg_host``: a
+        segment lane's unstacked host state when the caller gathered it."""
+        h = self.hosts[d]
+        lane = "batch"
+        geometry = growths = None
+        prop_names = {v: k for k, v in h.prop_slot.items()}
+        if d in self.seg_lanes:
+            # A segment lane checkpoints through the same codec (its live
+            # prefixes gathered first) and restores as a batch row (or a
+            # fitted overflow lane); the supervisor re-promotes.
+            if seg_host is None:
+                seg_host = mk.seg_unstack(mk.to_numpy(self.seg_lanes[d].state))
+            if int(seg_host.error):
+                return None  # never checkpoint a latched lane
+            self._sync_native_props(h)
+            summary = kb.state_to_summary(
+                mk.seg_gather_state(seg_host),
+                {v: k for k, v in h.prop_slot.items()},
+            )
+        elif d in self.quarantine:
+            lane = "quarantine"
+            summary = self.quarantine[d].export_summary()
+        elif d in self.oracles:
+            lane = "oracle"
+            summary = self.oracles[d].export_summary()
+        elif d in self.overflow:
+            lane = "overflow"
+            ln = self.overflow[d]
+            row = mk.to_numpy(mk.doc_row(ln.state, 0))
+            if int(row.error):
+                return None
+            geometry = ln.geometry
+            growths = ln.growths
+            summary = kb.state_to_summary(row, prop_names)
+        else:
+            local = int(self._slot[d]) - self._rows[0]
+            row = mk.tree_map(lambda x, _s=local: x[_s], host_state)
+            if int(row.error):
+                return None  # never checkpoint a poisoned row
+            self._sync_native_props(h)
+            prop_names = {v: k for k, v in h.prop_slot.items()}
+            summary = kb.state_to_summary(row, prop_names)
+        return lane, summary, geometry, growths
+
+    def _sweep_commit(self, d: int, lane: str, summary: dict, geometry, growths):
+        """A summarized doc's record, and its new durable floor: the replay
+        log truncated to the tail."""
+        h = self.hosts[d]
+        record = {
+            "engine": "doc_batch",
+            "lane": lane,
+            "summary": summary,
+            "quorum": h.quorum,
+            "prop_slot": {str(k): v for k, v in h.prop_slot.items()},
+            "min_seq": h.min_seq,
+            "mode": h.mode,
+        }
+        if geometry is not None:
+            record["geometry"] = geometry
+            record["growths"] = growths
+        entry = (d, h.last_seq, record)
+        h.base_seq = h.last_seq
+        h.base_summary = summary
+        h.log = [m for m in h.log if m.seq > h.base_seq]
+        if h.raw_log:
+            h.raw_log = self._truncate_raw_log(h.raw_log, h.base_seq)
+        h.ops_since_ckpt = 0
+        h.dirty_since = 0.0
+        h.boot_counting = False  # a new durable floor ends the boot phase
+        self.counters.bump("checkpoints_written")
+        return entry
+
+    def _checkpoint_ranked(self, force: bool, docs) -> list[int]:
+        """A checkpoint sweep on a rank mesh.  Under ``ckpt_lock``: the due
+        docs (the same on every rank) and the summaries of the batch docs
+        whose rows this rank holds.  Released: the segment lanes' gathers
+        and one exchange of the summaries, so every rank advances every
+        doc's floor alike.  Under it again: the records; each rank writes
+        those of the docs it owns (``shard_of``), byte-identical to a
+        one-card engine's, and every rank marks every failed write."""
+        mesh = self._fleet_mesh
+        lo, hi = self._rows
+        with self.ckpt_lock, span("checkpoint_sweep", docs=self.n_docs):
+            todo = [d for d in self._sweep_due(force, docs) if not self._staged(d)]
+            mine = [d for d in todo
+                    if self._on_batch(d) and lo <= int(self._slot[d]) < hi]
+            host_state = mk.to_numpy(self.state) if mine else None
+            own = {d: self._sweep_summary(d, host_state) for d in mine}
+        if not todo:
+            return []
+        seg = {
+            d: self._sweep_summary(d, None, mk.seg_unstack(self._lane_host(self.seg_lanes[d])))
+            for d in todo if d in self.seg_lanes
+        }
+        for part in mesh.gather_objects(own):
+            own.update(part)
+        out: list[int] = []
+        pending: list[tuple[int, int, dict]] = []
+        with self.ckpt_lock:
+            for d in todo:
+                if d in seg:
+                    res = seg[d]
+                elif d in own:
+                    self._sync_native_props(self.hosts[d])
+                    res = own[d]
+                else:
+                    res = self._sweep_summary(d, None)  # replicated lanes
+                if res is None:
+                    continue
+                entry = self._sweep_commit(d, *res)
+                out.append(d)
+                if self.shard_of(d) == mesh.rank:
+                    pending.append(entry)
+        failed = write_checkpoint_records(self, pending)
+        others = [d for part in mesh.gather_objects(failed) for d in part if d not in failed]
+        mark_write_failures(self, others)
+        return out
 
     def _queue_depth(self, d: int) -> int:
         """Staged-but-unapplied rows of doc ``d`` (batch queue + lane)."""
@@ -2207,7 +2494,11 @@ class DocBatchEngine:
         every batch-lane doc with one host stack and one ``index_copy_``
         per state leaf; ``parallel=False`` loads and writes doc by doc —
         the same state.  ``refresh`` re-adopts, for already-restored docs
-        with no staged work, a record strictly newer than their floor."""
+        with no staged work, a record strictly newer than their floor.
+        On a rank mesh every rank reads every record (the host state stays
+        the same everywhere) and writes only the rows it holds; no
+        collective runs, and any number of ranks restores a store any
+        number wrote."""
         store = store if store is not None else self.checkpoint_store
         if store is None:
             return []
@@ -2298,6 +2589,8 @@ class DocBatchEngine:
                             self._put_row(slot, row)
                 restored.append(d)
                 self.counters.bump("docs_restored")
+        lo, hi = self._rows
+        batch_rows = [(slot - lo, row) for slot, row in batch_rows if lo <= slot < hi]
         if batch_rows:
             with span("restore_scatter", rows=len(batch_rows)):
                 scatter_rows(
@@ -2339,20 +2632,24 @@ class DocBatchEngine:
 
     # ------------------------------------------------------------------ views
     def error_count(self) -> int:
-        """Batch docs with a latched error bit (one scalar read)."""
-        return self._pm.error_count(self.state.error)
+        """Batch docs with a latched error bit (one scalar read; collective
+        on a rank mesh: the sum of every rank's count)."""
+        return self._pm.error_count(self.state.error, self._fleet_mesh)
 
     def health(self) -> dict:
         """Degraded-mode health counters: the engine's counters and gauges,
         the overload gate, the sampled op latency, the recovery clock, and
         the lane and checkpoint surfaces.  The reference's ``recompiles``
         and ``despecializations`` are left out: they count XLA executable
-        growth, and the port compiles nothing at run time."""
+        growth, and the port compiles nothing at run time.  Collective on a
+        rank mesh: the lanes' occupancy is gathered, and the two per-rank
+        figures (``ob_gate_syncs``, ``staging_overlap_packs``) are summed
+        over the ranks."""
         self.counters.gauge("megastep_k", self.megastep_k)
-        self.counters.gauge(
-            "staging_overlap_packs",
-            self._stage.overlapped_packs if self._stage is not None else 0,
-        )
+        overlap = self._stage.overlapped_packs if self._stage is not None else 0
+        if self._ranked:
+            overlap = self._fleet_mesh.sum_all(overlap)
+        self.counters.gauge("staging_overlap_packs", overlap)
         self.counters.ratio(
             "steps_per_dispatch", "megastep_slices", "megastep_dispatches"
         )
@@ -2375,7 +2672,10 @@ class DocBatchEngine:
         if self.seg_lanes:
             occ = np.zeros((self.seg_shards,), np.int64)
             for lane in self.seg_lanes.values():
-                occ += mk.seg_occupancy(lane.state)
+                nseg = lane.state.nseg
+                if self._ranked:
+                    nseg = self.mesh.seg_gather(nseg, self._seg_megastep.group)
+                occ += mk.seg_occupancy(lane.state._replace(nseg=nseg))
             self.counters.gauge("seg_occupancy", [int(v) for v in occ])
             self.counters.gauge(
                 "seg_lane_rebalances",
@@ -2425,6 +2725,8 @@ class DocBatchEngine:
             ),
         )
         snap = self.counters.snapshot()
+        if self._ranked:
+            snap["ob_gate_syncs"] = self._fleet_mesh.sum_all(snap.get("ob_gate_syncs", 0))
         snap.update(
             quarantined_docs=len(self.quarantine),
             overflow_docs=len(self.overflow),
@@ -2442,12 +2744,14 @@ class DocBatchEngine:
     def doc_state(self, doc_idx: int) -> mk.DocState:
         """A doc's one-document state: its segment lane's (gathered into the
         single-lane layout, numpy), its overflow lane's, else its slot's
-        row (views)."""
+        row (views).  Collective on a rank mesh: a lane is gathered, a
+        slot's row broadcast from its rank (a copy)."""
         if doc_idx in self.seg_lanes:
-            return mk.seg_gather_state(self.seg_lanes[doc_idx].state)
+            lane = self.seg_lanes[doc_idx]
+            return mk.seg_gather_state(self._lane_host(lane) if self._ranked else lane.state)
         if doc_idx in self.overflow:
             return mk.doc_row(self.overflow[doc_idx].state, 0)
-        return mk.doc_row(self.state, int(self._slot[doc_idx]))
+        return self._row(int(self._slot[doc_idx]))
 
     def text(self, doc_idx: int) -> str:
         if doc_idx in self.quarantine:
@@ -2472,8 +2776,9 @@ class DocBatchEngine:
         """Per-doc error vector (``capacity`` entries, the first ``n_docs``
         doc-indexed) across batch, overflow and segment lanes.  Oracle and
         quarantined docs read 0: they are isolated and serviceable — their
-        degraded state surfaces through ``health()``."""
-        by_slot = self.state.error.cpu().numpy()
+        degraded state surfaces through ``health()``.  Collective on a
+        rank mesh (the error column is gathered)."""
+        by_slot = self._slot_column(self.state.error)
         err = np.zeros((self.capacity,), by_slot.dtype)
         err[: self.n_docs] = by_slot[self._slot]
         for d, lane in self.overflow.items():

@@ -82,7 +82,7 @@ def stale_due_docs(
 
 def write_checkpoint_records(
     engine, pending: list[tuple[int, int, dict]]
-) -> None:
+) -> list[int]:
     """Durable half of a checkpoint sweep, shared by both engines and run
     AFTER ``ckpt_lock`` releases (crash-safe: the in-memory floor
     advancing first only means a crash before the write replays a little
@@ -93,9 +93,9 @@ def write_checkpoint_records(
     in the same ckpt-before-io order as the serving thread, so there is
     no deadlock — because the floor already advanced in memory and
     without the re-mark a quiet doc's stale record would hide behind
-    healthy-looking gauges."""
+    healthy-looking gauges.  Returns the docs whose write failed."""
     if not pending:
-        return
+        return []
     failed: list[int] = []
     for d, seq, record in pending:
         # io_lock held PER RECORD, not across the batch: a cadence
@@ -114,6 +114,14 @@ def write_checkpoint_records(
                 failed.append(d)
                 continue
             engine._ckpt_saved_seq[d] = seq
+    mark_write_failures(engine, failed)
+    return failed
+
+
+def mark_write_failures(engine, failed: list[int]) -> None:
+    """Re-mark docs whose durable write failed dirty, for the next sweep
+    to retry (on a rank mesh every rank marks every rank's failures, so
+    the host state stays the same everywhere)."""
     if failed:
         with engine.ckpt_lock:
             for d in failed:
@@ -215,6 +223,13 @@ class BackgroundCheckpointWriter:
         max_seconds_behind: float = 1.0,
         interval_s: float = 0.25,
     ) -> None:
+        if getattr(engine, "_ranked", False):
+            # A sweep on a rank mesh is collective: a thread of one rank
+            # cannot run it alone.
+            raise ValueError(
+                "BackgroundCheckpointWriter: an engine on a rank mesh sweeps "
+                "collectively (call checkpoint_stale from the serving loop)"
+            )
         self._engine = engine
         self.max_ops_behind = int(max_ops_behind)
         self.max_seconds_behind = float(max_seconds_behind)

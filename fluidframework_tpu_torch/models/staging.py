@@ -14,7 +14,9 @@ Counterpart of ``fluidframework_tpu/models/staging.py``:
   in-flight copy may still read.  On the CPU the upload clones, so a
   staged buffer never aliases a dispatched tensor.  Each upload is an
   ``upload`` flight-recorder span (host issue of the copy: the copy itself
-  runs on the stream).
+  runs on the stream).  On a rank mesh every rank packs the same whole
+  [K, D, B] ring and uploads only its own rows' slice
+  (``upload(..., rows=(lo, hi))``).
 """
 
 from __future__ import annotations
@@ -218,13 +220,16 @@ class StagingRing:
         if len(written_rows):
             self._cur.dirty.append((k, np.asarray(written_rows)))
 
-    def upload(self, ops_view: np.ndarray, payloads_view: np.ndarray):
-        """Device copies of the filled views of the current buffer."""
+    def upload(self, ops_view: np.ndarray, payloads_view: np.ndarray, rows=None):
+        """Device copies of the filled views of the current buffer; with
+        ``rows=(lo, hi)`` only those rows of them (a rank's shard)."""
         buf = self._cur
-        k, rows = ops_view.shape[:2]
-        ops_t = buf.ops_t[:k, :rows]
-        pay_t = buf.payloads_t[:k, :rows]
-        with span("upload", shards=1, bytes=ops_view.nbytes + payloads_view.nbytes):
+        k, n = ops_view.shape[:2]
+        lo, hi = rows if rows is not None else (0, n)
+        ops_t = buf.ops_t[:k, lo:hi]
+        pay_t = buf.payloads_t[:k, lo:hi]
+        nbytes = (ops_view.nbytes + payloads_view.nbytes) * (hi - lo) // max(n, 1)
+        with span("upload", shards=1, bytes=nbytes):
             if self.device.type != "cuda":
                 return ops_t.clone(), pay_t.clone()
             dev = (

@@ -53,6 +53,18 @@ retires the source slot and re-materializes the forest at a free slot of
 the destination shard; ``rebalance_hot_shards`` migrates off shards loaded
 past ``factor`` x the mean.
 
+Rank mesh (``mesh=parallel.mesh.rank_mesh(...)``, one process a card):
+every rank ingests the whole stream and folds every doc's EditManager on
+its host, so the host state is the same everywhere; each rank's state
+holds only its shard's rows, and K7 and K8 run on them.  The error
+column and the compaction watermarks' row counts are gathered, a doc's
+row is broadcast from its rank, and each rank writes the checkpoint files
+of the docs it owns (the records are host folds: every rank builds them
+alike).  The public methods are collective there, called on every rank in
+the same order; no collective runs under ``ckpt_lock``.  A refresh restore
+(a boot adoption) stages its re-materialization for the next ``step``
+instead of stepping under the lock.
+
 Not ported (``NotImplementedError``): ``plan_cache=False`` (the reference's
 per-row emit path).
 """
@@ -95,6 +107,7 @@ from . import placement
 from .recovery import (
     RecoveryTracker,
     load_checkpoint_records,
+    mark_write_failures,
     stale_due_docs,
     write_checkpoint_records,
 )
@@ -350,7 +363,15 @@ class TreeBatchEngine:
         self._shard_ops = np.zeros((self.n_shards,), np.int64)
         # Pristine row: retires vacated and re-seeded slots.
         self._proto = tk.init_nested_forest(capacity, pool_capacity, device=self.device)
-        self.state = tk.batch_nested(self._proto, self.fleet_capacity)
+        # A rank mesh: this rank holds slots [lo, hi) (``_rows``) and no
+        # collective may run under ckpt_lock.
+        self._ranked = bool(getattr(mesh, "ranked", False))
+        self._rows = (
+            mesh.row_range(self.fleet_capacity) if self._ranked else (0, self.fleet_capacity)
+        )
+        if self._ranked:
+            mesh.forbid_collectives_under(self.ckpt_lock)
+        self.state = tk.batch_nested(self._proto, self._rows[1] - self._rows[0])
         self._busy: set[int] = set()
         self._stage: StagingRing | None = None
         # Host-side upper bounds on each doc's row and pool watermarks (rows
@@ -815,7 +836,10 @@ class TreeBatchEngine:
         """Apply everything staged as batched device megasteps; returns the
         number of [D, B] slices applied.  Holds ``ckpt_lock`` end to end
         and closes an open recovery incident once staged work applied;
-        cadence checkpoints are written after the lock releases."""
+        cadence checkpoints are written after the lock releases.
+        Collective on a rank mesh (``_step_ranked``)."""
+        if self._ranked:
+            return self._step_ranked()
         with self.ckpt_lock:
             had_work = bool(self._busy)
             steps = self._step_fleet()
@@ -824,10 +848,43 @@ class TreeBatchEngine:
         self.maybe_checkpoint()
         return steps
 
+    def _step_ranked(self) -> int:
+        """``step`` on a rank mesh: each megastep (K7 on this rank's rows)
+        and compaction (K8) under ``ckpt_lock``; the gathers of the row
+        counts a compaction resyncs from and of the error column with it
+        released."""
+        with self.ckpt_lock:
+            had_work = bool(self._busy)
+        steps = 0
+        while True:
+            with self.ckpt_lock:
+                if not self._busy:
+                    break
+                due = self._compact_due()
+                if due:
+                    self.state = tk.compact_nested(self.state)
+            if due:
+                self._resync_gathered()
+            with self.ckpt_lock:
+                steps += self._megastep_once()
+        err = self._slot_column(self.state.error)[self._slot]
+        with self.ckpt_lock:
+            self._route_latched(err)
+            if had_work and self.recovery_tracker.active:
+                self.recovery_tracker.complete()
+        self.maybe_checkpoint()
+        return steps
+
     def compact(self) -> None:
         """K8 over the fleet now, watermarks or not (a drained fleet
         compacts before its final checkpoint: ``server/fleet_main.py``'s
-        coordinated drain).  The step compacts on its own watermarks."""
+        coordinated drain).  The step compacts on its own watermarks.
+        Collective on a rank mesh."""
+        if self._ranked:
+            with self.ckpt_lock:
+                self.state = tk.compact_nested(self.state)
+            self._resync_gathered()
+            return
         with self.ckpt_lock:
             self._compact_and_resync()
 
@@ -836,55 +893,90 @@ class TreeBatchEngine:
         rows/words plus what each doc still has queued (fallback docs to 0:
         no compaction lowers their stale rows)."""
         self.state = tk.compact_nested(self.state)
+        self._resync(self.state.nrow.cpu().numpy(), self.state.pool_end.cpu().numpy())
+
+    def _resync_gathered(self) -> None:
+        """A rank mesh's resync after K8: every rank's row counts gathered
+        (with ``ckpt_lock`` released), then the bounds reset under it."""
+        nrow = self._slot_column(self.state.nrow)
+        pool_end = self._slot_column(self.state.pool_end)
+        with self.ckpt_lock:
+            self._resync(nrow, pool_end)
+
+    def _resync(self, nrow_by_slot: np.ndarray, pool_by_slot: np.ndarray) -> None:
         queued_pairs = [self._queued_upper(h) for h in self.hosts]
         queued = np.array([q for q, _w in queued_pairs], np.int64)
         queued_words = np.array([w for _q, w in queued_pairs], np.int64)
         active = np.array([d not in self.fallbacks for d in range(self.n_docs)])
-        nrow = self.state.nrow.cpu().numpy()[self._slot].astype(np.int64)
-        pool_end = self.state.pool_end.cpu().numpy()[self._slot].astype(np.int64)
+        nrow = nrow_by_slot[self._slot].astype(np.int64)
+        pool_end = pool_by_slot[self._slot].astype(np.int64)
         self._rows_upper = np.where(active, nrow + queued, 0)
         self._pool_upper = np.where(active, pool_end + queued_words, 0)
+
+    def _compact_due(self) -> bool:
+        """Proactive compact on the host-side bounds (dead rows pile up:
+        stable rows never reuse slots)."""
+        return bool(
+            self._rows_upper.max() > self.capacity * self.COMPACT_FRACTION
+            or self._pool_upper.max() > self.pool_capacity * self.COMPACT_FRACTION
+        )
+
+    def _slot_column(self, col: torch.Tensor) -> np.ndarray:
+        """A per-slot column of the fleet state as host numpy over every
+        slot: on a rank mesh every rank's rows gathered (a collective)."""
+        if self._ranked:
+            col = self.mesh.gather_rows(col)
+        return col.cpu().numpy()
 
     def _step_fleet(self) -> int:
         steps = 0
         while self._busy:
-            # Proactive compact on the host-side bounds (dead rows pile up:
-            # stable rows never reuse slots).
-            if (
-                self._rows_upper.max() > self.capacity * self.COMPACT_FRACTION
-                or self._pool_upper.max() > self.pool_capacity * self.COMPACT_FRACTION
-            ):
+            if self._compact_due():
                 self._compact_and_resync()
-            busy = sorted(self._busy)
-            K = self._select_k(busy)
-            stage = self._staging()
-            ops, payloads = stage.acquire(K, self.fleet_capacity)
-            for k in range(K):
-                stage.mark(k, self._drain_into(busy, ops[k], payloads[k]))
-                if k + 1 < K:
-                    busy = [d for d in busy if d in self._busy]
-            # Kinds and path depths stay on the host: branch selection.
-            host_ops = ops[..., :3].copy()
-            dev_ops, dev_payloads = stage.upload(ops, payloads)
-            with span("dispatch", kind="tree", k=K, shards=self.n_shards):
-                self.state = tk.apply_nested_megastep(
-                    self.state, dev_ops, dev_payloads, host_ops=host_ops
-                )
-            steps += K
-            self.counters.bump("megastep_dispatches")
-            self.counters.bump("megastep_slices", K)
+            steps += self._megastep_once()
         # One read of the error vector: latched docs replay on the host.
         with span("readback", kind="error_vector"):
             err = self.state.error.cpu().numpy()[self._slot]  # by doc
+        self._route_latched(err)
+        return steps
+
+    def _route_latched(self, err: np.ndarray) -> None:
+        """Route every newly latched doc (``err``, by doc) to the host
+        fallback and clear its row's latch (where the row lives)."""
         routed = []
+        lo, hi = self._rows
         for d in np.flatnonzero(err).tolist():
             if d not in self.fallbacks:
                 self._route_to_fallback(d)
                 self.counters.bump("fallback_routes")
-                routed.append(int(self._slot[d]))
+                slot = int(self._slot[d])
+                if lo <= slot < hi:
+                    routed.append(slot - lo)
         if routed:
             self.state.error[torch.as_tensor(routed, device=self.device)] = 0
-        return steps
+
+    def _megastep_once(self) -> int:
+        """One megastep of up to K slices over the busy docs; returns K."""
+        busy = sorted(self._busy)
+        K = self._select_k(busy)
+        stage = self._staging()
+        ops, payloads = stage.acquire(K, self.fleet_capacity)
+        for k in range(K):
+            stage.mark(k, self._drain_into(busy, ops[k], payloads[k]))
+            if k + 1 < K:
+                busy = [d for d in busy if d in self._busy]
+        # Kinds and path depths stay on the host: branch selection
+        # (this process's rows: on a rank mesh its own shard's).
+        lo, hi = self._rows
+        host_ops = ops[:, lo:hi, :, :3].copy()
+        dev_ops, dev_payloads = stage.upload(ops, payloads, rows=self._rows)
+        with span("dispatch", kind="tree", k=K, shards=self.n_shards):
+            self.state = tk.apply_nested_megastep(
+                self.state, dev_ops, dev_payloads, host_ops=host_ops
+            )
+        self.counters.bump("megastep_dispatches")
+        self.counters.bump("megastep_slices", K)
+        return K
 
     # ------------------------------------------------------------- checkpoint
     def maybe_checkpoint(self, force: bool = False, docs=None) -> list[int]:
@@ -892,21 +984,37 @@ class TreeBatchEngine:
         for docs whose commit count since the last record reached
         ``checkpoint_every``; every dirty doc when ``force``; ``docs``
         restricts the sweep to an explicit list.  The host trunk fold is
-        the snapshot, so this reads nothing from the device."""
+        the snapshot, so this reads nothing from the device.  On a rank
+        mesh every rank folds every due doc alike and writes the records of
+        the docs it owns; collective (the write failures are exchanged)."""
         if self.checkpoint_store is None:
             return []
         if docs is None and not force and self.checkpoint_every <= 0:
             return []
         with self.ckpt_lock, span("checkpoint_sweep", docs=self.n_docs):
             out, pending = self._checkpoint_sweep(force, docs)
-        write_checkpoint_records(self, pending)
+        self._write_records(pending)
         return out
+
+    def _write_records(self, pending) -> None:
+        """Write a sweep's records: all of them, or on a rank mesh those of
+        the docs this rank owns, every rank then marking every rank's
+        failed writes."""
+        if not self._ranked:
+            write_checkpoint_records(self, pending)
+            return
+        mine = [e for e in pending if self.shard_of(e[0]) == self.mesh.rank]
+        failed = write_checkpoint_records(self, mine)
+        others = [d for part in self.mesh.gather_objects(failed) for d in part
+                  if d not in failed]
+        mark_write_failures(self, others)
 
     def checkpoint_stale(self, max_ops_behind: int = 0,
                          max_seconds_behind: float = 0.0) -> list[int]:
         """Bounded-staleness sweep: checkpoint every dirty doc whose durable
         record trails by ``max_ops_behind`` applied ops or
-        ``max_seconds_behind`` seconds (0 disables a bound)."""
+        ``max_seconds_behind`` seconds (0 disables a bound).  Collective on
+        a rank mesh: the due set is the union of every rank's."""
         if self.checkpoint_store is None or not (
             max_ops_behind or max_seconds_behind
         ):
@@ -916,13 +1024,18 @@ class TreeBatchEngine:
             due = stale_due_docs(
                 self.hosts, self.n_docs, max_ops_behind, max_seconds_behind, now,
             )
+        if self._ranked:
+            mask = np.zeros((self.n_docs,), np.int64)
+            mask[due] = 1
+            due = np.flatnonzero(self.mesh.max_all(mask)).tolist()
+        with self.ckpt_lock:
             if not due:
                 return []
             with span("checkpoint_sweep", docs=len(due)):
                 out, pending = self._checkpoint_sweep(force=False, docs=due)
             if out:
                 self.counters.bump("stale_checkpoints_written", len(out))
-        write_checkpoint_records(self, pending)
+        self._write_records(pending)
         return out
 
     def _checkpoint_sweep(
@@ -987,7 +1100,10 @@ class TreeBatchEngine:
         if store is None:
             return []
         with self.ckpt_lock:
-            return self._restore(store, parallel, max_workers, refresh)
+            restored = self._restore(store, parallel, max_workers, refresh)
+        if restored and refresh and self._ranked:
+            self.step()  # the re-seed's rows, stepped with the lock released
+        return restored
 
     def _restore(self, store, parallel, max_workers, refresh) -> list[int]:
         t_start = time.monotonic()
@@ -1059,8 +1175,9 @@ class TreeBatchEngine:
             # A real restore opens a recovery incident: closed by the first
             # step that applies staged work (the re-materialization rows).
             self.recovery_tracker.begin(t_start)
-        if restored and refresh:
-            # Trailing/re-seed hands back live state at once.
+        if restored and refresh and not self._ranked:
+            # Trailing/re-seed hands back live state at once (a rank mesh
+            # steps after ckpt_lock releases: its step is collective).
             self._step_fleet()
         return restored
 
@@ -1081,9 +1198,12 @@ class TreeBatchEngine:
             self._reset_row(int(self._slot[d]))
 
     def _reset_row(self, slot: int) -> None:
-        """Retire state row ``slot`` to the pristine row."""
-        for x, p in zip(self.state, self._proto):
-            x[slot] = p
+        """Retire state row ``slot`` to the pristine row (on a rank mesh,
+        where the row lives)."""
+        lo, hi = self._rows
+        if lo <= slot < hi:
+            for x, p in zip(self.state, self._proto):
+                x[slot - lo] = p
 
     # ---------------------------------------------------- placement/migration
     def shard_of(self, doc_idx: int) -> int:
@@ -1108,12 +1228,28 @@ class TreeBatchEngine:
         return self.placement_plane.free_slots(shard)
 
     def migrate_doc(self, d: int, dst_shard: int) -> bool:
+        """Move doc ``d`` to a free slot of shard ``dst_shard``
+        (``_migrate_doc_locked``).  Collective on a rank mesh: the source
+        row's latch is broadcast from its rank with ``ckpt_lock``
+        released; the destination rank's row fills at the next step."""
+        if self._ranked:
+            with self.ckpt_lock:
+                plane = self.placement_plane
+                plane.validate(d, dst_shard)
+                plane.require_migratable(d, "fallback" if d in self.fallbacks else None)
+                reservation = plane.reserve(d, dst_shard)
+            if reservation is None:
+                return False
+            latch = int(self._row(reservation[0]).error)
+            with self.ckpt_lock:
+                return self._migrate_doc_locked(d, dst_shard, reservation, latch)
         # ckpt_lock: migration mutates the state and the slot map, which the
         # checkpoint sweep and ingest read.
         with self.ckpt_lock:
             return self._migrate_doc_locked(d, dst_shard)
 
-    def _migrate_doc_locked(self, d: int, dst_shard: int) -> bool:
+    def _migrate_doc_locked(self, d: int, dst_shard: int, reservation=None,
+                            latch=None) -> bool:
         """Live tree-doc migration between shards.
 
         The handoff is the restore path's trunk fold and re-materialization:
@@ -1127,17 +1263,22 @@ class TreeBatchEngine:
         ``placement.PlacementError`` for a fallback-routed doc; returns
         False (the doc stays) when it is already on ``dst_shard``, its row
         latched, the forest cannot re-flatten, or the destination has no
-        free slot."""
+        free slot.  ``reservation`` and ``latch``: the slots and the source
+        row's error bits when the caller took them (a rank mesh's
+        broadcast)."""
         plane = self.placement_plane
-        plane.validate(d, dst_shard)
-        plane.require_migratable(d, "fallback" if d in self.fallbacks else None)
-        reservation = plane.reserve(d, dst_shard)
         if reservation is None:
-            return False
+            plane.validate(d, dst_shard)
+            plane.require_migratable(d, "fallback" if d in self.fallbacks else None)
+            reservation = plane.reserve(d, dst_shard)
+            if reservation is None:
+                return False
         src_slot, dst_slot = reservation
         src_shard = src_slot // self.docs_per_shard
         h = self.hosts[d]
-        if int(self.state.error[src_slot]):
+        if latch is None:
+            latch = int(self.state.error[src_slot])
+        if latch:
             plane.release(dst_slot)
             return False  # recover first; never migrate a latched row
         for t in h.trunk_log:
@@ -1222,10 +1363,11 @@ class TreeBatchEngine:
             cuda_build.load()
         with self.ckpt_lock, span("warmup", k_max=self.megastep_k):
             stage = self._staging()
+            lo, hi = self._rows
             for k in warmup_depths(self.megastep_k):
                 ops, payloads = stage.acquire(k, self.fleet_capacity)
-                host_ops = ops[..., :3].copy()
-                dev_ops, dev_payloads = stage.upload(ops, payloads)
+                host_ops = ops[:, lo:hi, :, :3].copy()
+                dev_ops, dev_payloads = stage.upload(ops, payloads, rows=self._rows)
                 self.state = tk.apply_nested_megastep(
                     self.state, dev_ops, dev_payloads, host_ops=host_ops
                 )
@@ -1242,12 +1384,14 @@ class TreeBatchEngine:
     # ----------------------------------------------------------------- health
     def health(self) -> dict:
         """The reference's health surface without ``recompiles`` and
-        ``despecializations`` (the port compiles nothing at run time)."""
+        ``despecializations`` (the port compiles nothing at run time).
+        Collective on a rank mesh: ``staging_overlap_packs`` is summed over
+        the ranks."""
         self.counters.gauge("megastep_k", self.megastep_k)
-        self.counters.gauge(
-            "staging_overlap_packs",
-            self._stage.overlapped_packs if self._stage is not None else 0,
-        )
+        overlap = self._stage.overlapped_packs if self._stage is not None else 0
+        if self._ranked:
+            overlap = self.mesh.sum_all(overlap)
+        self.counters.gauge("staging_overlap_packs", overlap)
         self.counters.ratio(
             "steps_per_dispatch", "megastep_slices", "megastep_dispatches"
         )
@@ -1320,9 +1464,21 @@ class TreeBatchEngine:
         )
 
     def doc_state(self, doc_idx: int) -> tk.NestedForestState:
-        """A doc's device row, at its slot (views of the fleet state)."""
-        slot = int(self._slot[doc_idx])
-        return tk.tree_map(lambda x: x[slot], self.state)
+        """A doc's device row, at its slot (views of the fleet state; on a
+        rank mesh, a collective, a copy broadcast from its rank)."""
+        return self._row(int(self._slot[doc_idx]))
+
+    def _row(self, slot: int) -> tk.NestedForestState:
+        if not self._ranked:
+            return tk.tree_map(lambda x: x[slot], self.state)
+        lo, hi = self._rows
+        sizes = [int(np.prod(p.shape)) for p in self._proto]
+        if lo <= slot < hi:
+            flat = torch.cat([x[slot - lo].reshape(-1) for x in self.state])
+        else:
+            flat = torch.empty(sum(sizes), dtype=torch.int32, device=self.device)
+        parts = torch.split(self.mesh.broadcast(flat, slot // self.docs_per_shard), sizes)
+        return tk.NestedForestState(*(x.reshape(p.shape) for x, p in zip(parts, self._proto)))
 
     def tree_json(self, doc_idx: int) -> list[dict]:
         """The document's root field as forest JSON (Node.to_json shape)."""
@@ -1336,5 +1492,6 @@ class TreeBatchEngine:
         return [n.get("v") for n in self.tree_json(doc_idx)]
 
     def errors(self) -> np.ndarray:
-        """Per-doc error latches (doc-indexed, through the slot map)."""
-        return self.state.error.cpu().numpy()[self._slot]
+        """Per-doc error latches (doc-indexed, through the slot map;
+        collective on a rank mesh)."""
+        return self._slot_column(self.state.error)[self._slot]

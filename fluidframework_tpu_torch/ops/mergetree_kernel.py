@@ -30,8 +30,10 @@ changes is the idiom:
 
 The segment-parallel lane (``apply_megastep_seg``) routes its containment
 searches through the K1 kernel (``ops.resolve_kernel``) and its named-axis
-collectives through ``StackedShardGroup``: the lane's shards are the
-leading axis of one stacked state on one device.
+collectives through a shard group: ``StackedShardGroup`` when the lane's
+shards are the leading axis of one stacked state on one device,
+``ProcessShardGroup`` when each shard is one rank of a ``torch.distributed``
+group (one rank a card).
 """
 
 from __future__ import annotations
@@ -940,7 +942,8 @@ def apply_megastep(s: DocState, ops, payloads, kinds=None) -> DocState:
     slices, each an ``apply_ops`` over the doc axis.  Each slice's
     obliterate gate is the reference's whole-batch scalar, re-evaluated
     from the carried state: host-known when the slice holds an
-    OBLITERATE, else one device read of the obliterate tables.
+    OBLITERATE, else one device read of the obliterate tables (counted on
+    ``ob_gate_syncs``; the slices whose gate opened on ``ob_gate_opens``).
 
     ops: int32[K, D, B, 8]; payloads: int32[K, D, B, L] (host numpy or
     tensors); ``kinds``: the host-side int[K, D, B] op kinds, when the
@@ -954,12 +957,14 @@ def apply_megastep(s: DocState, ops, payloads, kinds=None) -> DocState:
     s = _own(s)
     for k in range(ops.shape[0]):
         flag = bool((kinds[k] == OpKind.OBLITERATE).any()) or _ob_table_nonempty(s)
+        apply_megastep.ob_gate_opens += flag
         for b in range(ops.shape[2]):
             s = _apply_op(s, ops[k, :, b], payloads[k, :, b], kinds[k, :, b], flag)
     return s
 
 
 apply_megastep.ob_gate_syncs = 0
+apply_megastep.ob_gate_opens = 0  # slices whose gate opened
 apply_megastep.launches = 0
 
 
@@ -1172,12 +1177,14 @@ class StackedShardGroup:
     as the leading axis of a stacked state: ``all_gather(x[n, ...])`` gives
     every shard the [n, ...] stack (``out[j, i] = x[j]``), ``psum`` and
     ``pmin`` reduce over the shards and broadcast back, and
-    ``axis_index`` is ``arange(n)``."""
+    ``axis_index`` is ``arange(n)``.  ``rows``: the shards this process
+    holds (all of them)."""
 
     def __init__(self, size: int = 1) -> None:
         if size < 1:
             raise ValueError(f"a segment axis needs at least one shard, got {size}")
         self.size = size
+        self.rows = size
 
     def axis_index(self, device) -> torch.Tensor:
         return _iota(self.size, device)
@@ -1199,6 +1206,54 @@ class StackedShardGroup:
         dev = gathered.device
         earlier = _iota(n, dev)[:, None] < self.axis_index(dev)[None, :]
         return torch.where(earlier, gathered, 0).sum(0, dtype=I32)
+
+
+class ProcessShardGroup(StackedShardGroup):
+    """The same collectives over a ``torch.distributed`` process group of
+    ``size`` ranks, each holding ONE shard: the stacked layout with a
+    leading axis of 1 (``rows``).  ``axis_index`` is the rank's index in
+    the group, ``all_gather(x[1, ...])`` gives ``[size, 1, ...]``, and
+    ``psum`` / ``pmin`` are ``all_reduce`` SUM / MIN; every value is
+    int32.  NCCL reduces the rank's own card tensors; gloo reduces host
+    tensors, so on gloo each collective copies through the host (chosen by
+    the group's backend).  ``calls`` counts the collectives made."""
+
+    def __init__(self, group=None) -> None:
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rows = 1
+        self.index = dist.get_rank(group)
+        self.host = dist.get_backend(group) == "gloo"
+        self.calls = 0
+
+    def axis_index(self, device) -> torch.Tensor:
+        return torch.full((1,), self.index, dtype=I32, device=device)
+
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        """A private contiguous copy of ``x`` where the backend reduces."""
+        return x.detach().to("cpu" if self.host else x.device, copy=True).contiguous()
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        self.calls += 1
+        y = self._wire(x)
+        parts = [torch.empty_like(y) for _ in range(self.size)]
+        self._dist.all_gather(parts, y, group=self.group)
+        return torch.stack(parts).to(x.device)
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        self.calls += 1
+        y = self._wire(x)
+        self._dist.all_reduce(y, op=op, group=self.group)
+        return y.to(x.device)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, self._dist.ReduceOp.SUM)
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, self._dist.ReduceOp.MIN)
 
 
 def shard_group(n_shards: int = 1) -> StackedShardGroup:
@@ -1396,7 +1451,9 @@ def _do_obliterate_seg(s: DocState, op, payload, g) -> DocState:
 
 def _apply_op_seg(s: DocState, op, payload, kind: int, ob_flag: bool, g) -> DocState:
     """One op of the seg lane (a one-document program: the host kind picks
-    the branch, as ``lax.switch`` does for a single document)."""
+    the branch, as ``lax.switch`` does for a single document).  The
+    ``_do_*_seg`` branches read nothing back to the host: every
+    cross-shard value is a collective's result, left on the device."""
     if kind == OpKind.INSERT:
         return _do_insert_seg(s, op, payload, ob_flag, g)
     if kind == OpKind.REMOVE:
@@ -1411,10 +1468,12 @@ def _apply_op_seg(s: DocState, op, payload, kind: int, ob_flag: bool, g) -> DocS
 
 
 def _seg_group(s: DocState, group):
+    """The lane's group, checked against the shard rows ``s`` holds: all n
+    for a stacked group, one for a rank of a process group."""
     n = s.nseg.shape[0]
     g = group if group is not None else StackedShardGroup(n)
-    if g.size != n:
-        raise ValueError(f"a {g.size}-shard group over a {n}-shard state")
+    if g.rows != n:
+        raise ValueError(f"a group holding {g.rows} of {g.size} shards over a {n}-row state")
     return g
 
 
@@ -1424,7 +1483,11 @@ def apply_megastep_seg(s: DocState, ops, payloads, group=None, kinds=None) -> Do
     obliterate gate), every shard at once.  ``s`` is the stacked lane state
     (``seg_stack``): per-segment columns [n, S_local], ``nseg`` [n], the
     replicated leaves as n copies; ops/payloads are one replicated [K, B]
-    ring, broadcast to every shard."""
+    ring, broadcast to every shard.  On a ``ProcessShardGroup`` ``s`` is
+    this rank's one row and every rank must make this call with the same
+    ring: each host branch below reads only replicated values (the ring's
+    kinds, the replicated obliterate table), so every rank meets the same
+    collectives in the same order."""
     count_launch(s.nseg, apply_megastep_seg)
     g = _seg_group(s, group)
     dev = s.nseg.device
@@ -1432,12 +1495,13 @@ def apply_megastep_seg(s: DocState, ops, payloads, group=None, kinds=None) -> Do
         kinds = _host_kinds(ops)
     ops = _as_tensor(ops, dev)
     payloads = _as_tensor(payloads, dev)
-    n = g.size
+    n = g.rows
     st = _own(s)
     for k in range(ops.shape[0]):
+        # Replicated: the host ring's kinds, and ob_key (a replicated leaf).
         flag = bool((kinds[k] == OpKind.OBLITERATE).any()) or _ob_table_nonempty(st)
         for b in range(ops.shape[1]):
-            st = _apply_op_seg(
+            st = _apply_op_seg(  # int(kinds[...]): the replicated host ring
                 st, ops[k, b].expand(n, -1), payloads[k, b].expand(n, -1),
                 int(kinds[k, b]), flag, g,
             )
@@ -1453,7 +1517,7 @@ def compact_seg(s: DocState, min_seq, group=None) -> DocState:
     so the global concatenation order is preserved)."""
     count_launch(s.nseg, compact_seg)
     g = _seg_group(s, group)
-    m = _as_tensor(min_seq, s.nseg.device).reshape(1).expand(g.size)
+    m = _as_tensor(min_seq, s.nseg.device).reshape(1).expand(g.rows)
     return _compact(set_min_seq(s, m))
 
 

@@ -8,11 +8,15 @@ k-th contiguous run, ``nseg`` replicated), and every position query is
     local resolve  =  the K1 containment kernel inside the shard
     combine        =  psum of per-shard one-hot results
 
-The state keeps the reference's global layout; each operation views the
-per-segment columns as [n, S_local] (shard i is row i, a reshape, no
-copy) and runs the collectives of the stacked group
+On one device the state keeps the reference's global layout; each
+operation views the per-segment columns as [n, S_local] (shard i is row i,
+a reshape, no copy) and runs the collectives of the stacked group
 (``mergetree_kernel.StackedShardGroup``) over that axis, so the K1 search
-is one call over every shard.  ``make_sharded_ops`` returns the same three
+is one call over every shard.  On a rank mesh (``mesh.rank_mesh``) each
+rank holds only its own block of the segment columns (``shard_doc_state``)
+and runs K1 on it; the collectives are the rank's ``segs`` group's
+(``ProcessShardGroup``), so every rank must make each call with the same
+arguments.  ``make_sharded_ops`` returns the same three
 operations as the reference (``visible_length``, ``resolve_positions``,
 ``mark_range``), each one ``seg_collective`` flight-recorder span with the
 reference's labels.
@@ -44,14 +48,32 @@ def _n_shards(mesh: DeviceMesh, axis: str) -> int:
 def shard_doc_state(state: DocState, mesh: DeviceMesh, axis: str = SEG_AXIS) -> DocState:
     """Place a one-document state on the mesh's device, its segment columns
     to be read in ``n`` equal blocks (shard k owns the k-th contiguous
-    run); the segment capacity must divide evenly."""
+    run); the segment capacity must divide evenly.  On a rank mesh the
+    rank keeps its own block of every segment column (the rest
+    replicated)."""
     n = _n_shards(mesh, axis)
     S = state.seg_len.shape[-1]
     if S % n:
         raise ValueError(f"{S} segment slots do not block over {n} shards")
-    return tree_map(
-        lambda x: torch.as_tensor(x).to(device=mesh.device, dtype=I32).contiguous(), state
-    )
+    out = {}
+    c = mesh.rank % n
+    for f in DocState._fields:
+        v = getattr(state, f)
+
+        def place(x, seg=f in SEG_COLUMNS):
+            x = torch.as_tensor(x)
+            if seg and mesh.ranked:
+                x = x.reshape(n, -1)[c]
+            return x.to(device=mesh.device, dtype=I32).contiguous()
+
+        out[f] = tuple(place(a) for a in v) if isinstance(v, tuple) else place(v)
+    return DocState(**out)
+
+
+def _axis_group(mesh: DeviceMesh, axis: str):
+    """The collectives of ``axis``: the mesh's ``segs`` group, or a lone
+    shard's when the mesh has no such axis."""
+    return mesh.seg_group() if axis in mesh.shape else StackedShardGroup(1)
 
 
 def _stacked(s: DocState, n: int) -> DocState:
@@ -96,7 +118,8 @@ def make_sharded_ops(mesh: DeviceMesh, state: DocState, axis: str = SEG_AXIS):
     layout over the mesh's ``axis`` shards (one shard on a mesh without
     that axis)."""
     n_shards = _n_shards(mesh, axis)
-    g = StackedShardGroup(n_shards)
+    g = _axis_group(mesh, axis)
+    rows = g.rows  # shard rows this process holds: all n, or its own one
     dev = mesh.device
 
     def _i(x) -> torch.Tensor:
@@ -104,7 +127,7 @@ def make_sharded_ops(mesh: DeviceMesh, state: DocState, axis: str = SEG_AXIS):
 
     def visible_length(s: DocState, ref_seq, client) -> torch.Tensor:
         with span("seg_collective", op="visible_length", shards=n_shards):
-            lens = _local_vis_lens(_stacked(s, n_shards), _i(ref_seq), _i(client), g)
+            lens = _local_vis_lens(_stacked(s, rows), _i(ref_seq), _i(client), g)
             return g.psum(lens.sum(-1, dtype=I32))[0]
 
     def resolve_positions(s: DocState, positions, ref_seq, client):
@@ -112,7 +135,7 @@ def make_sharded_ops(mesh: DeviceMesh, state: DocState, axis: str = SEG_AXIS):
         segment index, offset within segment) per query; the shard-local
         search is one K1 call over every shard."""
         with span("seg_collective", op="resolve", shards=n_shards):
-            lens = _local_vis_lens(_stacked(s, n_shards), _i(ref_seq), _i(client), g)
+            lens = _local_vis_lens(_stacked(s, rows), _i(ref_seq), _i(client), g)
             local_q = _i(positions)[None, :] - _shard_offset(lens, g)[:, None]
             local_idx, offset, hit = _resolve_kernel(lens, local_q)
             n_local = lens.shape[-1]
@@ -128,7 +151,7 @@ def make_sharded_ops(mesh: DeviceMesh, state: DocState, axis: str = SEG_AXIS):
         """Remove [p1, p2) under the op's perspective as a purely local mask
         update over whole segments."""
         with span("seg_collective", op="mark_range", shards=n_shards):
-            sv = _stacked(s, n_shards)
+            sv = _stacked(s, rows)
             lens = _local_vis_lens(sv, _i(ref_seq), _i(client), g)
             prefix = _global_prefix(lens, g)
             in_range = (lens > 0) & (prefix >= _i(p1)) & ((prefix + lens) <= _i(p2))

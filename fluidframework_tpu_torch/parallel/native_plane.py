@@ -88,13 +88,24 @@ def _require_library() -> None:
         )
 
 
+_RANK_MSG = (
+    "native dispatch plane: a rank mesh (one process a card over "
+    "torch.distributed) is not supported: the plane's host loop owns the "
+    "whole fleet state; serve a rank mesh on the torch plane "
+    "(unset FFTPU_TORCH_DISPATCH_PLANE)"
+)
+
+
 def mesh_fleet_program(step_fn, mesh):
     """The plane's program factory.  The two fleet hot-path bodies map to
     their native twins; anything else delegates to the torch plane.
 
     ``warm()`` runs HERE, at program-build time (engine construction,
     outside any serving lock): the returned callables only ever touch the
-    prebuilt library."""
+    prebuilt library.  A rank mesh raises ``NotImplementedError`` here, at
+    engine construction."""
+    if getattr(mesh, "ranked", False):
+        raise NotImplementedError(_RANK_MSG)
     if step_fn is mk.apply_megastep:
         _require_library()
         return _native_megastep
@@ -104,9 +115,10 @@ def mesh_fleet_program(step_fn, mesh):
     return _mesh.mesh_fleet_program(step_fn, mesh)
 
 
-def error_count(error) -> int:
+def error_count(error, mesh=None) -> int:
     """Docs with a latched error bit, counted on the host (the torch plane
-    counts on the device and reads one scalar)."""
+    counts on the device and reads one scalar; no rank mesh reaches this
+    plane)."""
     return int(torch.count_nonzero(error.detach().cpu()))
 
 

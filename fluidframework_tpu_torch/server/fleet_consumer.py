@@ -21,6 +21,10 @@ on the engine's device in its batched ``step``.
   adopts it (``engine.adopt_boot_snapshot``) and re-subscribes from its seq;
 - ``run_for`` pumps to a row count and steps; ``health`` is the engine's
   health plus the transport counters.
+- ``RankFleetConsumer``: the consumer of one rank of a rank mesh (one
+  process a card, ``fleet_main --mesh N`` under ``torch.distributed.run``):
+  every rank reads the same firehose, and a pump stages, per doc, only the
+  lines every rank has read, so every rank steps the same rows.
 
 With a mesh-served engine (``fleet_main --mesh N``) staging packs by doc
 placement and ``health()`` carries the per-shard load surface
@@ -31,11 +35,14 @@ placement and ``health()`` carries the per-shard load surface
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import http.client
 import json
 import selectors
 import socket
+
+import numpy as np
 
 from ..fanout.plane import RESYNC_BOOT_MARKER
 from ..models.doc_batch_engine import DocBatchEngine
@@ -182,33 +189,7 @@ class FleetConsumer:
         # fallen below the low watermark — re-register those sockets so
         # this very select sees their backlog.
         self._apply_flow_control()
-        ready = self._sel.select(wait_s)
-        for key, _events in ready:
-            idx, sock = key.data, key.fileobj
-            if idx in self.dead_socks:
-                continue
-            chunks: list[bytes] = []
-            while True:
-                try:
-                    data = sock.recv(self._recv_bytes)
-                except (BlockingIOError, TimeoutError, socket.timeout):
-                    break
-                except OSError:
-                    self._mark_dead(idx, sock)
-                    break
-                if not data:  # orderly close: the shard went away
-                    self._mark_dead(idx, sock)
-                    break
-                chunks.append(data)
-            if not chunks:
-                continue
-            buf = self._tails[idx] + b"".join(chunks)
-            cut = buf.rfind(b"\n")
-            if cut < 0:
-                self._tails[idx] = buf
-                continue
-            feed, self._tails[idx] = buf[: cut + 1], buf[cut + 1 :]
-            self.bytes_consumed += len(feed)
+        for idx, feed in self._read_ready(wait_s):
             # Scribe-driven MSN: a summary ack in the feed is the zamboni
             # TRIGGER (one substring probe per chunk, anchored on the wire
             # type field — no extra parse).  The compaction floor itself is
@@ -238,6 +219,39 @@ class FleetConsumer:
             self.engine.compact()
             self.engine.counters.bump("msn_compactions")
         return staged
+
+    def _read_ready(self, wait_s: float):
+        """Yield ``(doc index, feed)`` for every ready socket with complete
+        lines: one ``select``, then each socket drained (its trailing
+        partial line kept for the next pass)."""
+        ready = self._sel.select(wait_s)
+        for key, _events in ready:
+            idx, sock = key.data, key.fileobj
+            if idx in self.dead_socks:
+                continue
+            chunks: list[bytes] = []
+            while True:
+                try:
+                    data = sock.recv(self._recv_bytes)
+                except (BlockingIOError, TimeoutError, socket.timeout):
+                    break
+                except OSError:
+                    self._mark_dead(idx, sock)
+                    break
+                if not data:  # orderly close: the shard went away
+                    self._mark_dead(idx, sock)
+                    break
+                chunks.append(data)
+            if not chunks:
+                continue
+            buf = self._tails[idx] + b"".join(chunks)
+            cut = buf.rfind(b"\n")
+            if cut < 0:
+                self._tails[idx] = buf
+                continue
+            feed, self._tails[idx] = buf[: cut + 1], buf[cut + 1 :]
+            self.bytes_consumed += len(feed)
+            yield idx, feed
 
     def _handle_boot_marker(self, idx: int, feed: bytes) -> int:
         """Consume the pre-marker prefix, then snapshot-boot: fetch the
@@ -393,3 +407,67 @@ class FleetConsumer:
         self._socks = []
         with contextlib.suppress(OSError, AttributeError):
             self._sel.close()
+
+
+class RankFleetConsumer(FleetConsumer):
+    """The consumer of one rank of a rank mesh (``parallel.mesh.rank_mesh``:
+    one process a card, each holding its shard's rows of the same engine).
+    Every rank subscribes to the same firehose.  A pump reads what the
+    sockets hold into per-doc line buffers, then one ``min_all`` over the
+    ranks agrees, per doc, on the lines every rank has read (and on the
+    docs whose socket every rank saw close); each rank stages exactly
+    those, so every rank's engine holds the same rows before each
+    (collective) ``step``.  A ``summaryAck`` among the staged lines
+    triggers ``compact`` on every rank alike.  A boot marker marks the doc
+    dead (no historian on a rank mesh: the supervisor restart path).
+    ``pump`` is collective: every rank calls it in the same order."""
+
+    def __init__(self, host: str, port: int, engine, doc_ids: list[str], mesh,
+                 recv_bytes: int = 1 << 16, boot_store=None) -> None:
+        super().__init__(host, port, engine, doc_ids, recv_bytes=recv_bytes,
+                         boot_store=boot_store)
+        self._mesh = mesh
+        self._lines: list[collections.deque] = [collections.deque() for _ in doc_ids]
+        self._closed: set[int] = set()
+
+    def _mark_dead(self, idx: int, sock: socket.socket) -> None:
+        # The close is this rank's alone until every rank saw it (``pump``).
+        self._closed.add(idx)
+        with contextlib.suppress(KeyError, ValueError):
+            self._sel.unregister(sock)
+
+    def pump(self, wait_s: float = 0.02) -> int:
+        """Read every ready socket, then stage the lines every rank has
+        read; returns op rows staged (the same on every rank)."""
+        self._apply_flow_control()
+        if len(self._closed) < len(self._socks):
+            for idx, feed in self._read_ready(wait_s):
+                head, marker, _rest = feed.partition(_BOOT_MARKER)
+                if marker:
+                    feed = head[: head.rfind(b"\n") + 1]
+                    self._closed.add(idx)
+                    with contextlib.suppress(KeyError, ValueError):
+                        self._sel.unregister(self._socks[idx])
+                self._lines[idx].extend(feed.splitlines(keepends=True))
+        n = len(self._lines)
+        mine = np.array([len(q) for q in self._lines]
+                        + [int(i in self._closed) for i in range(n)], np.int64)
+        agreed = self._mesh.min_all(mine)
+        staged = 0
+        acked = False
+        for idx in range(n):
+            take = int(agreed[idx])
+            if take:
+                q = self._lines[idx]
+                feed = b"".join(q.popleft() for _ in range(take))
+                acked = acked or b'"type":"summaryAck"' in feed
+                staged += self.engine.ingest_lines(idx, feed)
+            if agreed[n + idx] and not self._lines[idx]:
+                self.dead_socks.add(idx)
+        self.rows_staged += staged
+        if staged:
+            self._apply_flow_control()
+        if acked:
+            self.engine.compact()
+            self.engine.counters.bump("msn_compactions")
+        return staged

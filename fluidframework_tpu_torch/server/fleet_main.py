@@ -30,14 +30,42 @@ after each move.  The reference caps N at its device count; the port's
 shards share one device, so N is taken as given.  Without ``--mesh`` the
 engine serves with cohort steps (``use_mesh=False``), as the reference's
 does.
+
+Across cards, one rank a card: launched as
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m fluidframework_tpu_torch.server.fleet_main --mesh N ...
+
+(``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set), each process joins the
+group (NCCL for ``--device cuda``, after ``torch.cuda.set_device(LOCAL_RANK)``;
+gloo for ``cpu``), builds the rank mesh (``parallel.mesh.rank_mesh``) and
+serves its shard's rows of the same engine.  Every rank reads the same
+firehose (``RankFleetConsumer`` agrees on the lines every rank read before
+each step) and rank 0 alone prints the JSON lines, with the keys and
+``texts`` of a one-card run.  The options whose decisions a rank would take
+alone (standby, lease, historian, metrics, bounded-staleness writer,
+rebalancing, drain file, trace) are refused there.  Without those
+variables ``--mesh N`` keeps N shards on one card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
+
+# Options a rank of a rank mesh would decide on alone (clocks, files,
+# threads, another server), so a rank mesh refuses them.
+_RANK_REFUSED = (
+    ("standby", "--standby"), ("lease_file", "--lease-file"), ("historian", "--historian"),
+    ("metrics_port", "--metrics-port"), ("ckpt_stale_ops", "--ckpt-stale-ops"),
+    ("ckpt_stale_seconds", "--ckpt-stale-seconds"), ("rebalance_every", "--rebalance-every"),
+    ("drain_file", "--drain-file"), ("trace", "--trace"),
+)
+# Seconds a rank's collective waits for the others before the group fails.
+RANK_TIMEOUT_S = 600.0
 
 
 def status_snapshot(eng, doc_ids, rows=0, bytes_consumed=0, **extra) -> dict:
@@ -199,10 +227,19 @@ def main(argv: list[str] | None = None) -> int:
                         "events overwrite; the dump reports drops)")
     args = p.parse_args(argv)
 
-    import os as _os
-
-    from .fleet_consumer import FleetConsumer
+    from .fleet_consumer import FleetConsumer, RankFleetConsumer
     from .ordered_log import CheckpointStore
+
+    ranked = bool(args.mesh) and all(
+        k in os.environ for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+    )
+    if ranked:
+        for attr, flag in _RANK_REFUSED:
+            if getattr(args, attr):
+                p.error(f"{flag} is not served on a rank mesh (one process a card)")
+        if int(os.environ["WORLD_SIZE"]) != args.mesh:
+            p.error(f"--mesh {args.mesh} under a {os.environ['WORLD_SIZE']}-rank launch")
+    say = _say(ranked)
 
     doc_ids = [d for d in args.docs.split(",") if d]
     store = (
@@ -211,7 +248,9 @@ def main(argv: list[str] | None = None) -> int:
         else None
     )
     mesh = None
-    if args.mesh:
+    if ranked:
+        mesh = _join_ranks(args)
+    elif args.mesh:
         from ..parallel.mesh import doc_mesh, docs_segs_mesh
 
         # Every shard on --device (-1, all visible devices, is one here).
@@ -269,10 +308,10 @@ def main(argv: list[str] | None = None) -> int:
         # here would re-read every record and open a stray boot clock.
         restored = eng.restore_from_checkpoints()
         if restored:
-            print(json.dumps({
+            say({
                 "restored": [doc_ids[d] for d in restored],
                 "health": eng.health(),
-            }), flush=True)
+            })
     boot_store = None
     if args.scribe_dir is not None:
         # Boot-from-summary: cold docs (no local checkpoint) seed from the
@@ -291,7 +330,7 @@ def main(argv: list[str] | None = None) -> int:
         from .failover import LeaseFile
 
         lease = LeaseFile(
-            args.lease_file, holder=f"fleet-{_os.getpid()}",
+            args.lease_file, holder=f"fleet-{os.getpid()}",
             ttl_s=args.lease_ttl,
         )
     if args.standby:
@@ -305,21 +344,21 @@ def main(argv: list[str] | None = None) -> int:
 
         ws = WarmStandby(eng, store, lease=lease, poll_s=args.standby_poll)
         ws.prepare()
-        print(json.dumps({
+        say({
             "standby": True, "leaseFile": args.lease_file,
             "health": eng.health(),
-        }), flush=True)
+        })
         ws.watch()
         ws.promote()
-        print(json.dumps({
+        say({
             "promoted": True, "health": eng.health(),
-        }), flush=True)
+        })
     elif lease is not None:
         if not lease.acquire():
-            print(json.dumps({
+            say({
                 "error": "lease held by another primary",
                 "lease": lease.read(),
-            }), flush=True)
+            })
             return 1
     if lease is not None and lease.epoch >= 0:
         from .failover import LeaseHeartbeat
@@ -332,13 +371,17 @@ def main(argv: list[str] | None = None) -> int:
             historian = (hh or "127.0.0.1", int(hp))
         except ValueError:
             p.error(f"--historian wants host:port, got {args.historian!r}")
-    fc = FleetConsumer(args.host, args.port, eng, doc_ids,
-                       boot_store=boot_store, historian=historian)
+    if ranked:
+        fc = RankFleetConsumer(args.host, args.port, eng, doc_ids, mesh,
+                               boot_store=boot_store)
+    else:
+        fc = FleetConsumer(args.host, args.port, eng, doc_ids,
+                           boot_store=boot_store, historian=historian)
     if fc.booted_docs:
-        print(json.dumps({
+        say({
             "bootedFromSummary": [doc_ids[d] for d in fc.booted_docs],
             "health": eng.health(),
-        }), flush=True)
+        })
     metrics_srv = None
     if args.metrics_port is not None:
         # The scrapeable fleet surface: /metrics (Prometheus text) +
@@ -352,7 +395,7 @@ def main(argv: list[str] | None = None) -> int:
         if latency is not None:
             plane.register("latency", latency)
         metrics_srv = MetricsServer(plane, port=args.metrics_port).start()
-        print(json.dumps({"metricsPort": metrics_srv.port}), flush=True)
+        say({"metricsPort": metrics_srv.port})
     # Readiness line: everything a coordinator needs to attach — the shard
     # this consumer rides, the doc set and family it serves, and (when on)
     # the scrapeable metrics port.  Emitted AFTER the firehose attached, so
@@ -365,7 +408,7 @@ def main(argv: list[str] | None = None) -> int:
     }
     if metrics_srv is not None:
         ready["metricsPort"] = metrics_srv.port
-    print(json.dumps(ready), flush=True)
+    say(ready)
     ckpt_writer = None
     if store is not None and (args.ckpt_stale_ops or args.ckpt_stale_seconds):
         # Bounded-staleness delta checkpoints: a background sweep keeps
@@ -386,7 +429,7 @@ def main(argv: list[str] | None = None) -> int:
             extra.setdefault("ckptWriter", ckpt_writer.stats())
         if heartbeat is not None:
             extra.setdefault("lease", heartbeat.stats())
-        print(json.dumps(status_snapshot(
+        say(status_snapshot(
             eng, doc_ids, rows=fc.rows_staged,
             bytes_consumed=fc.bytes_consumed,
             # Consumer-side flow control (the engine's overload gauges
@@ -396,7 +439,7 @@ def main(argv: list[str] | None = None) -> int:
             pump_pauses=fc.pump_pauses,
             pump_resumes=fc.pump_resumes,
             **extra,
-        )), flush=True)
+        ))
 
     def final_state() -> dict:
         """The per-family identity surface for the done=True status line,
@@ -417,6 +460,17 @@ def main(argv: list[str] | None = None) -> int:
         out["launches"] = {fn.__name__: fn.launches for fn in progs}
         return out
 
+    if ranked:
+        try:
+            return _serve_ranked(args, eng, fc, mesh, status, final_state)
+        finally:
+            fc.close()
+            flush = getattr(eng, "flush_telemetry", None)
+            if flush is not None:
+                flush()
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     drain_want: dict | None = None
     last_drain_poll = 0.0
     last_status = time.monotonic()
@@ -434,13 +488,13 @@ def main(argv: list[str] | None = None) -> int:
                 if moves:
                     # Summary ownership follows the docs: the supervisor
                     # re-aligns from this line.
-                    print(json.dumps({
+                    say({
                         "migrations": [
                             {"doc": doc_ids[d], "from": s, "to": t}
                             for d, s, t in moves
                         ],
                         "placement": eng.placement(),
-                    }), flush=True)
+                    })
             if heartbeat is not None and heartbeat.lost:
                 # Fenced out: another holder took the lease (we stalled
                 # past the ttl and a standby promoted).  Stand down WITHOUT
@@ -484,7 +538,7 @@ def main(argv: list[str] | None = None) -> int:
                 # per-family state and exit cleanly.
                 if drain_want is None and now - last_drain_poll >= 0.1:
                     last_drain_poll = now
-                    if _os.path.exists(args.drain_file):
+                    if os.path.exists(args.drain_file):
                         with open(args.drain_file) as f:
                             drain_want = json.load(f)["want"]
                 if drain_want is not None:
@@ -521,10 +575,69 @@ def main(argv: list[str] | None = None) -> int:
             metrics_srv.stop()
         if recorder is not None:
             n = recorder.export_chrome_trace(args.trace)
-            print(json.dumps({
+            say({
                 "trace": args.trace, "events": n,
                 "dropped": recorder.dropped,
-            }), flush=True)
+            })
+
+
+def _say(ranked: bool):
+    """The JSON-line printer: every line on one card, rank 0's alone on a
+    rank mesh."""
+    quiet = ranked and int(os.environ["RANK"]) != 0
+
+    def say(obj: dict) -> None:
+        if not quiet:
+            print(json.dumps(obj), flush=True)
+
+    return say
+
+
+def _join_ranks(args):
+    """Join the ``torch.distributed.run`` group (NCCL on the rank's card,
+    gloo on the CPU; the backend follows ``--device``) and build the rank
+    mesh: one shard a rank, a docs x segs mesh with ``--seg-shards``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.mesh import rank_mesh
+
+    if args.device == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    return rank_mesh(args.seg_shards if args.seg_shards > 1 else 1)
+
+
+def _serve_ranked(args, eng, fc, mesh, status, final_state) -> int:
+    """The serving loop of one rank: every step, status line and exit is
+    decided alike on every rank (the consumer's agreed lines; rank 0's
+    clock for the status cadence, shared with one ``max_all``)."""
+    last_status = time.monotonic()
+    while True:
+        staged = fc.pump()
+        due = mesh.rank == 0 and time.monotonic() - last_status >= args.status_every
+        status_due = bool(mesh.max_all([int(due)])[0])
+        if fc.dead_socks:
+            fc.step()
+            eng.maybe_checkpoint(force=True)
+            status(disconnected=sorted(fc.doc_ids[i] for i in fc.dead_socks))
+            return 1
+        if staged or fc.paused_socks:
+            fc.step()
+        else:
+            time.sleep(args.idle_sleep)
+        if status_due:
+            last_status = time.monotonic()
+            status()
+        if args.exit_after_rows and fc.rows_staged >= args.exit_after_rows:
+            eng.maybe_checkpoint(force=True)
+            status(done=True, **final_state())
+            return 0
 
 
 def cli() -> None:

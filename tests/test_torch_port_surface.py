@@ -34,6 +34,8 @@ _BLOCKER = textwrap.dedent(
     for name in names:
         __import__(name)
     import chip_smoke
+    sys.path.insert(0, "tests")
+    import torch_rank_worker  # a rank of the cross-card tests' gloo worlds
     leaked = sorted(m for m in sys.modules
                     if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked

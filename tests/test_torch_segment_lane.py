@@ -133,18 +133,33 @@ def test_host_packing_matches_reference(n_shards):
     assert tk.canonical_doc(tk.seg_gather_state(port_b, S)).keys() == mk.canonical_doc(single).keys()
 
 
-def test_multi_shard_lanes_are_not_ported():
-    """Multi-shard lanes are ported (below); what stays refused is a mesh
-    over distinct devices, naming its ROADMAP item, and a segs axis that
-    does not divide the mesh."""
+def test_multi_shard_lanes_are_not_ported(tmp_path):
+    """Multi-shard lanes are ported (below), and so are meshes over cards,
+    one rank a card (tests/test_torch_cross_card.py).  What stays refused:
+    distinct devices without a process group, a group whose size is not
+    the mesh's shard count, and a segs axis that does not divide the mesh
+    — each a ValueError naming what to do."""
+    import torch.distributed as dist
+
     for devices in ([torch.device("cpu"), torch.device("meta")], ["cpu", "meta", "cpu"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        with pytest.raises(ValueError, match="init_process_group"):
             tpm.docs_segs_mesh(devices, seg_shards=1)
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        with pytest.raises(ValueError, match="init_process_group"):
             tpm.doc_mesh(devices)
     with pytest.raises(ValueError):
         tpm.docs_segs_mesh(["cpu"] * 4, seg_shards=3)
     assert tk.shard_group(4).size == 4
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="one shard a rank"):
+            tpm.doc_mesh(["cpu"] * 2, group=dist.group.WORLD)
+        with pytest.raises(ValueError, match="one shard a rank"):
+            tpm.docs_segs_mesh(["cpu", "meta"], seg_shards=2, group=dist.group.WORLD)
+        mesh = tpm.doc_mesh("cpu", group=dist.group.WORLD)
+        assert mesh.ranked and mesh.n_shards == 1 and mesh.row_range(8) == (0, 8)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])
