@@ -3,10 +3,11 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--seed N] [--trace-dir DIR]
+    python3 chip_smoke.py [--seed N] [--trace-dir DIR] [--only cross_card|chaos_ranks]
 
 ``--trace-dir`` writes the Chrome traces of the recorded turns there
-(nothing is written by default).
+(nothing is written by default); ``--only`` builds the kernels and runs
+the cross-card phases alone (see 24 and 25).
 
 It builds every hand-written kernel of the port from ``csrc/`` with nvcc
 (sm_90a; one compile per source, started together, then one link), then
@@ -409,11 +410,32 @@ runs these phases on the card, one JSON line each:
     the lane's seconds, rows/s and collectives an op, ``psum`` and
     ``all_gather`` ms a call, and one K6 call at [4, 16] over the ranks.
     ``--only cross_card`` runs the build and this phase alone, the last
-    line's ``count`` the visible cards; over NCCL it then runs
-    ``fleet_main --mesh N`` under ``torch.distributed.run`` on the same
-    ranks (``cross_entry``: 256 docs of the fleet traffic's first 4
-    rounds from a firehose; rank 0 alone prints, its texts equal an
-    engine's on the CPU fed the same bytes, K2 launched).
+    line's ``count`` the visible cards; over NCCL it then runs K1 and K9
+    on tensors on ``cuda:1`` with ``cuda:0`` current against their plain
+    versions (``other_card_kernels``, which phase 1 also runs with two or
+    more cards), ``fleet_main --mesh N`` under ``torch.distributed.run``
+    on the same ranks (``cross_entry``: 256 docs of the fleet traffic's
+    first 4 rounds from a firehose; rank 0 alone prints, its texts equal
+    an engine's on the CPU fed the same bytes, K2 launched) and its tree
+    leg (``--family tree``: the first 64 docs of tree_fleet's stream that
+    are not faulted, 4 rounds; its trees equal a CPU engine's, K7
+    launched), then phase 25.
+25. ``chaos_ranks``: ``run_chaos`` with the tree tier on a rank mesh, one
+    process a rank, after phase 24 (NCCL with two or more cards, one rank
+    a card up to 4; gloo with 4 ranks on card 0 otherwise): the
+    reference's mixed-fleet smoke (``tests/test_chaos.py:502``: seed 16,
+    30 ticks, 2 string docs, a nack storm, two tree-doc migrations, a
+    fleet kill, a torn socket; standbys, 0.25 s staleness sweeps, the
+    native deli) with 8 tree docs.  Rank 0 runs the stack and decides
+    every fault; every rank serves its shard of the tree engine.  It
+    fails unless every rank exits 0 within its cap, the invariants hold
+    (oracle identity for both families, no double acks, bounded queues),
+    one restart promoted a standby per family, a migration moved a doc
+    between ranks, every rank stepped and made the collectives in step,
+    and on every rank K7 and K8 launched (they join the ``kernels`` line
+    as ``chaos_ranks``).  It prints each rank's launches and tree step
+    ms, the tree recovery p50/p99 and the collectives a tick.
+    ``--only chaos_ranks`` runs the build and this phase alone.
 
 The fleet's traffic is made once, after phase 18, and shared by phases
 2, 3, 6, 14, 15, 20 and 24 (a ``traffic`` line gives its generation time); each tree
@@ -440,7 +462,8 @@ and ``network_squash`` paths the same, and ``network_fleet`` unless K2,
 K3, K6 (both programs) and K1 did; ``dds_family`` (22) unless
 ``apply_op``, K3 and K5's ``restamp`` did; ``debugger`` (23) unless
 ``apply_op`` and K3 did; ``cross_card`` (24) unless K2, K3, K6 (both
-programs) and K1 launched on every rank.  Then
+programs) and K1 launched on every rank; ``chaos_ranks`` (25) unless K7
+and K8 did.  Then
 it prints the ``kernels`` summary line (K1 with its launches by path, the
 segment lane's among them; K7, K8, K9, map, matrix; K2 and K3 at the
 fleet's shape; K6 at 4 shards; the cohort gather and scatter; the one-doc
@@ -450,7 +473,9 @@ limit, and, last, the
 Any failure exits nonzero without that line; so does a machine without a
 CUDA card, or a directory without the port.  ``main`` runs eight phases
 below the sizes above (``CUTS``: the recovery phase at the traffic's
-first 1,000 docs with 16 sampled docs, phase 15's fleet part at its three
+first 1,000 docs with 16 sampled docs and 10 of its 20 faulted docs (4
+past the text capacity, 4 past the segment count, 2 quarantined),
+phase 15's fleet part at its three
 checked turns (no timing turns), the serving phase's fleet_main entry at
 64 docs, tree_fleet at 256 docs, so
 ``time_tree_programs`` holds K7 and K8 on a 256-doc ring and times K7's
@@ -845,8 +870,45 @@ def phase_kernels(seed: int, card: str) -> dict:
         **{f"seg_lane_{k}": v for k, v in seg_lane.items()},
         **{f"seg_lane4_{k}": v for k, v in seg_lane4.items()},
     }
+    if torch.cuda.device_count() >= 2:
+        out["other_card"] = other_card_kernels(seed)
     emit(out)
     return out
+
+
+def other_card_kernels(seed: int) -> dict:
+    """K1 (the long-document shape) and K9 (256 microbench windows of C=8)
+    on tensors on ``cuda:1`` while ``cuda:0`` is the current device, against
+    their plain versions on the CPU, exact: each launcher launches on its
+    tensors' card, with that card's stream.  Needs two cards."""
+    import torch
+
+    from fluidframework_tpu_torch.dds.tree.device_rebase import DeviceRebaser
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
+    from fluidframework_tpu_torch.ops import resolve_kernel as rk
+
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(seed + 25)
+    lens = torch.from_numpy(_random_lens(rng, 262_144))
+    qs = torch.from_numpy(rng.integers(-3, int(lens.sum()) + 3, size=256).astype(np.int32))
+    pool, windows = rebase_microbench_windows(seed + 25, 256)
+    reb = DeviceRebaser(pool, device="cpu")
+    c = torch.from_numpy(np.stack([reb.encode_commit(c).row for c, _ in windows]))
+    xs = torch.from_numpy(np.stack([np.stack([reb.encode_commit(x).row for x in xw])
+                                    for _, xw in windows]))
+    elig = torch.ones(xs.shape[:2], dtype=torch.uint8)
+    with torch.cuda.device(0):
+        got1 = rk.resolve_positions(lens.to(other), qs.to(other))
+        got9 = rk9.rebase_window(c.to(other), xs.to(other), elig.to(other))
+        torch.cuda.synchronize(other)
+        current = torch.cuda.current_device()
+    k1 = all(torch.equal(g.cpu(), w) for g, w in zip(got1, rk.resolve_positions_plain(lens, qs)))
+    k9 = all(torch.equal(g.cpu(), w) for g, w in zip(got9, rk9.rebase_window_plain(c, xs, elig)))
+    check(current == 0, f"other card: the current device moved to {current}")
+    check(k1, "K1 on cuda:1 (cuda:0 current) disagrees with its plain version")
+    check(k9, "K9 on cuda:1 (cuda:0 current) disagrees with its plain version")
+    return {"device": str(other), "current": current, "k1_equal": k1, "k9_equal": k9,
+            "k1_shape": [int(lens.shape[0]), int(qs.shape[0])], "k9_shape": list(xs.shape[:2])}
 
 
 def _state_rows_equal(a, b) -> bool:
@@ -1060,10 +1122,12 @@ def phase_fleet(seed: int, card: str, device: str, traffic, n_docs: int = 10_000
     return out
 
 
-def fault_traffic(n_docs: int, rounds: int, extra: int, geom: dict, seed: int):
+def fault_traffic(n_docs: int, rounds: int, extra: int, geom: dict, seed: int,
+                  faulted: int = 20):
     """Seeded faults for the recovery phase, over ``rounds`` rounds plus
-    ``extra`` later ones, on docs away from the Zipf head (their Zipf
-    traffic is dropped; writer w0 alone, each op seeing every earlier one):
+    ``extra`` later ones, on ``faulted`` docs (a multiple of 5) away from
+    the Zipf head (their Zipf traffic is dropped; writer w0 alone, each op
+    seeing every earlier one); at 20:
 
     - 8 ``text`` docs append inserts of 4 chunks until the text pool passes
       ``text_capacity`` (ERR_TEXT_OVERFLOW) and remove 2 chars a round;
@@ -1077,8 +1141,9 @@ def fault_traffic(n_docs: int, rounds: int, extra: int, geom: dict, seed: int):
 
     rng = np.random.default_rng(seed + 7)
     skip = min(100, n_docs // 2)
-    picks = rng.choice(np.arange(skip, n_docs), size=20, replace=False).tolist()
-    plan = {"text": sorted(picks[:8]), "seg": sorted(picks[8:16]), "pos": sorted(picks[16:])}
+    picks = rng.choice(np.arange(skip, n_docs), size=faulted, replace=False).tolist()
+    k = 2 * faulted // 5
+    plan = {"text": sorted(picks[:k]), "seg": sorted(picks[k:2 * k]), "pos": sorted(picks[2 * k:])}
     T, S, L = geom["text_capacity"], geom["max_segments"], geom["max_insert_len"]
     chunk = 4 * L
     text_per_round = -(-(T + chunk) // (rounds * chunk))
@@ -1209,7 +1274,7 @@ def digest_bound(state) -> tuple[int, float]:
 
 def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_000,
                    rounds: int = 16, step_every: int = 8, sample: int = 64,
-                   geom: dict = FLEET_GEOM, tamper_docs: int = 256) -> dict:
+                   geom: dict = FLEET_GEOM, tamper_docs: int = 256, faulted: int = 20) -> dict:
     """The recovery and durability path at the fleet phase's geometry on
     ``device``: ``traffic`` (``fleet_traffic``'s joins and at least
     ``rounds`` + 2 rounds for ``n_docs``) with seeded faults through
@@ -1240,7 +1305,7 @@ def phase_recovery(seed: int, card: str, device: str, traffic, n_docs: int = 10_
     joins = [(d, m) for d, m in joins if d < n_docs]
     rounds_msgs = [[(d, m) for d, m in rnd if d < n_docs] for rnd in rounds_msgs]
     t0 = time.perf_counter()
-    plan, faults = fault_traffic(n_docs, rounds, 2, geom, seed)
+    plan, faults = fault_traffic(n_docs, rounds, 2, geom, seed, faulted)
     gen_s = time.perf_counter() - t0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1964,10 +2029,8 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
     from fluidframework_tpu_torch.server.ordered_log import CheckpointStore
 
     on_card = device == "cuda"
-    rng = np.random.default_rng(seed + 11)
-    faulted = sorted(int(d) for d in rng.choice(n_docs, size=n_faulted, replace=False))
     t0 = time.perf_counter()
-    traffic = tree_traffic(seed, n_docs, rounds + 2, faulted=faulted, fault_edits=fault_edits)
+    faulted, traffic = _tree_fleet_stream(seed, n_docs, rounds + 2, n_faulted, fault_edits)
     gen_s = time.perf_counter() - t0
     main_rounds, extra, ring_round = traffic[:rounds + 1], traffic[rounds + 1:rounds + 2], traffic[-1]
     if on_card:
@@ -4684,7 +4747,8 @@ DDS_CAP_S = 150.0
 # client leg 500 (``NET_REDUCED``; 21.3 s at 1,000).
 # Printed in the ``cuts`` line.
 CUTS = {
-    "recovery": {"n_docs": 1000, "sample": 16},  # of 10,000 docs, of 64 sampled
+    # of 10,000 docs, of 64 sampled, of 20 faulted (the rounds are their replays)
+    "recovery": {"n_docs": 1000, "sample": 16, "faulted": 10},
     "sharded": {"fleet": {"turns": 3}},    # of 6: the checked turns, no timing turns
     "tree_fleet": {"n_docs": 256},         # of 1,024 (time_tree_programs' ring too)
     "tree_rebase": {"fleet_docs": 32},     # of 256
@@ -7668,21 +7732,128 @@ def phase_cross_card(seed: int, card: str, device: str = "cuda", traffic=None, p
 
 
 # Phase 24's entry point over ranks: the fleet traffic's first docs and
-# rounds through ``fleet_main --mesh N`` under ``torch.distributed.run``.
+# rounds through ``fleet_main --mesh N`` under ``torch.distributed.run``,
+# then the tree fleet's first docs and rounds through ``--family tree``.
 CROSS_ENTRY = dict(n_docs=256, rounds=4)
+CROSS_ENTRY_TREE = dict(fleet_docs=256, n_docs=64, rounds=4)  # fleet_docs: tree_fleet's cut
 CROSS_ENTRY_TIMEOUT_S = 300
 
 
+def _ranked_fleet_main(ranks: int, device: str, doc_ids: list, waves: list, rows: int,
+                       args: list, tag: str) -> tuple[list, float]:
+    """``fleet_main --mesh ranks`` under ``torch.distributed.run`` fed
+    ``waves`` (all released at once) by a firehose until ``rows`` op rows
+    are staged; returns its JSON lines and seconds.  Fails unless the
+    world exits 0 within ``CROSS_ENTRY_TIMEOUT_S``."""
+    feeder = FirehoseFeeder(waves)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cross_entry_")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        for w in range(len(waves)):
+            feeder.release(w)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(ranks), "-m", "fluidframework_tpu_torch.server.fleet_main",
+               "--mesh", str(ranks), "--port", str(feeder.port), "--docs", ",".join(doc_ids),
+               "--device", device, "--checkpoint-dir", os.path.join(root, "ckpt"),
+               "--status-every", "600", "--exit-after-rows", str(rows), *args]
+        env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        # The launcher and its ranks in a session of their own, so the cap
+        # ends every rank with it.
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=env, cwd=repo, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=CROSS_ENTRY_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise AssertionError(f"{tag}: the world ran past {CROSS_ENTRY_TIMEOUT_S} s") from e
+        run_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{tag}: the world exited {proc.returncode}: {stderr[-3000:]}")
+    finally:
+        feeder.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return [json.loads(x) for x in stdout.splitlines() if x.startswith("{")], run_s
+
+
+def _one_done_line(lines: list, rows: int, ranks: int, tag: str) -> dict:
+    """The world's one ``done`` line (rank 0 alone prints: one ``ready``,
+    one ``done``), checked for every row consumed over ``ranks`` shards
+    and no error."""
+    ready = [x for x in lines if x.get("ready")]
+    done = [x for x in lines if x.get("done")]
+    check(len(ready) == 1 and len(done) == 1,
+          f"{tag}: {len(ready)} ready and {len(done)} done lines (rank 0 alone prints)")
+    done = done[0]
+    check(done["errors"] == 0 and done["rows"] == rows,
+          f"{tag}: {done['errors']} errors, {done['rows']} of {rows} rows")
+    check(done["health"]["n_shards"] == ranks,
+          f"{tag}: {done['health']['n_shards']} shards for {ranks} ranks")
+    return done
+
+
+def _tree_fleet_stream(seed: int, n_docs: int, rounds: int, n_faulted: int = 4,
+                       fault_edits: int = 24) -> tuple:
+    """tree_fleet's stream: ``tree_traffic`` of ``n_docs`` docs with
+    ``n_faulted`` seeded docs overflowing the capacity; (faulted, rounds)."""
+    rng = np.random.default_rng(seed + 11)
+    faulted = sorted(int(d) for d in rng.choice(n_docs, size=n_faulted, replace=False))
+    return faulted, tree_traffic(seed, n_docs, rounds, faulted=faulted, fault_edits=fault_edits)
+
+
+def _cross_entry_tree(device: str, ranks: int, seed: int, sizes: dict) -> dict:
+    """The tree leg: ``fleet_main --family tree --mesh N`` fed the first
+    ``n_docs`` docs and ``rounds`` rounds of tree_fleet's stream (at
+    ``fleet_docs`` docs) that are not its faulted docs, against a
+    ``TreeBatchEngine`` on the CPU fed the same bytes.  (A faulted doc
+    routes to the host fallback at a step, after which its rows stop
+    counting: the rows staged would follow the steps' timing, and
+    ``--exit-after-rows`` needs them fixed.)"""
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+
+    n_docs = sizes["n_docs"]
+    faulted, traffic = _tree_fleet_stream(seed, sizes["fleet_docs"], sizes["rounds"])
+    kept = [d for d in range(sizes["fleet_docs"]) if d not in faulted][:n_docs]
+    local = {d: j for j, d in enumerate(kept)}
+    doc_ids = [f"t{d}" for d in kept]
+    blobs = _doc_blobs(n_docs, [(local[d], m) for rnd in traffic for d, m in rnd if d in local])
+    waves = [{doc_ids[d]: blob for d, blob in enumerate(blobs) if blob}]
+    eng = TreeBatchEngine(n_docs, device="cpu", **TREE_FLEET_GEOM)
+    rows = sum(eng.ingest_lines(d, blob) for d, blob in enumerate(blobs) if blob)
+    eng.step()
+    want = {doc: eng.tree_json(d) for d, doc in enumerate(doc_ids)}
+    geom = TREE_FLEET_GEOM
+    lines, run_s = _ranked_fleet_main(
+        ranks, device, doc_ids, waves, rows,
+        ["--family", "tree", "--capacity", str(geom["capacity"]),
+         "--pool-capacity", str(geom["pool_capacity"]),
+         "--max-insert-len", str(eng.max_insert_len), "--ops-per-step", str(geom["ops_per_step"]),
+         "--megastep-k", str(geom["megastep_k"])], "cross_entry tree")
+    done = _one_done_line(lines, rows, ranks, "cross_entry tree")
+    check(done["trees"] == want, "cross_entry tree: the trees differ from the CPU engine's")
+    if device == "cuda":
+        check(done["device"].startswith("cuda"),
+              f"cross_entry tree: rank 0 served on {done['device']}")
+        check(done["launches"].get("apply_nested_megastep", 0) > 0,
+              "cross_entry tree: K7 never launched")
+    check(not eng.fallbacks, f"cross_entry tree: docs {sorted(eng.fallbacks)} fell back")
+    return {"docs": n_docs, "rounds": sizes["rounds"], "rows": rows, "run_s": run_s,
+            "launches": done["launches"], "lines": len(lines)}
+
+
 def phase_cross_entry(card: str, device: str, ranks: int, seed: int = 0, traffic=None,
-                      sizes: dict | None = None, geom: dict = FLEET_GEOM) -> dict:
+                      sizes: dict | None = None, geom: dict = FLEET_GEOM,
+                      tree_sizes: dict | None = None) -> dict:
     """``fleet_main --mesh N`` under ``torch.distributed.run``, ``ranks``
     ranks (NCCL, one rank a card, for ``device="cuda"``; gloo for
     ``"cpu"``), fed the fleet traffic's first docs and rounds by a
-    firehose, against an engine on the CPU fed the same bytes.  Fails
-    unless the world exits 0 within its cap, rank 0 alone printed (one
-    ``ready`` line, one ``done`` line), the done line's texts equal the
+    firehose, against an engine on the CPU fed the same bytes; then its
+    tree leg (``--family tree``, ``_cross_entry_tree``).  Fails unless
+    each world exits 0 within its cap, rank 0 alone printed (one ``ready``
+    line, one ``done`` line), the done line's texts (trees) equal the
     engine's with no error and every row consumed over ``ranks`` shards,
-    and on the cards K2 launched on rank 0's process (``fleet_main``
+    and on the cards K2 (K7) launched on rank 0's process (``fleet_main``
     compacts only when it drains, so K3 may not run)."""
     from fluidframework_tpu_torch.models.doc_batch_engine import DocBatchEngine
 
@@ -7696,64 +7867,201 @@ def phase_cross_entry(card: str, device: str, ranks: int, seed: int = 0, traffic
     waves = _doc_waves(doc_ids, [joins + rounds_msgs[0]] + rounds_msgs[1:],
                        [list(range(rounds))])
     rows = sum(len(r) for r in rounds_msgs)
-    feeder = FirehoseFeeder(waves)
-    root = tempfile.mkdtemp(prefix="chip_smoke_cross_entry_")
-    repo = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    try:
-        feeder.release(0)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(ranks), "-m", "fluidframework_tpu_torch.server.fleet_main",
-               "--mesh", str(ranks), "--port", str(feeder.port), "--docs", ",".join(doc_ids),
-               "--device", device, "--checkpoint-dir", os.path.join(root, "ckpt"),
-               "--capacity", str(geom["max_segments"]),
-               "--text-capacity", str(geom["text_capacity"]),
-               "--max-insert-len", str(geom["max_insert_len"]),
-               "--ops-per-step", str(geom["ops_per_step"]),
-               "--megastep-k", str(geom["megastep_k"]), "--status-every", "600",
-               "--exit-after-rows", str(rows)]
-        env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
-            p for p in (repo, os.environ.get("PYTHONPATH")) if p))
-        # The launcher and its ranks in a session of their own, so the cap
-        # ends every rank with it.
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                env=env, cwd=repo, start_new_session=True)
-        try:
-            stdout, stderr = proc.communicate(timeout=CROSS_ENTRY_TIMEOUT_S)
-        except subprocess.TimeoutExpired as e:
-            os.killpg(proc.pid, 9)
-            proc.communicate()
-            raise AssertionError(
-                f"cross_entry: the world ran past {CROSS_ENTRY_TIMEOUT_S} s") from e
-        run_s = time.perf_counter() - t0
-        check(proc.returncode == 0,
-              f"cross_entry: the world exited {proc.returncode}: {stderr[-3000:]}")
-        lines = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
-        eng = DocBatchEngine(n_docs, device="cpu", **geom)
-        for d, doc in enumerate(doc_ids):
-            if waves[0].get(doc):
-                eng.ingest_lines(d, waves[0][doc])
-        eng.step()
-        want = {doc: eng.text(d) for d, doc in enumerate(doc_ids)}
-    finally:
-        feeder.close()
-        shutil.rmtree(root, ignore_errors=True)
-    ready = [x for x in lines if x.get("ready")]
-    done = [x for x in lines if x.get("done")]
-    check(len(ready) == 1 and len(done) == 1,
-          f"cross_entry: {len(ready)} ready and {len(done)} done lines (rank 0 alone prints)")
-    done = done[0]
-    check(done["errors"] == 0 and done["rows"] == rows,
-          f"cross_entry: {done['errors']} errors, {done['rows']} of {rows} rows")
-    check(done["health"]["n_shards"] == ranks,
-          f"cross_entry: {done['health']['n_shards']} shards for {ranks} ranks")
-    check(done["texts"] == want, "cross_entry: the texts differ from the CPU engine's")
+    lines, run_s = _ranked_fleet_main(
+        ranks, device, doc_ids, waves, rows,
+        ["--capacity", str(geom["max_segments"]), "--text-capacity", str(geom["text_capacity"]),
+         "--max-insert-len", str(geom["max_insert_len"]),
+         "--ops-per-step", str(geom["ops_per_step"]), "--megastep-k", str(geom["megastep_k"])],
+        "cross_entry")
+    eng = DocBatchEngine(n_docs, device="cpu", **geom)
+    for d, doc in enumerate(doc_ids):
+        if waves[0].get(doc):
+            eng.ingest_lines(d, waves[0][doc])
+    eng.step()
+    done = _one_done_line(lines, rows, ranks, "cross_entry")
+    check(done["texts"] == {doc: eng.text(d) for d, doc in enumerate(doc_ids)},
+          "cross_entry: the texts differ from the CPU engine's")
     if device == "cuda":
         check(done["device"].startswith("cuda"), f"cross_entry: rank 0 served on {done['device']}")
         check(done["launches"].get("apply_megastep", 0) > 0, "cross_entry: K2 never launched")
+    tree = _cross_entry_tree(device, ranks, seed, dict(CROSS_ENTRY_TREE, **(tree_sizes or {})))
     line = {"phase": "cross_entry", "card": card, "device": done["device"], "ranks": ranks,
             "docs": n_docs, "rounds": rounds, "rows": rows, "run_s": run_s,
-            "launches": done["launches"], "lines": len(lines)}
+            "launches": done["launches"], "lines": len(lines), "tree": tree}
+    emit(line)
+    return line
+
+
+# Phase 25: the chaos stack's tree tier over a rank mesh.  The reference's
+# mixed-fleet smoke (tests/test_chaos.py:502-539: seed 16, 30 ticks, 2
+# string docs, standbys, bounded-staleness checkpoints, its schedule) with 8
+# tree docs, two a rank of 4, on the native deli; rank 0 runs the whole
+# stack and decides every fault, the others serve their shard of the tree
+# engine.
+CHAOS_RANKS = dict(ranks=4, seed=16, ticks=30, n_docs=2, n_tree_docs=8, standby=True,
+                   ckpt_stale_seconds=0.25, native_sequencer=True,
+                   events=[(5, "nack_storm", "cd0", 4), (8, "migrate", "td1", 0),
+                           (12, "fleet_kill", "", 0), (18, "torn_socket", "td0", 0),
+                           (22, "migrate", "td0", 0)])
+CHAOS_RANKS_TIMEOUT_S = 240
+_CHAOS_RANKS_CHILD = "import chip_smoke\nchip_smoke._chaos_rank_main()\n"
+
+
+def _chaos_rank_main() -> None:
+    """One rank of phase 25 (a process of its own, started by
+    ``phase_chaos_ranks``): joins the group (NCCL on its own card, or gloo
+    with every rank on card 0), sets K7's and K8's launch counts to 0, runs
+    ``run_chaos`` with the tree tier on the rank mesh (every rank with the
+    same arguments) and reads the counts.  Writes ``rank<RANK>.pkl`` (rank
+    0: the report; the others: their tier's stats); a failure prints its
+    traceback and exits 1."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.parallel.mesh import rank_mesh
+    from fluidframework_tpu_torch.testing.chaos import ChaosEvent, ChaosSchedule, run_chaos
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    work, device = os.environ["CHAOS_DIR"], os.environ["CHAOS_DEVICE"]
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    cfg = json.loads(os.environ["CHAOS_CFG"])
+    dist.init_process_group(os.environ["CHAOS_BACKEND"],
+                            store=dist.FileStore(os.path.join(work, "store"), world),
+                            rank=rank, world_size=world, timeout=timedelta(seconds=120))
+    try:
+        schedule = ChaosSchedule(seed=cfg["seed"], events=[ChaosEvent(*e) for e in cfg["events"]])
+        kw = {k: v for k, v in cfg.items() if k not in ("ranks", "events")}
+        progs = (tk.apply_nested_megastep, tk.compact_nested)
+        for fn in progs:
+            fn.launches = 0
+        t = time.perf_counter()
+        out = run_chaos(schedule=schedule, device=device.split(":")[0],
+                        tree_mesh=rank_mesh(device=device), **kw)
+        out = {"out": out, "run_s": time.perf_counter() - t,
+               "launches": {fn.__name__: fn.launches for fn in progs}}
+        with open(os.path.join(work, f"rank{rank}.pkl.tmp"), "wb") as f:
+            pickle.dump(out, f)
+        os.replace(os.path.join(work, f"rank{rank}.pkl.tmp"), os.path.join(work, f"rank{rank}.pkl"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_chaos_ranks(card: str, device: str = "cuda", paths: dict | None = None,
+                      sizes: dict | None = None) -> dict:
+    """Phase 25: ``run_chaos`` with the tree tier on a rank mesh, one
+    process a rank.  With two or more visible cards NCCL, one rank a card
+    (up to ``ranks``); on one card gloo, every rank on card 0 (the card
+    count picks the backend).  Fails unless every rank exits 0 within the
+    cap, the report's invariants hold (the fleet's texts and trees equal
+    the fault-free oracles' replay of the sequenced log, no double acks,
+    bounded queues), the kill restarted the fleet once with a standby
+    promotion per family, a migration moved a tree doc from one rank's
+    block to another's, the tree engine has one shard a rank, every
+    follower made rank 0's collectives, and on the card every rank
+    launched K7 and K8 (the standbys' warmups compact); the ranks' launches
+    join the ``kernels`` line as ``chaos_ranks``."""
+    import pickle
+
+    import torch
+
+    cfg = dict(CHAOS_RANKS, **(sizes or {}))
+    on_card = device == "cuda"
+    cards = torch.cuda.device_count() if on_card else 0
+    if cards >= 2:
+        backend, ranks = "nccl", min(cfg["ranks"], cards)
+        rank_devices = [f"cuda:{r}" for r in range(ranks)]
+    else:
+        backend, ranks = "gloo", cfg["ranks"]
+        rank_devices = ["cuda:0" if on_card else "cpu"] * ranks
+    cfg["ranks"] = ranks
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chaos_ranks_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p),
+        "WORLD_SIZE": str(ranks), "CHAOS_DIR": work, "CHAOS_BACKEND": backend,
+        "CHAOS_CFG": json.dumps(cfg), "OMP_NUM_THREADS": "2"}
+    errs = [open(os.path.join(work, f"rank{r}.err"), "w+") for r in range(ranks)]
+    procs = [subprocess.Popen([sys.executable, "-c", _CHAOS_RANKS_CHILD], cwd=root,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r),
+                                   "CHAOS_DEVICE": rank_devices[r]},
+                              stdout=subprocess.DEVNULL, stderr=errs[r])
+             for r in range(ranks)]
+    try:
+        deadline = time.monotonic() + CHAOS_RANKS_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            check(time.monotonic() < deadline,
+                  f"chaos_ranks: the ranks ran past {CHAOS_RANKS_TIMEOUT_S} s")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = []
+        for r in failed:
+            errs[r].seek(0)
+            tails.append(f"rank {r} (rc {procs[r].returncode}):\n{errs[r].read()[-3000:]}")
+        raise AssertionError("chaos_ranks: a rank failed:\n" + "\n".join(tails))
+    outs = []
+    for r in range(ranks):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    rep = outs[0]["out"]
+    inv, c, rec, tree = rep["invariants"], rep["counters"], rep["recovery"], rep["tree"]
+    check(inv["converged_docs"] == cfg["n_docs"]
+          and inv["tree_converged_docs"] == cfg["n_tree_docs"], f"chaos_ranks: {inv}")
+    check(inv["double_acks"] == 0, "chaos_ranks: double acks")
+    check(inv["max_queue_depth"] <= inv["queue_depth_bound"]
+          and inv["max_tree_queue_depth"] <= inv["tree_queue_depth_bound"], f"chaos_ranks: {inv}")
+    check(c["fleet_restarts"] == 1 and c["standby_promotions"] == 2,
+          f"chaos_ranks: {c['fleet_restarts']} restarts, {c['standby_promotions']} promotions")
+    check(rec["open"] == 0 and rec["tree_open"] == 0 and rec["tree_incidents"] >= 1,
+          f"chaos_ranks: recovery {rec}")
+    check(tree["n_shards"] == ranks, f"chaos_ranks: {tree['n_shards']} shards for {ranks} ranks")
+    check(any(src != dst for _d, src, dst in tree["moves"]),
+          f"chaos_ranks: no migration changed ranks ({tree['moves']})")
+    stats = [tree["rank"]] + [o["out"] for o in outs[1:]]
+    for r, st in enumerate(stats):
+        check(st["rank"] == r and st["steps"] == stats[0]["steps"],
+              f"chaos_ranks: rank {r} stepped {st['steps']} times, rank 0 {stats[0]['steps']}")
+        check(st["collectives"] == stats[0]["collectives"] + (r > 0),
+              f"chaos_ranks: rank {r} made {st['collectives']} collectives")
+        if on_card:
+            check(st["device"] == rank_devices[r], f"chaos_ranks: rank {r} on {st['device']}")
+            for prog, what in (("apply_nested_megastep", "K7"), ("compact_nested", "K8")):
+                check(outs[r]["launches"][prog] > 0, f"{what} was never launched on chaos rank {r}")
+    if paths is not None:
+        for prog in ("apply_nested_megastep", "compact_nested"):
+            paths[prog]["chaos_ranks"] = sum(o["launches"][prog] for o in outs)
+    line = {
+        "phase": "chaos_ranks", "card": card, "backend": backend, "cards": cards, "ranks": ranks,
+        "rank_devices": rank_devices, "config": {k: v for k, v in cfg.items() if k != "events"},
+        "events": cfg["events"], "duration_s": rep["duration_s"],
+        "counters": c, "moves": tree["moves"],
+        "tree_recovery_p50_ms": rec["tree_recovery_p50_ms"],
+        "tree_recovery_p99_ms": rec["tree_recovery_p99_ms"],
+        "recovery_p50_ms": rec["recovery_p50_ms"], "recovery_p99_ms": rec["recovery_p99_ms"],
+        "invariants": inv, "devices": rep["devices"], "sequencer": rep["sequencer"],
+        "collectives_per_tick": stats[0]["collectives"] / cfg["ticks"],
+        "ranks_detail": [{
+            "rank": r, "device": st["device"], "launches": outs[r]["launches"],
+            "run_s": outs[r]["run_s"], "steps": st["steps"], "step_s": st["step_s"],
+            "step_ms_mean": 1e3 * st["step_s"] / max(st["steps"], 1),
+            "collectives": st["collectives"],
+        } for r, st in enumerate(stats)],
+        "phase_s": time.perf_counter() - t0,
+    }
     emit(line)
     return line
 
@@ -7763,10 +8071,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-dir", default=None,
                     help="write the recorded turns' Chrome traces here (none by default)")
-    ap.add_argument("--only", choices=("cross_card",), default=None,
+    ap.add_argument("--only", choices=("cross_card", "chaos_ranks"), default=None,
                     help="build the kernels and run this phase alone (cross_card: phase 24 "
                          "over every visible card, NCCL with two or more, and then "
-                         "fleet_main over as many ranks)")
+                         "fleet_main's string and tree families over as many ranks, K1 and "
+                         "K9 on a card that is not the current one, and phase 25; "
+                         "chaos_ranks: phase 25)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -7789,12 +8099,16 @@ def main(argv=None) -> int:
     emit({"phase": "build", "card": card, "build_s": time.perf_counter() - t0,
           "library": str(cuda_build.library_path().name),
           "sources": [src.name for src in cuda_build.sources()]})
-    if args.only == "cross_card":
-        cross = {name: {} for name in _cross_programs()}
-        line = phase_cross_card(args.seed, card, "cuda", paths=cross)
-        emit({"phase": "cross_card_launches", "backend": line["backend"], **cross})
-        if line["backend"] == "nccl":
-            phase_cross_entry(card, "cuda", line["ranks"], args.seed)
+    if args.only is not None:
+        launches = {name: {} for name in (*_cross_programs(), "apply_nested_megastep",
+                                          "compact_nested")}
+        if args.only == "cross_card":
+            line = phase_cross_card(args.seed, card, "cuda", paths=launches)
+            if line["backend"] == "nccl":
+                emit({"phase": "other_card", **other_card_kernels(args.seed)})
+                phase_cross_entry(card, "cuda", line["ranks"], args.seed)
+        phase_chaos_ranks(card, "cuda", launches)
+        emit({"phase": "only_launches", "only": args.only, **launches})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -7950,6 +8264,11 @@ def main(argv=None) -> int:
                        ("resolve_positions", "K1")):
         check(paths[prog]["cross_card_ranks"] > 0,
               f"{what} was never launched on the cross_card ranks")
+    # Phase 25 (the chaos stack's tree tier over the rank mesh) after it:
+    # its ranks' launches land in "chaos_ranks".
+    phase_chaos_ranks(card, "cuda", paths)
+    for prog, what in (("apply_nested_megastep", "K7"), ("compact_nested", "K8")):
+        check(paths[prog]["chaos_ranks"] > 0, f"{what} was never launched on the chaos_ranks ranks")
     for name in ("hot_doc", "long_doc", "sharded_hot"):
         check(paths["resolve_positions"][name] > 0, f"K1 was never launched on the {name} path")
     for prog, what in (("apply_megastep_seg", "K6"), ("compact_seg", "K6's compaction")):

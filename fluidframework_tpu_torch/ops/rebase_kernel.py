@@ -129,10 +129,12 @@ def rebase_window(c: torch.Tensor, xs: torch.Tensor, elig: torch.Tensor):
     final = torch.empty((W, ENC_WORDS), dtype=I32, device=c.device)
     steps = torch.empty((W, C, STEP_WORDS), dtype=I32, device=c.device)
     if W:
-        rc = cuda_build.load().rebase_window_launch(
-            c.data_ptr(), xs.data_ptr(), elig.data_ptr(), final.data_ptr(),
-            steps.data_ptr(), W, C, torch._C._cuda_getCurrentRawStream(c.device.index),
-        )
+        # The C entry point launches on the current device: the tensors'.
+        with torch.cuda.device(c.device):
+            rc = cuda_build.load().rebase_window_launch(
+                c.data_ptr(), xs.data_ptr(), elig.data_ptr(), final.data_ptr(),
+                steps.data_ptr(), W, C, torch._C._cuda_getCurrentRawStream(c.device.index),
+            )
         if rc != 0:
             raise RuntimeError(f"rebase_window kernel launch failed: CUDA error {rc}")
         rebase_window.launches += 1

@@ -117,13 +117,18 @@ def resolve_positions(
     out = torch.empty((3, *positions.shape), dtype=I32, device=lens.device)
     if D and Q:
         tile_sum = torch.empty(D * -(-S // TILE), dtype=I32, device=lens.device)
-        rc = cuda_build.load().resolve_positions_launch(
-            lens.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            tile_sum.data_ptr(), D, S, Q, TILE,
-            # The raw current stream, as torch's own kernel launchers read it
-            # (torch.cuda.current_stream builds a Stream object per call).
-            torch._C._cuda_getCurrentRawStream(lens.device.index),
-        )
+        # The C entry point launches on the calling thread's current device:
+        # make it the tensors' card for the launch (its stream is that
+        # card's).
+        with torch.cuda.device(lens.device):
+            rc = cuda_build.load().resolve_positions_launch(
+                lens.data_ptr(), positions.data_ptr(), out.data_ptr(),
+                tile_sum.data_ptr(), D, S, Q, TILE,
+                # The raw current stream, as torch's own kernel launchers
+                # read it (torch.cuda.current_stream builds a Stream object
+                # per call).
+                torch._C._cuda_getCurrentRawStream(lens.device.index),
+            )
         if rc != 0:
             raise RuntimeError(f"resolve_positions kernel launch failed: CUDA error {rc}")
         resolve_positions.launches += 1

@@ -31,11 +31,12 @@ Two layouts serve the same programs:
   the group, never from a failure.
 
 On a rank mesh every operation that reads across shards is a collective:
-the mesh's ``sum_all``, ``gather_rows``, ``broadcast``, ``gather_objects``
-and ``seg_gather``.  Every rank must make them in the same order, and none
-may run while a lock registered with ``forbid_collectives_under`` is held
-by the calling thread (an engine registers its ``ckpt_lock``): they raise
-``RuntimeError`` there instead of waiting on a peer under the lock.
+the mesh's ``sum_all``, ``gather_rows``, ``broadcast``, ``gather_objects``,
+``broadcast_object`` and ``seg_gather``.  Every rank must make them in the
+same order, and none may run while a lock registered with
+``forbid_collectives_under`` is held by the calling thread (an engine
+registers its ``ckpt_lock``): they raise ``RuntimeError`` there instead of
+waiting on a peer under the lock.
 
 Distinct devices without a group raise ``ValueError``: one process cannot
 drive several cards' collectives; run one rank a card under
@@ -76,6 +77,7 @@ class DeviceMesh:
     rank: int = 0
     seg_groups: tuple = field(default=(), hash=False, compare=False)
     _guards: list = field(default_factory=list, hash=False, compare=False, repr=False)
+    _calls: list = field(default_factory=lambda: [0], hash=False, compare=False, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -89,6 +91,12 @@ class DeviceMesh:
     @property
     def seg_shards(self) -> int:
         return int(self.shape.get(SEG_AXIS, 1))
+
+    @property
+    def calls(self) -> int:
+        """The collectives this mesh has made (a segment program's group
+        counts its own, ``ProcessShardGroup.calls``)."""
+        return self._calls[0]
 
     @property
     def ranked(self) -> bool:
@@ -125,6 +133,7 @@ class DeviceMesh:
                     "a rank-mesh collective under a lock that forbids them "
                     "(ckpt_lock): release it before the collective"
                 )
+        self._calls[0] += 1
         return dist
 
     def sum_all(self, x) -> int:
@@ -172,6 +181,15 @@ class DeviceMesh:
         out = [None] * self.n_shards
         dist.all_gather_object(out, obj, group=self.group)
         return out
+
+    def broadcast_object(self, obj=None, src: int = 0):
+        """Rank ``src``'s picklable ``obj`` on every rank (the others pass
+        anything: ``None``)."""
+        dist = self._enter()
+        box = [obj]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, src),
+                                   group=self.group, device=self._wire_device())
+        return box[0]
 
     def seg_group(self):
         """The collectives of this process's ``segs`` axis: the stacked

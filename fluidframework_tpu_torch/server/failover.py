@@ -295,7 +295,9 @@ class WarmStandby:
     runs one final trail, takes the lease, and hands the engine back —
     the caller attaches the firehose consumer and serves.  ``watch()``
     wraps the poll loop for process-level standbys (fleet_main
-    --standby).
+    --standby); on a rank mesh ``prepare``, ``trail`` and ``promote`` are
+    collective, called on every rank in the same order, and ``watch`` is
+    refused.
 
     Requires an engine whose ``restore_from_checkpoints`` supports
     ``refresh=`` trailing re-adoption — both fleet families do
@@ -401,7 +403,14 @@ class WarmStandby:
 
     def watch(self, should_stop=lambda: False) -> bool:
         """Standby duty loop: trail on a cadence until the primary lease
-        lapses (-> True: promote now) or ``should_stop`` (-> False)."""
+        lapses (-> True: promote now) or ``should_stop`` (-> False).  An
+        engine on a rank mesh is refused (``ValueError``): its trail is
+        collective, so every rank's serving loop calls ``trail`` in step."""
+        if getattr(self.engine, "_ranked", False):
+            raise ValueError(
+                "WarmStandby.watch: an engine on a rank mesh trails collectively "
+                "(call trail() from every rank's serving loop)"
+            )
         self.prepare()
         while not should_stop():
             if self.should_promote():

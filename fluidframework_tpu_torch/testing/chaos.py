@@ -6,11 +6,16 @@ pool's K10 batches run on ``device`` (``ChaosStack``/``run_chaos``/
 ``run_soak`` take ``device=``, the card by default; ``device="cpu"`` runs
 the plain PyTorch programs).  Two knobs the reference does not have:
 
-- ``tree_shards`` (default 8): the tree engine's mesh is
+- ``tree_shards`` (8 when left out): the tree engine's mesh is
   ``doc_mesh([device] * tree_shards)`` with ``2 * tree_shards`` spare
   slots, every shard on the one device.  The reference takes one shard a
   JAX device (8 on its CPU test platform, 1 on one chip), so the port's
   ``migrate`` fault makes real moves on one card too.
+- ``tree_mesh`` (a ``parallel.mesh.rank_mesh``, one process a card): the
+  tree tier over ranks instead, one shard a rank (``TreeTier``).  Every
+  rank calls ``run_chaos``/``run_soak`` with the same arguments; rank 0
+  runs the whole stack and decides every fault, the others serve their
+  shard (``serve_tree_rank``).  ``tree_shards > 1`` is refused with it.
 - ``native_sequencer`` (default False, the reference's behaviour): the
   service plane's per-document sequencers are the native deli
   (``native.NativeSequencer``, through ``server.lambdas._make_sequencer``,
@@ -81,7 +86,9 @@ the ``bench.py --config soak`` row.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import os
 import random
 import time
 from dataclasses import asdict, dataclass, field
@@ -481,6 +488,283 @@ class ChaosTreeWriter(_ChaosWireClient):
         return sent
 
 
+def _tier_action(fn):
+    """A tree-tier action: rank 0 of a rank mesh sends ``(name, args)`` to
+    the other ranks, then runs it (``serve_tree_rank`` runs the same method
+    there)."""
+
+    @functools.wraps(fn)
+    def act(self, *args):
+        if self.lead:
+            self._acting = True
+            self.mesh.broadcast_object((fn.__name__, args))
+            out = fn(self, *args)
+            self._acting = False
+            return out
+        return fn(self, *args)
+
+    return act
+
+
+class TreeTier:
+    """The chaos stack's tree tier: its ``TreeBatchEngine``, firehose
+    consumer, warm standby and bounded-staleness checkpoints, behind one
+    object whose methods are the tier's actions (``tick``, ``drain``,
+    ``kill``, ``migrate``, ``views``, ``health``).
+
+    On one device (``mesh`` None, or a mesh of shards on one device) each
+    action works the engine directly; the staleness sweeps run in a
+    ``BackgroundCheckpointWriter`` thread.  On a rank mesh (``rank_mesh``,
+    one process a card) every rank holds a tier over its shard's rows of
+    the same engine and its own ``RankFleetConsumer``: rank 0's tier
+    (``lead``) sends each action with its arguments before running it, and
+    ``serve_tree_rank`` runs it on the other ranks, so every rank makes the
+    engine's collectives in the same order.  What draws on rank 0's rng or
+    clock (the migrated doc, a kill, whether ``quiesce`` goes on) is decided
+    there and sent; reads of replicated host state (``hosts``, queue
+    depths, ``recovery_tracker``) stay local.  A rank mesh sweeps stale
+    checkpoints collectively in ``tick`` (``checkpoint_stale``), its standby
+    prepares, trails and promotes in actions on every rank, and the kill's
+    incident is timed on each rank's clock (rank 0's is the one reported).
+
+    ``spec`` is what every rank builds from (rank 0 sends it): ``doc_ids``,
+    ``workdir`` (the checkpoint store is its ``tree-checkpoints``), the
+    firehose ``port``, ``standby``, ``stale_seconds`` and ``engine_kw``."""
+
+    ACTIONS = frozenset({"tick", "drain", "kill", "migrate", "views", "health"})
+
+    def __init__(self, spec: dict, mesh=None, device=DEFAULT_DEVICE, lead: bool = False) -> None:
+        from ..ops import tree_kernel as tk
+        from ..server.ordered_log import CheckpointStore
+
+        self.spec = spec
+        self.doc_ids = list(spec["doc_ids"])
+        self.mesh = mesh
+        self.ranked = bool(getattr(mesh, "ranked", False))
+        self.lead = lead and self.ranked
+        self._acting = False
+        self.store = CheckpointStore(os.path.join(spec["workdir"], "tree-checkpoints"))
+        self.engine_kw = dict(
+            spec["engine_kw"], mesh=mesh, checkpoint_store=self.store, doc_keys=self.doc_ids,
+            device=mesh.device if self.ranked else device,
+        )
+        self.engine = self.consumer = self.standby = self._writer = None
+        self.incidents_seen = 0
+        self.moves: list = []  # (doc, from shard, to shard) of each migration
+        self.step_s, self.steps = 0.0, 0
+        self._progs = (tk.apply_nested_megastep, tk.compact_nested)
+        self._launches0 = [fn.launches for fn in self._progs]
+        self._calls0 = mesh.calls if self.ranked else 0
+        self._boot()
+        if spec["standby"]:
+            self._make_standby()
+        self._start_writer()
+
+    # ----------------------------------------------------------- local parts
+    def _boot(self) -> None:
+        """(Re)build the engine restored from the durable checkpoints and
+        its consumer re-reading the firehose (seq-floor dedupe skips what
+        the checkpoints cover)."""
+        from ..models.tree_batch_engine import TreeBatchEngine
+
+        eng = TreeBatchEngine(len(self.doc_ids), **self.engine_kw)
+        eng.restore_from_checkpoints()
+        self.engine = eng
+        self.incidents_seen = 0
+        self.consumer = self._consumer(eng)
+
+    def _consumer(self, eng):
+        from ..server.fleet_consumer import FleetConsumer, RankFleetConsumer
+
+        if self.ranked:
+            return RankFleetConsumer("127.0.0.1", self.spec["port"], eng, self.doc_ids, self.mesh)
+        return FleetConsumer("127.0.0.1", self.spec["port"], eng, self.doc_ids)
+
+    def _make_standby(self) -> None:
+        """The next warm standby: a second engine (on a rank mesh, on the
+        same mesh) with its serving programs warmed and the current
+        checkpoints adopted (in-place pooled-column re-seed on trail)."""
+        from ..models.tree_batch_engine import TreeBatchEngine
+        from ..server.failover import WarmStandby
+
+        eng = TreeBatchEngine(len(self.doc_ids), **self.engine_kw)
+        self.standby = WarmStandby(eng, self.store, lease=None).prepare()
+
+    def _start_writer(self) -> None:
+        """(Re)arm the bounded-staleness writer thread on the current
+        engine (one device only: a rank mesh sweeps in ``tick``)."""
+        if self._writer is not None:
+            self._writer.stop()
+            self._writer = None
+        if self.spec["stale_seconds"] and not self.ranked:
+            from ..models.recovery import BackgroundCheckpointWriter
+
+            self._writer = BackgroundCheckpointWriter(
+                self.engine,
+                max_seconds_behind=self.spec["stale_seconds"],
+                interval_s=max(0.02, self.spec["stale_seconds"] / 2),
+            ).start()
+
+    def _step(self) -> None:
+        t = time.perf_counter()
+        self.consumer.step()
+        self.step_s += time.perf_counter() - t
+        self.steps += 1
+
+    def stats(self) -> dict:
+        """This rank's share of the run: the tree programs' launches (on a
+        card), step seconds and count, and the mesh's collectives."""
+        return {
+            "rank": self.mesh.rank if self.ranked else 0,
+            "device": str(self.engine.device),
+            "launches": {fn.__name__: fn.launches - n
+                         for fn, n in zip(self._progs, self._launches0)},
+            "step_s": self.step_s, "steps": self.steps,
+            "collectives": self.mesh.calls - self._calls0 if self.ranked else 0,
+        }
+
+    # --------------------------------------------------------------- actions
+    @_tier_action
+    def tick(self, step: bool) -> None:
+        """A tick's share: pump (flow-control-gated), step on cadence, a
+        rank mesh's staleness sweep, then the standby trails (or, with the
+        last incident closed, the next one builds: building it while the
+        incident is open would fold its warmup into the measured
+        recovery)."""
+        self.consumer.pump(wait_s=0.005)
+        if step:
+            self._step()
+        if self.ranked and self.spec["stale_seconds"]:
+            self.engine.checkpoint_stale(max_seconds_behind=self.spec["stale_seconds"])
+        if self.standby is not None:
+            self.standby.trail()
+        elif self.spec["standby"] and not self.engine.recovery_tracker.active:
+            self._make_standby()
+
+    @_tier_action
+    def drain(self) -> None:
+        """One ``quiesce`` round: pump, step."""
+        self.consumer.pump(wait_s=0.01)
+        self._step()
+
+    @_tier_action
+    def kill(self) -> tuple[bool, bool]:
+        """The tier dies with the fleet process: promote the standby, or
+        cold-boot from the checkpoint store; then catch up at once (the
+        incident closes at the first op applied after the restore).
+        Returns (promoted, merged: the kill landed in an open incident,
+        whose start it keeps)."""
+        t0 = time.monotonic()
+        self.consumer.close()
+        if self._writer is not None:
+            self._writer.stop()
+            self._writer = None
+        open_t0 = self.engine.recovery_tracker.started_at
+        merged = open_t0 is not None
+        if merged:
+            t0 = min(t0, open_t0)
+        promoted = self.standby is not None
+        if promoted:
+            self.engine = self.standby.promote(incident_started_at=t0)
+            self.standby = None
+            self.incidents_seen = 0
+            self.consumer = self._consumer(self.engine)
+        else:
+            self._boot()
+            self.engine.note_incident(t0)
+        self.consumer.pump(wait_s=0.005)
+        self._step()
+        self._start_writer()
+        if self.spec["standby"] and not self.engine.recovery_tracker.active:
+            self._make_standby()
+        return promoted, merged
+
+    @_tier_action
+    def migrate(self, i: int) -> bool:
+        """Live-migrate doc ``i`` to the first other shard that takes it
+        (``migrate_doc``: collective on a rank mesh); False when the engine
+        is unsharded or every shard refused."""
+        from ..models.placement import PlacementError
+
+        eng = self.engine
+        src = eng.shard_of(i)
+        moved = False
+        if eng.n_shards > 1:
+            for dst in range(eng.n_shards):
+                try:
+                    moved = eng.migrate_doc(i, dst)
+                except PlacementError:
+                    break
+                if moved:
+                    break
+        if moved:
+            self.moves.append((self.doc_ids[i], src, eng.shard_of(i)))
+        return moved
+
+    @_tier_action
+    def views(self) -> tuple[list, object]:
+        """Every doc's root-field JSON and the error latches."""
+        return ([self.engine.tree_json(i) for i in range(len(self.doc_ids))],
+                self.engine.errors())
+
+    @_tier_action
+    def health(self) -> dict:
+        return {k: v for k, v in self.engine.health().items()
+                if isinstance(v, (int, float, str, bool))}
+
+    def close(self, abort: bool = False) -> None:
+        """End the tier: rank 0 sends ``close`` (or ``abort``, on a failed
+        run) first.  An exception that escaped an action mid-way leaves the
+        ranks' collectives out of step, so nothing is sent then: the other
+        ranks' group fails when rank 0's process ends."""
+        if self.lead:
+            self.lead = False
+            if not self._acting:
+                self.mesh.broadcast_object(("abort" if abort else "close", ()))
+        if self._writer is not None:
+            self._writer.stop()
+            self._writer = None
+        if self.consumer is not None:
+            self.consumer.close()
+
+
+def serve_tree_rank(mesh) -> dict:
+    """The tree tier of a rank other than 0 of a rank mesh: build the tier
+    from the spec rank 0 sends, then run each action it sends until
+    ``close``; returns this rank's ``TreeTier.stats``.  Raises
+    ``RuntimeError`` (the rank's process then exits non-zero) when rank 0
+    sends ``abort`` or failed before its tier started."""
+    spec = mesh.broadcast_object()
+    if spec is None:
+        raise RuntimeError("rank 0 failed before its tree tier started")
+    tier = TreeTier(spec, mesh)
+    try:
+        while True:
+            name, args = mesh.broadcast_object()
+            if name == "close":
+                return tier.stats()
+            if name not in TreeTier.ACTIONS:
+                raise RuntimeError(f"rank 0 sent {name!r}: the chaos run aborted")
+            getattr(tier, name)(*args)
+    finally:
+        tier.close()
+
+
+def _check_tree_mesh(tree_mesh, tree_shards, n_tree_docs: int) -> None:
+    """What a rank-mesh tree tier refuses (checked alike on every rank,
+    before any collective)."""
+    if tree_mesh is None:
+        return
+    if not tree_mesh.ranked:
+        raise ValueError("tree_mesh is a rank mesh (parallel.mesh.rank_mesh)")
+    if tree_shards is not None and tree_shards > 1:
+        raise ValueError(
+            f"tree_shards={tree_shards} with tree_mesh: a rank mesh holds one shard a rank"
+        )
+    if not n_tree_docs:
+        raise ValueError("tree_mesh without tree docs")
+
+
 class ChaosStack:
     """The composed stack under test + the fault controller driving it."""
 
@@ -504,96 +788,106 @@ class ChaosStack:
         recovery_bound_s: float = 30.0,
         tree_doc_ids: list | None = None,
         device=DEFAULT_DEVICE,
-        tree_shards: int = 8,
+        tree_shards: int | None = None,
         native_sequencer: bool = False,
+        tree_mesh=None,
     ) -> None:
-        # Resolved first: a stack asked for the card on a machine without
-        # one raises before any socket or thread exists.
-        self.device = resolve_device(device)
-        self.tree_shards = tree_shards
-        self.native_sequencer = native_sequencer
-        self.rng = random.Random(seed)
-        self.doc_ids = list(doc_ids)
-        # Tree tier (mixed fleets): ``tree_doc_ids`` adds a second
-        # engine family — its own FleetConsumer + TreeBatchEngine +
-        # checkpoint store + warm standby — sharing the service plane, the
-        # scribe pool, and one Zipf popularity ranking with the string
-        # docs.  Empty keeps the string-only stack byte-for-byte unchanged.
-        self.tree_doc_ids = list(tree_doc_ids or [])
-        self.all_doc_ids = self.doc_ids + self.tree_doc_ids
-        self._family = {d: "tree" for d in self.tree_doc_ids}
-        self.workdir = workdir
-        self.churn_rate = churn_rate
-        self.ops_per_tick = ops_per_tick
-        self.step_every = max(1, step_every)
-        # Fast-recovery plane knobs: ``standby`` keeps a warm
-        # pre-compiled, checkpoint-trailing engine ready so fleet_kill
-        # promotes instead of cold-booting; ``ckpt_stale_seconds`` runs
-        # the bounded-staleness background checkpoint writer so the
-        # replay tail stays small; ``recovery_bound_s`` is the hard
-        # per-incident invariant bound (kill -> first post-restore op).
-        self.standby_enabled = standby
-        self.ckpt_stale_seconds = ckpt_stale_seconds
-        self.recovery_bound_s = recovery_bound_s
-        self.standby = None
-        self.tree_standby = None
-        self._ckpt_writer = None
-        self._tree_ckpt_writer = None
-        self._recovery_ms: list = []  # per-incident, authoritative
-        self._tree_recovery_ms: list = []
-        self._engine_incidents_seen = 0
-        self._tree_incidents_seen = 0
-        # Kills that landed while the previous incident was still open
-        # fold into it (earliest start wins), so N kills can resolve into
-        # N - merged measured incidents; the invariant accounts for this.
-        self._merged_kills = 0
-        self._tree_merged_kills = 0
-        self.counters = {
-            "ticks": 0, "ops_sequenced": 0, "torn_sockets": 0,
-            "fleet_restarts": 0, "scribe_kills": 0, "scribe_crashes": 0,
-            "writer_replacements": 0, "churn_disconnects": 0,
-            "churn_joins": 0, "nack_backoffs": 0, "standby_promotions": 0,
-            "doc_migrations": 0, "migrations_skipped": 0,
-        }
-        self.max_queue_depth = 0
-        self.max_tree_queue_depth = 0
-        self._writer_serial = 0
-        self._retired_nack_backoffs = 0  # counts from replaced/closed writers
-
-        # Zipf popularity over BOTH families' docs as one ranking (rank 0
-        # hottest; string docs first, so string-only stacks are unchanged).
-        weights = [
-            1.0 / (i + 1) ** zipf_a for i in range(len(self.all_doc_ids))
-        ]
-        self._weights = weights
-
-        # ---- service plane (admission-controlled fronts over real sockets)
-        self.admission = AdmissionController(
-            admission if admission is not None else AdmissionConfig(
-                max_pending=2048, max_consumer_backlog=256,
-                base_retry_after_s=0.005, max_retry_after_s=0.05,
-            )
-        )
-        self.plane = ServicePlane(admission=self.admission).start()
-        if native_sequencer:
-            # Every document exists, on the native deli, before a client
-            # connects: its sequencer is the one that ever ticketed it.
-            from ..server.lambdas import _make_sequencer
-
-            with self.plane.nexus.lock:
-                for d in self.all_doc_ids:
-                    self.plane.service.document(d).sequencer = _make_sequencer(True)
+        _check_tree_mesh(tree_mesh, tree_shards, len(tree_doc_ids or []))
+        if tree_mesh is not None and tree_mesh.rank != 0:
+            raise ValueError("a rank mesh's other ranks serve the tree tier (serve_tree_rank)")
+        # Set first: close() tells the other ranks of a failed setup.
+        self._tree_mesh = tree_mesh
+        self._tier_sent = False
+        self.tree = None
         try:
+            # Resolved first: a stack asked for the card on a machine without
+            # one raises before any socket or thread exists.
+            self.device = resolve_device(device)
+            self.tree_shards = 1 if tree_mesh is not None else (
+                8 if tree_shards is None else tree_shards)
+            self.native_sequencer = native_sequencer
+            self.rng = random.Random(seed)
+            self.doc_ids = list(doc_ids)
+            # Tree tier (mixed fleets): ``tree_doc_ids`` adds a second
+            # engine family — its own FleetConsumer + TreeBatchEngine +
+            # checkpoint store + warm standby — sharing the service plane, the
+            # scribe pool, and one Zipf popularity ranking with the string
+            # docs.  Empty keeps the string-only stack byte-for-byte unchanged.
+            self.tree_doc_ids = list(tree_doc_ids or [])
+            self.all_doc_ids = self.doc_ids + self.tree_doc_ids
+            self._family = {d: "tree" for d in self.tree_doc_ids}
+            self.workdir = workdir
+            self.churn_rate = churn_rate
+            self.ops_per_tick = ops_per_tick
+            self.step_every = max(1, step_every)
+            # Fast-recovery plane knobs: ``standby`` keeps a warm
+            # pre-compiled, checkpoint-trailing engine ready so fleet_kill
+            # promotes instead of cold-booting; ``ckpt_stale_seconds`` runs
+            # the bounded-staleness background checkpoint writer so the
+            # replay tail stays small; ``recovery_bound_s`` is the hard
+            # per-incident invariant bound (kill -> first post-restore op).
+            self.standby_enabled = standby
+            self.ckpt_stale_seconds = ckpt_stale_seconds
+            self.recovery_bound_s = recovery_bound_s
+            self.standby = None
+            self._ckpt_writer = None
+            self._recovery_ms: list = []  # per-incident, authoritative
+            self._tree_recovery_ms: list = []
+            self._engine_incidents_seen = 0
+            # Kills that landed while the previous incident was still open
+            # fold into it (earliest start wins), so N kills can resolve into
+            # N - merged measured incidents; the invariant accounts for this.
+            self._merged_kills = 0
+            self._tree_merged_kills = 0
+            self.counters = {
+                "ticks": 0, "ops_sequenced": 0, "torn_sockets": 0,
+                "fleet_restarts": 0, "scribe_kills": 0, "scribe_crashes": 0,
+                "writer_replacements": 0, "churn_disconnects": 0,
+                "churn_joins": 0, "nack_backoffs": 0, "standby_promotions": 0,
+                "doc_migrations": 0, "migrations_skipped": 0,
+            }
+            self.max_queue_depth = 0
+            self.max_tree_queue_depth = 0
+            self._writer_serial = 0
+            self._retired_nack_backoffs = 0  # counts from replaced/closed writers
+
+            # Zipf popularity over BOTH families' docs as one ranking (rank 0
+            # hottest; string docs first, so string-only stacks are unchanged).
+            weights = [
+                1.0 / (i + 1) ** zipf_a for i in range(len(self.all_doc_ids))
+            ]
+            self._weights = weights
+
+            # ---- service plane (admission-controlled fronts over real sockets)
+            self.admission = AdmissionController(
+                admission if admission is not None else AdmissionConfig(
+                    max_pending=2048, max_consumer_backlog=256,
+                    base_retry_after_s=0.005, max_retry_after_s=0.05,
+                )
+            )
+            self.plane = ServicePlane(admission=self.admission).start()
+            if native_sequencer:
+                # Every document exists, on the native deli, before a client
+                # connects: its sequencer is the one that ever ticketed it.
+                from ..server.lambdas import _make_sequencer
+
+                with self.plane.nexus.lock:
+                    for d in self.all_doc_ids:
+                        self.plane.service.document(d).sequencer = _make_sequencer(True)
             self._build(doc_ids, workdir, writers_per_doc, checkpoint_every,
                         megastep_k, ops_per_step, scribe_members)
         except BaseException:
-            self.close()  # a failed setup must not leak the stack
+            self.close(abort=True)  # a failed setup must not leak the stack
             raise
+
+    @property
+    def tree_engine(self):
+        """The tree tier's engine (this process's shard of it on a rank
+        mesh), or None without tree docs."""
+        return self.tree.engine if self.tree is not None else None
 
     def _build(self, doc_ids, workdir, writers_per_doc, checkpoint_every,
                megastep_k, ops_per_step, scribe_members) -> None:
-        import os
-
         from ..models.doc_batch_engine import DocBatchEngine
         from ..server.fleet_consumer import FleetConsumer
         from ..server.ordered_log import CheckpointStore, DurableTopic
@@ -621,37 +915,34 @@ class ChaosStack:
         self._start_ckpt_writer()
 
         # ---- tree device fleet tier (second family, own durable store)
-        self.tree_engine = None
-        self.tree_consumer = None
         if self.tree_doc_ids:
             from ..parallel.mesh import doc_mesh
 
-            self.tree_checkpoint_store = CheckpointStore(
-                os.path.join(workdir, "tree-checkpoints")
+            # A mesh of ``tree_shards`` shards (all on ``device``), or the
+            # rank mesh (one shard a rank), gives the tree engine >1 shard,
+            # making the ``migrate`` fault a LIVE mid-stream placement move;
+            # one shard degrades to skip-counted migrations, everything else
+            # identical.
+            mesh = self._tree_mesh
+            if mesh is None and self.tree_shards > 1:
+                mesh = doc_mesh([self.device] * self.tree_shards)
+            spec = dict(
+                doc_ids=list(self.tree_doc_ids), workdir=workdir,
+                port=self.plane.nexus.port, standby=self.standby_enabled,
+                stale_seconds=self.ckpt_stale_seconds,
+                engine_kw=dict(
+                    capacity=256, pool_capacity=1024, max_insert_len=4,
+                    ops_per_step=ops_per_step, megastep_k=megastep_k,
+                    spare_slots=2 * mesh.n_shards if mesh else 1,
+                    checkpoint_every=checkpoint_every,
+                ),
             )
-            # A mesh of ``tree_shards`` shards (all on ``device``) gives the
-            # tree engine >1 shard, making the ``migrate`` fault a LIVE
-            # mid-stream placement move; one shard degrades to
-            # skip-counted migrations, everything else identical.
-            mesh = (
-                doc_mesh([self.device] * self.tree_shards)
-                if self.tree_shards > 1
-                else None
-            )
-            self._tree_engine_kw = dict(
-                capacity=256, pool_capacity=1024, max_insert_len=4,
-                ops_per_step=ops_per_step, megastep_k=megastep_k,
-                mesh=mesh,
-                spare_slots=2 * self.tree_shards if mesh else 1,
-                checkpoint_store=self.tree_checkpoint_store,
-                checkpoint_every=checkpoint_every,
-                doc_keys=list(self.tree_doc_ids),
-                device=self.device,
-            )
-            self._boot_tree_fleet()
-            if self.standby_enabled:
-                self._make_tree_standby()
-            self._start_tree_ckpt_writer()
+            if self._tree_mesh is not None:
+                # The other ranks build their tiers from it (serve_tree_rank).
+                self._tree_mesh.broadcast_object(spec)
+                self._tier_sent = True
+            self.tree = TreeTier(spec, mesh, device=self.device,
+                                 lead=self._tree_mesh is not None)
 
         # ---- scribe plane (durable topic mirror + member pool)
         self.topic = DurableTopic(
@@ -687,19 +978,6 @@ class ChaosStack:
             "127.0.0.1", self.plane.nexus.port, eng, self.doc_ids
         )
 
-    def _boot_tree_fleet(self) -> None:
-        """(Re)build the tree tier the same way: engine restored from ITS
-        durable checkpoints, consumer re-reading the firehose."""
-        from ..models.tree_batch_engine import TreeBatchEngine
-
-        eng = TreeBatchEngine(len(self.tree_doc_ids), **self._tree_engine_kw)
-        eng.restore_from_checkpoints()
-        self.tree_engine = eng
-        self._tree_incidents_seen = 0
-        self.tree_consumer = self._consumer_cls(
-            "127.0.0.1", self.plane.nexus.port, eng, self.tree_doc_ids
-        )
-
     # ------------------------------------------------------ recovery plane
     def _make_standby(self) -> None:
         """Spin up the NEXT warm standby: a fresh engine with its serving
@@ -710,17 +988,6 @@ class ChaosStack:
         eng = self._engine_cls(len(self.doc_ids), **self._engine_kw)
         self.standby = WarmStandby(
             eng, self.checkpoint_store, lease=None
-        ).prepare()
-
-    def _make_tree_standby(self) -> None:
-        """The tree family's warm standby: same WarmStandby machinery over
-        a TreeBatchEngine (in-place pooled-column re-seed on trail)."""
-        from ..models.tree_batch_engine import TreeBatchEngine
-        from ..server.failover import WarmStandby
-
-        eng = TreeBatchEngine(len(self.tree_doc_ids), **self._tree_engine_kw)
-        self.tree_standby = WarmStandby(
-            eng, self.tree_checkpoint_store, lease=None
         ).prepare()
 
     def _start_ckpt_writer(self) -> None:
@@ -738,19 +1005,6 @@ class ChaosStack:
                 interval_s=max(0.02, self.ckpt_stale_seconds / 2),
             ).start()
 
-    def _start_tree_ckpt_writer(self) -> None:
-        if self._tree_ckpt_writer is not None:
-            self._tree_ckpt_writer.stop()
-            self._tree_ckpt_writer = None
-        if self.ckpt_stale_seconds:
-            from ..models.recovery import BackgroundCheckpointWriter
-
-            self._tree_ckpt_writer = BackgroundCheckpointWriter(
-                self.tree_engine,
-                max_seconds_behind=self.ckpt_stale_seconds,
-                interval_s=max(0.02, self.ckpt_stale_seconds / 2),
-            ).start()
-
     def _poll_recovery(self) -> None:
         """Harvest newly completed recovery incidents off the current
         engines into the per-FAMILY incident lists (incidents complete
@@ -759,10 +1013,10 @@ class ChaosStack:
         while self._engine_incidents_seen < tr.incidents:
             self._engine_incidents_seen += 1
             self._recovery_ms.append(tr.last_ms)
-        if self.tree_engine is not None:
-            tr = self.tree_engine.recovery_tracker
-            while self._tree_incidents_seen < tr.incidents:
-                self._tree_incidents_seen += 1
+        if self.tree is not None:
+            tr = self.tree.engine.recovery_tracker
+            while self.tree.incidents_seen < tr.incidents:
+                self.tree.incidents_seen += 1
                 self._tree_recovery_ms.append(tr.last_ms)
 
     @staticmethod
@@ -865,21 +1119,18 @@ class ChaosStack:
                 except (TornConnection, DriverError, OSError):
                     self._replace_writer(w)
 
-        # Fleet tiers: pump (flow-control-gated), step on cadence.
-        self.consumer.pump(wait_s=0.005)
-        if t % self.step_every == 0:
-            self.consumer.step()
-        if self.tree_consumer is not None:
-            self.tree_consumer.pump(wait_s=0.005)
-            if t % self.step_every == 0:
-                self.tree_consumer.step()
-        # Recovery plane: the warm standby trails the checkpoint dir so
+        # Fleet tiers: pump (flow-control-gated), step on cadence.  Then
+        # the recovery plane: the warm standby trails the checkpoint dir so
         # promotion is O(dirty tail); completed incidents harvest into
         # the per-incident list the invariants assert over.  The NEXT
         # standby after a promotion builds here, and only once the open
         # incident closed — building it inside the kill handler while the
         # incident is still open (empty post-kill tail) would fold its
-        # warmup compiles into the measured recovery interval.
+        # warmup compiles into the measured recovery interval.  The tree
+        # tier does the same in its ``tick``.
+        self.consumer.pump(wait_s=0.005)
+        if t % self.step_every == 0:
+            self.consumer.step()
         if self.standby is not None:
             self.standby.trail()
         elif (
@@ -887,14 +1138,8 @@ class ChaosStack:
             and not self.engine.recovery_tracker.active
         ):
             self._make_standby()
-        if self.tree_engine is not None:
-            if self.tree_standby is not None:
-                self.tree_standby.trail()
-            elif (
-                self.standby_enabled
-                and not self.tree_engine.recovery_tracker.active
-            ):
-                self._make_tree_standby()
+        if self.tree is not None:
+            self.tree.tick(t % self.step_every == 0)
         self._poll_recovery()
 
         # Scribe plane: mirror the new sequenced records into the durable
@@ -927,9 +1172,9 @@ class ChaosStack:
                 f"tick {t}: staged queue depth {depth} exceeded bound "
                 f"{bound} (high watermark {self.engine.overload_gate.high})"
             )
-        if self.tree_engine is not None:
+        if self.tree is not None:
             depth = max(
-                (len(h.queue) for h in self.tree_engine.hosts), default=0
+                (len(h.queue) for h in self.tree.engine.hosts), default=0
             )
             self.max_tree_queue_depth = max(self.max_tree_queue_depth, depth)
             bound = self._tree_depth_bound()
@@ -955,7 +1200,7 @@ class ChaosStack:
         # per-tick slack carry a 2x row-expansion factor.
         return (
             self.tree_engine.overload_gate.high
-            + 2 * self._tree_engine_kw["checkpoint_every"]
+            + 2 * self.tree.spec["engine_kw"]["checkpoint_every"]
             + 8 * self.ops_per_tick
         )
 
@@ -1021,37 +1266,10 @@ class ChaosStack:
             # The tree tier dies with the same fleet process: promote its
             # standby (in-place pooled-column re-seed already done by
             # trail) or cold-boot from its durable checkpoint store.
-            if self.tree_engine is not None:
-                t0t = time.monotonic()
-                self.tree_consumer.close()
-                if self._tree_ckpt_writer is not None:
-                    self._tree_ckpt_writer.stop()
-                    self._tree_ckpt_writer = None
-                open_t0 = self.tree_engine.recovery_tracker.started_at
-                if open_t0 is not None:
-                    t0t = min(t0t, open_t0)
-                    self._tree_merged_kills += 1
-                if self.tree_standby is not None:
-                    eng = self.tree_standby.promote(incident_started_at=t0t)
-                    self.tree_standby = None
-                    self.tree_engine = eng
-                    self._tree_incidents_seen = 0
-                    self.tree_consumer = self._consumer_cls(
-                        "127.0.0.1", self.plane.nexus.port, eng,
-                        self.tree_doc_ids,
-                    )
-                    self.counters["standby_promotions"] += 1
-                else:
-                    self._boot_tree_fleet()
-                    self.tree_engine.note_incident(t0t)
-                self.tree_consumer.pump(wait_s=0.005)
-                self.tree_consumer.step()
-                self._start_tree_ckpt_writer()
-                if (
-                    self.standby_enabled
-                    and not self.tree_engine.recovery_tracker.active
-                ):
-                    self._make_tree_standby()
+            if self.tree is not None:
+                promoted, merged = self.tree.kill()
+                self.counters["standby_promotions"] += promoted
+                self._tree_merged_kills += merged
         elif ev.kind == "migrate":
             # Live mid-stream placement move: writers keep submitting while
             # the engine folds + re-materializes the doc on another shard.
@@ -1061,15 +1279,14 @@ class ChaosStack:
             from ..models.placement import PlacementError
 
             doc = ev.target or self._pick_doc()
-            if self._family.get(doc) == "tree":
-                eng, i = self.tree_engine, self.tree_doc_ids.index(doc)
-            else:
-                eng, i = self.engine, self.doc_ids.index(doc)
             moved = False
-            if eng is not None and eng.n_shards > 1:
-                for dst in range(eng.n_shards):
+            if self._family.get(doc) == "tree":
+                moved = self.tree.migrate(self.tree_doc_ids.index(doc))
+            elif self.engine.n_shards > 1:
+                i = self.doc_ids.index(doc)
+                for dst in range(self.engine.n_shards):
                     try:
-                        moved = eng.migrate_doc(i, dst)
+                        moved = self.engine.migrate_doc(i, dst)
                     except PlacementError:
                         break
                     if moved:
@@ -1142,9 +1359,8 @@ class ChaosStack:
         for _ in range(max_rounds):
             self.consumer.pump(wait_s=0.01)
             self.consumer.step()
-            if self.tree_consumer is not None:
-                self.tree_consumer.pump(wait_s=0.01)
-                self.tree_consumer.step()
+            if self.tree is not None:
+                self.tree.drain()
             if all(
                 self.engine.hosts[i].last_seq >= want[d]
                 for i, d in enumerate(self.doc_ids)
@@ -1245,9 +1461,10 @@ class ChaosStack:
         # tree writer's replica must match byte-for-byte (device-lane and
         # host-fallback docs alike, across kills/promotes/migrations).
         tree_nodes = 0
+        fleet_trees, tree_errors = self.tree.views() if self.tree else ([], None)
         for i, d in enumerate(self.tree_doc_ids):
             oracle = self.oracle_tree_json(d)
-            fleet = self.tree_engine.tree_json(i)
+            fleet = fleet_trees[i]
             assert fleet == oracle, (
                 f"{d}: tree fleet diverged from fault-free oracle replay\n"
                 f"  fleet : {fleet!r}\n  oracle: {oracle!r}"
@@ -1259,10 +1476,9 @@ class ChaosStack:
                     f"  writer: {got!r}\n  oracle: {oracle!r}"
                 )
             tree_nodes += len(oracle)
-        if self.tree_engine is not None:
-            assert not self.tree_engine.errors().any(), (
-                "tree engine error bits latched"
-            )
+        if self.tree is not None:
+            assert not tree_errors.any(), "tree engine error bits latched"
+
 
         # No double-acks: one summaryAck per (doc, seq) across the topic.
         seen: set = set()
@@ -1352,7 +1568,9 @@ class ChaosStack:
             })
         return out
 
-    def close(self) -> None:
+    def close(self, abort: bool = False) -> None:
+        """Stop everything; on a rank mesh the other ranks' tree tiers end
+        too (``abort``: after a failure, and they raise)."""
         # Defensive getattr walk: close() also runs when __init__ failed
         # partway (a writer join assert, a bind error), where later
         # attributes never came to exist — a failed setup must not leak
@@ -1362,12 +1580,13 @@ class ChaosStack:
                 w.close()
         if getattr(self, "_ckpt_writer", None) is not None:
             self._ckpt_writer.stop()
-        if getattr(self, "_tree_ckpt_writer", None) is not None:
-            self._tree_ckpt_writer.stop()
         if getattr(self, "consumer", None) is not None:
             self.consumer.close()
-        if getattr(self, "tree_consumer", None) is not None:
-            self.tree_consumer.close()
+        if self.tree is not None:
+            self.tree.close(abort)
+        elif self._tree_mesh is not None and not self._tier_sent:
+            self._tree_mesh.broadcast_object(None)  # the others' spec: none
+            self._tier_sent = True
         if getattr(self, "pool", None) is not None:
             self.pool.close()
         if getattr(self, "topic", None) is not None:
@@ -1388,14 +1607,24 @@ def run_chaos(
     schedule: ChaosSchedule | None = None,
     workdir: str | None = None,
     device=DEFAULT_DEVICE,
+    tree_mesh=None,
     **stack_kw,
 ) -> dict:
     """One seeded chaos run over the full stack; returns the report dict
     (raises on any invariant violation).  ``n_tree_docs > 0`` runs the
     MIXED fleet: tree docs join the Zipf ranking, the fault schedule, and
-    the byte-identity invariants alongside the string docs."""
+    the byte-identity invariants alongside the string docs.
+
+    ``tree_mesh`` (a ``rank_mesh``; every rank calls ``run_chaos`` with the
+    same arguments) serves the tree tier one shard a rank: rank 0 runs the
+    whole stack and returns the report, whose ``tree`` carries its
+    ``TreeTier.stats`` as ``rank``; every other rank serves its shard
+    (``serve_tree_rank``) and returns its own stats."""
     import tempfile
 
+    _check_tree_mesh(tree_mesh, stack_kw.get("tree_shards"), n_tree_docs)
+    if tree_mesh is not None and tree_mesh.rank != 0:
+        return serve_tree_rank(tree_mesh)
     doc_ids = [f"cd{i}" for i in range(n_docs)]
     tree_ids = [f"td{i}" for i in range(n_tree_docs)]
     if schedule is None:
@@ -1405,13 +1634,14 @@ def run_chaos(
         owndir = tempfile.TemporaryDirectory(prefix="fftpu-chaos-")
         workdir = owndir.name
     stack = None
+    ok = False
     t0 = time.perf_counter()
     try:
         # ChaosStack.__init__ self-cleans on failure; constructing inside
         # the try keeps the tempdir cleanup on that path too.
         stack = ChaosStack(
             seed, doc_ids, workdir, tree_doc_ids=tree_ids, device=device,
-            **stack_kw
+            tree_mesh=tree_mesh, **stack_kw
         )
         for t in range(ticks):
             stack.tick(t, schedule)
@@ -1451,19 +1681,20 @@ def run_chaos(
         if health.get("latency_samples"):
             report["latency_p50_ms"] = health.get("latency_p50_ms")
             report["latency_p99_ms"] = health.get("latency_p99_ms")
-        if stack.tree_engine is not None:
+        if stack.tree is not None:
             report["tree"] = {
                 "n_docs": len(stack.tree_doc_ids),
                 "n_shards": stack.tree_engine.n_shards,
-                "health": {
-                    k: v for k, v in stack.tree_engine.health().items()
-                    if isinstance(v, (int, float, str, bool))
-                },
+                "health": stack.tree.health(),
+                "moves": [list(m) for m in stack.tree.moves],
             }
+            if tree_mesh is not None:
+                report["tree"]["rank"] = stack.tree.stats()
+        ok = True
         return report
     finally:
         if stack is not None:
-            stack.close()
+            stack.close(abort=not ok)
         if owndir is not None:
             owndir.cleanup()
 
@@ -1488,6 +1719,7 @@ def run_soak(
     events_per_kind: int = 2,
     rss_bound_mb: float = 4096.0,
     device=DEFAULT_DEVICE,
+    tree_mesh=None,
     **stack_kw,
 ) -> dict:
     """The soak runner (``bench.py --config soak``): Zipf traffic with
@@ -1503,9 +1735,15 @@ def run_soak(
     CUDA build can hold more than the 4,096 MB bound by itself (the card
     machine's accounting counts each mapped CUDA library whole).  The row
     carries both: ``max_rss_mb`` (the process's peak) and ``soak_rss_mb``
-    (the part the bound holds), beside ``rss_baseline_mb``."""
+    (the part the bound holds), beside ``rss_baseline_mb``.
+
+    ``tree_mesh`` as in ``run_chaos``: the other ranks return their
+    ``TreeTier.stats``."""
     import resource
 
+    _check_tree_mesh(tree_mesh, stack_kw.get("tree_shards"), n_tree_docs)
+    if tree_mesh is not None and tree_mesh.rank != 0:
+        return serve_tree_rank(tree_mesh)
     baseline_mb = _rss_now_mb()
     doc_ids = [f"cd{i}" for i in range(n_docs)]
     doc_ids += [f"td{i}" for i in range(n_tree_docs)]
@@ -1515,7 +1753,7 @@ def run_soak(
     stack_kw.setdefault("churn_rate", 0.08)
     report = run_chaos(
         seed=seed, ticks=ticks, n_docs=n_docs, n_tree_docs=n_tree_docs,
-        schedule=schedule, device=device, **stack_kw
+        schedule=schedule, device=device, tree_mesh=tree_mesh, **stack_kw
     )
     max_rss_mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
     soak_rss_mb = max_rss_mb - baseline_mb

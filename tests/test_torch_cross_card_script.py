@@ -1,4 +1,5 @@
-"""``chip_smoke.py`` phase 24 (``cross_card``) on the CPU at a small size.
+"""``chip_smoke.py`` phases 24 (``cross_card``) and 25 (``chaos_ranks``) on
+the CPU at a small size.
 
 The phase's own code and checks run here as on the card: 4 gloo ranks,
 each a process of its own with its own rows, serve 64 docs of config 3's
@@ -9,7 +10,9 @@ long-document answers against K1's plain version.  The ranks count their
 launches on the CPU too (the card's counters count only CUDA calls), and
 each rank must have launched K2, K3, K6, its compaction and K1.  Then the
 phase's entry-point check (``phase_cross_entry``, which ``--only
-cross_card`` runs over NCCL on the cards) over 2 gloo ranks.
+cross_card`` runs over NCCL on the cards) over 2 gloo ranks, its string
+and tree legs; and phase 25 at its own size over 4 gloo ranks, whose ranks
+count K7's and K8's CPU calls as launches.
 
 Tolerance: exact.
 """
@@ -59,9 +62,38 @@ def test_phase_cross_card_on_cpu(monkeypatch):
 def test_phase_cross_entry_on_cpu():
     """The entry-point check over 2 gloo ranks: ``fleet_main --mesh 2``
     under ``torch.distributed.run`` fed config 3's traffic for 8 docs by
-    the phase's firehose, its texts against an engine fed the same bytes."""
+    the phase's firehose, its texts against an engine fed the same bytes;
+    then its tree leg, ``--family tree`` fed the first 8 docs and 2 rounds
+    of tree_fleet's stream at 16 docs, its trees against an engine's."""
     geom = dict(chip_smoke.FLEET_GEOM, max_segments=128, text_capacity=1024)
     line = chip_smoke.phase_cross_entry("cpu", "cpu", 2, sizes=dict(n_docs=8, rounds=2),
-                                        geom=geom)
+                                        geom=geom,
+                                        tree_sizes=dict(fleet_docs=16, n_docs=8, rounds=2))
     assert (line["device"], line["ranks"], line["lines"]) == ("cpu", 2, 2)
     assert line["rows"] > 0
+    assert (line["tree"]["docs"], line["tree"]["lines"]) == (8, 2) and line["tree"]["rows"] > 0
+
+
+# A chaos rank that counts K7's and K8's CPU calls as launches.
+COUNTING_CHAOS_RANK = """\
+from fluidframework_tpu_torch.ops import tree_kernel as tk
+tk.count_launch = lambda x, fn: setattr(fn, "launches", fn.launches + 1)
+""" + chip_smoke._CHAOS_RANKS_CHILD
+
+
+def test_phase_chaos_ranks_on_cpu(monkeypatch):
+    """Phase 25 (``chaos_ranks``) over 4 gloo ranks on the CPU at its own
+    size: the reference's mixed-fleet smoke with 8 tree docs, the tree
+    tier one shard a rank; the phase's checks hold (invariants, one
+    restart with two promotions, a move across ranks, every follower in
+    step with rank 0), and every rank launched K7 and K8."""
+    monkeypatch.setattr(chip_smoke, "_CHAOS_RANKS_CHILD", COUNTING_CHAOS_RANK)
+    paths = {"apply_nested_megastep": {}, "compact_nested": {}}
+    line = chip_smoke.phase_chaos_ranks("cpu", device="cpu", paths=paths)
+    assert (line["backend"], line["ranks"], line["cards"]) == ("gloo", 4, 0)
+    assert [r["rank"] for r in line["ranks_detail"]] == [0, 1, 2, 3]
+    for r in line["ranks_detail"]:
+        assert r["device"] == "cpu" and r["steps"] > 0
+        assert all(n > 0 for n in r["launches"].values()), r["launches"]
+    assert line["counters"]["standby_promotions"] == 2 and line["collectives_per_tick"] > 0
+    assert paths["apply_nested_megastep"]["chaos_ranks"] >= 4

@@ -379,6 +379,30 @@ def test_rebase_window_refuses_bad_inputs_on_card(cuda_device):
         rk9.rebase_window(c, xs, elig.cpu())
 
 
+def test_kernels_on_a_card_that_is_not_current(cuda_device):
+    """K1 and K9 on tensors on ``cuda:1`` while ``cuda:0`` is the current
+    device equal their plain versions: each launcher launches on the
+    tensors' card, with that card's stream.  Needs two cards."""
+    from fluidframework_tpu_torch.ops import rebase_kernel as rk9
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        lens, qs = _case(7, 262_144)
+        got = rk.resolve_positions(torch.from_numpy(lens).to(other), torch.from_numpy(qs).to(other))
+        torch.cuda.synchronize(other)
+        assert torch.cuda.current_device() == 0
+        for g, w in zip(got, rk.resolve_positions_plain(torch.from_numpy(lens),
+                                                         torch.from_numpy(qs))):
+            assert g.device == other and torch.equal(g.cpu(), w)
+        c, xs, elig = k9_case("mixed", 64, 19)
+        final, steps = rk9.rebase_window(c.to(other), xs.to(other), elig.to(other))
+        torch.cuda.synchronize(other)
+        want_final, want_steps = rk9.rebase_window_plain(c, xs, elig)
+        assert torch.equal(final.cpu(), want_final) and torch.equal(steps.cpu(), want_steps)
+
+
 def test_flat_forest_on_card_matches_cpu(cuda_device):
     """K11 (the flat forest and the rebase position arithmetic) on the card
     equals the same calls on the CPU, column for column and latch for

@@ -315,10 +315,66 @@ def case_tree(inp, rank, world):
     }
 
 
+def chaos_run(inp, tree_mesh=None) -> dict:
+    """``run_chaos`` with ``inp["kw"]`` and the schedule's events
+    (``inp["events"]``), its tree tier over ``tree_mesh`` when given.  The
+    process that runs the stack returns the report with each document's
+    sequenced log (wire JSON), the fleet's texts and tree JSON and the tree
+    docs' shards, read once the invariants held; another rank returns its
+    tier's stats.  ``inp["raise_at"]`` makes the stack raise at that tick (a
+    schedule event of no known kind).  The tree writers' session ids come
+    from a generator seeded with the run's seed and their move ids count
+    from 0, so two runs that sequence the same ops write the same bytes but
+    for the timestamps."""
+    import random
+    import uuid
+
+    from fluidframework_tpu_torch.dds.tree import changeset
+    from fluidframework_tpu_torch.testing import chaos
+    from fluidframework_tpu_torch.utils import id_compressor
+
+    events = [chaos.ChaosEvent(*e) for e in inp["events"]]
+    if "raise_at" in inp:
+        events.append(chaos.ChaosEvent(inp["raise_at"], "no_such_fault"))
+    schedule = chaos.ChaosSchedule(seed=inp["kw"]["seed"], events=events)
+    seen = {}
+    check = chaos.ChaosStack.check_invariants
+
+    def check_and_read(stack):
+        out = check(stack)
+        with stack.plane.nexus.lock:
+            seen["logs"] = {d: [m.to_json() for m in stack.plane.service.document(d).sequencer.log]
+                            for d in stack.all_doc_ids}
+        seen["texts"] = [stack.engine.text(i) for i in range(len(stack.doc_ids))]
+        seen["trees"] = stack.tree.views()[0]
+        seen["shards"] = [stack.tree_engine.shard_of(i) for i in range(len(stack.tree_doc_ids))]
+        return out
+
+    rng = random.Random(inp["kw"]["seed"])
+    moves, changeset._move_counter = changeset._move_counter, 0
+    session = id_compressor.create_session_id
+    chaos.ChaosStack.check_invariants = check_and_read
+    id_compressor.create_session_id = lambda: str(uuid.UUID(int=rng.getrandbits(128), version=4))
+    try:
+        out = chaos.run_chaos(schedule=schedule, device="cpu", tree_mesh=tree_mesh, **inp["kw"])
+    finally:
+        chaos.ChaosStack.check_invariants = check
+        id_compressor.create_session_id = session
+        changeset._move_counter = max(changeset._move_counter, moves)
+    return {"out": out, **seen}
+
+
+def case_chaos(inp, rank, world):
+    """``chaos_run`` on every rank with the same arguments, the tree tier
+    over the rank mesh."""
+    return chaos_run(inp, tpm.rank_mesh())
+
+
 CASES = {
     "groups": case_groups, "seg_lane": case_seg_lane, "long_doc": case_long_doc,
     "engine": case_engine, "gate": case_gate, "migrate": case_migrate,
-    "restore": case_restore, "tree": case_tree,
+    "restore": case_restore, "tree": case_tree, "chaos": case_chaos,
+    "chaos_cold": case_chaos,
 }
 
 
