@@ -76,6 +76,12 @@ runs these phases on the card, one JSON line each:
    engines identical through one more round.  The rounds run with a
    flight recorder installed: the host fold's phase shares
    (``host_fold_mark_alloc``/``_rebase``/``_compose``/``_translate``).
+   Then ``tree_legacy_emit``, a path of its own: the first 64 docs'
+   rounds through two fresh engines, one with the plan cache and one with
+   the per-row emit (``plan_cache=False``), in turns that swap each round:
+   every raw column, the error latch and the fallbacks equal, plan hits
+   only on the first; each engine's ingest and step times on a
+   ``tree_legacy_emit`` line.
 8. ``tree_deep``: one doc seeded with a 10,000-leaf mixed-type subtree
    under 32 writer subtrees, then 32 writers x 8 edits x 4 rounds;
    ``device_fraction`` 1.0 and identical to a CPU replay.
@@ -1826,6 +1832,8 @@ def phase_fleet_programs(seed: int, card: str, traffic, n_docs: int = 10_000,
 TREE_FLEET_GEOM = dict(capacity=2048, pool_capacity=16_384, ops_per_step=32, megastep_k=8)
 TREE_DEEP_GEOM = dict(capacity=16_384, pool_capacity=65_536, ops_per_step=32, megastep_k=8)
 TREE_CHURN_GEOM = dict(capacity=128, pool_capacity=1024, ops_per_step=32, megastep_k=8)
+# The docs of the tree fleet's stream that ``tree_legacy_emit`` takes.
+TREE_LEGACY_DOCS = 64
 
 
 def tree_traffic(seed: int, n_docs: int, rounds: int, writers: int = 4,
@@ -2018,9 +2026,10 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
     checkpoint sweep restored into a fresh engine (every doc's views and
     summary equal), and one more round through both engines.  ``record``
     installs a flight recorder over the timed rounds (the host-fold phase
-    shares in the line).  Returns the phase's line and the inputs of a K7
-    ring that the engine stages from a further round
-    (``tree_fleet_ring``), for timing K7 and K8 alone."""
+    shares in the line).  Returns the phase's line, the inputs of a K7 ring
+    that the engine stages from a further round (``tree_fleet_ring``), for
+    timing K7 and K8 alone, and the main rounds' messages, for
+    ``tree_legacy_emit``."""
     import torch
 
     from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
@@ -2107,7 +2116,65 @@ def phase_tree_fleet(seed: int, card: str, device: str, n_docs: int = 1024,
         "restored_identical": n_docs, "identical_after_extra_round": n_docs,
     })
     emit(line)
-    return line, ring
+    return line, ring, main_rounds
+
+
+def tree_legacy_emit(card: str, device: str, rounds_msgs) -> dict:
+    """The per-row emit translation (``plan_cache=False``) against the plan
+    cache: two fresh engines on ``device`` (``TREE_FLEET_GEOM``) take the
+    messages of the first ``TREE_LEGACY_DOCS`` docs of ``rounds_msgs``
+    (``phase_tree_fleet``'s main rounds), a step after every round, the
+    two engines in turns that swap each round so that neither always goes
+    first.  Every raw state
+    column (padding remnants included), the error latch and the fallbacks
+    must be equal, and only the plan-cache engine may count plan hits.
+    Emits and returns the part's line: each engine's ingest and step
+    times, and its ingest rate over the rounds it went first and over
+    those it went second."""
+    import torch
+
+    from fluidframework_tpu_torch.models.tree_batch_engine import TreeBatchEngine
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    n_docs = min(TREE_LEGACY_DOCS, 1 + max(d for msgs in rounds_msgs for d, _m in msgs))
+    local = {d: d for d in range(n_docs)}
+    names = ("plan_cache", "legacy")
+    engines = {name: TreeBatchEngine(n_docs, device=device, plan_cache=name == "plan_cache",
+                                     **TREE_FLEET_GEOM) for name in names}
+    zero = {"edits": 0, "ingest_s": 0.0, "step_s": 0.0}
+    runs = {name: {turn: dict(zero) for turn in ("first", "second")} for name in names}
+    for r, msgs in enumerate(rounds_msgs):
+        for turn, name in zip(("first", "second"), names if r % 2 == 0 else names[::-1]):
+            run = _drive_tree(engines[name], [msgs], local, on_card=on_card)
+            for key in zero:
+                runs[name][turn][key] += run[key]
+    cached, legacy = engines["plan_cache"], engines["legacy"]
+    for name in type(cached.state)._fields:
+        a, b = getattr(cached.state, name), getattr(legacy.state, name)
+        check(a.device.type == b.device.type == device and torch.equal(a, b),
+              f"tree_legacy_emit: the legacy engine's {name} column differs from the plan cache's")
+    check(cached.errors().tolist() == legacy.errors().tolist(),
+          "tree_legacy_emit: the legacy engine's error latch differs from the plan cache's")
+    check(sorted(cached.fallbacks) == sorted(legacy.fallbacks) and all(
+        json.dumps(cached.tree_json(d)) == json.dumps(legacy.tree_json(d))
+        for d in cached.fallbacks), "tree_legacy_emit: the legacy engine's fallbacks differ")
+    hits = cached.health().get("translation_plan_hits", 0)
+    legacy_hits = legacy.health().get("translation_plan_hits", 0)
+    check(hits > 0, "tree_legacy_emit: the plan-cache engine counted no plan hit")
+    check(legacy_hits == 0, f"tree_legacy_emit: the legacy engine counted {legacy_hits} plan hits")
+    out = {"phase": "tree_legacy_emit", "card": card, "docs": n_docs,
+           "rounds": len(rounds_msgs), "fallback_docs": sorted(legacy.fallbacks), "plan_hits": hits}
+    for name, turns in runs.items():
+        edits = sum(t["edits"] for t in turns.values())
+        ingest_s = sum(t["ingest_s"] for t in turns.values())
+        out[name] = {"edits": edits, "host_translation_edits_per_s": edits / ingest_s,
+                     "ingest_s": ingest_s, "step_s": sum(t["step_s"] for t in turns.values())}
+        for turn, t in turns.items():
+            out[name][f"edits_per_s_{turn}"] = t["edits"] / t["ingest_s"]
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
 
 
 def tree_fleet_ring(eng, msgs) -> tuple:
@@ -8239,9 +8306,13 @@ def main(argv=None) -> int:
     path("long_doc", phase_long_doc, args.seed, card, "cuda")
     fleet_programs = phase_fleet_programs(args.seed, card, traffic, ring=k2_ring)
     del k2_ring
-    _line, ring = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda",
-                       n_docs=CUTS["tree_fleet"]["n_docs"], record=True,
-                       trace_dir=args.trace_dir)
+    _line, ring, tree_rounds = path("tree_fleet", phase_tree_fleet, args.seed, card, "cuda",
+                                    n_docs=CUTS["tree_fleet"]["n_docs"], record=True,
+                                    trace_dir=args.trace_dir)
+    path("tree_legacy_emit", tree_legacy_emit, card, "cuda", tree_rounds)
+    del tree_rounds
+    check(paths["apply_nested_megastep"]["tree_legacy_emit"] > 0,
+          "K7 was never launched on the tree_legacy_emit path")
     _line, deep = path("tree_deep", phase_tree_deep, args.seed, card, "cuda")
     _line, churn = path("tree_churn", phase_tree_churn, args.seed, card, "cuda")
     path("wire_ingest", phase_wire_ingest, args.seed, card, "cuda", churn)

@@ -65,8 +65,10 @@ the same order; no collective runs under ``ckpt_lock``.  A refresh restore
 (a boot adoption) stages its re-materialization for the next ``step``
 instead of stepping under the lock.
 
-Not ported (``NotImplementedError``): ``plan_cache=False`` (the reference's
-per-row emit path).
+``plan_cache=False`` translates each commit with the per-row emit
+(``_flatten_legacy``): one numpy op row and payload row per emitted op, no
+plan lookup.  It is the independent oracle the plan cache is held to, byte
+for byte, and counts no plan hit or miss.
 """
 
 from __future__ import annotations
@@ -278,10 +280,6 @@ class TreeBatchEngine:
         plan_cache: bool = True,
         device=DEFAULT_DEVICE,
     ) -> None:
-        if not plan_cache:
-            # The reference's per-row emit path (its byte-identity oracle
-            # for the plan cache) is not carried.
-            raise NotImplementedError("plan_cache=False is not ported")
         if mesh is not None:
             # The mesh's device serves the engine; ``device`` may only
             # repeat it.
@@ -347,6 +345,9 @@ class TreeBatchEngine:
         self._fields: dict[str, int] = {ROOT_FIELD: 0}
         self._types: dict[str, int] = {}
         # Translation plan cache: commit shape -> row-layout plan.
+        # ``plan_cache=False`` keeps the per-row emit path, the oracle the
+        # plan cache is held to.
+        self.plan_cache = plan_cache
         self._plans: dict[tuple, _TranslationPlan] = {}
         self._collector = _FlattenCollector()
         self._PLAN_CACHE_MAX = 4096
@@ -596,15 +597,14 @@ class TreeBatchEngine:
         positions (and every path step's sibling index) are valid in the
         state produced by the ops emitted before it, so sequential device
         application reproduces the simultaneous mark semantics exactly.
-        The walk only collects, and the row work replays a cached
-        per-shape plan."""
+        With the plan cache on (default), the walk only collects, and the
+        row work replays a cached per-shape plan; ``plan_cache=False`` runs
+        the per-row emit."""
+        if not self.plan_cache:
+            return self._flatten_legacy(trunk_commit, seq)
         col = self._collector
         col.reset()
-        for change in trunk_commit:
-            if change.value is not None:
-                raise UnsupportedShape("value change on the virtual root")
-            for key, fc in change.fields.items():
-                self._walk_field(fc, (), self._field_id(key), col.emit)
+        self._walk_commit(trunk_commit, col.emit)
         key = tuple(col.key)
         plan = self._plans.get(key)
         if plan is None:
@@ -615,6 +615,52 @@ class TreeBatchEngine:
         else:
             self.counters.bump("translation_plan_hits")
         return plan.fill(col.dyn, col.pay, seq)
+
+    def _flatten_legacy(self, trunk_commit, seq: int) -> tuple[np.ndarray, np.ndarray]:
+        """The per-row emit: one numpy op row and payload row per emit."""
+        ops_rows: list[np.ndarray] = []
+        pay_rows: list[np.ndarray] = []
+        L = self.max_insert_len
+        empty = np.zeros((L,), np.int32)
+
+        def emit(kind, steps, fld, pos=0, count=0, dst=0, value=0,
+                 vkind=0, ntype=0, payload=None):
+            if len(steps) > tk.MAX_PATH:
+                raise UnsupportedShape("path deeper than kernel MAX_PATH")
+            op = np.zeros((tk.NESTED_OP_FIELDS,), np.int32)
+            op[0], op[1], op[2] = kind, seq, len(steps)
+            for k, (f, i) in enumerate(steps):
+                op[3 + 2 * k], op[4 + 2 * k] = f, i
+            t = tk._TGT
+            op[t], op[t + 1], op[t + 2], op[t + 3] = fld, pos, count, dst
+            op[t + 4], op[t + 5], op[t + 6] = value, vkind, ntype
+            ops_rows.append(op)
+            if payload is None:
+                pay_rows.append(empty)
+                return
+            tag, data = payload
+            pay = np.zeros((L,), np.int32)
+            if tag == "v":
+                pay[0] = data
+            else:  # 'w' words / 'r' run values
+                pay[: len(data)] = data
+            pay_rows.append(pay)
+
+        self._walk_commit(trunk_commit, emit)
+        if not ops_rows:
+            return (
+                np.zeros((0, tk.NESTED_OP_FIELDS), np.int32),
+                np.zeros((0, L), np.int32),
+            )
+        return np.stack(ops_rows), np.stack(pay_rows)
+
+    def _walk_commit(self, trunk_commit, emit) -> None:
+        """Walk every root field change of a trunk commit into ``emit``."""
+        for change in trunk_commit:
+            if change.value is not None:
+                raise UnsupportedShape("value change on the virtual root")
+            for key, fc in change.fields.items():
+                self._walk_field(fc, (), self._field_id(key), emit)
 
     def _walk_field(self, fc, steps: tuple, fid: int, emit) -> None:
         """Dispatch one field change by kind: sequence mark lists walk;

@@ -4,6 +4,7 @@ refuses to run without a card."""
 
 from __future__ import annotations
 
+import ast
 import os
 import subprocess
 import sys
@@ -266,3 +267,173 @@ def test_kernel_library_types_every_entry_point_and_refuses_without_nvcc(monkeyp
     monkeypatch.setattr(cuda_build, "library_path", lambda: tmp_path / "absent.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build()
+
+
+# ------------------------------------------------------------- completeness
+# Read from both packages' sources with ``ast`` (the JAX package is never
+# imported here): every module of the JAX package has its counterpart in
+# the port, and every public top-level function, class, method and
+# assigned name (not an imported one) of a reference module exists in the
+# counterpart or stands below with its reason.  A reason that names ``module.py:name`` is a
+# rename or a move, and that name must exist there.
+
+REF_ROOT = ROOT / "fluidframework_tpu"
+PORT_ROOT = ROOT / "fluidframework_tpu_torch"
+COUNTERPART = {"ops/pallas_kernels.py": "ops/resolve_kernel.py"}
+
+NOT_CARRIED = {
+    "ops/pallas_kernels.py": {
+        "BLOCK": ("the search's tile, renamed", "ops/resolve_kernel.py:TILE"),
+        "resolve_positions_pallas": ("K1's entry, the CUDA kernels on a card",
+                                     "ops/resolve_kernel.py:resolve_positions"),
+        "resolve_positions_blocked": ("the backend-dispatching entry: the port's entry "
+                                      "dispatches on the tensors' device",
+                                      "ops/resolve_kernel.py:resolve_positions"),
+        "resolve_positions_reference": ("K1's plain version",
+                                        "ops/resolve_kernel.py:resolve_positions_plain"),
+    },
+    "ops/tree_kernel.py": {
+        "rebase_window_jit": ("a jit wrapper; the port's function takes any window count W",
+                              "ops/tree_kernel.py:rebase_window_kernel"),
+        "rebase_window_batched": ("a vmap over windows; the port's function takes [W, ...]",
+                                  "ops/tree_kernel.py:rebase_window_kernel"),
+    },
+    "ops/matrix_kernel.py": {
+        "apply_op": ("one op's switch, folded into the batched apply's per-kind branch",
+                     "ops/matrix_kernel.py:_branch"),
+    },
+    "ops/mergetree_kernel.py": {
+        "apply_op_seg": ("one op on a segment lane, private in the port",
+                         "ops/mergetree_kernel.py:_apply_op_seg"),
+        "apply_ops_seg": ("one [B] batch on a segment lane: the lane megastep with K = 1",
+                          "ops/mergetree_kernel.py:apply_megastep_seg"),
+        "SEG_RESOLVE_PALLAS": ("the reference's route switch (default off); the port's "
+                               "segment lane always resolves through K1's entry",
+                               "ops/mergetree_kernel.py:resolve_positions"),
+    },
+    "observability/flight_recorder.py": {
+        "RecompileWatchdog": ("counts XLA executable-cache growth; the port compiles "
+                              "nothing at run time (see the module's docstring)", None),
+        "RecompileWatchdog.poll": ("part of RecompileWatchdog", None),
+        "RecompileWatchdog.register": ("part of RecompileWatchdog", None),
+    },
+    "parallel/mesh.py": {
+        name: ("PartitionSpec machinery of the JAX mesh; the port's shards are row "
+               "blocks of one state (or one a rank), with no sharding specs", None)
+        for name in ("FLEET_STATE_RULES", "fleet_state_specs", "match_partition_rules",
+                     "named_leaves", "op_spec", "replicate")
+    },
+    "parallel/native_plane.py": {
+        name: ("PartitionSpec machinery re-exported from the JAX mesh", None)
+        for name in ("P", "fleet_state_specs", "replicate")
+    },
+    "models/staging.py": {
+        "RowQueue.append": ("one row; never called in the reference, and the port's "
+                            "extend_rows takes a list of one",
+                            "models/staging.py:RowQueue.extend_rows"),
+        "StagingRing.launched": ("arms the reuse barrier with the uploaded jax arrays; "
+                                 "the port's upload records a CUDA event itself",
+                                 "models/staging.py:StagingRing.upload"),
+        "upload_replicated": ("moved beside the mesh it replicates over",
+                              "parallel/mesh.py:upload_replicated"),
+    },
+    "ops/map_kernel.py": {
+        "ERR_KEY_OVERFLOW": ("defined and never read in the reference", None),
+    },
+}
+
+
+def _public(tree: ast.Module) -> set[str]:
+    """Public top-level functions, classes, methods and assigned names."""
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out |= {f"{node.name}.{m.name}" for m in node.body
+                        if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            out |= {n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name)}
+    return {n for n in out if not any(p.startswith("_") for p in n.split("."))}
+
+
+def _bindings(body: list) -> tuple[set[str], list[ast.ClassDef]]:
+    """The names a block binds (through ``if``/``try``/``with``/loop
+    blocks, not into function bodies), and the classes it defines."""
+    names, classes = set(), []
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                classes.append(node)
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+            continue
+        for field in ("targets", "target"):
+            for t in (getattr(node, field, None) or [] if field == "targets"
+                      else [getattr(node, field, None)]):
+                if t is not None:
+                    names |= {n.id for n in ast.walk(t) if isinstance(n, ast.Name)}
+        for block in ("body", "orelse", "finalbody"):
+            inner, more = _bindings(getattr(node, block, None) or [])
+            names |= inner
+            classes += more
+        for handler in getattr(node, "handlers", None) or []:
+            inner, more = _bindings(handler.body)
+            names |= inner
+            classes += more
+    return names, classes
+
+
+def _defined(tree: ast.Module) -> set[str]:
+    """Every name a module binds at top level (conditional definitions and
+    imports included), and every attribute its classes bind."""
+    out, classes = _bindings(tree.body)
+    for cls in classes:
+        out |= {f"{cls.name}.{n}" for n in _bindings(cls.body)[0]}
+    return out
+
+
+def _parse(path: Path) -> ast.Module:
+    return ast.parse(path.read_text(), filename=str(path))
+
+
+_SUBPACKAGES = sorted({p.relative_to(REF_ROOT).parts[0] if p.parent != REF_ROOT else "."
+                       for p in REF_ROOT.rglob("*.py")})
+
+
+@pytest.mark.parametrize("subpackage", _SUBPACKAGES)
+def test_port_carries_every_module_and_public_name(subpackage):
+    """Each reference module of ``subpackage`` has its counterpart, and each
+    of its public names exists there or has a ``NOT_CARRIED`` reason; every
+    entry of ``NOT_CARRIED`` is still needed."""
+    top = REF_ROOT if subpackage == "." else REF_ROOT / subpackage
+    modules = sorted(top.glob("*.py") if subpackage == "." else top.rglob("*.py"))
+    assert modules
+    missing, stale = [], []
+    for path in modules:
+        rel = path.relative_to(REF_ROOT).as_posix()
+        port = PORT_ROOT / COUNTERPART.get(rel, rel)
+        assert port.is_file(), f"no counterpart of {rel}"
+        public, defined = _public(_parse(path)), _defined(_parse(port))
+        reasons = NOT_CARRIED.get(rel, {})
+        missing += [f"{rel}:{n}" for n in sorted(public - defined - set(reasons))]
+        stale += [f"{rel}:{n}" for n in sorted(reasons) if n not in public or n in defined]
+        for name, (reason, carried_as) in reasons.items():
+            assert reason, name
+            if carried_as is not None:
+                where, attr = carried_as.split(":")
+                assert attr in _defined(_parse(PORT_ROOT / where)), carried_as
+    assert not missing, f"public names the port lacks: {missing}"
+    assert not stale, f"NOT_CARRIED entries the port no longer needs: {stale}"
+
+
+def test_not_carried_is_reachable_and_names_no_engine():
+    """Every ``NOT_CARRIED`` module is a reference module the walk reaches,
+    and no entry is one of the engines: both run every path of the
+    reference."""
+    for rel, names in NOT_CARRIED.items():
+        assert (REF_ROOT / rel).is_file(), rel
+        assert not any(n.split(".")[0] in ("TreeBatchEngine", "DocBatchEngine") for n in names)

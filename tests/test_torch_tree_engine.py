@@ -8,8 +8,11 @@ column of every doc (int32, padding remnants included), ``tree_json``
 (type-strict), ``values``, ``device_fraction``, the fallback set and the
 health counters both keep.  Compaction under churn, checkpoint store
 directories (byte-identical after each step) and restore across the two
-packages in both directions are held the same way.  The reference
-engines run without a mesh, as the port does.
+packages in both directions are held the same way.  The per-row emit
+translation (``plan_cache=False``) is held to the reference's, and to the
+port's own plan cache byte for byte, through ingest, restore and a
+migration on a 2-shard CPU mesh.  The reference engines run without a
+mesh unless a test migrates.
 """
 
 from __future__ import annotations
@@ -75,10 +78,10 @@ def assert_engines_equal(ref: RefEngine, port: TreeBatchEngine, raw: bool = True
     n = ref.n_docs
     for d in range(n):
         if raw:
-            slot = int(ref._slot[d])
+            slot, port_slot = int(ref._slot[d]), int(port._slot[d])
             for name in tk.NestedForestState._fields:
                 a = np.asarray(getattr(ref.state, name))[slot]
-                b = getattr(port.state, name)[d].numpy()
+                b = getattr(port.state, name)[port_slot].numpy()
                 assert a.dtype == b.dtype == np.int32, (d, name)
                 assert np.array_equal(a, b), (d, name)
         assert _json(port.tree_json(d)) == _json(ref.tree_json(d)), d
@@ -115,8 +118,9 @@ def test_engine_matches_reference(stream):
 
 @pytest.mark.parametrize("option", [
     {"megastep_k": 4, "ops_per_step": 8}, {"pool_capacity": 24}, {"mark_pool": False},
-    {"capacity": 8}, {"device_rebase": True},
-], ids=["megastep", "pool_overflow", "object_marks", "overflow", "device_rebase"])
+    {"capacity": 8}, {"device_rebase": True}, {"plan_cache": False},
+], ids=["megastep", "pool_overflow", "object_marks", "overflow", "device_rebase",
+        "legacy_emit"])
 def test_engine_options_match_reference(option):
     svc, _ = drive_nested_docs(4, seed=29, steps=30, mixed=True)
     ref, port = _pair(_logs(svc, 4), **option)
@@ -124,6 +128,49 @@ def test_engine_options_match_reference(option):
     if "capacity" in option or "pool_capacity" in option:
         assert port.fallbacks and not port.errors().any()
         assert port.health()["fallback_routes"] == len(port.fallbacks)
+    if "plan_cache" in option:
+        # The legacy path bumps neither plan counter: the same keys (the
+        # counters absent, the gauges 0) as the reference's health.
+        plan_keys = ("translation_plan_hits", "translation_plan_misses",
+                     "translation_plan_hit_rate", "translation_plans")
+        hr, hp = ref.health(), port.health()
+        assert {k: hp.get(k) for k in plan_keys} == {k: hr.get(k) for k in plan_keys}
+        assert hp.get("translation_plan_hits", 0) == hp["translation_plans"] == 0
+
+
+def _raw_equal(a: TreeBatchEngine, b: TreeBatchEngine, d: int, tag: str) -> None:
+    """Doc d's raw row (every column, padding remnants included) in two
+    port engines, each read at its own slot."""
+    for name in tk.NestedForestState._fields:
+        x = getattr(a.state, name)[int(a._slot[d])].numpy()
+        y = getattr(b.state, name)[int(b._slot[d])].numpy()
+        assert np.array_equal(x, y), (tag, d, name)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_plan_cache_byte_identity(seed):
+    """The plan cache is invisible: the reference's identity sessions
+    (inserts, removes, sets, moves, transactions) and a mixed nested
+    stream through ``plan_cache=True`` and the per-row emit give
+    byte-identical state, the cache hits, and the legacy engine counts no
+    plan."""
+    for svc, expected, key in (
+        (*drive_tree_docs(4, seed=seed), "values"),
+        (*drive_nested_docs(4, seed=seed, steps=30, mixed=True), "tree_json"),
+    ):
+        logs = _logs(svc, 4)
+        legacy = _feed(TreeBatchEngine(4, device="cpu", plan_cache=False), logs)
+        cached = _feed(TreeBatchEngine(4, device="cpu"), logs)
+        assert not legacy.errors().any() and not cached.errors().any()
+        for d in range(4):
+            _raw_equal(cached, legacy, d, f"seed {seed}")
+            assert getattr(cached, key)(d) == getattr(legacy, key)(d) == expected[d], d
+        assert sorted(cached.fallbacks) == sorted(legacy.fallbacks)
+        h, hl = cached.health(), legacy.health()
+        assert h["translation_plan_hits"] > 0
+        assert 0.0 < h["translation_plan_hit_rate"] <= 1.0
+        assert hl.get("translation_plan_hits", 0) == hl.get("translation_plan_misses", 0) == 0
+        assert hl["translation_plan_hit_rate"] == 0.0 and hl["translation_plans"] == 0
 
 
 def _optional_field_stream(n_docs=3, seed=17):
@@ -339,6 +386,69 @@ def test_restore_across_packages(checkpointed, direction):
         assert _json(port.tree_json(d)) == _json(fresh.tree_json(d))
 
 
+@pytest.mark.parametrize("direction", ["ref_to_port", "port_to_ref"])
+def test_legacy_restore_across_packages(checkpointed, direction):
+    """Restore's re-flatten through the per-row emit: legacy engines of
+    both packages restore either store alike, and equal a plan-cache port
+    engine restored from the same store, raw columns included."""
+    src = checkpointed["dirs"][0 if direction == "ref_to_port" else 1]
+    kw = dict(checkpointed["kw"], checkpoint_every=0)
+    ref = RefEngine(3, checkpoint_store=RefStore(src), plan_cache=False, **kw)
+    port = TreeBatchEngine(3, device="cpu", checkpoint_store=CheckpointStore(src),
+                           plan_cache=False, **kw)
+    cached = TreeBatchEngine(3, device="cpu", checkpoint_store=CheckpointStore(src), **kw)
+    for eng in (ref, port, cached):
+        assert eng.restore_from_checkpoints() == [0, 1, 2]
+        eng.step()
+    assert_engines_equal(ref, port)
+    for eng in (ref, port, cached):
+        _feed(eng, checkpointed["logs"])
+    assert_engines_equal(ref, port)
+    assert port.health()["checkpointed_ops_skipped"] > 0
+    assert port.health().get("translation_plan_misses", 0) == 0
+    assert cached.health()["translation_plan_misses"] > 0
+    for d in range(3):
+        _raw_equal(port, cached, d, "plan cache")
+
+
+def test_legacy_migration_matches_reference():
+    """``migrate_doc`` on a 2-shard CPU mesh re-packs the folded forest
+    through the per-row emit: mid-stream, the port's legacy engine and the
+    reference's legacy engine on a 2-device mesh move the same doc to the
+    same slot and agree on every raw row, view and counter afterwards, and
+    a plan-cache twin moved alike is byte-identical."""
+    import jax
+
+    from fluidframework_tpu.parallel.mesh import doc_mesh as ref_doc_mesh
+    from fluidframework_tpu_torch.parallel.mesh import doc_mesh
+
+    D = 4
+    svc, expected = drive_tree_docs(D, seed=5, steps=24)
+    logs = _logs(svc, D)
+    ref = RefEngine(D, mesh=ref_doc_mesh(jax.devices("cpu")[:2]), spare_slots=4,
+                    megastep_k=4, plan_cache=False)
+    port = TreeBatchEngine(D, mesh=doc_mesh(["cpu"] * 2), spare_slots=4, megastep_k=4,
+                           plan_cache=False)
+    cached = TreeBatchEngine(D, mesh=doc_mesh(["cpu"] * 2), spare_slots=4, megastep_k=4)
+    engines = (ref, port, cached)
+    for eng in engines:
+        _feed(eng, [log[: len(log) // 2] for log in logs])
+    moved = next(d for d in range(D) if d not in port.fallbacks)
+    dst = 1 - port.shard_of(moved)
+    for eng in engines:
+        assert eng.migrate_doc(moved, dst), "migration refused"
+        assert eng.shard_of(moved) == dst
+    assert port._slot.tolist() == np.asarray(ref._slot).tolist()
+    for eng in engines:
+        _feed(eng, [log[len(log) // 2:] for log in logs])
+    assert_engines_equal(ref, port)
+    assert port.health()["doc_migrations"] == 1
+    for d in range(D):
+        _raw_equal(port, cached, d, "plan cache")
+        if d not in port.fallbacks:
+            assert port.values(d) == expected[d], d
+
+
 def test_refresh_restore_and_stale_sweep(tmp_path):
     """A trailing engine re-seeds in place from strictly newer records
     (``refresh=True``), and ``checkpoint_stale`` writes the same records,
@@ -386,14 +496,12 @@ def test_ingest_batch_and_watermarks_match_reference():
     assert_engines_equal(ref, port)
 
 
-def test_unported_options_raise():
-    """``plan_cache=False`` stays refused; the mesh, spare slots, migration
-    and hot-shard rebalancing this test once pinned as refused take effect
-    (their parity tests: tests/test_torch_placement.py)."""
+def test_engine_options_take_effect():
+    """The mesh, spare slots, migration and hot-shard rebalancing this test
+    once pinned as refused take effect (their parity tests:
+    tests/test_torch_placement.py); an unknown option is refused."""
     from fluidframework_tpu_torch.parallel.mesh import doc_mesh
 
-    with pytest.raises(NotImplementedError):
-        TreeBatchEngine(2, device="cpu", plan_cache=False)
     assert TreeBatchEngine(2, mesh=doc_mesh(["cpu"] * 2)).n_shards == 2
     assert TreeBatchEngine(2, device="cpu", spare_slots=2).fleet_capacity == 4
     with pytest.raises(TypeError):
