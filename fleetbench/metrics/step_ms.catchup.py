@@ -1,0 +1,1 @@
+from fleetbench.readers import step_ms as read  # noqa: F401
